@@ -1,0 +1,99 @@
+"""Builds and loads the port's hand-written CUDA kernels.
+
+Each kernel is a ``csrc/<name>.cu`` file with a plain C interface. At first
+use it is compiled with nvcc for Hopper (``sm_90a``) into a shared library
+under ``build/kernels/`` at the repository root, named with a hash of its
+source and flags so an edited source is rebuilt, and loaded with ctypes.
+Nothing is built or loaded at import time: the CPU tests import every
+module on machines that have no nvcc.
+
+``launches`` counts kernel launches by name. Each wrapper adds one where it
+launches its kernel, so a run can show that its main path went through the
+kernels (chip_smoke.py resets and reads it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from collections import Counter
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: name -> argtypes (every function returns a cudaError_t int).
+SIGNATURES = {
+    # table, dtype, queries, mask, exclude, head, out, n, d, nq, top_r, stream
+    "packed_topk": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+launches: Counter = Counter()
+_launches_lock = threading.Lock()  # the HTTP server launches from many threads
+
+
+def count_launch(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
+
+
+def nvcc_path() -> str:
+    """The nvcc to build with: $CUDA_HOME/bin/nvcc, else the one on PATH."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
+            f"{CSRC} at first use"
+        )
+    return found
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless this exact source is already built."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    return lib
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build(name)))
+    fn = getattr(lib, name)
+    fn.argtypes = list(SIGNATURES[name])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")

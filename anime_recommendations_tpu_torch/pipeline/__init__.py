@@ -1,0 +1,1 @@
+"""pipeline of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,188 @@
+"""Shared retrieval context.
+
+Counterpart of anime_recommendations_tpu/recommend/context.py: one object
+holds the retrieval tables on the device (recommend/tables.py), the
+canonical vocab, the preprocessed rating frame and the catalog, and every
+recommender reads from it. The host-side views below are the JAX package's,
+copied.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from functools import cached_property
+
+import numpy as np
+import pandas as pd
+import torch
+
+from anime_recommendations_tpu_torch.data.catalog import Catalog
+from anime_recommendations_tpu_torch.data.vocab import Vocab
+from anime_recommendations_tpu_torch.models.two_tower import TwoTower
+from anime_recommendations_tpu_torch.ops.topk import ShuffledTable
+from anime_recommendations_tpu_torch.recommend.tables import build_tables
+
+
+@dataclass
+class RecContext:
+    vocab: Vocab
+    catalog: Catalog
+    ratings: pd.DataFrame          # preprocessed + encoded: user, anime, rating, user_id, anime_id
+    anime_norm: torch.Tensor       # [n_anime, D] L2-normalized rows, logical order, on device
+    user_norm: torch.Tensor        # [n_users, D]
+    head: torch.Tensor             # [2] (alpha, beta) folded eval-mode head
+    anime_scan: ShuffledTable      # what the scans read (recommend/tables.py)
+    user_scan: ShuffledTable
+    _vocab_anime_meta: pd.DataFrame = field(default=None, repr=False)
+
+    def __post_init__(self):
+        # Catalog metadata aligned to vocab rows (NaN rows for anime that are
+        # trained but absent from the catalog).
+        meta = self.catalog.anime.set_index("anime_id", drop=False)
+        self._vocab_anime_meta = meta.reindex(self.vocab.anime_ids)
+
+    # ---- constructors ---------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        model: TwoTower,
+        vocab: Vocab,
+        catalog: Catalog,
+        ratings: pd.DataFrame,
+        *,
+        device,
+        retrieval_dtype=None,
+        ann: str = "off",
+    ) -> "RecContext":
+        """Retrieval numerics: None/"f32" = exact scans; "bf16" halves the
+        scan traffic at ~1e-3 score error. int8 and ``ann="ivf"`` are not
+        ported yet and raise NotImplementedError. The scans read shuffled
+        copies of the tables; ``anime_norm``/``user_norm`` stay in logical
+        vocab order for reading query rows."""
+        if ann == "ivf":
+            raise NotImplementedError(
+                "ann='ivf' is not ported yet: ROADMAP.md Queue 1 ops/ivf.py"
+            )
+        if ann != "off":
+            raise ValueError(f"ann must be 'off' or 'ivf', got {ann!r}")
+        t = build_tables(model, device=device, retrieval_dtype=retrieval_dtype)
+        return cls(
+            vocab=vocab, catalog=catalog, ratings=ratings,
+            anime_norm=t.anime_norm, user_norm=t.user_norm, head=t.head,
+            anime_scan=t.anime_scan, user_scan=t.user_scan,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.anime_norm.device
+
+    # ---- retrieval-table accessors --------------------------------------------
+
+    def anime_table(self) -> ShuffledTable:
+        """The anime table to hand to cosine_topk/score_topk."""
+        return self.anime_scan
+
+    def user_table(self) -> ShuffledTable:
+        return self.user_scan
+
+    # ---- per-user views -------------------------------------------------------
+
+    @cached_property
+    def _user_csr(self):
+        """Per-user rating slices as flat arrays sorted by user_id:
+        (uid_sorted, rating, anime_id, anime_vocab_idx, watched_episodes)."""
+        uid = np.asarray(self.ratings["user_id"].to_numpy(), dtype=np.int64)
+        order = np.argsort(uid, kind="stable")
+        we = None
+        if "watched_episodes" in self.ratings.columns:
+            we = self.ratings["watched_episodes"].to_numpy()[order]
+        return (
+            uid[order],
+            self.ratings["rating"].to_numpy()[order].astype(np.float64),
+            np.asarray(self.ratings["anime_id"].to_numpy(), np.int64)[order],
+            np.asarray(self.ratings["anime"].to_numpy(), np.int64)[order],
+            we,
+        )
+
+    def _user_slice(self, user_id: int) -> slice:
+        uid_sorted = self._user_csr[0]
+        lo = np.searchsorted(uid_sorted, user_id, "left")
+        hi = np.searchsorted(uid_sorted, user_id, "right")
+        return slice(lo, hi)
+
+    def user_rating_arrays(self, user_id: int):
+        """(ratings, anime_ids, anime_vocab_idx) of one user — numpy views,
+        original row order within the user preserved (stable sort)."""
+        _, r, aid, aenc, _ = self._user_csr
+        s = self._user_slice(user_id)
+        return r[s], aid[s], aenc[s]
+
+    def user_watched_episodes(self, user_id: int):
+        """watched_episodes of one user's rating rows (aligned with
+        user_rating_arrays), or None when the frame lacks the column."""
+        we = self._user_csr[4]
+        return None if we is None else we[self._user_slice(user_id)]
+
+    def favorite_positions(self, user_id: int, percentile: float) -> np.ndarray:
+        """Catalog row positions of the user's >= percentile-rated anime,
+        in catalog order."""
+        r, aid, _ = self.user_rating_arrays(user_id)
+        if r.size == 0:
+            return np.empty(0, np.int64)
+        cut = np.percentile(r, float(percentile))
+        return self.catalog.positions_for_ids(aid[r >= cut])
+
+    # ---- masks over vocab rows ------------------------------------------------
+
+    def vocab_meta(self) -> pd.DataFrame:
+        """Catalog metadata frame aligned to anime-vocab row order."""
+        return self._vocab_anime_meta
+
+    @cached_property
+    def _in_catalog(self) -> np.ndarray:
+        return np.array(self._vocab_anime_meta["anime_id"].notna().to_numpy())
+
+    def in_catalog_mask(self) -> np.ndarray:
+        """Vocab rows whose anime exists in the catalog. Returns a fresh
+        copy — callers &= filters into it."""
+        return self._in_catalog.copy()
+
+    def type_mask(self, types: list[str]) -> np.ndarray:
+        """Vocab-row mask for catalog Type membership."""
+        catalog_mask = np.array(self.catalog.type_mask(list(types)))
+        return self._catalog_mask_to_vocab(catalog_mask)
+
+    def genre_mask(self, genres: list) -> np.ndarray:
+        """Vocab-row mask for the 3-genre restriction."""
+        catalog_mask = self.catalog.genre_mask(list(genres))
+        return self._catalog_mask_to_vocab(catalog_mask)
+
+    def watched_mask(self, user_id: int) -> np.ndarray:
+        """Vocab rows the user has rated."""
+        watched = np.zeros(self.vocab.n_anime, dtype=bool)
+        _, _, idx = self.user_rating_arrays(user_id)
+        watched[idx[idx >= 0]] = True
+        return watched
+
+    def _catalog_mask_to_vocab(self, catalog_mask: np.ndarray) -> np.ndarray:
+        ids_ok = set(self.catalog.anime.loc[catalog_mask, "anime_id"].tolist())
+        return np.fromiter(
+            (int(a) in ids_ok for a in self.vocab.anime_ids),
+            dtype=bool,
+            count=self.vocab.n_anime,
+        )
+
+    # ---- encoded indices ------------------------------------------------------
+
+    def user_index(self, user_id: int) -> int:
+        idx = int(self.vocab.encode_users(np.asarray([user_id]))[0])
+        if idx < 0:
+            raise KeyError(f"User {user_id} not in training vocab")
+        return idx
+
+    def anime_index(self, anime_id: int) -> int:
+        idx = int(self.vocab.encode_anime(np.asarray([anime_id]))[0])
+        if idx < 0:
+            raise KeyError(f"Anime {anime_id} not in training vocab")
+        return idx

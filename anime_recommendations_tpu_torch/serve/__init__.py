@@ -1,0 +1,1 @@
+"""serve of the PyTorch port (see the package docstring)."""

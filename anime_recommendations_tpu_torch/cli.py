@@ -1,5 +1,8 @@
-"""Command-line interface of the PyTorch port: serve a trained run.
+"""Command-line interface of the PyTorch port: build, train and serve a run.
 
+    python -m anime_recommendations_tpu_torch.cli ingest --run-dir runs
+    python -m anime_recommendations_tpu_torch.cli preprocess --run-dir runs
+    python -m anime_recommendations_tpu_torch.cli train --run-dir runs [--set model.optimizer=fused_adam]
     python -m anime_recommendations_tpu_torch.cli serve --run-dir runs [--port 8080]
     python -m anime_recommendations_tpu_torch.cli similar-anime "Cowboy Bebop" -k 10 --run-dir runs
     python -m anime_recommendations_tpu_torch.cli similar-users 153695 -k 10 --run-dir runs
@@ -7,10 +10,12 @@
     python -m anime_recommendations_tpu_torch.cli user-recs 153695 --run-dir runs
     python -m anime_recommendations_tpu_torch.cli model-recs 153695 --run-dir runs
 
-The run is one the JAX pipeline trained (``anime_recommendations_tpu.cli
-pipeline``); training subcommands are not ported yet. Every subcommand takes
---config <yaml>, repeated --set section.key=value overrides, and
---device (default cuda; cpu runs the kernels' plain versions).
+A run trained by either package serves (the artifact store's layout is
+shared). ingest, preprocess and train are the pipeline's first three steps;
+the ``pipeline`` subcommand and the recommend steps' artifacts are not
+ported yet. Every subcommand takes --config <yaml>, repeated --set
+section.key=value overrides, and --device (default cuda; cpu runs the
+kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -48,6 +53,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="anime_recommendations_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    for step, help_ in (("ingest", "load raw data (local files, else synthetic)"),
+                        ("preprocess", "clean and scale the ratings"),
+                        ("train", "train the two-tower model")):
+        _base_parser(sub, step, help_)
+
     p = _base_parser(sub, "similar-anime", "query similar anime")
     p.add_argument("name")
     p.add_argument("-k", type=int, default=10)
@@ -73,6 +83,16 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     cfg = load_config(args)
+
+    if args.cmd in ("ingest", "preprocess", "train"):
+        from anime_recommendations_tpu_torch.pipeline.runner import PipelineRunner
+
+        runner = PipelineRunner(cfg, args.run_dir, device=args.device)
+        result = getattr(runner, f"step_{args.cmd}")()
+        if result is not None:
+            print(f"best epoch {result.best_epoch}, val_loss {result.best_val_loss:.6f}, "
+                  f"{result.epochs_run} epochs, {result.examples_per_sec:.0f} examples/s")
+        return 0
 
     from anime_recommendations_tpu_torch.pipeline.runner import context_from_store
 

@@ -3,8 +3,8 @@
 A copy, so that the port loads nothing of the JAX package: the same
 dataclasses, defaults, YAML loading and ``section.key=value`` overrides, so a
 config file written for the JAX pipeline configures the port unchanged.
-Sections the port does not use yet (training, the device mesh) are kept so
-such a file still parses.
+Sections the port does not use yet (the device mesh) are kept so such a
+file still parses.
 """
 
 from __future__ import annotations

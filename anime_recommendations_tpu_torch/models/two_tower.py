@@ -1,31 +1,54 @@
 """Two-tower embedding dot-product rating model, PyTorch.
 
-Counterpart of anime_recommendations_tpu/models/two_tower.py, serving half:
+Counterpart of anime_recommendations_tpu/models/two_tower.py:
 
     user id  -> Embedding(n_users, D)  \\
                                          cosine  -> Dense(1) -> BatchNorm -> sigmoid
     anime id -> Embedding(n_anime, D)  /
 
-Rows are L2-normalized with TF's epsilon clamp, x * rsqrt(max(sum(x^2),
-1e-12)), as in the JAX package. The head here is the eval-mode head
-(BatchNorm on its moving statistics, Keras eps 1e-3). Train-mode BatchNorm,
-the loss and the optimizers come with the training port (ROADMAP.md).
+Numerics, as in the JAX package:
+  * rows are L2-normalized with TF's epsilon clamp, x * rsqrt(max(sum(x^2),
+    1e-12));
+  * BatchNorm has Keras defaults (momentum 0.99, eps 1e-3): batch statistics
+    in training, masked by the batch weights, moving averages at eval;
+  * the loss is the weighted-mean BCE (probabilities clipped to [1e-7,
+    1 - 1e-7]) plus l2 * sum(W^2) over BOTH full tables;
+  * init is Keras': tables uniform(-0.05, 0.05), the Dense weight he_normal.
+
+The functions are plain functions on tensors and return the new BatchNorm
+state instead of writing it into the module's buffers: the training step
+decides what to keep (train/trainer.py).
+
+The JAX package's ``take_rows`` (a sorted-scatter gradient for the TPU's
+slow random scatter) is not ported: the config's ``model.sorted_scatter``
+is parsed for parity and ignored; autograd's own index backward runs.
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
 TF_L2_NORM_EPS = 1e-12     # tf.linalg.l2_normalize clamp
+KERAS_BCE_EPS = 1e-7       # Keras backend binary_crossentropy clip
+KERAS_BN_MOMENTUM = 0.99
 KERAS_BN_EPS = 1e-3
 
 # The .npz keys of train/model_io.py, in both packages.
 PARAM_KEYS = ("user_emb", "anime_emb", "dense_w", "dense_b", "bn_gamma", "bn_beta")
 BUFFER_KEYS = ("moving_mean", "moving_var")
+HEAD_KEYS = PARAM_KEYS[2:]
+MERGES = ("cosine", "dot")
+
+
+class BNState(NamedTuple):
+    moving_mean: torch.Tensor  # []
+    moving_var: torch.Tensor   # []
 
 
 class TwoTower(nn.Module):
@@ -45,14 +68,36 @@ class TwoTower(nn.Module):
         self.register_buffer("moving_mean", torch.zeros((), **kw))
         self.register_buffer("moving_var", torch.ones((), **kw))
 
-    def forward(self, users: torch.Tensor, anime: torch.Tensor) -> torch.Tensor:
-        """Predicted rating [B] of (user row, anime row) pairs (eval mode)."""
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm and the loss come with the training port "
-                "(ROADMAP.md Queue 1); call .eval() to predict"
-            )
-        return predict(self, users, anime)
+    def bn_state(self) -> BNState:
+        return BNState(self.moving_mean, self.moving_var)
+
+    def head_params(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, k) for k in HEAD_KEYS)
+
+    def forward(self, users: torch.Tensor, anime: torch.Tensor,
+                weights: torch.Tensor | None = None):
+        """Eval mode: the predicted rating [B]. Train mode: (pred [B], new
+        BNState) from the batch statistics; the buffers are left as they
+        are (the caller keeps the new state or not)."""
+        if not self.training:
+            return predict(self, users, anime)
+        return forward(self, self.bn_state(), users, anime, train=True, weights=weights)
+
+
+def init_params(n_users: int, n_anime: int, embedding_size: int = 128, *,
+                generator: torch.Generator, device=None) -> TwoTower:
+    """Keras init drawn from ``generator`` (a CPU generator): tables
+    uniform(-0.05, 0.05); dense_w he_normal on fan_in 1, a normal truncated
+    to [-2, 2] times sqrt(2); dense_b 0, gamma 1, beta 0. Drawn on the CPU
+    and then moved, so one seed gives one model on every device. The draws
+    differ from jax.random's: parity with the JAX init is statistical."""
+    model = TwoTower(n_users, n_anime, embedding_size)
+    with torch.no_grad():
+        model.user_emb.uniform_(-0.05, 0.05, generator=generator)
+        model.anime_emb.uniform_(-0.05, 0.05, generator=generator)
+        w = nn.init.trunc_normal_(torch.empty(()), 0.0, 1.0, -2.0, 2.0, generator=generator)
+        model.dense_w.copy_(w * math.sqrt(2.0))
+    return model.to(device)
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -65,17 +110,87 @@ def cosine_merge(u_rows: torch.Tensor, a_rows: torch.Tensor) -> torch.Tensor:
     return torch.sum(_l2_normalize(u_rows) * _l2_normalize(a_rows), dim=-1)
 
 
-def head(model: TwoTower, cos: torch.Tensor) -> torch.Tensor:
-    """Dense(1) -> eval-mode BatchNorm -> sigmoid on the scalar cosine."""
-    z = model.dense_w * cos + model.dense_b
-    z_hat = (z - model.moving_mean) * torch.rsqrt(model.moving_var + KERAS_BN_EPS)
-    return torch.sigmoid(model.bn_gamma * z_hat + model.bn_beta)
+def dot_merge(u_rows: torch.Tensor, a_rows: torch.Tensor) -> torch.Tensor:
+    """Unnormalized rowwise dot: not the reference head, a diagnostic
+    variant of the per-step path (JAX two_tower.dot_merge)."""
+    return torch.sum(u_rows * a_rows, dim=-1)
+
+
+def head(head_params, cos: torch.Tensor, bn_state: BNState, train: bool,
+         weights: torch.Tensor | None = None) -> tuple[torch.Tensor, BNState]:
+    """Dense(1) -> BatchNorm -> sigmoid on the scalar cosine feature.
+
+    ``head_params`` is (dense_w, dense_b, bn_gamma, bn_beta). In training,
+    ``weights`` masks padded rows out of the batch statistics, so a ragged
+    final batch matches unpadded math. Returns (pred, new BNState); the new
+    state is detached from the graph."""
+    dense_w, dense_b, bn_gamma, bn_beta = head_params
+    z = dense_w * cos + dense_b
+    if train:
+        if weights is None:
+            mean = torch.mean(z)
+            var = torch.mean(torch.square(z - mean))
+        else:
+            denom = torch.clamp_min(torch.sum(weights), 1.0)
+            mean = torch.sum(z * weights) / denom
+            var = torch.sum(torch.square(z - mean) * weights) / denom
+        new_state = BNState(
+            moving_mean=(bn_state.moving_mean * KERAS_BN_MOMENTUM
+                         + mean.detach() * (1.0 - KERAS_BN_MOMENTUM)),
+            moving_var=(bn_state.moving_var * KERAS_BN_MOMENTUM
+                        + var.detach() * (1.0 - KERAS_BN_MOMENTUM)),
+        )
+    else:
+        mean, var = bn_state.moving_mean, bn_state.moving_var
+        new_state = bn_state
+    z_hat = (z - mean) * torch.rsqrt(var + KERAS_BN_EPS)
+    return torch.sigmoid(bn_gamma * z_hat + bn_beta), new_state
+
+
+def forward(model: TwoTower, bn_state: BNState, users: torch.Tensor,
+            anime: torch.Tensor, train: bool, weights: torch.Tensor | None = None,
+            merge: str = "cosine") -> tuple[torch.Tensor, BNState]:
+    """Gathers -> cosine (or ``merge="dot"``) -> head. Returns (pred [B],
+    BNState)."""
+    if merge not in MERGES:
+        raise ValueError(f"unknown merge {merge!r}")
+    merge_fn = cosine_merge if merge == "cosine" else dot_merge
+    cos = merge_fn(model.user_emb[users], model.anime_emb[anime])
+    return head(model.head_params(), cos, bn_state, train=train, weights=weights)
 
 
 def predict(model: TwoTower, users: torch.Tensor, anime: torch.Tensor) -> torch.Tensor:
     """Inference-mode rating prediction (model.predict parity)."""
-    cos = cosine_merge(model.user_emb[users], model.anime_emb[anime])
-    return head(model, cos)
+    return forward(model, model.bn_state(), users, anime, train=False)[0]
+
+
+def bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    p = torch.clamp(pred, KERAS_BCE_EPS, 1.0 - KERAS_BCE_EPS)
+    return -(target * torch.log(p) + (1.0 - target) * torch.log1p(-p))
+
+
+def loss_and_metrics(
+    model: TwoTower,
+    bn_state: BNState,
+    users: torch.Tensor,
+    anime: torch.Tensor,
+    ratings: torch.Tensor,
+    weights: torch.Tensor,
+    l2_reg_factor: float,
+    train: bool,
+    merge: str = "cosine",
+) -> tuple[torch.Tensor, tuple[torch.Tensor, BNState]]:
+    """Weighted-mean BCE + full-table L2, plus the mse metric.
+    Returns (loss, (mse, new_bn_state))."""
+    pred, new_state = forward(model, bn_state, users, anime, train=train,
+                              weights=weights, merge=merge)
+    denom = torch.clamp_min(torch.sum(weights), 1.0)
+    data_loss = torch.sum(bce(pred, ratings) * weights) / denom
+    reg = l2_reg_factor * (
+        torch.sum(torch.square(model.user_emb)) + torch.sum(torch.square(model.anime_emb))
+    )
+    mse = torch.sum(torch.square(pred - ratings) * weights) / denom
+    return data_loss + reg, (mse, new_state)
 
 
 @torch.no_grad()

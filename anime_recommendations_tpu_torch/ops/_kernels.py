@@ -31,11 +31,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signatures: name -> argtypes (every function returns a cudaError_t int).
 SIGNATURES = {
     # table, dtype, queries, mask, exclude, head, out, n, d, nq, top_r, stream
     "packed_topk": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # w, mu, nu, moment_dtype, ids, grads, starts, partials, n, d, block_rows,
+    # lr, bc1, bc2, eps, l2, b1, b2, sr, step, stream
+    "fused_adam": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                   _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
 }
 
 launches: Counter = Counter()

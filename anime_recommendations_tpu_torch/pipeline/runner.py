@@ -1,56 +1,44 @@
-"""Serving part of the pipeline runner: a RecContext from a trained run.
+"""Pipeline runner: ingest, preprocess and train steps, and the serving context.
 
-Counterpart of PipelineRunner.context() in
-anime_recommendations_tpu/pipeline/runner.py. It reads the artifacts the
-JAX pipeline wrote (anime_nn_model.npz with vocab.json,
-preprocessed_stats.parquet, all_anime.csv, synopses.csv) and builds the
-port's context on ``device``. The other pipeline steps (ingest, preprocess,
-train, the per-step CSV artifacts) are not ported yet (ROADMAP.md).
+Counterpart of anime_recommendations_tpu/pipeline/runner.py. The steps log
+the same artifacts, in the same store layout (pipeline/artifacts.py), as the
+JAX pipeline, so a run written by either package serves in both:
 
-The store's layout is anime_recommendations_tpu/pipeline/artifacts.py's:
-``<root>/<name>/v<N>/{files..., .metadata.json}``, with ``name`` made
-filesystem-safe by replacing every run of characters outside
-[A-Za-z0-9._-] with "_". That module is not imported here because its
-package imports jax.
+  ingest      -> full_data_set.parquet, all_anime.csv, synopses.csv
+  preprocess  -> preprocessed_stats.parquet
+  train       -> anime_nn_model.npz (+ vocab.json), anime_nn_history.csv,
+                 anime_weights.csv / user_weights.csv when
+                 model.export_weight_csvs is set
+
+Not ported yet (ROADMAP.md Queue 1 item 7): the loss plot, the recommend
+steps' CSV artifacts with assert_flow, the multi-device trainer, and the
+``pipeline`` subcommand. The weight CSVs use the clamped row normalization
+(two_tower.normalized_tables): the reference's bare ``emb / norm`` mints
+inf/NaN rows for rows decayed to zero (ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
 
-import re
+import logging
 from pathlib import Path
 
 import pandas as pd
 
 from anime_recommendations_tpu_torch.config import Config
 from anime_recommendations_tpu_torch.data.catalog import Catalog
-from anime_recommendations_tpu_torch.data.vocab import Vocab, encode_frame
+from anime_recommendations_tpu_torch.data.dataset import train_holdout_split
+from anime_recommendations_tpu_torch.data.vocab import Vocab, build_vocab, encode_frame
+from anime_recommendations_tpu_torch.pipeline.artifacts import ArtifactStore
 from anime_recommendations_tpu_torch.recommend.context import RecContext
 from anime_recommendations_tpu_torch.train.model_io import load_model
 
-_SAFE = re.compile(r"[^A-Za-z0-9._-]+")
+logger = logging.getLogger(__name__)
 
 
 def latest_file(root: str | Path, name: str, filename: str | None = None) -> Path:
     """Path of ``filename`` (default: the artifact's only file) in the
     newest version of artifact ``name``."""
-    art_dir = Path(root) / _SAFE.sub("_", name)
-    versions = [
-        int(p.name[1:]) for p in art_dir.glob("v*")
-        if p.is_dir() and p.name[1:].isdigit()
-    ] if art_dir.is_dir() else []
-    if not versions:
-        raise FileNotFoundError(f"No artifact named {name!r} in {root}")
-    vdir = art_dir / f"v{max(versions)}"
-    if filename is None:
-        files = sorted(p for p in vdir.iterdir() if p.name != ".metadata.json")
-        if len(files) != 1:
-            raise ValueError(f"{name} holds {len(files)} files; name one of "
-                             f"{[f.name for f in files]}")
-        return files[0]
-    path = vdir / filename
-    if not path.exists():
-        raise FileNotFoundError(f"{name}:v{max(versions)} has no file {filename!r}")
-    return path
+    return ArtifactStore(root).get(f"{name}:latest").file(filename)
 
 
 def store_root(cfg: Config, run_dir: str | Path | None = None) -> Path:
@@ -71,3 +59,140 @@ def context_from_store(cfg: Config, run_dir: str | Path | None = None, *,
         model, vocab, catalog, encode_frame(clean, vocab), device=device,
         retrieval_dtype=cfg.similarity.retrieval_dtype, ann=cfg.similarity.ann,
     )
+
+
+class PipelineRunner:
+    """The ported steps of a run under ``<run_dir>/<project_name>``, on ``device``."""
+
+    def __init__(self, config: Config, run_dir: str | Path | None = None, *, device):
+        self.cfg = config
+        self._base = run_dir
+        self.run_dir = Path(run_dir or config.main.run_dir) / config.main.project_name
+        self.store = ArtifactStore(store_root(config, run_dir))
+        self.device = device
+        self._ctx: RecContext | None = None
+
+    def step_ingest(self) -> None:
+        from anime_recommendations_tpu_torch.data.ingest import load_raw
+
+        raw = load_raw(self.cfg.data)
+        self.store.log_frame(
+            "full_data_set.parquet", raw.ratings,
+            filename="full_data_set.parquet", type="raw_data",
+            metadata={"source": raw.source, "rows": len(raw.ratings)},
+        )
+        self.store.log_frame(
+            "all_anime.csv", raw.anime, filename="all_anime.csv",
+            type="raw_data", metadata={"rows": len(raw.anime)},
+        )
+        self.store.log_frame(
+            "synopses.csv", raw.synopses, filename="synopses.csv",
+            type="raw_data", metadata={"rows": len(raw.synopses)},
+        )
+
+    def step_preprocess(self) -> None:
+        from anime_recommendations_tpu_torch.data.preprocess import preprocess_ratings
+
+        raw = pd.read_parquet(self.store.get("full_data_set.parquet:latest").file())
+        clean, stats = preprocess_ratings(
+            raw,
+            num_reviews=self.cfg.data.num_reviews,
+            drop_unwatched=self.cfg.data.drop_unwatched,
+            drop_plan=self.cfg.data.drop_plan,
+            half_watched=self.cfg.data.drop_half_watched,
+        )
+        self.store.log_frame(
+            "preprocessed_stats.parquet", clean,
+            filename="preprocessed_stats.parquet", type="preprocessed_data",
+            metadata={
+                "rows_in": stats.rows_in, "rows_out": stats.rows_out,
+                "n_users": stats.n_users, "n_anime": stats.n_anime,
+                "min_rating": stats.min_rating, "max_rating": stats.max_rating,
+            },
+        )
+
+    def step_train(self):
+        """Train on the latest preprocessed data, log the model, vocab,
+        history and (optionally) weight CSVs. Returns the TrainResult."""
+        from anime_recommendations_tpu_torch.models.two_tower import normalized_tables
+        from anime_recommendations_tpu_torch.train.model_io import save_model
+        from anime_recommendations_tpu_torch.train.trainer import Trainer
+
+        mc = self.cfg.model
+        clean = pd.read_parquet(
+            self.store.get("preprocessed_stats.parquet:latest").file())
+        vocab = build_vocab(clean)
+        encoded = encode_frame(clean, vocab)[["user", "anime", "rating"]]
+        train, holdout = train_holdout_split(
+            encoded, test_size=min(mc.test_size, max(len(encoded) // 10, 1)),
+            shuffle_seed=mc.vocab_shuffle_seed,
+        )
+        trainer = Trainer(
+            embedding_size=mc.embedding_size,
+            l2_reg_factor=mc.l2_reg_factor,
+            batch_size=min(mc.batch_size, max(len(train), 1)),
+            epochs=mc.epochs,
+            start_lr=mc.start_lr, max_lr=mc.max_lr, min_lr=mc.min_lr,
+            rampup_epochs=mc.rampup_epochs, sustain_epochs=mc.sustain_epochs,
+            exp_decay=mc.exp_decay, patience=mc.patience,
+            seed=self.cfg.main.random_seed,
+            checkpoint_dir=str(self.run_dir / "checkpoints"),
+            log_fn=logger.info,
+            device_loop=mc.device_loop, optimizer=mc.optimizer, device=self.device,
+        )
+        result = trainer.fit(train, holdout, vocab.n_users, vocab.n_anime,
+                             resume=self.cfg.main.resume_training)
+
+        tmp = self.run_dir / "tmp"
+        tmp.mkdir(parents=True, exist_ok=True)
+        model = result.state.model
+        model_path = save_model(tmp / "anime_nn_model", model)
+        vocab_path = tmp / "vocab.json"
+        vocab.save(vocab_path)
+        self.store.log(
+            "anime_nn_model.npz",
+            files={"anime_nn_model.npz": model_path, "vocab.json": vocab_path},
+            type="model",
+            metadata={
+                "Loss function": mc.model_loss,
+                "Optimizer": mc.optimizer_display,
+                "Activation function": mc.activation_function,
+                "Start learning rate": mc.start_lr,
+                "Min learning rate": mc.min_lr,
+                "Max learning rate": mc.max_lr,
+                "Batch size": mc.batch_size,
+                "L2 regularization factor": mc.l2_reg_factor,
+                "best_epoch": result.best_epoch,
+                "best_val_loss": result.best_val_loss,
+                "epochs_run": result.epochs_run,
+                "examples_per_sec": result.examples_per_sec,
+                "n_users": vocab.n_users,
+                "n_anime": vocab.n_anime,
+            },
+        )
+        # The history CSV keeps the golden header (",loss,mse,val_loss,val_mse,lr").
+        self.store.log_frame(
+            "anime_nn_history.csv", result.history,
+            filename="anime_nn_history.csv", type="history_csv", index=True,
+            metadata={"best_epoch": result.best_epoch},
+        )
+        if mc.export_weight_csvs:
+            anime_n, user_n = (t.cpu().numpy() for t in normalized_tables(model))
+            self.store.log_frame(
+                "anime_weights.csv", pd.DataFrame(anime_n),
+                filename="anime_weights.csv", type="weights_csv",
+                metadata={"rows": vocab.n_anime},
+            )
+            self.store.log_frame(
+                "user_weights.csv", pd.DataFrame(user_n),
+                filename="user_weights.csv", type="weights_csv",
+                metadata={"rows": vocab.n_users},
+            )
+        self._ctx = None  # the next context() serves the new model
+        return result
+
+    def context(self) -> RecContext:
+        """The serving context of the run's latest trained model."""
+        if self._ctx is None:
+            self._ctx = context_from_store(self.cfg, self._base, device=self.device)
+        return self._ctx

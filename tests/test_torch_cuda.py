@@ -5,17 +5,24 @@ imports no jax, so it also runs on a machine without it:
 
     ANIMEREC_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda
 
-(ANIMEREC_TEST_TPU=1 keeps tests/conftest.py from importing jax.) Tolerance:
-values 1e-5 absolute for f32 tables, 1e-2 for bf16; indices equal except
-where the two rows' true scores tie within 1e-6; stage-1 keys within one key step (the 9
-lane bits cut the score to ~1.2e-4 absolute).
+(ANIMEREC_TEST_TPU=1 keeps tests/conftest.py from importing jax.)
+
+Tolerances. Top-k: values 1e-5 absolute for f32 tables, 1e-2 for bf16;
+indices equal except where the two rows' true scores tie within 1e-6;
+stage-1 keys within one key step (the 9 lane bits cut the score to ~1.2e-4
+absolute). Fused Adam: the kernel applies the plain version's operations in
+its order, so where a row's duplicate gradients are summed in the same
+order the results are equal; the plain version on the card sums duplicates
+with index_add_'s atomics, in another order, so W', mu' and nu' are held to
+1e-5 relative to each tensor's largest entry, bf16 moments to one bf16 ulp,
+and sumsq to 1e-5 relative.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from anime_recommendations_tpu_torch.ops import _kernels, topk
+from anime_recommendations_tpu_torch.ops import _kernels, fused_adam, topk
 
 
 @pytest.fixture
@@ -102,3 +109,100 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         topk._packed_candidates_cuda(w.double(), w[:2].double(), 3, None, None, None)
     with pytest.raises(ValueError):
         topk._packed_candidates_cuda(w[:, ::2], w[:2, ::2], 3, None, None, None)
+
+
+def adam_case(dev, n, d, b, seed, one_row=False):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((n, d)).astype(np.float32) * 0.05
+    mu = rng.standard_normal((n, d)).astype(np.float32) * 0.01
+    nu = (rng.standard_normal((n, d)).astype(np.float32) * 0.01) ** 2
+    ids = np.full(b, 7) if one_row else rng.zipf(1.3, b) % n
+    g = rng.standard_normal((b, d)).astype(np.float32) * 0.1
+    return [torch.from_numpy(x).to(dev) for x in (w, mu, nu, ids.astype(np.int32), g)]
+
+
+def assert_update_close(got, want, dtype):
+    for name, a, b in zip(("w", "mu", "nu"), got[:3], want[:3]):
+        a, b = a.float(), b.float()
+        if dtype == torch.bfloat16 and name != "w":
+            # One bf16 ulp where the f32 values differ in their last bits.
+            tol = b.abs() * 2.0 ** -7 + 1e-30
+        else:
+            tol = 1e-5 * float(b.abs().max())
+        assert bool(((a - b).abs() <= tol).all()), name
+    assert abs(float(got[3]) - float(want[3])) <= 1e-5 * float(want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(5000, 128, 2000, False), (1000, 32, 777, False),
+                                   (1001, 16, 500, True)],
+                         ids=["skewed", "ragged", "one_row"])
+def test_fused_adam_kernel_matches_plain(cuda, dtype, shape):
+    n, d, b, one_row = shape
+    w, mu, nu, ids, g = adam_case(cuda, n, d, b, seed=n, one_row=one_row)
+    mu, nu = mu.to(dtype), nu.to(dtype)
+    plain = [x.clone() for x in (w, mu, nu)]
+    before = _kernels.launches["fused_adam"]
+    got = fused_adam.sparse_adam_update(w, mu, nu, ids, g, 3, 1e-3, l2=1e-4)
+    assert _kernels.launches["fused_adam"] == before + 1
+    order = torch.argsort(ids, stable=True)
+    scal = fused_adam.adam_scalars(3, 1e-3, 1e-4, 0.9, 0.999, 1e-7)
+    want = fused_adam._sparse_adam_update_plain(*plain, ids[order], g[order], scal, 3,
+                                                dtype == torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got[0] is w and got[1] is mu  # in place
+    assert_update_close(got, want, dtype)
+    if not one_row:
+        # Rows hit once have no order to differ in: equal bit for bit.
+        once = torch.bincount(ids.long(), minlength=n) <= 1
+        for a, c in zip(got[:3], want[:3]):
+            assert torch.equal(a[once], c[once])
+
+
+@pytest.mark.cuda
+def test_fused_adam_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    w, mu, nu, ids, g = adam_case(cuda, 64, 6, 8, seed=1)
+    with pytest.raises(ValueError):   # D % 4
+        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3)
+    w, mu, nu, ids, g = adam_case(cuda, 64, 8, 8, seed=1)
+    with pytest.raises(ValueError):   # not contiguous
+        fused_adam.sparse_adam_update(w.t().contiguous().t(), mu, nu, ids, g, 1, 1e-3)
+    with pytest.raises(ValueError):   # another device
+        fused_adam.sparse_adam_update(w, mu.cpu(), nu, ids, g, 1, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["f32", "bf16"])
+def test_fused_train_step_on_the_card_matches_the_cpu(cuda, moments):
+    from anime_recommendations_tpu_torch.train import trainer as tr
+    from anime_recommendations_tpu_torch.train.fused import fused_train_step
+
+    states = []
+    for dev in ("cpu", cuda):
+        state = tr.init_train_state(3000, 500, 128, generator=torch.Generator().manual_seed(0),
+                                    device=dev)
+        if moments == "bf16":
+            state = tr.cast_table_moments(state, torch.bfloat16)
+        states.append(state)
+    rng = np.random.default_rng(2)
+    for step in range(3):
+        cols = (rng.zipf(1.3, 1024) % 3000, rng.zipf(1.3, 1024) % 500,
+                rng.uniform(0, 1, 1024))
+        batch = [torch.from_numpy(np.asarray(c, dt)) for c, dt in
+                 zip(cols, (np.int32, np.int32, np.float32))] + [torch.ones(1024)]
+        before = _kernels.launches["fused_adam"]
+        out = [fused_train_step(s, *(x.to(s.model.user_emb.device) for x in batch), 1e-3, 1e-4)
+               for s in states]
+        assert _kernels.launches["fused_adam"] == before + 2
+        assert abs(float(out[0][1]) - float(out[1][1])) < 1e-5
+    # The two devices' autograd round differently, so a stochastic rounding
+    # can flip: a bf16 moment then differs by one ulp (2^-7 relative at
+    # most) and a table entry by that share of an lr step, over 3 steps.
+    cpu, card = (tr.train_state_to_numpy(s) for s in states)
+    for k in ("user_emb", "anime_emb", "mu.user_emb", "nu.anime_emb", "dense_w"):
+        scale = float(np.abs(cpu[k]).max())
+        rel = 2.0 ** -7 if (moments == "bf16" and "." in k) else 1e-4
+        atol = 3 * 1e-3 * 2.0 ** -6 if (moments == "bf16" and k in ("user_emb", "anime_emb")) else 0.0
+        np.testing.assert_allclose(card[k], cpu[k], rtol=rel, atol=max(atol, 1e-4 * scale),
+                                   err_msg=k)

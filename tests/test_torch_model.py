@@ -46,8 +46,12 @@ def test_params_from_numpy_layout():
         np.testing.assert_array_equal(getattr(model, key).detach().numpy(), arrays[key])
     with pytest.raises(KeyError):
         tt.params_from_numpy({k: v for k, v in arrays.items() if k != "bn_beta"}, "cpu")
-    with pytest.raises(NotImplementedError):
-        model.train()(torch.tensor([0]), torch.tensor([0]))
+    # Train mode returns the batch-statistics BatchNorm state beside the
+    # prediction and leaves the buffers as they are.
+    pred, bn = model.train()(torch.tensor([0, 3]), torch.tensor([0, 9]))
+    assert pred.shape == (2,) and isinstance(bn, tt.BNState)
+    assert float(bn.moving_var) != float(model.moving_var)
+    np.testing.assert_array_equal(model.moving_var.numpy(), arrays["moving_var"])
 
 
 def test_normalized_tables_match_jax():

@@ -1,5 +1,5 @@
-"""The port runs without jax: importing its serving path loads no jax module
-and nothing of the JAX package.
+"""The port runs without jax: importing its serving and training paths loads
+no jax module and nothing of the JAX package.
 
 Checked in a subprocess, because this test process has jax loaded
 (tests/conftest.py).
@@ -24,6 +24,11 @@ MODULES = [
     "anime_recommendations_tpu_torch.recommend.model_recs",
     "anime_recommendations_tpu_torch.recommend.user_prefs",
     "anime_recommendations_tpu_torch.recommend.user_recs",
+    "anime_recommendations_tpu_torch.train.trainer",
+    "anime_recommendations_tpu_torch.train.fused",
+    "anime_recommendations_tpu_torch.train.device_loop",
+    "anime_recommendations_tpu_torch.train.checkpoint",
+    "anime_recommendations_tpu_torch.data.ingest",
 ]
 
 

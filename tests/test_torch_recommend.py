@@ -20,6 +20,7 @@ import torch
 
 from anime_recommendations_tpu.config import Config as JConfig
 from anime_recommendations_tpu.data import synthetic as jsynthetic
+from anime_recommendations_tpu.data import dataset as jdataset
 from anime_recommendations_tpu.data.catalog import Catalog as JCatalog
 from anime_recommendations_tpu.data.preprocess import preprocess_ratings as jpreprocess
 from anime_recommendations_tpu.data.vocab import build_vocab as jbuild_vocab
@@ -33,10 +34,11 @@ from anime_recommendations_tpu.recommend import similar_users as j_similar_users
 from anime_recommendations_tpu.recommend import user_prefs as j_user_prefs
 from anime_recommendations_tpu.recommend import user_recs as j_user_recs
 from anime_recommendations_tpu.serve.api import Engine as JEngine
+from anime_recommendations_tpu.train.schedule import lr_for_epoch as jlr_for_epoch
 from anime_recommendations_tpu.train.model_io import save_model as jsave_model
 from anime_recommendations_tpu_torch import cli
 from anime_recommendations_tpu_torch.config import Config
-from anime_recommendations_tpu_torch.data import synthetic
+from anime_recommendations_tpu_torch.data import dataset, synthetic
 from anime_recommendations_tpu_torch.data.catalog import Catalog
 from anime_recommendations_tpu_torch.data.preprocess import preprocess_ratings
 from anime_recommendations_tpu_torch.data.vocab import build_vocab, encode_frame
@@ -49,6 +51,7 @@ from anime_recommendations_tpu_torch.recommend.similar_users import similar_user
 from anime_recommendations_tpu_torch.recommend.user_prefs import user_prefs
 from anime_recommendations_tpu_torch.recommend.user_recs import user_recs
 from anime_recommendations_tpu_torch.serve.api import Engine, make_server
+from anime_recommendations_tpu_torch.train.schedule import lr_for_epoch
 
 from test_torch_model import jax_params
 
@@ -286,7 +289,8 @@ def test_cli_serves_a_run_from_the_jax_artifact_store(
 
 
 def test_port_data_modules_match_jax(data):
-    """The port's copies of config, data and vocab give what the JAX package's do."""
+    """The port's copies of config, data, vocab, dataset and schedule give
+    what the JAX package's do."""
     (vocab, catalog, encoded), (jvocab, jcatalog, jencoded) = data["port"], data["jax"]
     np.testing.assert_array_equal(vocab.user_ids, jvocab.user_ids)
     np.testing.assert_array_equal(vocab.anime_ids, jvocab.anime_ids)
@@ -302,3 +306,20 @@ def test_port_data_modules_match_jax(data):
     pd.testing.assert_frame_equal(cat, jsynthetic.synth_anime_catalog(n_anime=40, seed=3))
     pd.testing.assert_frame_equal(synthetic.synth_synopses(cat, seed=3),
                                   jsynthetic.synth_synopses(cat, seed=3))
+    train, holdout = dataset.train_holdout_split(encoded, test_size=500)
+    jtrain, jholdout = jdataset.train_holdout_split(jencoded, test_size=500)
+    for got, want in ((train, jtrain), (holdout, jholdout)):
+        for col in ("users", "anime", "ratings"):
+            np.testing.assert_array_equal(getattr(got, col), getattr(want, col))
+    for kw in (dict(shuffle=True, seed=4), dict(shuffle=False)):
+        got = list(train.iter_batches(1000, **kw))
+        want = list(jtrain.iter_batches(1000, **kw))
+        assert len(got) == len(want) == train.num_batches(1000)
+        for a, b in zip(got, want):
+            for col in ("users", "anime", "ratings", "weights"):
+                np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
+    assert got[-1].weights.sum() == len(train) % 1000  # weight-0 padded last batch
+    for epoch in range(12):
+        kw = dict(start_lr=1e-5, max_lr=5e-5, min_lr=1e-5, rampup_epochs=5,
+                  sustain_epochs=2, exp_decay=0.8)
+        assert lr_for_epoch(epoch, **kw) == jlr_for_epoch(epoch, **kw)

@@ -7,8 +7,10 @@ mirroring the JAX package:
   config, data, utils — copies of the JAX package's framework-free modules
   models    — two-tower model (nn.Module), eval-mode head, normalized tables
   train     — .npz parameter I/O shared with the JAX package
-  ops       — two-stage masked top-k; stage 1 is a hand-written Hopper
-              kernel (csrc/packed_topk.cu) with a plain torch version beside it
+  ops       — masked top-k (two-stage, int8, exact scan), row
+              normalization and fused sparse Adam; each kernel is
+              hand-written for Hopper (csrc/*.cu) with a plain torch
+              version beside it
   recommend — retrieval context and the five recommenders + batch entry points
   pipeline  — a serving context from the JAX pipeline's artifact store
   serve     — in-process Engine + stdlib HTTP JSON API

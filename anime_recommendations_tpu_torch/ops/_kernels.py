@@ -36,6 +36,14 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
     # table, dtype, queries, mask, exclude, head, out, n, d, nq, top_r, stream
     "packed_topk": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # table, wscale, queries, qscale, mask, exclude, head, out, n, d, nq,
+    # top_r, stream
+    "packed_topk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # table, dtype, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc,
+    # stream
+    "exact_topk": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # table, out, out_dtype, n, d, eps, stream
+    "l2_normalize": (_P, _P, _I, _I, _I, _F, _P),
     # w, mu, nu, moment_dtype, ids, grads, starts, partials, n, d, block_rows,
     # lr, bc1, bc2, eps, l2, b1, b2, sr, step, stream
     "fused_adam": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,

@@ -17,6 +17,13 @@ and the same two stages:
           (position, key low bits), gathers those rows and rescores them in
           exact f32, and returns the pool's top-k.
 
+An int8 table (ops/quantized.py) takes the same two stages: stage 1 reads
+the int8 rows (csrc/packed_topk_int8.cu on the card) and stage 2 rescores
+the pool against the f32 rows. ``exact_scan=True`` takes one exact stage
+instead (_exact_scan_topk: csrc/exact_topk.cu on the card): full-f32 scores,
+each 512-row chunk's exact top-k, and a stable merge, so ties go to the
+lower row as the JAX kernel's argmax gives them.
+
 The TPU kernel's layout choices are not carried over: there is no [Qp, B]
 lane layout, no VMEM block sizing and no dense tail for a ragged last block
 (the CUDA kernel masks rows >= N itself), and small tables take the same
@@ -92,38 +99,66 @@ def _overflowing_groups(k: int, groups: int, depth: int) -> float:
 
 
 def packed_candidates(
-    table: torch.Tensor,                  # [N, D] f32 or bf16
+    table: torch.Tensor,                  # [N, D] f32, bf16 or int8
     queries: torch.Tensor,                # [Q, D] table dtype
     top_r: int,
     mask: torch.Tensor | None = None,     # [N] bool, True keeps the row
     exclude: torch.Tensor | None = None,  # [Q] int, row to drop (-1: none)
     head: torch.Tensor | None = None,     # [2] f32 (alpha, beta)
+    qscale: torch.Tensor | None = None,   # [Q] f32 query scales (int8 only)
+    wscale: torch.Tensor | None = None,   # [N] f32 row scales (int8 only)
 ) -> torch.Tensor:
     """Stage 1: int32 keys [Q, ceil(N/512) * top_r], each group's top_r keys
-    largest first (module docstring). A CUDA table launches the kernel; a
-    CPU table runs the plain version."""
+    largest first (module docstring; the int8 keys are _int8_biased_scores').
+    A CUDA table launches the kernel; a CPU table runs the plain version."""
+    if (table.dtype == torch.int8) != (qscale is not None and wscale is not None):
+        raise ValueError("packed_candidates: qscale and wscale come with an int8 table, "
+                         "and only with one")
     if table.device.type == "cpu":
-        return _packed_candidates_plain(table, queries, top_r, mask, exclude, head)
+        return _packed_candidates_plain(table, queries, top_r, mask, exclude, head,
+                                        qscale, wscale)
     if table.device.type != "cuda":
         raise ValueError(f"packed_candidates: unsupported device {table.device}")
+    if table.dtype == torch.int8:
+        return _packed_candidates_int8_cuda(table, queries, top_r, mask, exclude, head,
+                                            qscale, wscale)
     return _packed_candidates_cuda(table, queries, top_r, mask, exclude, head)
 
 
-def _packed_candidates_plain(table, queries, top_r, mask, exclude, head):
+def _int8_biased_scores(table, queries, qscale, wscale, head):
+    """s2 [Q, N] of int8 rows and queries, as the JAX kernel forms it
+    (topk.py:219-241,258-260): without a head qscale folds into the bias,
+    s2 = acc * wscale + 2 / qscale = (cos + 2) / qscale, which orders each
+    query's rows as the cosine does; with one, s2 = sigmoid(alpha * (acc *
+    qscale * wscale) + beta) + 2. Each step is one rounded f32 operation,
+    in csrc/packed_topk_int8.cu's order.
+
+    acc is exact: every product of two int8 values and every partial sum is
+    an integer of magnitude at most 128 * 127^2 = 2,064,512 < 2^24, so an f32
+    matmul gets it in any summation order, provided TF32 does not round it."""
+    if table.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("int8 stage 1 needs torch.backends.cuda.matmul.allow_tf32 = False")
+    acc = queries.float() @ table.float().T                          # [Q, N]
+    if head is None:
+        return acc * wscale[None, :] + (_BIAS / qscale)[:, None]
+    s = acc * qscale[:, None] * wscale[None, :]
+    return torch.sigmoid(head[0] * s + head[1]) + _BIAS
+
+
+def _packed_candidates_plain(table, queries, top_r, mask, exclude, head,
+                             qscale=None, wscale=None):
     """Stage 1 in plain torch ops: fp32 scores, the same keys, topk per group."""
     n = table.shape[0]
     qn = queries.shape[0]
     n_groups = -(-n // GROUP)
-    scores = queries.float() @ table.float().T                      # [Q, N]
-    if head is not None:
-        scores = torch.sigmoid(head[0] * scores + head[1])
-    valid = torch.ones_like(scores, dtype=torch.bool)
-    if mask is not None:
-        valid &= mask[None, :]
-    if exclude is not None:
-        rows = torch.arange(n, device=table.device)
-        valid &= rows[None, :] != exclude[:, None]
-    s2 = torch.where(valid, scores + _BIAS, -1.0)
+    if table.dtype == torch.int8:
+        s2 = _int8_biased_scores(table, queries, qscale, wscale, head)
+    else:
+        scores = queries.float() @ table.float().T                  # [Q, N]
+        if head is not None:
+            scores = torch.sigmoid(head[0] * scores + head[1])
+        s2 = scores + _BIAS
+    s2 = torch.where(_live(s2, mask, exclude), s2, -1.0)
     s2 = torch.nn.functional.pad(s2, (0, n_groups * GROUP - n), value=-1.0)
     lane = torch.arange(n_groups * GROUP, device=table.device, dtype=torch.int32)
     keys = (s2.view(torch.int32) & ~(GROUP - 1)) | (lane & (GROUP - 1))
@@ -131,43 +166,99 @@ def _packed_candidates_plain(table, queries, top_r, mask, exclude, head):
     return top.reshape(qn, n_groups * top_r)
 
 
-def _packed_candidates_cuda(table, queries, top_r, mask, exclude, head):
-    """Launch csrc/packed_topk.cu on PyTorch's current stream."""
-    n, d = table.shape
-    qn = queries.shape[0]
-    if table.dtype not in _DTYPE_CODES:
-        raise TypeError(f"packed_topk takes f32 or bf16 tables, got {table.dtype}")
-    if queries.dtype != table.dtype or queries.device != table.device:
-        raise TypeError("packed_topk: queries must match the table's dtype and device")
-    if queries.dim() != 2 or queries.shape[1] != d:
-        raise ValueError(f"packed_topk: queries {tuple(queries.shape)} vs table {tuple(table.shape)}")
-    if d % 16 or not 1 <= top_r <= GROUP or not 1 <= qn <= 8 * 65535:
-        raise ValueError(f"packed_topk: needs D % 16 == 0, 1 <= top_r <= {GROUP}, "
-                         f"1 <= Q <= {8 * 65535}; got D={d}, top_r={top_r}, Q={qn}")
-    for name, t in (("table", table), ("queries", queries)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"packed_topk: {name} must be contiguous and 16-byte aligned")
+def _live(scores, mask, exclude):
+    """[Q, N] bool: the row is kept by ``mask`` and is not the query's ``exclude``."""
+    live = torch.ones_like(scores, dtype=torch.bool)
     if mask is not None:
-        if mask.shape != (n,) or mask.dtype != torch.bool or mask.device != table.device:
-            raise ValueError("packed_topk: mask must be a bool [N] tensor on the table's device")
+        live &= mask[None, :]
+    if exclude is not None:
+        rows = torch.arange(scores.shape[1], device=scores.device)
+        live &= rows[None, :] != exclude[:, None]
+    return live
+
+
+def _side_inputs(name, table, qn, mask, exclude, head):
+    """Check and convert a kernel's optional mask [N] bool, exclude [Q] int
+    and head [2] to what its C entry point takes (None stays None). The
+    caller holds the returned tensors until the launch is enqueued: another
+    thread could otherwise be handed their memory first."""
+    n, dev = table.shape[0], table.device
+    if mask is not None:
+        if mask.shape != (n,) or mask.dtype != torch.bool or mask.device != dev:
+            raise ValueError(f"{name}: mask must be a bool [N] tensor on the table's device")
         mask = mask.contiguous()
     if exclude is not None:
-        if exclude.shape != (qn,) or exclude.device != table.device:
-            raise ValueError("packed_topk: exclude must be an int [Q] tensor on the table's device")
+        if exclude.shape != (qn,) or exclude.device != dev:
+            raise ValueError(f"{name}: exclude must be an int [Q] tensor on the table's device")
         exclude = exclude.to(torch.int32).contiguous()
     if head is not None:
-        head = head.to(device=table.device, dtype=torch.float32).contiguous()
+        head = head.to(device=dev, dtype=torch.float32).contiguous()
         if head.shape != (2,):
-            raise ValueError("packed_topk: head must be [2] (alpha, beta)")
+            raise ValueError(f"{name}: head must be [2] (alpha, beta)")
+    return mask, exclude, head
+
+
+def _ptrs(*tensors) -> list:
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _check_scan_inputs(name, table, queries, dtypes, depth, max_depth):
+    """The checks every scan kernel's wrapper makes of its table and queries."""
+    n, d = table.shape
+    qn = queries.shape[0]
+    if table.dtype not in dtypes:
+        raise TypeError(f"{name} takes {' or '.join(map(str, dtypes))} tables, got {table.dtype}")
+    if queries.dtype != table.dtype or queries.device != table.device:
+        raise TypeError(f"{name}: queries must match the table's dtype and device")
+    if queries.dim() != 2 or queries.shape[1] != d:
+        raise ValueError(f"{name}: queries {tuple(queries.shape)} vs table {tuple(table.shape)}")
+    if d % 16 or not 1 <= depth <= max_depth or not 1 <= qn <= 8 * 65535:
+        raise ValueError(f"{name}: needs D % 16 == 0, 1 <= depth <= {max_depth}, "
+                         f"1 <= Q <= {8 * 65535}; got D={d}, depth={depth}, Q={qn}")
+    for what, t in (("table", table), ("queries", queries)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be contiguous and 16-byte aligned")
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _packed_candidates_cuda(table, queries, top_r, mask, exclude, head):
+    """Launch csrc/packed_topk.cu on PyTorch's current stream."""
+    _check_scan_inputs("packed_topk", table, queries, tuple(_DTYPE_CODES), top_r, GROUP)
+    (n, d), qn = table.shape, queries.shape[0]
     n_groups = -(-n // GROUP)
     out = torch.empty((qn, n_groups * top_r), dtype=torch.int32, device=table.device)
     args = [table.data_ptr(), _DTYPE_CODES[table.dtype], queries.data_ptr()]
-    args += [None if t is None else t.data_ptr() for t in (mask, exclude, head)]
-    args += [out.data_ptr(), n, d, qn, top_r,
-             ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream)]
+    side = _side_inputs("packed_topk", table, qn, mask, exclude, head)
+    args += _ptrs(*side)
+    args += [out.data_ptr(), n, d, qn, top_r, _stream(table)]
     err = _kernels.library("packed_topk").packed_topk(*args)
     _kernels.check(err, "packed_topk")
     _kernels.count_launch("packed_topk")
+    return out
+
+
+def _packed_candidates_int8_cuda(table, queries, top_r, mask, exclude, head, qscale, wscale):
+    """Launch csrc/packed_topk_int8.cu on PyTorch's current stream."""
+    _check_scan_inputs("packed_topk_int8", table, queries, (torch.int8,), top_r, GROUP)
+    (n, d), qn = table.shape, queries.shape[0]
+    scales = []
+    for what, s, size in (("wscale", wscale, n), ("qscale", qscale, qn)):
+        if s.shape != (size,) or s.dtype != torch.float32 or s.device != table.device:
+            raise ValueError(f"packed_topk_int8: {what} must be an f32 [{size}] tensor "
+                             "on the table's device")
+        scales.append(s.contiguous())
+    n_groups = -(-n // GROUP)
+    out = torch.empty((qn, n_groups * top_r), dtype=torch.int32, device=table.device)
+    args = [table.data_ptr(), scales[0].data_ptr(), queries.data_ptr(), scales[1].data_ptr()]
+    side = _side_inputs("packed_topk_int8", table, qn, mask, exclude, head)
+    args += _ptrs(*side)
+    args += [out.data_ptr(), n, d, qn, top_r, _stream(table)]
+    err = _kernels.library("packed_topk_int8").packed_topk_int8(*args)
+    _kernels.check(err, "packed_topk_int8")
+    _kernels.count_launch("packed_topk_int8")
     return out
 
 
@@ -209,6 +300,7 @@ def masked_topk(
     exclude: torch.Tensor | None = None,  # [Qn] int, row to drop (-1: none)
     head: torch.Tensor | None = None,     # [2] (alpha, beta): sigmoid(alpha*s+beta)
     top_r: int | None = None,
+    exact_scan: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k of (optionally head-transformed) ``queries @ table.T`` scores.
 
@@ -217,8 +309,13 @@ def masked_topk(
     appear only when fewer than k valid rows exist, with value -1e30 and
     index -1. The candidate pool is m = max(2k + 4, 24) rows; ``top_r``
     pins the per-group depth (default: top_r_policy). Scores must be > -2
-    (module docstring).
+    (module docstring). ``exact_scan=True`` takes the single exact stage
+    instead (_exact_scan_topk), which lifts that bound and breaks ties
+    toward the lower row; ``top_r`` is then unused.
     """
+    if exact_scan:
+        return _exact_scan_topk(table, queries.to(table.dtype).contiguous(), k,
+                                mask=mask, exclude=exclude, head=head)
     return two_stage_topk(packed_candidates, table, queries, k, mask=mask,
                           exclude=exclude, head=head, top_r=top_r)
 
@@ -238,6 +335,66 @@ def two_stage_topk(stage1, table, queries, k, mask=None, exclude=None,
     return _rescore_pool(table, queries, cand, alive, k, head)
 
 
+def _exact_scan_topk(table, queries, k, mask=None, exclude=None, head=None):
+    """The worst-case-exact single stage (queries in the table's dtype). A
+    CUDA table launches csrc/exact_topk.cu; a CPU table runs the plain
+    version."""
+    if table.device.type == "cpu":
+        return _exact_scan_plain(table, queries, k, mask, exclude, head)
+    if table.device.type != "cuda":
+        raise ValueError(f"exact_scan: unsupported device {table.device}")
+    return _exact_scan_cuda(table, queries, k, mask, exclude, head)
+
+
+def _exact_scan_plain(table, queries, k, mask=None, exclude=None, head=None):
+    """Dense f32 scores, head, mask and exclude, then the top-k by a stable
+    descending sort: ties go to the lower row, as the JAX kernel's argmax and
+    merge give them."""
+    if table.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("exact_scan needs torch.backends.cuda.matmul.allow_tf32 = False")
+    scores = queries.float() @ table.float().T                      # [Q, N]
+    if head is not None:
+        scores = torch.sigmoid(head[0] * scores + head[1])
+    live = _live(scores, mask, exclude)
+    rows = torch.arange(table.shape[0], device=table.device).expand_as(scores)
+    return _merge_candidates(torch.where(live, scores, _NEG), torch.where(live, rows, -1), k)
+
+
+def _merge_candidates(cand_s, cand_i, k: int):
+    """Top-k of candidates laid out in row order ([Q, C] scores and rows,
+    -1e30 / -1 for dead ones): a stable descending sort keeps the lower row
+    first among equal scores (torch.topk does not say which comes first)."""
+    kk = min(k, cand_s.shape[1])
+    top_s, pos = torch.sort(cand_s, dim=1, descending=True, stable=True)
+    top_s, pos = top_s[:, :kk], pos[:, :kk]
+    top_i = cand_i.gather(1, pos).long()
+    if k > kk:
+        top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=_NEG)
+        top_i = torch.nn.functional.pad(top_i, (0, k - kk), value=-1)
+    return top_s, top_i
+
+
+def _exact_scan_cuda(table, queries, k, mask=None, exclude=None, head=None):
+    """Launch csrc/exact_topk.cu: each 512-row chunk's exact top
+    min(k, 512), then the stable merge of the chunks' candidates."""
+    if k < 1:
+        raise ValueError(f"exact_topk: k must be >= 1, got {k}")
+    kc = min(k, GROUP)
+    _check_scan_inputs("exact_topk", table, queries, tuple(_DTYPE_CODES), kc, GROUP)
+    (n, d), qn = table.shape, queries.shape[0]
+    n_chunks = -(-n // GROUP)
+    out_s = torch.empty((qn, n_chunks * kc), dtype=torch.float32, device=table.device)
+    out_i = torch.empty((qn, n_chunks * kc), dtype=torch.int32, device=table.device)
+    args = [table.data_ptr(), _DTYPE_CODES[table.dtype], queries.data_ptr()]
+    side = _side_inputs("exact_topk", table, qn, mask, exclude, head)
+    args += _ptrs(*side)
+    args += [out_s.data_ptr(), out_i.data_ptr(), n, d, qn, kc, _stream(table)]
+    err = _kernels.library("exact_topk").exact_topk(*args)
+    _kernels.check(err, "exact_topk")
+    _kernels.count_launch("exact_topk")
+    return _merge_candidates(out_s, out_i, k)
+
+
 class ShuffledTable(NamedTuple):
     """A retrieval table stored in a fixed random physical row order.
 
@@ -247,11 +404,12 @@ class ShuffledTable(NamedTuple):
     One build-time shuffle restores random placement; _dispatch_topk
     translates masks, exclusions and returned indices across it.
 
-    ``table``: [N, D] rows in physical order. ``perm``: [N] physical ->
-    logical row id. ``inv``: [N] logical -> physical position.
+    ``table``: [N, D] rows in physical order, or a QuantizedTable
+    (ops/quantized.py) built from them. ``perm``: [N] physical -> logical
+    row id. ``inv``: [N] logical -> physical position.
     """
 
-    table: torch.Tensor
+    table: object
     perm: torch.Tensor
     inv: torch.Tensor
 
@@ -267,40 +425,58 @@ def shuffle_rows(table: torch.Tensor, seed: int = 0) -> ShuffledTable:
 
 
 def _dispatch_topk(
-    table,                       # tensor | ShuffledTable
-    queries: torch.Tensor,       # [Qn, D]
+    table,                       # tensor | QuantizedTable | ShuffledTable of either
+    queries: torch.Tensor,       # [Qn, D] float
     mask,                        # [N] bool (array or tensor) or None
     exclude,                     # [Qn] int (array or tensor) or None
     head,                        # [2] tensor or None
     *,
     k: int,
+    exact_scan: bool = False,
+    top_r: int | None = None,
+    m: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One entry for every retrieval flavour: a plain table, or a
-    ShuffledTable whose masks, exclusions and results are translated across
-    its permutation. Masks and exclusions may be numpy arrays."""
-    if isinstance(table, ShuffledTable):
-        inner = table.table
-    elif isinstance(table, torch.Tensor):
-        inner = table
+    """One entry for every retrieval flavour: a float table, an int8
+    QuantizedTable (ops/quantized.quantized_topk; ``m`` is its pool), or a
+    ShuffledTable of either, whose masks, exclusions and results are
+    translated across its permutation. Masks and exclusions may be numpy
+    arrays. ``exact_scan`` is a float-table mode."""
+    from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable, quantized_topk
+
+    inner = table.table if isinstance(table, ShuffledTable) else table
+    if isinstance(inner, QuantizedTable):
+        if exact_scan:
+            raise ValueError("exact_scan is a float-table mode; quantized retrieval "
+                             "always exact-rescores its candidate pool instead")
+        dev = inner.q.device
+    elif isinstance(inner, torch.Tensor):
+        dev = inner.device
     else:
         raise NotImplementedError(
-            f"{type(table).__name__} retrieval tables are not ported yet: int8 "
-            "(QuantizedTable) is ROADMAP.md Queue 2 K2q, IVF is Queue 1 ops/ivf.py"
+            f"{type(table).__name__} retrieval tables are not ported yet: "
+            "IVF is ROADMAP.md Queue 1 ops/ivf.py"
         )
-    dev = inner.device
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
         mask = mask if mask.dtype == torch.bool else mask > 0
     if exclude is not None:
         exclude = torch.as_tensor(exclude, device=dev).long()
+
+    def scan(t, mask, exclude):
+        if isinstance(t, QuantizedTable):
+            return quantized_topk(t, queries, k, m=m, mask=mask, exclude=exclude,
+                                  head=head, top_r=top_r)
+        return masked_topk(t, queries, k, mask=mask, exclude=exclude, head=head,
+                           top_r=top_r, exact_scan=exact_scan)
+
     if not isinstance(table, ShuffledTable):
-        return masked_topk(inner, queries, k, mask=mask, exclude=exclude, head=head)
+        return scan(inner, mask, exclude)
     n = table.perm.shape[0]
     mask_p = None if mask is None else mask[table.perm]
     excl_p = None
     if exclude is not None:
         excl_p = torch.where(exclude >= 0, table.inv[exclude.clamp(0, n - 1)], -1)
-    vals, idx_p = masked_topk(inner, queries, k, mask=mask_p, exclude=excl_p, head=head)
+    vals, idx_p = scan(inner, mask_p, excl_p)
     idx = torch.where(idx_p >= 0, table.perm[idx_p.clamp(0, n - 1)], idx_p)
     return vals, idx
 
@@ -311,9 +487,15 @@ def cosine_topk(
     k: int,
     mask=None,
     exclude=None,
+    *,
+    exact_scan: bool = False,
+    top_r: int | None = None,
+    m: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k cosine similarity of query rows against a row-normalized table
-    (a tensor or a ShuffledTable); the query rows are assumed normalized."""
+    (a tensor, a QuantizedTable, or a ShuffledTable of either); the query
+    rows are assumed normalized. The keywords are _dispatch_topk's."""
     if query_rows.dim() == 1:
         query_rows = query_rows[None, :]
-    return _dispatch_topk(table_normalized, query_rows, mask, exclude, None, k=k)
+    return _dispatch_topk(table_normalized, query_rows, mask, exclude, None, k=k,
+                          exact_scan=exact_scan, top_r=top_r, m=m)

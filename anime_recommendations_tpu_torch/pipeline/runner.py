@@ -47,7 +47,9 @@ def store_root(cfg: Config, run_dir: str | Path | None = None) -> Path:
 
 
 def context_from_store(cfg: Config, run_dir: str | Path | None = None, *,
-                       device) -> RecContext:
+                       device, topk_kwargs: dict | None = None) -> RecContext:
+    """The serving context of a run's latest model; ``topk_kwargs`` go to
+    RecContext.build (e.g. ``{"exact_scan": True}``)."""
     root = store_root(cfg, run_dir)
     model = load_model(latest_file(root, "anime_nn_model.npz", "anime_nn_model.npz"),
                        device)
@@ -58,6 +60,7 @@ def context_from_store(cfg: Config, run_dir: str | Path | None = None, *,
     return RecContext.build(
         model, vocab, catalog, encode_frame(clean, vocab), device=device,
         retrieval_dtype=cfg.similarity.retrieval_dtype, ann=cfg.similarity.ann,
+        topk_kwargs=topk_kwargs,
     )
 
 

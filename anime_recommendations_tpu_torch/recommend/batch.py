@@ -45,6 +45,7 @@ def similar_anime_batch(
         k=min(count, ctx.vocab.n_anime),
         mask=mask,
         exclude=q_idx,
+        **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()
     idx = idx.cpu().numpy()
@@ -92,6 +93,7 @@ def model_recs_batch(
         ctx.head,
         k=k,
         mask=shared,
+        **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()
     idx = idx.cpu().numpy()
@@ -135,6 +137,7 @@ def similar_users_batch(
         _rows(ctx.user_norm, q_idx),
         k=min(n_users, ctx.vocab.n_users),
         exclude=q_idx,
+        **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()
     idx = idx.cpu().numpy()

@@ -19,6 +19,7 @@ import torch
 from anime_recommendations_tpu_torch.data.catalog import Catalog
 from anime_recommendations_tpu_torch.data.vocab import Vocab
 from anime_recommendations_tpu_torch.models.two_tower import TwoTower
+from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable
 from anime_recommendations_tpu_torch.ops.topk import ShuffledTable
 from anime_recommendations_tpu_torch.recommend.tables import build_tables
 
@@ -33,6 +34,12 @@ class RecContext:
     head: torch.Tensor             # [2] (alpha, beta) folded eval-mode head
     anime_scan: ShuffledTable      # what the scans read (recommend/tables.py)
     user_scan: ShuffledTable
+    # The int8 scan tables (ops/quantized.py) of an int8 context; None = float.
+    anime_qt: QuantizedTable | None = None
+    user_qt: QuantizedTable | None = None
+    # Keywords merged into every cosine_topk/score_topk call the recommenders
+    # make, e.g. {"exact_scan": True}.
+    topk_kwargs: dict = field(default_factory=dict)
     _vocab_anime_meta: pd.DataFrame = field(default=None, repr=False)
 
     def __post_init__(self):
@@ -53,13 +60,18 @@ class RecContext:
         *,
         device,
         retrieval_dtype=None,
+        topk_kwargs: dict | None = None,
         ann: str = "off",
     ) -> "RecContext":
         """Retrieval numerics: None/"f32" = exact scans; "bf16" halves the
-        scan traffic at ~1e-3 score error. int8 and ``ann="ivf"`` are not
-        ported yet and raise NotImplementedError. The scans read shuffled
-        copies of the tables; ``anime_norm``/``user_norm`` stay in logical
-        vocab order for reading query rows."""
+        scan traffic at ~1e-3 score error; "int8" stores the scan tables
+        quantized (a quarter of the f32 bytes) and rescores a candidate pool
+        in exact f32 (ops/quantized.py). ``topk_kwargs`` go to every scan
+        (``{"exact_scan": True}`` for the single exact stage, f32 and bf16
+        only). ``ann="ivf"`` is not ported yet and raises
+        NotImplementedError. The scans read shuffled copies of the tables;
+        ``anime_norm``/``user_norm`` stay in logical vocab order (f32 for
+        int8) for reading query rows."""
         if ann == "ivf":
             raise NotImplementedError(
                 "ann='ivf' is not ported yet: ROADMAP.md Queue 1 ops/ivf.py"
@@ -71,6 +83,7 @@ class RecContext:
             vocab=vocab, catalog=catalog, ratings=ratings,
             anime_norm=t.anime_norm, user_norm=t.user_norm, head=t.head,
             anime_scan=t.anime_scan, user_scan=t.user_scan,
+            anime_qt=t.anime_qt, user_qt=t.user_qt, topk_kwargs=dict(topk_kwargs or {}),
         )
 
     @property

@@ -10,20 +10,32 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
   phase 1  device and build: card name and power limit, torch/CUDA/nvcc
            versions; every kernel built at once (one nvcc per source, all
            started together) and loaded.
-  phase 2  each kernel against its plain PyTorch version on the card at the
-           shapes the serving path gives it (91,641 x 128 user table,
-           17,560 x 128 anime table; f32 and bf16; 1 to 256 queries; with
-           and without head, mask and exclude; a k deep enough to drive
-           top_r above 64), against a dense full-score oracle, and timed
-           (CUDA events, median of 20 runs after warm-up).
+  phase 2  each serving kernel against its plain PyTorch version on the
+           card at the shapes the serving path gives it (91,641 x 128 user
+           table, 17,560 x 128 anime table; 1 to 256 queries; with and
+           without head, mask and exclude), against a dense full-score
+           oracle, and timed (CUDA events, median of 20 runs after warm-up;
+           for K2q, K3 and K4 also the kernel's device time under
+           torch.profiler against its plain version's, and bytes / time
+           against 3.35 TB/s):
+             packed_topk (K2), f32 and bf16 tables, a k deep enough to
+               drive top_r above 64;
+             packed_topk_int8 (K2q), int8 tables, keys bit-equal to the
+               plain version's without a head, a k that drives top_r above
+               64;
+             exact_topk (K3), f32 and bf16 tables, k = 10 and 600;
+             l2_normalize (K4), the raw embedding tables, f32 and bf16 out.
   phase 3  the slice end to end at reference scale: synthetic data of
            ~91,641 users x 17,560 anime x 3M ratings made from a seed, D =
            128 parameters from a seed written in the JAX package's .npz
            format and loaded from an artifact store through the port's
-           entry points, an f32 and a bf16 context on the card, and every
-           endpoint of the HTTP server answered and checked against a dense
-           oracle on the card. Launch counters are reset before this phase
-           and must show every scanning endpoint going through the kernel.
+           entry points; four contexts on the card (f32, bf16, int8 and an
+           f32 context whose scans are exact), and every endpoint of the
+           HTTP server answered by each and checked against a dense oracle
+           on the card. Launch counters are reset before this phase: every
+           scanning endpoint must launch its context's scan kernel
+           (packed_topk, packed_topk_int8 or exact_topk), and every context
+           build l2_normalize twice (the anime and the user table).
   phase 4  the fused sparse-Adam kernel against its plain PyTorch version on
            the card at the training shapes: the 91,641 x 128 user table and
            the 17,560 x 128 anime table (neither a multiple of the 32-row
@@ -156,28 +168,44 @@ def _median_ms(fn) -> float:
     return statistics.median(times)
 
 
-def _profiled(fn, reps: int = TIMED_RUNS) -> dict:
+def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
     """torch.profiler over ``reps`` calls of fn after 3 warm-up calls: wall ms
     per call (host clock to a synchronize), device-busy ms per call (the sum
-    of CUDA kernel times), the idle share, and device ms per call by kernel."""
+    of CUDA kernel times), the idle share, device ms per call by kernel, and
+    (``match``) the device ms per call of the kernels whose name holds it."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    # A profiler session now and then records no device activity at all
+    # (seen once in ~90 sessions on an H100 host): profile again, at most
+    # twice.
+    # A session that records other kernels but not ``match`` still fails.
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        if events:
+            break
+        print(f"[profiler] session {attempt + 1} recorded no device activity", flush=True)
+    else:
+        raise AssertionError("torch.profiler recorded no device activity in 3 sessions")
     busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
-    return {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
-            "by_kernel": {e.key[:70]: e.self_device_time_total / 1e3 / reps for e in top[:8]}}
+    out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
+           "by_kernel": {e.key[:70]: e.self_device_time_total / 1e3 / reps for e in top[:8]}}
+    if match is not None:
+        out["match_ms"] = sum(e.self_device_time_total for e in events if match in e.key) / 1e3 / reps
+        if not out["match_ms"] > 0:
+            raise AssertionError(f"the profiler saw no {match} time: {out}")
+    return out
 
 
 def _row_scores(table, queries, idx, head=None):
@@ -289,6 +317,215 @@ def phase_kernels(card: str) -> list[dict]:
     return rows
 
 
+def _timing(fn, plain_fn, kernel: str) -> dict:
+    """The kernel's device time per call (torch.profiler, the kernel named
+    ``kernel`` alone), its plain version's (all of its kernels), and both
+    medians of CUDA-event times (launch overhead included)."""
+    return dict(ms=_profiled(fn, match=kernel)["match_ms"],
+                plain_ms=_profiled(plain_fn)["device_ms"],
+                event_ms=_median_ms(fn), plain_event_ms=_median_ms(plain_fn))
+
+
+def _check_ties(name, table, queries, i, ip, head, exact=False):
+    """Indices equal, except where the two rows' true scores tie within
+    1e-6; no dead slot (every case has enough live rows)."""
+    if bool((i < 0).any() or (ip < 0).any()):
+        raise AssertionError(f"{name}: dead slots in a table with enough live rows")
+    gap = (_row_scores(table, queries, i, head) - _row_scores(table, queries, ip, head)).abs()
+    if bool(((i != ip) & (gap > 1e-6)).any()):
+        raise AssertionError(f"{name}: indices differ from the plain version")
+
+
+def _oracle_overlap(name, table, queries, k, i, mask, exclude, head) -> float:
+    """Share of the dense oracle's top-k rows returned. A row may be missed
+    only for another whose true score ties with it within 1e-6."""
+    ov, oi = _oracle_topk(table, queries, k, mask, exclude, head)
+    overlap = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(i.tolist(), oi.tolist())]))
+    if overlap != 1.0:
+        got = _row_scores(table, queries, i, head)
+        kth = got.min(dim=1).values
+        missed = ~_isin(oi, i)
+        if bool((missed & ((ov.double() - kth[:, None]).abs() > 1e-6)).any()):
+            raise AssertionError(f"{name}: overlap with the dense oracle {overlap}")
+    return overlap
+
+
+def _isin(a, b):
+    """[Q, k] bool: a[q, j] is among b[q, :]."""
+    return (a[:, :, None] == b[:, None, :]).any(dim=2)
+
+
+def _normalize_case(card, name, emb, out_dtype) -> dict:
+    """K4 at a table build's shapes: the kernel against its plain version."""
+    import torch
+
+    from anime_recommendations_tpu_torch.models.two_tower import TF_L2_NORM_EPS
+    from anime_recommendations_tpu_torch.ops import _kernels, normalize
+
+    eps = TF_L2_NORM_EPS
+    before = _kernels.launches["l2_normalize"]
+    got = normalize.l2_normalize_rows(emb, eps=eps, out_dtype=out_dtype)
+    if _kernels.launches["l2_normalize"] != before + 1:
+        raise AssertionError(f"{name}: l2_normalize_rows did not launch the kernel")
+    want = normalize._l2_normalize_rows_plain(emb, eps, out_dtype)
+    torch.cuda.synchronize()
+    zero = ~emb.any(dim=1)
+    if not bool(zero.any()) or bool(got[zero].any()):
+        raise AssertionError(f"{name}: a zero row did not stay zero")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()) or got.shape != emb.shape or got.dtype != out_dtype:
+        raise AssertionError(f"{name}: non-finite output, or shape/dtype {got.shape} {got.dtype}")
+    # f32: 1e-6 relative (rsqrtf is not correctly rounded); bf16: one ulp
+    # (two f32 values a few ulp apart may round to either neighbour).
+    tol = 1e-6 * w.abs() if out_dtype == torch.float32 else _ulp_bf16(w)
+    err = (g - w).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"{name}: differs from the plain version by {float(err.max())}")
+    row = dict(card=card, case=name, n=emb.shape[0], out_dtype=str(out_dtype),
+               max_abs_err=float(err.max()), bit_equal_share=float((g == w).float().mean()))
+    row |= _timing(lambda: normalize._l2_normalize_rows_cuda(emb, eps, out_dtype),
+                   lambda: normalize._l2_normalize_rows_plain(emb, eps, out_dtype),
+                   "l2_normalize_kernel")
+    row["bytes_moved"] = emb.numel() * (4 + got.element_size())
+    row["hbm_share"] = row["bytes_moved"] / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    print("[phase 2] " + json.dumps(row), flush=True)
+    return row
+
+
+def _int8_case(card, name, qt, queries, k, *, mask=None, exclude=None, head=None) -> dict:
+    """K2q: quantized_topk against its plain version (the same two stages
+    with the plain stage 1) and the dense oracle; stage-1 keys alone."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels, quantized, topk
+
+    n = qt.q.shape[0]
+    r = topk.top_r_policy(k, n)
+    before = _kernels.launches["packed_topk_int8"]
+    v, i = quantized.quantized_topk(qt, queries, k, mask=mask, exclude=exclude, head=head)
+    torch.cuda.synchronize()
+    if _kernels.launches["packed_topk_int8"] <= before:
+        raise AssertionError(f"{name}: quantized_topk did not launch the kernel")
+    plain = functools.partial(quantized.quantized_two_stage, topk._packed_candidates_plain, qt,
+                              queries, k, mask=mask, exclude=exclude, head=head)
+    vp, ip = plain()
+    err = float((v - vp).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"{name}: values differ from the plain version by {err}")
+    if not bool(torch.isfinite(v).all()) or v.shape != (queries.shape[0], k):
+        raise AssertionError(f"{name}: non-finite values or shape {tuple(v.shape)}")
+    _check_ties(name, qt.f32, queries, i, ip, head)
+    overlap = _oracle_overlap(name, qt.f32, queries, k, i, mask, exclude, head)
+    # Stage 1 alone: bit-equal keys without a head, one key step with it.
+    q_int, q_scale = quantized._quantize(queries.float())
+    args = (qt.q, q_int.contiguous(), r, mask, exclude, head)
+    kk = topk._packed_candidates_int8_cuda(*args, q_scale, qt.scale)
+    kp = topk._packed_candidates_plain(*args, q_scale, qt.scale)
+    if head is None:
+        if not torch.equal(kk, kp):
+            raise AssertionError(f"{name}: stage-1 keys are not bit-equal to the plain version's")
+        key_err = 0.0
+    else:
+        live = kp > 0
+        if not torch.equal(kk > 0, live):
+            raise AssertionError(f"{name}: stage-1 keys differ in which rows are live")
+        key_err = float((_decoded(kk) - _decoded(kp)).abs()[live].max())
+        if not key_err <= 1.3e-4:
+            raise AssertionError(f"{name}: stage-1 keys differ by {key_err}")
+    row = dict(card=card, case=name, n=n, q=queries.shape[0], k=k, top_r=r, max_abs_err=err,
+               key_err=key_err, overlap=overlap)
+    row |= _timing(lambda: topk._packed_candidates_int8_cuda(*args, q_scale, qt.scale),
+                   lambda: topk._packed_candidates_plain(*args, q_scale, qt.scale),
+                   "packed_topk_int8_kernel")
+    row["quantized_topk_ms"] = _median_ms(lambda: quantized.quantized_topk(
+        qt, queries, k, mask=mask, exclude=exclude, head=head))
+    row["quantized_topk_plain_ms"] = _median_ms(plain)
+    # The table (int8 rows and f32 row scales) is read once per 8-query tile.
+    row["bytes_read"] = (qt.q.numel() + 4 * n) * -(-queries.shape[0] // 8)
+    row["hbm_share"] = row["bytes_read"] / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    print("[phase 2] " + json.dumps(row), flush=True)
+    return row
+
+
+def _exact_case(card, name, table, queries, k, *, mask=None, exclude=None, head=None) -> dict:
+    """K3: masked_topk(exact_scan=True) against its plain version and the
+    dense oracle."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels, topk
+
+    tq = queries.to(table.dtype).contiguous()
+    before = _kernels.launches["exact_topk"]
+    v, i = topk.masked_topk(table, queries, k, mask=mask, exclude=exclude, head=head,
+                            exact_scan=True)
+    torch.cuda.synchronize()
+    if _kernels.launches["exact_topk"] != before + 1:
+        raise AssertionError(f"{name}: masked_topk(exact_scan=True) did not launch the kernel")
+    vp, ip = topk._exact_scan_plain(table, tq, k, mask, exclude, head)
+    err = float((v - vp).abs().max())
+    if not bool(((v - vp).abs() <= 1e-6 * vp.abs() + 1e-7).all()):
+        raise AssertionError(f"{name}: values differ from the plain version by {err}")
+    if not bool(torch.isfinite(v).all()) or v.shape != (queries.shape[0], k):
+        raise AssertionError(f"{name}: non-finite values or shape {tuple(v.shape)}")
+    _check_ties(name, table, tq, i, ip, head)
+    overlap = _oracle_overlap(name, table, tq, k, i, mask, exclude, head)
+    row = dict(card=card, case=name, n=table.shape[0], q=queries.shape[0], dtype=str(table.dtype),
+               k=k, max_abs_err=err, overlap=overlap)
+    row |= _timing(lambda: topk._exact_scan_cuda(table, tq, k, mask, exclude, head),
+                   lambda: topk._exact_scan_plain(table, tq, k, mask, exclude, head),
+                   "exact_topk_kernel")
+    row["bytes_read"] = table.numel() * table.element_size() * -(-queries.shape[0] // 8)
+    row["hbm_share"] = row["bytes_read"] / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    print("[phase 2] " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_new_kernels(card: str) -> dict[str, list[dict]]:
+    """K4, K2q and K3 at the serving path's shapes."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import quantized
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    out = {"l2_normalize": [], "packed_topk_int8": [], "exact_topk": []}
+    # K4 on the raw embedding tables a context build normalizes (one zero row each).
+    for table, n in (("users", N_USERS), ("anime", N_ANIME)):
+        emb = rng.uniform(-0.05, 0.05, (n, D)).astype(np.float32)
+        emb[n // 3] = 0.0
+        emb = torch.from_numpy(emb).to(dev)
+        for out_dtype in ((torch.float32, torch.bfloat16) if table == "users" else (torch.float32,)):
+            tag = "f32" if out_dtype == torch.float32 else "bf16"
+            out["l2_normalize"].append(_normalize_case(card, f"{table}_f32_to_{tag}", emb, out_dtype))
+    users = _normal_table(rng, N_USERS, torch.float32, dev)
+    anime = _normal_table(rng, N_ANIME, torch.float32, dev)
+    head = torch.tensor([4.3, -0.7], device=dev)
+    anime_mask = torch.from_numpy(rng.uniform(size=N_ANIME) > 0.2).to(dev)
+
+    def pick(n, q):
+        return torch.from_numpy(rng.choice(n, size=q, replace=False)).to(dev)
+
+    users_q, anime_q = quantized.quantize_rows(users), quantized.quantize_rows(anime)
+    for q in (1, 8, 256):
+        idx = pick(N_USERS, q)
+        out["packed_topk_int8"].append(_int8_case(card, f"users_int8_q{q}_exclude", users_q,
+                                                  users[idx], 10, exclude=idx))
+        out["exact_topk"].append(_exact_case(card, f"users_f32_q{q}_exclude", users, users[idx],
+                                             10, exclude=idx))
+    for q, k in ((1, 10), (64, 10), (16, 600)):
+        qs = users[pick(N_USERS, q)]
+        out["packed_topk_int8"].append(_int8_case(card, f"anime_int8_q{q}_head_mask_k{k}", anime_q,
+                                                  qs, k, mask=anime_mask, head=head))
+        out["exact_topk"].append(_exact_case(card, f"anime_f32_q{q}_head_mask_k{k}", anime, qs, k,
+                                             mask=anime_mask, head=head))
+    idx = pick(N_USERS, 8)
+    out["exact_topk"].append(_exact_case(card, "users_bf16_q8_exclude", users.to(torch.bfloat16),
+                                         users[idx], 10, exclude=idx))
+    if max(r["top_r"] for r in out["packed_topk_int8"]) <= 64:
+        raise AssertionError("no K2q case drove top_r above 64")
+    return out
+
+
 # ---- phase 3 -------------------------------------------------------------------
 
 @functools.cache
@@ -375,9 +612,10 @@ def _close(name, got, want, ids_got, ids_want):
         raise AssertionError(f"{name}: result set differs from the oracle")
 
 
-def _drive_endpoints(ctx, cfg, label) -> dict:
-    """Every endpoint through the HTTP server, checked against the oracle.
-    Returns per-endpoint median latency (ms, host clock around the request)."""
+def _drive_endpoints(ctx, cfg, label, kernel="packed_topk") -> dict:
+    """Every endpoint through the HTTP server, checked against the oracle;
+    each scanning endpoint must launch ``kernel``. Returns per-endpoint
+    median latency (ms, host clock around the request)."""
     from anime_recommendations_tpu_torch.ops import _kernels
     from anime_recommendations_tpu_torch.recommend.user_recs import user_recs
     from anime_recommendations_tpu_torch.serve.api import make_server
@@ -390,13 +628,13 @@ def _drive_endpoints(ctx, cfg, label) -> dict:
 
     def get(endpoint, scans=True, **params):
         url = f"{base}/{endpoint}?{urllib.parse.urlencode(params)}"
-        before = _kernels.launches["packed_topk"]
+        before = _kernels.launches[kernel]
         t0 = time.perf_counter()
         with urllib.request.urlopen(url, timeout=120) as resp:
             body = json.loads(resp.read())
         latency.setdefault(endpoint, []).append((time.perf_counter() - t0) * 1e3)
-        if scans and _kernels.launches["packed_topk"] <= before:
-            raise AssertionError(f"{label} /{endpoint}: the kernel was not launched")
+        if scans and _kernels.launches[kernel] <= before:
+            raise AssertionError(f"{label} /{endpoint}: {kernel} was not launched")
         if not body:
             raise AssertionError(f"{label} /{endpoint}: empty answer")
         return body
@@ -468,26 +706,43 @@ def _drive_endpoints(ctx, cfg, label) -> dict:
     return {e: statistics.median(t) for e, t in latency.items()}
 
 
+# label -> (similarity.retrieval_dtype, RecContext topk_kwargs, the scan kernel)
+CONTEXTS = {
+    "f32": ("f32", None, "packed_topk"),
+    "bf16": ("bf16", None, "packed_topk"),
+    "int8": ("int8", None, "packed_topk_int8"),
+    "exact_scan": ("f32", {"exact_scan": True}, "exact_topk"),
+}
+
+
 def phase_slice(card: str, device: str = "cuda") -> dict:
     import torch
 
     from anime_recommendations_tpu_torch.config import Config
+    from anime_recommendations_tpu_torch.ops import _kernels
     from anime_recommendations_tpu_torch.pipeline.runner import context_from_store, store_root
 
     latencies = {}
     with tempfile.TemporaryDirectory() as tmp:
         _write_store(store_root(Config(), tmp))
-        for dtype in ("f32", "bf16"):
+        for label, (dtype, topk_kwargs, kernel) in CONTEXTS.items():
             cfg = Config().with_overrides([f"similarity.retrieval_dtype={dtype}"])
+            before = _kernels.launches["l2_normalize"]
             t0 = time.perf_counter()
-            ctx = context_from_store(cfg, tmp, device=device)
+            ctx = context_from_store(cfg, tmp, device=device, topk_kwargs=topk_kwargs)
             if ctx.device.type == "cuda":
                 torch.cuda.synchronize()
-            print(f"[phase 3] {dtype} context built on {ctx.device} in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-            latencies[dtype] = _drive_endpoints(ctx, cfg, dtype)
-            print(f"[phase 3] {dtype} endpoint latency ms (median, host clock; {card}): "
-                  + json.dumps(latencies[dtype]), flush=True)
+            normalized = _kernels.launches["l2_normalize"] - before
+            if ctx.device.type == "cuda" and normalized != 2:
+                raise AssertionError(f"{label}: the context build launched l2_normalize "
+                                     f"{normalized} times, not twice")
+            print(f"[phase 3] {label} context built on {ctx.device} in "
+                  f"{time.perf_counter() - t0:.1f} s ({normalized} l2_normalize launches)",
+                  flush=True)
+            latencies[label] = _drive_endpoints(ctx, cfg, label, kernel)
+            print(f"[phase 3] {label} endpoint latency ms (median, host clock; {card}): "
+                  + json.dumps(latencies[label]), flush=True)
+            del ctx
     return latencies
 
 
@@ -754,11 +1009,16 @@ def main() -> int:
     from anime_recommendations_tpu_torch.ops import _kernels
 
     rows = phase_kernels(card)
+    new_rows = phase_new_kernels(card)
     _kernels.launches.clear()
     phase_slice(card)
     serving_launches = dict(_kernels.launches)
-    if serving_launches.get("packed_topk", 0) < 1:
-        raise AssertionError("the serving path never launched packed_topk")
+    print(f"[phase 3] launches on the serving path: {json.dumps(serving_launches)}", flush=True)
+    for name in ("packed_topk", "packed_topk_int8", "exact_topk"):
+        if serving_launches.get(name, 0) < 1:
+            raise AssertionError(f"the serving path never launched {name}")
+    if serving_launches.get("l2_normalize", 0) != 2 * len(CONTEXTS):
+        raise AssertionError("the context builds did not launch l2_normalize twice each")
     adam_rows = phase_adam(card)
     _kernels.launches.clear()
     trained = phase_train(card)
@@ -775,6 +1035,22 @@ def main() -> int:
         "ms": ref["stage1_ms"],
         "plain_ms": ref["stage1_plain_ms"],
     }]
+    for name, case, replaces in (
+        ("packed_topk_int8", "users_int8_q1_exclude", "anime_recommendations_tpu/ops/topk.py:219"),
+        ("exact_topk", "users_f32_q1_exclude", "anime_recommendations_tpu/ops/topk.py:84"),
+        ("l2_normalize", "users_f32_to_f32", "anime_recommendations_tpu/ops/normalize.py:20"),
+    ):
+        ref = next(r for r in new_rows[name] if r["case"] == case)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"anime_recommendations_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": serving_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in new_rows[name]),
+            "ms": ref["ms"],
+            "plain_ms": ref["plain_ms"],
+        })
     for label, optimizer, sr in (("f32 moments", "fused_adam", False),
                                  ("bf16 moments, stochastic rounding", "fused_adam_bf16m", True)):
         cases = [r for r in adam_rows if r["sr"] == sr]

@@ -24,6 +24,8 @@ MODULES = [
     "anime_recommendations_tpu_torch.recommend.model_recs",
     "anime_recommendations_tpu_torch.recommend.user_prefs",
     "anime_recommendations_tpu_torch.recommend.user_recs",
+    "anime_recommendations_tpu_torch.ops.normalize",
+    "anime_recommendations_tpu_torch.ops.quantized",
     "anime_recommendations_tpu_torch.train.trainer",
     "anime_recommendations_tpu_torch.train.fused",
     "anime_recommendations_tpu_torch.train.device_loop",

@@ -4,7 +4,10 @@ Both RecContexts are built from the same numpy parameters and the conftest
 frames. Every recommender's frame and every Engine method's JSON must be
 equal, floats within 1e-5 (1e-2 for bf16 retrieval tables); one request
 goes through the port's HTTP server, and the CLI serves a run from an
-artifact store written by the JAX package's ArtifactStore.
+artifact store written by the JAX package's ArtifactStore. The int8 context
+(similarity.retrieval_dtype=int8) and the exact-scan context (topk_kwargs
+{"exact_scan": True}) are held to the JAX contexts built the same way, with
+the same tolerance: both rescore or score in exact f32.
 """
 
 import json
@@ -43,6 +46,7 @@ from anime_recommendations_tpu_torch.data.catalog import Catalog
 from anime_recommendations_tpu_torch.data.preprocess import preprocess_ratings
 from anime_recommendations_tpu_torch.data.vocab import build_vocab, encode_frame
 from anime_recommendations_tpu_torch.models.two_tower import params_from_numpy
+from anime_recommendations_tpu_torch.ops.quantized import quantize_rows
 from anime_recommendations_tpu_torch.recommend import batch
 from anime_recommendations_tpu_torch.recommend.context import RecContext
 from anime_recommendations_tpu_torch.recommend.model_recs import model_recs
@@ -79,12 +83,13 @@ def data(ratings_frame, anime_catalog_frame, synopses_frame):
                 jax=(jvocab, jcatalog, jencode_frame(jclean, jvocab)))
 
 
-def build_both(data, dtype=None):
+def build_both(data, dtype=None, topk_kwargs=None):
     params, bn = jax_params(data["arrays"])
     jctx = JRecContext.build(params, bn, *data["jax"],
-                             retrieval_dtype=None if dtype is None else jnp.bfloat16)
+                             retrieval_dtype={"bf16": jnp.bfloat16}.get(dtype, dtype),
+                             topk_kwargs=topk_kwargs)
     pctx = RecContext.build(params_from_numpy(data["arrays"], "cpu"), *data["port"],
-                            device="cpu", retrieval_dtype=dtype)
+                            device="cpu", retrieval_dtype=dtype, topk_kwargs=topk_kwargs)
     return pctx, jctx
 
 
@@ -225,8 +230,19 @@ def test_bf16_context_matches_jax(data):
 def test_unported_retrieval_modes_raise(data):
     vocab, catalog, encoded = data["port"]
     model = params_from_numpy(data["arrays"], "cpu")
-    with pytest.raises(NotImplementedError, match="K2q"):
-        RecContext.build(model, vocab, catalog, encoded, device="cpu", retrieval_dtype="int8")
+    # int8 is ported: f32 rows in logical order for the queries, and scan
+    # handles holding the int8 quantization of the shuffled f32 rows.
+    ctx = RecContext.build(model, vocab, catalog, encoded, device="cpu", retrieval_dtype="int8")
+    assert ctx.anime_norm.dtype == ctx.user_norm.dtype == torch.float32
+    for norm, scan, qt in ((ctx.anime_norm, ctx.anime_scan, ctx.anime_qt),
+                           (ctx.user_norm, ctx.user_scan, ctx.user_qt)):
+        assert scan.table is qt and qt.q.dtype == torch.int8
+        assert torch.equal(qt.f32, norm[scan.perm])
+        assert torch.equal(qt.q, quantize_rows(norm[scan.perm]).q)
+    exact_int8 = RecContext.build(model, vocab, catalog, encoded, device="cpu",
+                                  retrieval_dtype="i8", topk_kwargs={"exact_scan": True})
+    with pytest.raises(ValueError, match="float-table mode"):
+        similar_anime(exact_int8, catalog.anime["Name"].iloc[5], count=3)
     with pytest.raises(NotImplementedError, match="ivf"):
         RecContext.build(model, vocab, catalog, encoded, device="cpu", ann="ivf")
     with pytest.raises(ValueError):
@@ -251,14 +267,10 @@ def test_http_server_answers_like_jax_engine(ctxs):
     assert_json_close(body, JEngine(jctx, JConfig()).model_recs(uid, k=5))
 
 
-def test_cli_serves_a_run_from_the_jax_artifact_store(
-        data, ctxs, anime_catalog_frame, synopses_frame, tmp_path, capsys):
-    from anime_recommendations_tpu_torch.pipeline.runner import context_from_store
-
+def write_jax_store(data, anime_catalog_frame, synopses_frame, tmp_path):
+    """What the JAX pipeline's ingest, preprocess and train steps log."""
     arrays, clean, (vocab, _, _) = data["arrays"], data["clean"], data["port"]
-    cfg = Config()
-    # What the JAX pipeline's ingest, preprocess and train steps log.
-    store = ArtifactStore(tmp_path / cfg.main.project_name / "artifacts")
+    store = ArtifactStore(tmp_path / Config().main.project_name / "artifacts")
     params, bn = jax_params(arrays)
     model_path = jsave_model(tmp_path / "anime_nn_model", params, bn)
     vocab.save(tmp_path / "vocab.json")
@@ -268,6 +280,13 @@ def test_cli_serves_a_run_from_the_jax_artifact_store(
     store.log_frame("all_anime.csv", anime_catalog_frame, filename="all_anime.csv")
     store.log_frame("synopses.csv", synopses_frame, filename="synopses.csv")
 
+
+def test_cli_serves_a_run_from_the_jax_artifact_store(
+        data, ctxs, anime_catalog_frame, synopses_frame, tmp_path, capsys):
+    from anime_recommendations_tpu_torch.pipeline.runner import context_from_store
+
+    cfg = Config()
+    write_jax_store(data, anime_catalog_frame, synopses_frame, tmp_path)
     ctx = context_from_store(cfg, tmp_path, device="cpu")
     uid = users_of(ctx, 4)[0]
     want, _ = model_recs(ctx, uid, n_recs=5)
@@ -323,3 +342,92 @@ def test_port_data_modules_match_jax(data):
         kw = dict(start_lr=1e-5, max_lr=5e-5, min_lr=1e-5, rampup_epochs=5,
                   sustain_epochs=2, exp_decay=0.8)
         assert lr_for_epoch(epoch, **kw) == jlr_for_epoch(epoch, **kw)
+
+
+# ---- the int8 context and the exact-scan context --------------------------------
+
+RETRIEVAL_MODES = {"int8": dict(dtype="int8"), "exact_scan": dict(topk_kwargs={"exact_scan": True})}
+
+
+@pytest.fixture(scope="module", params=sorted(RETRIEVAL_MODES))
+def mode_ctxs(request, data):
+    """(port, JAX) contexts built the same way: an int8 context (its scans
+    through ops/quantized.py) or an f32 one whose scans are exact."""
+    return build_both(data, **RETRIEVAL_MODES[request.param])
+
+
+def test_retrieval_mode_similar_anime_matches_jax(mode_ctxs):
+    pctx, jctx = mode_ctxs
+    for pos in (5, 17):
+        name = pctx.catalog.anime["Name"].iloc[pos]
+        for call in SIMILAR_ANIME_CALLS.values():
+            got, want = similar_anime(pctx, name, **call), j_similar_anime(jctx, name, **call)
+            frames_equal(got[0], want[0])
+            assert got[1:] == want[1:] and len(got[0]) > 0
+
+
+def test_retrieval_mode_similar_users_and_user_recs_match_jax(mode_ctxs):
+    pctx, jctx = mode_ctxs
+    for uid in users_of(pctx, 0, 7, 30):
+        got = similar_users(pctx, uid, n_users=6, num_faves=2, TV_only=True)
+        want = j_similar_users(jctx, uid, n_users=6, num_faves=2, TV_only=True)
+        frames_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+        sim = got[0]["similar_users"].to_numpy()
+        frames_equal(user_recs(pctx, uid, sim, n=10)[0], j_user_recs(jctx, uid, sim, n=10)[0])
+
+
+def test_retrieval_mode_model_recs_matches_jax(mode_ctxs):
+    pctx, jctx = mode_ctxs
+    for uid in users_of(pctx, 4, 40):
+        for call in MODEL_RECS_CALLS.values():
+            got, want = model_recs(pctx, uid, **call), j_model_recs(jctx, uid, **call)
+            frames_equal(got[0], want[0])
+            assert got[1] == want[1]
+
+
+def test_retrieval_mode_batch_entry_points_match_jax(mode_ctxs):
+    pctx, jctx = mode_ctxs
+    names = list(pctx.catalog.anime["Name"].iloc[[1, 2, 40]])
+    uids = users_of(pctx, 1, 2, 9, 50)
+    assert_json_close(batch.similar_anime_batch(pctx, names, count=6),
+                      jbatch.similar_anime_batch(jctx, names, count=6))
+    assert_json_close(batch.model_recs_batch(pctx, uids, n_recs=5, types=["TV"]),
+                      jbatch.model_recs_batch(jctx, uids, n_recs=5, types=["TV"]))
+    assert_json_close(batch.similar_users_batch(pctx, uids, n_users=4),
+                      jbatch.similar_users_batch(jctx, uids, n_users=4))
+
+
+def test_retrieval_mode_engine_methods_match_jax(mode_ctxs):
+    pctx, jctx = mode_ctxs
+    port, ref = Engine(pctx, Config()), JEngine(jctx, JConfig())
+    for method, (args, kw) in engine_calls(pctx).items():
+        name = method.removesuffix("_types")
+        assert_json_close(getattr(port, name)(*args, **kw), getattr(ref, name)(*args, **kw))
+
+
+@pytest.mark.parametrize("mode", sorted(RETRIEVAL_MODES))
+def test_retrieval_mode_context_from_store(mode, data, ctxs, anime_catalog_frame,
+                                           synopses_frame, tmp_path, capsys):
+    """The int8 context through the config key, as the CLI builds it; the
+    exact-scan context through context_from_store's topk_kwargs."""
+    from anime_recommendations_tpu_torch.pipeline.runner import context_from_store
+
+    write_jax_store(data, anime_catalog_frame, synopses_frame, tmp_path)
+    sets = ["similarity.retrieval_dtype=int8"] if mode == "int8" else []
+    kw = RETRIEVAL_MODES[mode].get("topk_kwargs")
+    ctx = context_from_store(Config().with_overrides(sets), tmp_path, device="cpu",
+                             topk_kwargs=kw)
+    assert ctx.topk_kwargs == (kw or {}) and (ctx.anime_qt is not None) == (mode == "int8")
+    uid = users_of(ctx, 4)[0]
+    want, _ = model_recs(ctx, uid, n_recs=5)
+    # The same rows and (exact f32) values as the f32 context's two-stage
+    # scan (the CSV round trip changes only column dtypes).
+    ref = model_recs(ctxs[0], uid, n_recs=5)[0]
+    assert want["Name"].tolist() == ref["Name"].tolist()
+    np.testing.assert_allclose(want["Prediction"], ref["Prediction"], atol=1e-5, rtol=0)
+    if mode == "int8":
+        flags = [a for s in sets for a in ("--set", s)]
+        assert cli.main(["model-recs", str(uid), "-k", "5", "--run-dir", str(tmp_path),
+                         "--device", "cpu", *flags]) == 0
+        assert capsys.readouterr().out.strip() == want.to_string().strip()

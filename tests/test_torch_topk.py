@@ -288,5 +288,14 @@ def test_top_r_policy_and_unported_tables():
     assert topk.top_r_policy(600, 17_560) == 70   # the cover rule
     assert topk.top_r_policy(10, 120) == 65        # one group: cover + 1
     assert topk.top_r_policy(5, 1536, 30) == 30
-    with pytest.raises(NotImplementedError, match="K2q"):
+    with pytest.raises(NotImplementedError, match="IVF"):
         topk.cosine_topk(object(), torch.zeros(4), 3)
+    # int8 tables are ported: a QuantizedTable, bare or shuffled, scans.
+    from anime_recommendations_tpu_torch.ops.quantized import quantize_rows
+
+    w = table(700, seed=16)
+    want = oracle(w, w[[3]], 5)
+    for t in (quantize_rows(torch.from_numpy(w)),
+              topk.shuffle_rows(torch.from_numpy(w), seed=2)._replace(
+                  table=quantize_rows(torch.from_numpy(w[np.random.default_rng(2).permutation(700)])))):
+        assert_same_topk(topk.cosine_topk(t, torch.from_numpy(w[3]), 5), want, true_scores(w, w[[3]]))

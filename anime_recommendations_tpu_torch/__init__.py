@@ -5,16 +5,21 @@ imports torch and never jax, and nothing of the JAX package. Layers,
 mirroring the JAX package:
 
   config, data, utils — copies of the JAX package's framework-free modules
-  models    — two-tower model (nn.Module), eval-mode head, normalized tables
-  train     — .npz parameter I/O shared with the JAX package
+  models    — two-tower model (nn.Module), train and eval heads, loss,
+              normalized tables
+  train     — dense Adam, fused Adam (pipelined, with the in-kernel
+              next-batch gather) and LazyAdam; the Trainer and device-
+              resident epochs; the convergence harness; .npz parameter I/O
+              shared with the JAX package
   ops       — masked top-k (two-stage, int8, exact scan), row
-              normalization and fused sparse Adam; each kernel is
-              hand-written for Hopper (csrc/*.cu) with a plain torch
-              version beside it
+              normalization and fused sparse Adam (with the gather); each
+              kernel is hand-written for Hopper (csrc/*.cu) with a plain
+              torch version beside it
   recommend — retrieval context and the five recommenders + batch entry points
-  pipeline  — a serving context from the JAX pipeline's artifact store
+  pipeline  — artifact store, ingest / preprocess / train steps, a serving
+              context from a run's store
   serve     — in-process Engine + stdlib HTTP JSON API
-  cli       — serve / query a trained run
+  cli       — ingest / preprocess / train, serve / query a run
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,10 @@
 // Fused sparse-gradient scatter + L2 decay + Adam update (ops/fused_adam.py),
-// hand-written for Hopper.
+// hand-written for Hopper, and its variant that also gathers the next
+// batch's rows out of the updated table.
 //
 // Replaces: anime_recommendations_tpu/ops/fused_adam.py::_fused_adam_kernel
-// with its stochastic rounding _sr_store (bf16 moments).
+// with its stochastic rounding _sr_store (bf16 moments) -> fused_adam, and
+// ::_fused_adam_gather_kernel -> fused_adam_gather.
 //
 // What it computes, for a table W [n, d] f32 and moments mu, nu [n, d] (f32,
 // or bf16 when they are stored in half the bytes), given the batch's row ids
@@ -13,6 +15,8 @@
 //   mu'    = b1*mu + (1-b1)*g ;  nu' = b2*nu + (1-b2)*g*g   (f32 math)
 //   W'     = W - lr*(mu'/bc1)/(sqrt(nu'/bc2) + eps)       (in place)
 //   sumsq  = sum of W^2 before the update, one partial per block
+// fused_adam_gather also writes rows_out[p] = W'[next_id] for every next-
+// batch id, at the id's own position p (rows of ids outside [0, n) are 0).
 // Every operation is an explicitly rounded f32 intrinsic, in the order the
 // plain torch version (_sparse_adam_update_plain) applies its tensor ops, so
 // the two agree bit for bit wherever their dscat sums agree.
@@ -27,6 +31,8 @@
 // Bound on the H100: memory. One call reads and writes W, mu and nu once
 // (6 x 46.9 MB for the 91,641 x 128 f32 user table; 4 x 46.9 MB with bf16
 // moments) plus the batch's gradient rows, and does ~20 flops per element.
+// The gather adds only its output (5.1 MB for 10,000 next rows of 128): the
+// rows are copied out of the block the update just wrote, which is in L1/L2.
 //
 // Design, right and simple first:
 //   * one block per 32 table rows, 256 threads; a thread owns one float4
@@ -37,9 +43,19 @@
 //     sums its columns over the run in sorted order, 8 loads in flight: no
 //     float atomics, so the result is deterministic;
 //   * the table is not padded: every read and write is bounded at row n, and
-//     ids outside [0, n) lie outside every block's slice.
+//     ids outside [0, n) lie outside every block's slice;
+//   * the update is one device function (adam_block) that both kernels run,
+//     so fused_adam_gather's tables equal fused_adam's bit for bit;
+//   * the gather: after a __syncthreads() the block's own updated rows are
+//     visible to all its threads; one warp copies one next row (float4 per
+//     lane) from W' to its original position, from the wrapper's stable
+//     argsort of the next ids ([gstarts[b], gstarts[b+1]) is the block's
+//     slice), so no un-sort follows. A block reads only rows it updated
+//     itself: another block's rows may not be updated yet. Next ids outside
+//     [0, n) sort before gstarts[0] or after gstarts[nb]; the first and the
+//     last block write their zero rows.
 // Ways to make it faster are for later: cp.async/TMA staging of the W, mu,
-// nu tiles, and more bytes in flight per thread.
+// nu tiles, more bytes in flight per thread, and a split of hot rows' runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,12 +139,15 @@ __device__ __forceinline__ int lower_bound(const int32_t* ids, int lo, int hi, i
   return lo;
 }
 
+// The update of block blockIdx.x's rows [row0, min(row0 + 32, n)) and its
+// sumsq partial. Ends after a __syncthreads() that follows every W' store.
 template <typename M>
-__global__ void __launch_bounds__(kThreads)
-fused_adam_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restrict__ nu,
-                  const int32_t* __restrict__ ids, const float* __restrict__ grads,
-                  const int32_t* __restrict__ starts, float* __restrict__ partials,
-                  int n, int d, Scalars s, int sr, uint32_t step) {
+__device__ __forceinline__ void adam_block(float* __restrict__ w, M* __restrict__ mu,
+                                           M* __restrict__ nu, const int32_t* __restrict__ ids,
+                                           const float* __restrict__ grads,
+                                           const int32_t* __restrict__ starts,
+                                           float* __restrict__ partials, int n, int d,
+                                           const Scalars& s, int sr, uint32_t step) {
   __shared__ int run_lo[kRows];
   __shared__ int run_hi[kRows];
   __shared__ float warp_sums[kWarps];
@@ -204,6 +223,59 @@ fused_adam_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restrict__ nu,
   }
 }
 
+template <typename M>
+__global__ void __launch_bounds__(kThreads)
+fused_adam_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restrict__ nu,
+                  const int32_t* __restrict__ ids, const float* __restrict__ grads,
+                  const int32_t* __restrict__ starts, float* __restrict__ partials,
+                  int n, int d, Scalars s, int sr, uint32_t step) {
+  adam_block<M>(w, mu, nu, ids, grads, starts, partials, n, d, s, sr, step);
+}
+
+// Copies d floats (d % 4 == 0), one float4 per lane of a warp, or zeros them
+// when src is null.
+__device__ __forceinline__ void warp_copy_row(float* dst, const float* src, int d, int lane) {
+  for (int c = lane * 4; c < d; c += 128) {
+    const float4 v = src ? *reinterpret_cast<const float4*>(src + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + c) = v;
+  }
+}
+
+template <typename M>
+__global__ void __launch_bounds__(kThreads)
+fused_adam_gather_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restrict__ nu,
+                         const int32_t* __restrict__ ids, const float* __restrict__ grads,
+                         const int32_t* __restrict__ starts, float* __restrict__ partials,
+                         const int32_t* __restrict__ nids, const int32_t* __restrict__ norder,
+                         const int32_t* __restrict__ gstarts, float* __restrict__ rows_out,
+                         int n_next, int n, int d, Scalars s, int sr, uint32_t step) {
+  adam_block<M>(w, mu, nu, ids, grads, starts, partials, n, d, s, sr, step);
+  // Read after write: every W' store of this block precedes the barrier, so
+  // the plain (coherent, not __ldg) loads below see the updated rows.
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g_lo = gstarts[blockIdx.x];
+  const int g_hi = gstarts[blockIdx.x + 1];
+  for (int j = g_lo + warp; j < g_hi; j += kWarps)
+    warp_copy_row(rows_out + (size_t)norder[j] * d, w + (size_t)nids[j] * d, d, lane);
+  // Next ids below 0 sort before gstarts[0], ids >= n after gstarts[nb].
+  if (blockIdx.x == 0)
+    for (int j = warp; j < g_lo; j += kWarps)
+      warp_copy_row(rows_out + (size_t)norder[j] * d, nullptr, d, lane);
+  if (blockIdx.x == gridDim.x - 1)
+    for (int j = gstarts[gridDim.x] + warp; j < n_next; j += kWarps)
+      warp_copy_row(rows_out + (size_t)norder[j] * d, nullptr, d, lane);
+}
+
+int check_args(int n, int d, int block_rows, int moment_dtype) {
+  if (n <= 0 || d <= 0 || d % 4 != 0 || block_rows != kRows ||
+      (moment_dtype != 0 && moment_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 // moment_dtype: 0 = float32, 1 = bfloat16 (mu and nu share it). ids (int32
@@ -221,9 +293,7 @@ extern "C" int fused_adam(float* w, void* mu, void* nu, int moment_dtype,
                           int block_rows, float lr, float bc1, float bc2, float eps,
                           float l2, float b1, float b2, int sr, unsigned int step,
                           void* stream) {
-  if (n <= 0 || d <= 0 || d % 4 != 0 || block_rows != kRows ||
-      (moment_dtype != 0 && moment_dtype != 1))
-    return (int)cudaErrorInvalidValue;
+  if (const int err = check_args(n, d, block_rows, moment_dtype)) return err;
   const Scalars s{lr, bc1, bc2, eps, l2, b1, b2};
   const dim3 grid((n + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -235,5 +305,36 @@ extern "C" int fused_adam(float* w, void* mu, void* nu, int moment_dtype,
     fused_adam_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         w, static_cast<__nv_bfloat16*>(mu), static_cast<__nv_bfloat16*>(nu), ids,
         grads, starts, partials, n, d, s, sr, step);
+  return (int)cudaGetLastError();
+}
+
+// fused_adam, plus rows_out (f32 [n_next, d], 16-byte aligned) = W'[next id]
+// for each next id. nids (int32 [n_next]) are the next ids sorted ascending,
+// norder (int32 [n_next]) the original position of each (a stable argsort),
+// gstarts (int32 [nb + 1]) where each block's rows begin in nids, over the
+// same bounds as starts. Rows of next ids outside [0, n) are written as 0.
+// nids and norder may be null when n_next = 0.
+extern "C" int fused_adam_gather(float* w, void* mu, void* nu, int moment_dtype,
+                                 const int32_t* ids, const float* grads,
+                                 const int32_t* starts, float* partials,
+                                 const int32_t* nids, const int32_t* norder,
+                                 const int32_t* gstarts, float* rows_out, int n_next,
+                                 int n, int d, int block_rows, float lr, float bc1,
+                                 float bc2, float eps, float l2, float b1, float b2, int sr,
+                                 unsigned int step, void* stream) {
+  if (const int err = check_args(n, d, block_rows, moment_dtype)) return err;
+  if (n_next < 0) return (int)cudaErrorInvalidValue;
+  const Scalars s{lr, bc1, bc2, eps, l2, b1, b2};
+  const dim3 grid((n + kRows - 1) / kRows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (moment_dtype == 0)
+    fused_adam_gather_kernel<float><<<grid, kThreads, 0, st>>>(
+        w, static_cast<float*>(mu), static_cast<float*>(nu), ids, grads, starts,
+        partials, nids, norder, gstarts, rows_out, n_next, n, d, s, 0, step);
+  else
+    fused_adam_gather_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        w, static_cast<__nv_bfloat16*>(mu), static_cast<__nv_bfloat16*>(nu), ids,
+        grads, starts, partials, nids, norder, gstarts, rows_out, n_next, n, d, s, sr,
+        step);
   return (int)cudaGetLastError();
 }

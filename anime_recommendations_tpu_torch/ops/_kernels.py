@@ -48,7 +48,14 @@ SIGNATURES = {
     # lr, bc1, bc2, eps, l2, b1, b2, sr, step, stream
     "fused_adam": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                    _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
+    # the same, then nids, norder, gstarts, rows_out, n_next before n
+    "fused_adam_gather": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
 }
+# Entry points defined in another source than csrc/<name>.cu.
+ENTRY_SOURCE = {"fused_adam_gather": "fused_adam"}
+# The sources to build: csrc/<source>.cu for each.
+SOURCES = tuple(dict.fromkeys(ENTRY_SOURCE.get(name, name) for name in SIGNATURES))
 
 launches: Counter = Counter()
 _launches_lock = threading.Lock()  # the HTTP server launches from many threads
@@ -96,12 +103,15 @@ def build(name: str) -> Path:
 
 
 @functools.cache
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build(name)))
-    fn = getattr(lib, name)
-    fn.argtypes = list(SIGNATURES[name])
-    fn.restype = ctypes.c_int
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu``, built on first call, with
+    the C signatures of its entry points set."""
+    lib = ctypes.CDLL(str(build(source)))
+    for name, argtypes in SIGNATURES.items():
+        if ENTRY_SOURCE.get(name, name) == source:
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -1,8 +1,9 @@
 """Fused sparse-gradient scatter + L2 decay + Adam update of one table.
 
 Counterpart of anime_recommendations_tpu/ops/fused_adam.py::sparse_adam_update
-(K1, ``_fused_adam_kernel`` with its stochastic rounding ``_sr_store``).
-One call does, in one pass over the table:
+(K1, ``_fused_adam_kernel`` with its stochastic rounding ``_sr_store``; with
+``next_ids``, K5, ``_fused_adam_gather_kernel``). One call does, in one pass
+over the table:
 
     dscat  = zeros_like(w).index_add(ids, g_rows)      # rows outside [0, n) dropped
     g      = dscat + 2*l2*w
@@ -10,20 +11,33 @@ One call does, in one pass over the table:
     w'     = w - lr * (mu'/bc1) / (sqrt(nu'/bc2) + eps)
     sumsq  = sum(w^2)                                   # before the update
 
-with bc1 = 1 - b1^step and bc2 = 1 - b2^step. W, mu and nu are updated IN
-PLACE (the port's tables are mutable; nothing else holds the old values) and
-returned. The moments are f32, or bf16 for ``fused_adam_bf16m``, whose stores
-round stochastically (module-level ``sr_random_bits``).
+with bc1 = 1 - b1^step and bc2 = 1 - b2^step, and with ``next_ids`` also
 
-On a CUDA tensor this launches csrc/fused_adam.cu; on a CPU tensor it runs
-``_sparse_adam_update_plain``, the same function in torch ops. There is no
-fallback between them.
+    rows   = w'[next_ids]                               # zero rows outside [0, n)
+
+the rows the next training step consumes, in next_ids' order, each a copy
+(never a view of the table, which the next step updates in place); the table
+outputs are those of the call without ``next_ids``, bit for bit.
+
+W, mu and nu are updated IN PLACE (the port's tables are mutable; nothing
+else holds the old values) and returned. The moments are f32, or bf16 for
+``fused_adam_bf16m``, whose stores round stochastically (module-level
+``sr_random_bits``). The gathered rows add 5.1 MB of writes at 10,000 next
+ids of 128, and no table read: they are copied out of the block just updated.
+
+On a CUDA tensor this launches csrc/fused_adam.cu (``fused_adam``, or
+``fused_adam_gather`` with ``next_ids``); on a CPU tensor it runs
+``_sparse_adam_update_plain`` (then ``_gather_rows_plain``), the same
+function in torch ops. There is no fallback between them.
 
 Host-side preparation, on the tensors' device: a stable argsort of the batch
 ids, the gradient rows gathered into that order, and (for the kernel) the
 block starts from ``searchsorted`` over bounds clamped to n. Unlike the TPU
 kernel, nothing is padded: the kernel searches each block's own slice of the
-sorted ids, so it needs no chunk-aligned tail.
+sorted ids, so it needs no chunk-aligned tail. With ``next_ids``: their
+stable argsort, the sorted next ids and, for the kernel, their block starts
+over the same bounds; the kernel writes each row to its id's original
+position, so the JAX package's un-sort of the gathered rows is not needed.
 
 Precision: both ``precision`` values give an exact f32 scatter (a plain sum
 of the run of equal ids, in sorted order). The TPU's ``"fast"`` mode split
@@ -119,21 +133,20 @@ def sparse_adam_update(
     stochastic_rounding: bool | None = None,
     next_ids: torch.Tensor | None = None,
     dense_grad: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    order: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
     """One fused sparse-Adam step (module docstring). Returns (w, mu, nu,
-    sumsq of w before the update), the first three being the inputs, updated.
+    sumsq of w before the update), the first three being the inputs, updated;
+    with ``next_ids`` ([B2] int) also rows = w'[next_ids], [B2, D] f32.
 
     ``stochastic_rounding``: None rounds bf16 moments stochastically, False
     to nearest; f32 moments are stored as they are. ``step`` and ``lr`` are
     host numbers: the scalars go to the kernel by value, with no device sync.
     """
-    if next_ids is not None:
+    if dense_grad is not None or order is not None:
         raise NotImplementedError(
-            "next_ids (the K5 gather kernel) is not ported yet: ROADMAP.md Queue 2 K5")
-    if dense_grad is not None:
-        raise NotImplementedError(
-            "dense_grad (the routed multi-chip path) is not ported yet: "
-            "ROADMAP.md Queue 1 parallel/")
+            "dense_grad and order (the routed multi-chip path; dense_grad alone or "
+            "with next_ids) are not ported yet: ROADMAP.md Queue 1 parallel/")
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if w.dim() != 2 or w.dtype != torch.float32:
@@ -150,8 +163,13 @@ def sparse_adam_update(
         raise TypeError(f"sparse_adam_update: ids must be integers, got {ids.dtype}")
     if step < 1:
         raise ValueError(f"sparse_adam_update: step must be >= 1, got {step}")
-    for name, t in (("mu", mu), ("nu", nu), ("ids", ids), ("g_rows", g_rows)):
-        if t.device != w.device:
+    if next_ids is not None and (next_ids.dim() != 1 or next_ids.is_floating_point()
+                                 or next_ids.is_complex()):
+        raise TypeError(f"sparse_adam_update: next_ids must be [B2] integers, got "
+                        f"{next_ids.dtype} {tuple(next_ids.shape)}")
+    operands = (("mu", mu), ("nu", nu), ("ids", ids), ("g_rows", g_rows), ("next_ids", next_ids))
+    for name, t in operands:
+        if t is not None and t.device != w.device:
             raise ValueError(f"sparse_adam_update: {name} is on {t.device}, w on {w.device}")
     sr = mu.dtype == torch.bfloat16 and stochastic_rounding is not False
     order = torch.argsort(ids, stable=True)
@@ -159,10 +177,15 @@ def sparse_adam_update(
     g_s = g_rows[order].float()
     scal = adam_scalars(int(step), float(lr), float(l2), b1, b2, eps)
     if w.device.type == "cpu":
-        return _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal, int(step), sr)
+        out = _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal, int(step), sr)
+        return out if next_ids is None else out + (_gather_rows_plain(w, next_ids),)
     if w.device.type != "cuda":
         raise ValueError(f"sparse_adam_update: unsupported device {w.device}")
-    return _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal, int(step), sr)
+    gather = None
+    if next_ids is not None:
+        norder = torch.argsort(next_ids, stable=True)
+        gather = (next_ids[norder].to(torch.int32), norder.to(torch.int32))
+    return _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal, int(step), sr, gather)
 
 
 def _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int,
@@ -194,14 +217,26 @@ def _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: in
     return w, mu, nu, sumsq
 
 
+def _gather_rows_plain(w: torch.Tensor, next_ids: torch.Tensor) -> torch.Tensor:
+    """K5's gather in plain torch ops: w[next_ids] as a new [B2, D] tensor,
+    with zero rows for ids outside [0, n)."""
+    keep = (next_ids >= 0) & (next_ids < w.shape[0])
+    rows = torch.zeros(next_ids.shape[0], w.shape[1], dtype=w.dtype, device=w.device)
+    rows[keep] = w[next_ids[keep].long()]
+    return rows
+
+
 def _check_cuda_operand(name: str, t: torch.Tensor, align: int) -> None:
     if not t.is_contiguous() or t.data_ptr() % align:
         raise ValueError(f"fused_adam: {name} must be contiguous and {align}-byte aligned")
 
 
 def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int,
-                             sr: bool):
-    """Launch csrc/fused_adam.cu on PyTorch's current stream."""
+                             sr: bool, gather=None):
+    """Launch csrc/fused_adam.cu on PyTorch's current stream: ``fused_adam``,
+    or with ``gather`` = (sorted next ids, their original positions), both
+    int32, ``fused_adam_gather``, whose gathered rows come last in the
+    result."""
     n, d = w.shape
     if d % 4:
         raise ValueError(f"fused_adam: needs D % 4 == 0, got D={d}")
@@ -217,12 +252,23 @@ def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int
         torch.arange(nb + 1, dtype=torch.int32, device=w.device) * BLOCK_ROWS, n)
     starts = torch.searchsorted(ids_s, bounds, out_int32=True)
     partials = torch.empty(nb, dtype=torch.float32, device=w.device)
-    err = _kernels.library("fused_adam").fused_adam(
-        w.data_ptr(), mu.data_ptr(), nu.data_ptr(), _MOMENT_CODES[mu.dtype],
-        ids_s.data_ptr(), g_s.data_ptr(), starts.data_ptr(), partials.data_ptr(),
-        n, d, BLOCK_ROWS, *scal, int(sr), step & 0xFFFFFFFF,
-        ctypes.c_void_p(torch.cuda.current_stream(w.device).cuda_stream),
-    )
-    _kernels.check(err, "fused_adam")
-    _kernels.count_launch("fused_adam")
-    return w, mu, nu, torch.sum(partials)
+    lib = _kernels.library("fused_adam")
+    head = (w.data_ptr(), mu.data_ptr(), nu.data_ptr(), _MOMENT_CODES[mu.dtype],
+            ids_s.data_ptr(), g_s.data_ptr(), starts.data_ptr(), partials.data_ptr())
+    tail = (n, d, BLOCK_ROWS, *scal, int(sr), step & 0xFFFFFFFF,
+            ctypes.c_void_p(torch.cuda.current_stream(w.device).cuda_stream))
+    if gather is None:
+        name, rows = "fused_adam", ()
+        err = lib.fused_adam(*head, *tail)
+    else:
+        nids_s, norder = gather
+        if nids_s.shape[0] >= 2**31:
+            raise ValueError("fused_adam_gather: the next batch must fit int32")
+        gstarts = torch.searchsorted(nids_s, bounds, out_int32=True)
+        out = torch.empty(nids_s.shape[0], d, dtype=torch.float32, device=w.device)
+        name, rows = "fused_adam_gather", (out,)
+        err = lib.fused_adam_gather(*head, nids_s.data_ptr(), norder.data_ptr(),
+                                    gstarts.data_ptr(), out.data_ptr(), nids_s.shape[0], *tail)
+    _kernels.check(err, name)
+    _kernels.count_launch(name)
+    return (w, mu, nu, torch.sum(partials)) + rows

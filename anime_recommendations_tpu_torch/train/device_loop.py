@@ -9,7 +9,9 @@ weight on the device: there is no host sync until the epoch ends.
 
 On the TPU an epoch is one launched program (lax.scan). Here it is a Python
 loop of steps with no sync in it; capturing it in a CUDA graph is later work
-(ROADMAP.md).
+(ROADMAP.md). The fused optimizers run the JAX scan's software pipeline
+(``_fused_epoch``): each step consumes rows gathered at the end of the one
+before and gathers the next batch's rows from the tables it just updated.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
 from anime_recommendations_tpu_torch.models.two_tower import BNState, TwoTower
 from anime_recommendations_tpu_torch.train.trainer import (
     FUSED_OPTIMIZERS,
+    OPTIMIZERS,
     TrainState,
     eval_step,
     train_step,
@@ -97,36 +100,65 @@ def train_epoch(
     optimizer: str = "adam",
 ) -> tuple[TrainState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One epoch on the device. Returns (state, losses[nb], mses[nb],
-    wsums[nb]), all on the device."""
-    if optimizer not in ("adam",) + FUSED_OPTIMIZERS:
-        if optimizer == "lazy_adam":
-            raise NotImplementedError(
-                "optimizer='lazy_adam' is not ported yet: ROADMAP.md Queue 1 train/lazy.py")
+    wsums[nb]), all on the device. ``optimizer="lazy_adam"`` takes the
+    row-sparse step of train/lazy.py, whose losses exclude the L2 term."""
+    if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}")
     nb = data.n // batch_size
     if shuffle:
         data = granule_shuffle(data, generator)
-
-    def sl(x, i):
-        return x[i * batch_size:(i + 1) * batch_size]
-
-    # The JAX scan software-pipelines the fused step's row gather (K5); in
-    # eager torch gathering at the start of a step is the same work, so the
-    # fused loop calls the plain step. The bf16m variant is the same code:
-    # the state's moment dtype selects the storage.
+    wsums = data.weights[:nb * batch_size].view(nb, batch_size).sum(dim=1)
     if optimizer in FUSED_OPTIMIZERS:
-        from anime_recommendations_tpu_torch.train.fused import fused_train_step as step_fn
+        # The bf16m variant is the same code: the state's moment dtype
+        # selects the storage.
+        state, losses, mses = _fused_epoch(state, data, lr, batch_size, l2_reg_factor)
+        return state, losses, mses, wsums
+    if optimizer == "lazy_adam":
+        from anime_recommendations_tpu_torch.train.lazy import lazy_train_step as step_fn
     else:
         step_fn = train_step
     losses, mses = [], []
     for i in range(nb):
         state, loss, mse = step_fn(
-            state, sl(data.users, i), sl(data.anime, i), sl(data.ratings, i),
-            sl(data.weights, i), lr, l2_reg_factor)
+            state, _batch(data.users, i, batch_size), _batch(data.anime, i, batch_size),
+            _batch(data.ratings, i, batch_size), _batch(data.weights, i, batch_size),
+            lr, l2_reg_factor)
         losses.append(loss)
         mses.append(mse)
-    wsums = data.weights[:nb * batch_size].view(nb, batch_size).sum(dim=1)
     return state, torch.stack(losses), torch.stack(mses), wsums
+
+
+def _batch(x: torch.Tensor, i: int, batch_size: int) -> torch.Tensor:
+    return x[i * batch_size:(i + 1) * batch_size]
+
+
+def _fused_epoch(state: TrainState, data: DeviceData, lr: float, batch_size: int,
+                 l2_reg_factor: float, kernel_gather: bool = False,
+                 ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
+    """The fused optimizers' epoch over ``data`` as it is (no shuffle), the
+    JAX scan's software pipeline: a prologue gathers batch 0's rows, then
+    step i consumes the rows step i-1 gathered and gathers batch (i+1) % nb's
+    (the last step's wrap to batch 0 is discarded). ``kernel_gather``: the
+    gather runs inside the update kernel (K5) instead of after it; train_epoch
+    passes False, as the JAX device loop does. Returns (state, losses[nb],
+    mses[nb])."""
+    from anime_recommendations_tpu_torch.train.fused import fused_train_step_pipelined
+
+    nb = data.n // batch_size
+    users = [_batch(data.users, i, batch_size) for i in range(nb)]
+    anime = [_batch(data.anime, i, batch_size) for i in range(nb)]
+    u_rows = state.model.user_emb.detach()[users[0]]
+    a_rows = state.model.anime_emb.detach()[anime[0]]
+    losses, mses = [], []
+    for i in range(nb):
+        nxt = (i + 1) % nb
+        state, loss, mse, u_rows, a_rows = fused_train_step_pipelined(
+            state, u_rows, a_rows, users[i], anime[i], _batch(data.ratings, i, batch_size),
+            _batch(data.weights, i, batch_size), users[nxt], anime[nxt], lr, l2_reg_factor,
+            kernel_gather=kernel_gather)
+        losses.append(loss)
+        mses.append(mse)
+    return state, torch.stack(losses), torch.stack(mses)
 
 
 @torch.no_grad()

@@ -32,7 +32,9 @@ from anime_recommendations_tpu_torch.train.trainer import (
 
 
 def _fused_step(state: TrainState, u_rows, a_rows, users, anime, ratings, weights,
-                lr: float, l2_reg_factor: float):
+                lr: float, l2_reg_factor: float, next_users=None, next_anime=None):
+    """The step on gathered rows. With next ids, each table's update also
+    returns w'[next ids] (K5); the result then ends in those two rows."""
     model, adam = state.model, state.adam
     u_rows = u_rows.detach().requires_grad_()
     a_rows = a_rows.detach().requires_grad_()
@@ -42,12 +44,14 @@ def _fused_step(state: TrainState, u_rows, a_rows, users, anime, ratings, weight
     d_u, d_a, *d_head = torch.autograd.grad(data_loss, (u_rows, a_rows, *head_params))
     t = adam.count + 1
     with torch.no_grad():
-        sumsq = []
-        for k, ids, grad in (("user_emb", users, d_u), ("anime_emb", anime, d_a)):
-            *_, s = sparse_adam_update(
+        sumsq, next_rows = [], []
+        for k, ids, grad, nxt in (("user_emb", users, d_u, next_users),
+                                  ("anime_emb", anime, d_a, next_anime)):
+            _, _, _, s, *rows = sparse_adam_update(
                 getattr(model, k).detach(), adam.mu[k], adam.nu[k], ids, grad, t, lr,
-                l2=l2_reg_factor, b1=B1, b2=B2, eps=KERAS_ADAM_EPS)
+                l2=l2_reg_factor, b1=B1, b2=B2, eps=KERAS_ADAM_EPS, next_ids=nxt)
             sumsq.append(s)
+            next_rows += rows
         loss = data_loss.detach() + l2_reg_factor * (sumsq[0] + sumsq[1])
         bc1, bc2 = bias_corrections(t)
         for k, g in zip(HEAD_KEYS, d_head):
@@ -56,7 +60,7 @@ def _fused_step(state: TrainState, u_rows, a_rows, users, anime, ratings, weight
             getattr(model, k).copy_(p)
         _keep_bn(model, new_bn)
     adam.count = t
-    return state, loss, mse.detach()
+    return (state, loss, mse.detach(), *next_rows)
 
 
 def fused_train_step(
@@ -94,16 +98,18 @@ def fused_train_step_pipelined(
     kernel_gather: bool = False,
 ) -> tuple[TrainState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """fused_train_step on rows gathered at the end of the previous step,
-    returning the rows the next step consumes (gathered from the updated
-    tables). The result is the same as fused_train_step's; the loop shape
-    is the JAX device loop's, kept as the interface K5 will fill. The
-    port's device loop calls fused_train_step: in eager torch the gather
-    costs the same at either end of a step. Returns (state, loss, mse,
-    next_u_rows, next_a_rows)."""
+    returning the rows the next step consumes, gathered from the updated
+    tables: the JAX device loop's software pipeline. The result is the same
+    as fused_train_step's.
+
+    ``kernel_gather=True`` gathers those rows inside the update kernel (K5,
+    ``sparse_adam_update(next_ids=...)``), out of each table block it has
+    just updated; False gathers them with torch indexing after the update.
+    Both give copies, never views of the tables, and equal rows bit for bit.
+    Returns (state, loss, mse, next_u_rows, next_a_rows)."""
     if kernel_gather:
-        raise NotImplementedError(
-            "kernel_gather=True needs the K5 gather kernel, not ported yet: "
-            "ROADMAP.md Queue 2 K5")
+        return _fused_step(state, u_rows, a_rows, users, anime, ratings, weights, lr,
+                           l2_reg_factor, next_users, next_anime)
     state, loss, mse = _fused_step(state, u_rows, a_rows, users, anime, ratings,
                                    weights, lr, l2_reg_factor)
     model = state.model

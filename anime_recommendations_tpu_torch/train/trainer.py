@@ -208,8 +208,8 @@ class Trainer:
     device_loop: bool = False
     # "adam" = dense Keras-parity Adam; "fused_adam" = the same semantics
     # through the K1 kernel per table (train/fused.py); "fused_adam_bf16m" =
-    # fused_adam with bf16 table moments, stochastically rounded.
-    # "lazy_adam" is not ported yet.
+    # fused_adam with bf16 table moments, stochastically rounded;
+    # "lazy_adam" = row-sparse Adam on the batch's rows only (train/lazy.py).
     optimizer: str = "adam"
     merge: str = "cosine"
     device: str | torch.device = "cuda"
@@ -218,12 +218,10 @@ class Trainer:
         if self.optimizer not in OPTIMIZERS:
             raise ValueError(
                 f"unknown optimizer {self.optimizer!r}: choose 'adam' (exact Keras "
-                "parity), 'fused_adam' (same semantics, one kernel pass per table) "
-                "or 'fused_adam_bf16m' (bf16-stored table moments)"
+                "parity), 'fused_adam' (same semantics, one kernel pass per table), "
+                "'fused_adam_bf16m' (bf16-stored table moments) or 'lazy_adam' "
+                "(row-sparse)"
             )
-        if self.optimizer == "lazy_adam":
-            raise NotImplementedError(
-                "optimizer='lazy_adam' is not ported yet: ROADMAP.md Queue 1 train/lazy.py")
         if self.merge not in MERGES:
             raise ValueError(f"unknown merge {self.merge!r}")
         if self.merge != "cosine" and (self.device_loop or self.optimizer != "adam"):
@@ -241,6 +239,11 @@ class Trainer:
 
     def _train_step(self, state, batch, lr):
         users, anime, ratings, weights = batch
+        if self.optimizer == "lazy_adam":
+            from anime_recommendations_tpu_torch.train.lazy import lazy_train_step
+
+            return lazy_train_step(state, users, anime, ratings, weights, lr,
+                                   self.l2_reg_factor)
         if self.optimizer in FUSED_OPTIMIZERS:
             from anime_recommendations_tpu_torch.train.fused import fused_train_step
 

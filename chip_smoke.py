@@ -36,32 +36,55 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            scanning endpoint must launch its context's scan kernel
            (packed_topk, packed_topk_int8 or exact_topk), and every context
            build l2_normalize twice (the anime and the user table).
-  phase 4  the fused sparse-Adam kernel against its plain PyTorch version on
-           the card at the training shapes: the 91,641 x 128 user table and
-           the 17,560 x 128 anime table (neither a multiple of the 32-row
-           block), a 10,000-row batch of the synthetic ratings' ids (their
-           real skew), a case with every id the same, f32 moments and bf16
-           moments with stochastic rounding. Rows the batch hits at most once
-           must match bit for bit (W', mu', nu'), hot rows within the stated
-           tolerances, and the bf16 stores must round the other way than
-           round-to-nearest about a quarter of the time. The kernel's device
-           time and its plain version's (torch.profiler, 20 calls after
-           warm-up), bytes moved / time against 3.35 TB/s, and each call's
-           CUDA-event time.
+  phase 4  the fused sparse-Adam kernel (K1) and its variant that also
+           gathers the next batch's rows (K5) against their plain PyTorch
+           versions on the card at the training shapes: the 91,641 x 128
+           user table and the 17,560 x 128 anime table (neither a multiple
+           of the 32-row block), a 10,000-row batch of the synthetic
+           ratings' ids (their real skew), a case with every id the same, f32
+           moments and bf16 moments with stochastic rounding. K1: rows the
+           batch hits at most once must match bit for bit (W', mu', nu'), hot
+           rows within the stated tolerances, and the bf16 stores must round
+           the other way than round-to-nearest about a quarter of the time.
+           K5, with the next 10,000-row batch's ids as next ids (duplicates
+           among them) and a few ids outside the table: its tables and sumsq
+           must equal K1's on the same inputs bit for bit, its rows equal
+           W'[next_ids] exactly (zero outside), and both are held to the
+           plain version as K1 is. Each kernel's device time and its plain
+           version's (torch.profiler, 20 calls after warm-up), bytes moved /
+           time against 3.35 TB/s, and each call's CUDA-event time.
   phase 5  training end to end at full width: PipelineRunner.step_train on
            phase 3's store, 2 epochs of 297 batches of 10,000 rows, once per
-           optimizer (adam, fused_adam, fused_adam_bf16m; one seed, the
-           device loop). Launch counters are reset before it: each fused step
-           must launch the kernel twice. The fused histories must track the
-           dense one, the bf16m state must hold bf16 table moments, and the
-           trained store must serve every endpoint through the HTTP server
-           in agreement with the dense oracle. Then one more timed epoch per
-           optimizer gives ms per step and examples per second, and 10 steps
-           under torch.profiler the device-busy time; the idle share is
-           given under the profiler and against the timed epoch's ms/step.
+           optimizer (adam, lazy_adam, fused_adam, fused_adam_bf16m; one
+           seed, the device loop, whose fused epochs are the software-
+           pipelined loop). Launch counters are reset before it: each fused
+           step must launch K1 twice, adam and lazy_adam never. The fused
+           histories must track the dense one, lazy_adam's training loss must
+           fall from epoch 1 to 2, the bf16m state must hold bf16 table
+           moments, and the trained store must serve every endpoint through
+           the HTTP server in agreement with the dense oracle. Then one more
+           timed epoch per optimizer gives ms per step and examples per
+           second, and 10 steps under torch.profiler the device-busy time;
+           the idle share is given under the profiler and against the timed
+           epoch's ms/step.
+  phase 6  K5 on the training path at full width: one epoch (297 steps of
+           10,000) of the pipelined fused loop with the gather inside the
+           kernel (kernel_gather=True) and one with the gather after it, from
+           the same state and the same shuffle, for fused_adam and
+           fused_adam_bf16m. Counters are reset before each: the first must
+           launch fused_adam_gather 594 times and fused_adam never, the second
+           the reverse; losses, mses and the final tables and moments must be
+           equal bit for bit. ms/step, profiled device time and idle share as
+           in phase 5. Then the convergence harness at its CI scale on the
+           card for every optimizer: adam, fused_adam and fused_adam_bf16m
+           must meet tests/test_convergence.py's thresholds, lazy_adam's best
+           validation MSE must fall below its first epoch's.
 
-The last lines are the card line, a JSON line of kernel results, and
-{"ok": true, "device": {...}}.
+The last lines are the card line, a JSON line of kernel results (each
+kernel's launches on its path, largest error against its plain version, its
+time, the plain version's, the least time the card could take for the work
+at 3.35 TB/s and the data sheet's peak rates, and one PyTorch call's time
+where one computes the same function), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -88,8 +111,12 @@ N_USERS, N_ANIME, N_RATINGS, D = 91_641, 17_560, 3_000_000, 128
 SEED = 7
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+# Peak operations per second by type (H100 SXM data sheet, dense): f32
+# outside the tensor cores, int8 (tensor cores).
+PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
 BATCH = 10_000
 TRAIN_EPOCHS = 2
+DEVICE = "cuda"   # of the training phases (4 to 6)
 
 
 # ---- phase 1 -------------------------------------------------------------------
@@ -112,7 +139,7 @@ def phase_device() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False   # the exact stages are f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = list(_kernels.SIGNATURES)
+    names = list(_kernels.SOURCES)
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc process per source
         list(pool.map(_kernels.build, names))
     for name in names:
@@ -150,6 +177,28 @@ def _oracle_topk(table, queries, k, mask=None, exclude=None, head=None):
         rows = torch.arange(table.shape[0], device=table.device)
         s = s.masked_fill(rows[None, :] == exclude[:, None], -torch.inf)
     return s.topk(k, dim=1)
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes of the given tensors (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _scan_bound(table_bytes, queries, mask, exclude, out_bytes, n, d, kind="f32") -> dict:
+    """_bound of one stage-1 or exact scan: the table, the queries, mask and
+    exclude read once, the candidates written once, 2 n d Q operations."""
+    return _bound(table_bytes + _nbytes(queries, mask, exclude) + out_bytes,
+                  2 * n * d * queries.shape[0], kind)
+
+
+def _bound(bytes_moved: float, ops: float, kind: str = "f32") -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over 3.35 TB/s
+    and its operations over the peak rate of their type."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def _median_ms(fn) -> float:
@@ -274,6 +323,7 @@ def _check_case(card, name, table, queries, k, *, mask=None, exclude=None, head=
                k=k, top_r=r, max_abs_err=err, key_err=key_err, overlap=overlap,
                stage1_ms=ms, stage1_plain_ms=plain_ms, masked_topk_ms=full_ms,
                masked_topk_plain_ms=full_plain_ms)
+    row |= _scan_bound(_nbytes(table), qt, mask, exclude, _nbytes(kk), *table.shape)
     print("[phase 2] " + json.dumps(row), flush=True)
     return row
 
@@ -388,6 +438,11 @@ def _normalize_case(card, name, emb, out_dtype) -> dict:
                    "l2_normalize_kernel")
     row["bytes_moved"] = emb.numel() * (4 + got.element_size())
     row["hbm_share"] = row["bytes_moved"] / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    row |= _bound(row["bytes_moved"], 3 * emb.numel())   # square, add; multiply
+    # One PyTorch call of the same function, f32 out: F.normalize clamps the
+    # norm, K4 the squared norm, so its eps is the square root of K4's.
+    row["library_ms"] = (_profiled(lambda: torch.nn.functional.normalize(emb, dim=1, eps=eps ** 0.5))
+                         ["device_ms"] if out_dtype == torch.float32 else None)
     print("[phase 2] " + json.dumps(row), flush=True)
     return row
 
@@ -443,6 +498,8 @@ def _int8_case(card, name, qt, queries, k, *, mask=None, exclude=None, head=None
     # The table (int8 rows and f32 row scales) is read once per 8-query tile.
     row["bytes_read"] = (qt.q.numel() + 4 * n) * -(-queries.shape[0] // 8)
     row["hbm_share"] = row["bytes_read"] / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    row |= _scan_bound(_nbytes(qt.q, qt.scale, q_scale), q_int, mask, exclude, _nbytes(kk),
+                       *qt.q.shape, kind="int8")
     print("[phase 2] " + json.dumps(row), flush=True)
     return row
 
@@ -476,6 +533,9 @@ def _exact_case(card, name, table, queries, k, *, mask=None, exclude=None, head=
                    "exact_topk_kernel")
     row["bytes_read"] = table.numel() * table.element_size() * -(-queries.shape[0] // 8)
     row["hbm_share"] = row["bytes_read"] / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    n_chunks, kc = -(-table.shape[0] // 512), min(k, 512)
+    row |= _scan_bound(_nbytes(table), tq, mask, exclude, n_chunks * kc * tq.shape[0] * 8,
+                       *table.shape)
     print("[phase 2] " + json.dumps(row), flush=True)
     return row
 
@@ -749,6 +809,10 @@ def phase_slice(card: str, device: str = "cuda") -> dict:
 # ---- phase 4 -------------------------------------------------------------------
 
 ADAM_STEP, ADAM_LR, ADAM_L2 = 3, 1e-3, 1e-4
+# f32 operations per table element of one fused Adam update: the decay (2),
+# the two moments (7), the update (5), the weight (2), the sumsq (2); the
+# scatter adds one per gradient element on top.
+ADAM_OPS = 18
 
 
 def _ulp_bf16(x):
@@ -759,12 +823,34 @@ def _ulp_bf16(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - 8)
 
 
+def _hot_row_tol(c32, bf16_moment: bool):
+    """How far a fused-Adam output may lie from its plain version on rows the
+    batch hits more than once, where the plain version sums the gradients
+    with index_add_'s atomics in another order: 1e-5 of the tensor's largest
+    entry (that f32 sum-order error), and for a bf16 moment one bf16 ulp on
+    top (two different f32 values may round to neighbouring bf16 values;
+    where mu' = b1 mu + (1 - b1) g nearly cancels, the f32 error alone can
+    exceed an ulp of the tiny result, so an ulp alone is no sound bound)."""
+    tol = 1e-5 * float(c32.abs().max())
+    return _ulp_bf16(c32) + tol if bf16_moment else tol
+
+
+def _beyond_ulp(label: str, diff, c32) -> dict:
+    """The bf16 moment's elements more than one ulp from the plain version
+    (only the 1e-5-of-scale term of _hot_row_tol admits them) and the
+    largest |plain value| among them."""
+    beyond = diff > _ulp_bf16(c32)
+    largest = float(c32[beyond].abs().max()) if bool(beyond.any()) else 0.0
+    return {f"{label}_beyond_one_ulp": int(beyond.sum()),
+            f"{label}_beyond_one_ulp_largest_value": largest}
+
+
 def _adam_case(card, name, n, ids_np, dtype, seed):
     import torch
 
     from anime_recommendations_tpu_torch.ops import _kernels, fused_adam
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     b = ids_np.shape[0]
     w = torch.from_numpy(rng.uniform(-0.05, 0.05, (n, D)).astype(np.float32)).to(dev)
@@ -808,12 +894,11 @@ def _adam_case(card, name, n, ids_np, dtype, seed):
             raise AssertionError(
                 f"{name}: {label}' differs from the plain version on "
                 f"{int((a[once] != c[once]).sum())} elements of rows hit at most once")
-        if label != "w" and sr:
-            if bool((diff > _ulp_bf16(c32)).any()):
-                raise AssertionError(f"{name}: {label}' differs by more than one bf16 ulp")
-        elif not row[f"{label}_err_vs_scale"] <= 1e-5:
+        if bool((diff > _hot_row_tol(c32, label != "w" and sr)).any()):
             raise AssertionError(f"{name}: {label}' differs from the plain version by "
                                  f"{row[f'{label}_err_vs_scale']} of its scale")
+        if label != "w" and sr:
+            row |= _beyond_ulp(label, diff, c32)
     if sr:
         # Stochastic, not to nearest: about a quarter of the stores round the
         # other way than round-to-nearest would.
@@ -852,72 +937,202 @@ def _adam_case(card, name, n, ids_np, dtype, seed):
     row["bytes_moved"] = moved
     row["hbm_share"] = moved / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
     row["plain_hbm_share"] = moved / (row["plain_ms"] * 1e-3) / HBM_BYTES_PER_S
+    row |= _bound(moved, ADAM_OPS * n * D + b * D)
     print("[phase 4] " + json.dumps(row), flush=True)
     return row
 
 
-def phase_adam(card: str) -> list[dict]:
+def _gather_case(card, name, n, ids_np, next_np, dtype, seed):
+    """K5 at the training shapes: against K1 on the same inputs (tables and
+    sumsq bit for bit), against W'[next_ids] (exact), and against its plain
+    version (K1's plain version, then the plain gather)."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels, fused_adam
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    b, b2 = ids_np.shape[0], next_np.shape[0]
+    w = torch.from_numpy(rng.uniform(-0.05, 0.05, (n, D)).astype(np.float32)).to(dev)
+    mu = torch.from_numpy((rng.standard_normal((n, D)) * 1e-3).astype(np.float32)).to(dev, dtype)
+    nu = torch.from_numpy(((rng.standard_normal((n, D)) * 1e-3) ** 2).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy((rng.standard_normal((b, D)) * 1e-3).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    nids = torch.from_numpy(next_np.astype(np.int32)).to(dev)
+    sr = dtype == torch.bfloat16
+    k1 = [x.clone() for x in (w, mu, nu)]
+    plain = [x.clone() for x in (w, mu, nu)]
+    order = torch.argsort(ids, stable=True)
+    ids_s, g_s = ids[order], g[order]
+    norder = torch.argsort(nids, stable=True)
+    gather = (nids[norder], norder.to(torch.int32))
+    scal = fused_adam.adam_scalars(ADAM_STEP, ADAM_LR, ADAM_L2, 0.9, 0.999, 1e-7)
+
+    before = dict(_kernels.launches)
+    got = fused_adam.sparse_adam_update(w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2,
+                                        next_ids=nids)
+    if (_kernels.launches["fused_adam_gather"] != before.get("fused_adam_gather", 0) + 1
+            or _kernels.launches["fused_adam"] != before.get("fused_adam", 0)):
+        raise AssertionError(f"{name}: sparse_adam_update(next_ids=...) did not launch K5 alone")
+    ref = fused_adam.sparse_adam_update(*k1, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2)
+    want = fused_adam._sparse_adam_update_plain(*plain, ids_s, g_s, scal, ADAM_STEP, sr)
+    want_rows = fused_adam._gather_rows_plain(want[0], nids)
+    torch.cuda.synchronize()
+    for label, a, c in zip(("w", "mu", "nu", "sumsq"), got[:4], ref):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{name}: {label}' is not bit-equal to K1's on the same inputs")
+    inside = (nids >= 0) & (nids < n)
+    rows = got[4]
+    if rows.shape != (b2, D) or not torch.equal(rows[inside], w[nids[inside].long()]):
+        raise AssertionError(f"{name}: the gathered rows are not W'[next_ids]")
+    if bool(rows[~inside].any()):
+        raise AssertionError(f"{name}: a next id outside the table got a nonzero row")
+    if rows.untyped_storage().data_ptr() == w.untyped_storage().data_ptr():
+        raise AssertionError(f"{name}: the gathered rows alias the table")
+    row = dict(card=card, case=name, n=n, batch=b, next_ids=b2,
+               distinct_next_ids=int(np.unique(next_np).size),
+               next_ids_outside=int((~inside).sum()), moments=str(dtype), sr=sr,
+               tables_bit_equal_to_k1=True, rows_equal_w_next=True)
+    # Against the plain version: the tolerances of _adam_case's hot rows.
+    max_abs = 0.0
+    for label, a, c in zip(("w", "mu", "nu", "rows"), got[:3] + (rows,), want[:3] + (want_rows,)):
+        a32, c32 = a.float(), c.float()
+        diff = (a32 - c32).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        row[f"{label}_max_abs_err"] = float(diff.max())
+        if bool((diff > _hot_row_tol(c32, label in ("mu", "nu") and sr)).any()):
+            raise AssertionError(f"{name}: {label} differs from the plain version by "
+                                 f"{float(diff.max())}")
+        if label in ("mu", "nu") and sr:
+            row |= _beyond_ulp(label, diff, c32)
+    row["max_abs_err"] = max_abs
+
+    m_bytes = 2 if sr else 4
+    moved = (2 * n * D * 4 + 4 * n * D * m_bytes + b * D * 4 + b * 4
+             + b2 * 4 * 2 + b2 * D * 4)   # + sorted next ids, their order, the rows
+    row |= _timing(lambda: fused_adam._sparse_adam_update_cuda(
+                       w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr, gather),
+                   lambda: (fused_adam._sparse_adam_update_plain(
+                       *plain, ids_s, g_s, scal, ADAM_STEP, sr),
+                       fused_adam._gather_rows_plain(plain[0], nids)),
+                   "fused_adam_gather_kernel")
+    # K1 alone on the same inputs, in the same call: what the gather adds.
+    row["k1_ms"] = _profiled(lambda: fused_adam._sparse_adam_update_cuda(
+        *k1, ids_s, g_s, scal, ADAM_STEP, sr), match="fused_adam_kernel")["match_ms"]
+    row["with_sort_event_ms"] = _median_ms(lambda: fused_adam.sparse_adam_update(
+        w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2, next_ids=nids))
+    row["bytes_moved"] = moved
+    row["hbm_share"] = moved / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    row |= _bound(moved, ADAM_OPS * n * D + b * D)
+    print("[phase 4] " + json.dumps(row), flush=True)
+    return row
+
+
+def _adam_cases():
+    """(name, table rows, batch ids, moment dtype) of phase 4."""
     import torch
 
     train, _ = _train_split()
     users, anime = train.users[:BATCH], train.anime[:BATCH]
     hot_user = np.bincount(users).argmax()
-    rows = []
-    for i, (name, n, ids, dtype) in enumerate((
+    return (
         ("users_f32", N_USERS, users, torch.float32),
         ("anime_f32", N_ANIME, anime, torch.float32),
         ("users_bf16_sr", N_USERS, users, torch.bfloat16),
         ("anime_bf16_sr", N_ANIME, anime, torch.bfloat16),
         ("users_f32_one_id", N_USERS, np.full(BATCH, hot_user), torch.float32),
         ("users_bf16_sr_one_id", N_USERS, np.full(BATCH, hot_user), torch.bfloat16),
-    )):
-        rows.append(_adam_case(card, name, n, ids, dtype, SEED + i))
-    return rows
+    )
+
+
+def _next_ids(name: str, n: int) -> np.ndarray:
+    """The next batch's ids of a phase-4 case: the training data's next
+    10,000 ids of its table (skewed: duplicates among them; all on one row
+    for a one-id case), 8 of them replaced by ids outside [0, n)."""
+    train, _ = _train_split()
+    ids = (train.users if name.startswith("users") else train.anime)[BATCH:2 * BATCH].copy()
+    if "one_id" in name:
+        ids[:] = np.bincount(ids).argmax()
+    ids[np.arange(8) * (BATCH // 8) + 5] = [-1, n, n + 17, -(2 ** 20), 2 ** 30, -5, n + 31, n]
+    return ids
+
+
+def phase_adam(card: str) -> tuple[list[dict], list[dict]]:
+    """K1's cases, then K5's on the same tables and batches."""
+    cases = _adam_cases()
+    rows = [_adam_case(card, name, n, ids, dtype, SEED + i)
+            for i, (name, n, ids, dtype) in enumerate(cases)]
+    gather_rows = [_gather_case(card, name, n, ids, _next_ids(name, n), dtype, SEED + 20 + i)
+                   for i, (name, n, ids, dtype) in enumerate(cases)]
+    return rows, gather_rows
 
 
 # ---- phase 5 -------------------------------------------------------------------
 
-OPTIMIZERS = ("adam", "fused_adam", "fused_adam_bf16m")
+OPTIMIZERS = ("adam", "lazy_adam", "fused_adam", "fused_adam_bf16m")
+FUSED = ("fused_adam", "fused_adam_bf16m")
+
+
+def _fresh_state(optimizer: str):
+    """The optimizer's initial state at full width, from SEED, on the card."""
+    import torch
+
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    _, vocab, _, _ = _dataset()
+    state = tr.init_train_state(vocab.n_users, vocab.n_anime, D,
+                                generator=torch.Generator().manual_seed(SEED), device=DEVICE)
+    if optimizer == "fused_adam_bf16m":
+        state = tr.cast_table_moments(state, torch.bfloat16)
+    return state
+
+
+def _host_timed(fn):
+    """(fn(), seconds) on the host clock between two synchronizes."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _step_profile(window_fn, steps: int, ms_per_step: float) -> dict:
+    """``window_fn`` runs ``steps`` training steps: their device time under
+    torch.profiler, per step. The profiler slows the host, so the idle share
+    under it overstates the timed epoch's: both are given, the second
+    against the unprofiled ms/step."""
+    prof = _profiled(window_fn, reps=1)
+    per_step = {"wall_ms": prof["wall_ms"] / steps, "device_ms": prof["device_ms"] / steps,
+                "by_kernel": {k: v / steps for k, v in prof["by_kernel"].items()}}
+    return dict(profiled_step=per_step, idle_share_profiled=prof["idle_share"],
+                idle_share_timed=1 - per_step["device_ms"] / ms_per_step)
 
 
 def _timed_epoch(optimizer: str) -> dict:
     """One more epoch of the device loop from a fresh state, timed with the
-    host clock between two synchronizes."""
+    host clock between two synchronizes; then 10 steps (the first 10
+    batches, unshuffled) under torch.profiler."""
     import torch
 
     from anime_recommendations_tpu_torch.train import device_loop as dl
-    from anime_recommendations_tpu_torch.train import trainer as tr
 
     train, _ = _train_split()
-    _, vocab, _, _ = _dataset()
-    state = tr.init_train_state(vocab.n_users, vocab.n_anime, D,
-                                generator=torch.Generator().manual_seed(SEED), device="cuda")
-    if optimizer == "fused_adam_bf16m":
-        state = tr.cast_table_moments(state, torch.bfloat16)
-    data = dl.stage(train, BATCH, seed=SEED, device="cuda")
+    state = _fresh_state(optimizer)
+    data = dl.stage(train, BATCH, seed=SEED, device=DEVICE)
     steps = data.n // BATCH
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, losses, _, _ = dl.train_epoch(state, data, torch.Generator().manual_seed(SEED), 1e-5,
-                                     BATCH, 1e-4, optimizer=optimizer)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    (_, losses, _, _), seconds = _host_timed(lambda: dl.train_epoch(
+        state, data, torch.Generator().manual_seed(SEED), 1e-5, BATCH, 1e-4,
+        optimizer=optimizer))
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"{optimizer}: non-finite loss in the timed epoch")
-    # Where a step's time goes: 10 steps (the first 10 batches, unshuffled)
-    # under torch.profiler, per step.
     window = dl.DeviceData(*(x[:10 * BATCH] for x in data))
-    prof = _profiled(lambda: dl.train_epoch(state, window, None, 1e-5, BATCH, 1e-4,
-                                            shuffle=False, optimizer=optimizer), reps=1)
-    per_step = {"wall_ms": prof["wall_ms"] / 10, "device_ms": prof["device_ms"] / 10,
-                "by_kernel": {k: v / 10 for k, v in prof["by_kernel"].items()}}
     ms_per_step = seconds * 1e3 / steps
-    # The profiler slows the host, so the idle share under it overstates the
-    # timed epoch's: both are given, the second from the unprofiled ms/step.
-    return dict(steps=steps, ms_per_step=ms_per_step,
-                examples_per_sec=len(train) / seconds, profiled_step=per_step,
-                idle_share_profiled=prof["idle_share"],
-                idle_share_timed=1 - per_step["device_ms"] / ms_per_step)
+    return dict(steps=steps, ms_per_step=ms_per_step, examples_per_sec=len(train) / seconds,
+                **_step_profile(lambda: dl.train_epoch(state, window, None, 1e-5, BATCH, 1e-4,
+                                                       shuffle=False, optimizer=optimizer),
+                                10, ms_per_step))
 
 
 def _history_gap(hist, ref) -> dict:
@@ -951,22 +1166,28 @@ def phase_train(card: str) -> dict:
             cfg = Config().with_overrides([
                 f"model.optimizer={optimizer}", f"model.epochs={TRAIN_EPOCHS}",
                 "model.export_weight_csvs=false", "model.device_loop=true"])
-            runner = PipelineRunner(cfg, tmp, device="cuda")
-            before = _kernels.launches["fused_adam"]
+            runner = PipelineRunner(cfg, tmp, device=DEVICE)
+            before = dict(_kernels.launches)
             t0 = time.perf_counter()
             result = runner.step_train()
             torch.cuda.synchronize()
             out["train_seconds"][optimizer] = time.perf_counter() - t0
-            launched = _kernels.launches["fused_adam"] - before
+            launched = _kernels.launches["fused_adam"] - before.get("fused_adam", 0)
             steps = steps_per_epoch * result.epochs_run
-            want = 0 if optimizer == "adam" else 2 * steps
-            if launched != want:
+            # The fused epochs run the pipelined loop with the gather after
+            # the update (train_epoch's kernel_gather=False, as in JAX): K1
+            # twice a step, K5 never.
+            want = 2 * steps if optimizer in FUSED else 0
+            if launched != want or _kernels.launches["fused_adam_gather"] != before.get(
+                    "fused_adam_gather", 0):
                 raise AssertionError(f"{optimizer}: {launched} fused_adam launches for "
-                                     f"{steps} steps, expected {want}")
+                                     f"{steps} steps, expected {want}, and no K5")
             out["launches"][optimizer] = launched
             hist = result.history
             if len(hist) != TRAIN_EPOCHS or not np.isfinite(hist.to_numpy()).all():
                 raise AssertionError(f"{optimizer}: history {hist.to_dict('list')}")
+            if optimizer == "lazy_adam" and not hist["loss"].iloc[1] < hist["loss"].iloc[0]:
+                raise AssertionError(f"lazy_adam: training loss did not fall: {hist['loss'].tolist()}")
             if optimizer == "fused_adam_bf16m":
                 moments = result.state.adam
                 if {moments.mu[k].dtype for k in ("user_emb", "anime_emb")} | {
@@ -1002,6 +1223,113 @@ def phase_train(card: str) -> dict:
     return out
 
 
+# ---- phase 6 -------------------------------------------------------------------
+
+def phase_gather(card: str) -> dict:
+    """One pipelined fused epoch with K5's gather and one without, from the
+    same state and shuffle, per fused optimizer. Returns each run's
+    launches, ms/step and device profile."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    train, _ = _train_split()
+    data = dl.granule_shuffle(dl.stage(train, BATCH, seed=SEED, device=DEVICE),
+                              torch.Generator().manual_seed(SEED))
+    steps = data.n // BATCH
+    window = dl.DeviceData(*(x[:10 * BATCH] for x in data))
+    out = {}
+    for optimizer in FUSED:
+        runs = {}
+        for kernel_gather in (True, False):
+            state = _fresh_state(optimizer)
+            _kernels.launches.clear()
+            (state, losses, mses), seconds = _host_timed(lambda: dl._fused_epoch(
+                state, data, 1e-5, BATCH, 1e-4, kernel_gather=kernel_gather))
+            launches = {k: _kernels.launches[k] for k in ("fused_adam", "fused_adam_gather")}
+            want = {"fused_adam": 0, "fused_adam_gather": 2 * steps}
+            if not kernel_gather:
+                want = {"fused_adam": 2 * steps, "fused_adam_gather": 0}
+            if launches != want:
+                raise AssertionError(f"{optimizer} kernel_gather={kernel_gather}: launches "
+                                     f"{launches}, expected {want}")
+            if not bool(torch.isfinite(losses).all()):
+                raise AssertionError(f"{optimizer} kernel_gather={kernel_gather}: non-finite loss")
+            ms_per_step = seconds * 1e3 / steps
+            runs[kernel_gather] = dict(
+                launches=launches, losses=losses, mses=mses, state=tr.train_state_to_numpy(state),
+                timing=dict(steps=steps, ms_per_step=ms_per_step, **_step_profile(
+                    lambda: dl._fused_epoch(state, window, 1e-5, BATCH, 1e-4,
+                                            kernel_gather=kernel_gather), 10, ms_per_step)))
+        a, b = runs[True], runs[False]
+        if not (torch.equal(a["losses"], b["losses"]) and torch.equal(a["mses"], b["mses"])):
+            gap = float((a["losses"] - b["losses"]).abs().max())
+            raise AssertionError(f"{optimizer}: kernel_gather changes the losses (by {gap})")
+        differ = [k for k in a["state"] if not np.array_equal(a["state"][k], b["state"][k])]
+        if differ:
+            raise AssertionError(f"{optimizer}: kernel_gather changes the state: {differ}")
+        out[optimizer] = {kg: dict(launches=r["launches"], **r["timing"])
+                          for kg, r in (("kernel_gather", a), ("gather_after", b))}
+        print(f"[phase 6] {optimizer}: an epoch of {steps} steps with K5's gather equals the "
+              f"epoch without it bit for bit (losses, mses, tables, moments); ({card}) "
+              f"{json.dumps(out[optimizer])}", flush=True)
+    return out
+
+
+# tests/test_convergence.py's thresholds at CI_SCALE.
+def _check_converged(optimizer: str, r, spec) -> None:
+    first = float(r.history["val_mse"].iloc[0])
+    checks = {
+        "history columns": list(r.history.columns) == ["loss", "mse", "val_loss", "val_mse", "lr"],
+        "trained shapes": (r.n_users_trained, r.n_anime_trained) == (spec.n_users, spec.n_anime),
+        "best < 0.6 x first val_mse": r.best_val_mse < 0.6 * first,
+        "floor > 0": r.noise_floor_mse > 0.0,
+        "floor ratio < 2.6": r.floor_ratio < 2.6,
+        "top-k overlap >= 0.40": r.topk_overlap >= 0.40,
+        "ceiling > overlap": r.arch_ceiling_overlap > r.topk_overlap,
+        "expressible overlap >= 0.40": r.expressible_overlap >= 0.40,
+        "recall >= 0.85": r.topk_recall >= 0.85,
+        "recall ceiling >= recall - 0.05": r.recall_ceiling >= r.topk_recall - 0.05,
+        "best epoch in range": 0 <= r.best_epoch < spec.epochs,
+        "best val_mse is the history's": bool(np.isclose(
+            float(r.history["val_mse"].iloc[r.best_epoch]), r.best_val_mse)),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{optimizer}: CI-scale convergence failed {failed}")
+
+
+def phase_convergence(card: str) -> dict:
+    """train/convergence.py at CI_SCALE on the card, every optimizer."""
+    import dataclasses
+
+    from anime_recommendations_tpu_torch.train.convergence import CI_SCALE, run_convergence
+
+    out = {}
+    for optimizer in OPTIMIZERS:
+        spec = dataclasses.replace(CI_SCALE, optimizer=optimizer)
+        report, seconds = _host_timed(lambda: run_convergence(spec, verbose=False, device=DEVICE))
+        summary = report.summary()
+        summary.pop("spec")
+        summary["first_val_mse"] = float(report.history["val_mse"].iloc[0])
+        summary["epochs_run"] = len(report.history)
+        summary["seconds"] = seconds
+        if not np.isfinite(np.asarray(list(summary.values()), np.float64)).all():
+            raise AssertionError(f"{optimizer}: non-finite convergence metrics {summary}")
+        if optimizer == "lazy_adam":
+            if not report.best_val_mse < summary["first_val_mse"]:
+                raise AssertionError(f"lazy_adam: best val_mse {report.best_val_mse} not below "
+                                     f"the first epoch's {summary['first_val_mse']}")
+        else:
+            _check_converged(optimizer, report, spec)
+        out[optimizer] = summary
+        print(f"[phase 6] convergence at CI scale on the card, {optimizer} ({card}): "
+              f"{json.dumps(summary)}", flush=True)
+    return out
+
+
 def main() -> int:
     card = phase_device()
     import torch
@@ -1019,11 +1347,13 @@ def main() -> int:
             raise AssertionError(f"the serving path never launched {name}")
     if serving_launches.get("l2_normalize", 0) != 2 * len(CONTEXTS):
         raise AssertionError("the context builds did not launch l2_normalize twice each")
-    adam_rows = phase_adam(card)
+    adam_rows, gather_rows = phase_adam(card)
     _kernels.launches.clear()
     trained = phase_train(card)
     if _kernels.launches["fused_adam"] < 1:
         raise AssertionError("the training path never launched fused_adam")
+    gathered = phase_gather(card)   # resets the counters before each epoch
+    phase_convergence(card)
     ref = next(r for r in rows if r["case"] == "users_f32_q1_exclude")
     kernels = [{
         "name": "packed_topk",
@@ -1034,6 +1364,9 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": ref["stage1_ms"],
         "plain_ms": ref["stage1_plain_ms"],
+        "bound_ms": ref["bound_ms"],
+        "bound_by": ref["bound_by"],
+        "library_ms": None,   # no single PyTorch call makes stage-1 candidates
     }]
     for name, case, replaces in (
         ("packed_topk_int8", "users_int8_q1_exclude", "anime_recommendations_tpu/ops/topk.py:219"),
@@ -1050,21 +1383,36 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in new_rows[name]),
             "ms": ref["ms"],
             "plain_ms": ref["plain_ms"],
+            "bound_ms": ref["bound_ms"],
+            "bound_by": ref["bound_by"],
+            # Only K4 has one PyTorch call of the same function.
+            "library_ms": ref.get("library_ms"),
         })
-    for label, optimizer, sr in (("f32 moments", "fused_adam", False),
-                                 ("bf16 moments, stochastic rounding", "fused_adam_bf16m", True)):
-        cases = [r for r in adam_rows if r["sr"] == sr]
-        users = next(r for r in cases if r["case"].startswith("users") and "one_id" not in r["case"])
-        kernels.append({
-            "name": f"fused_adam ({label})",
-            "route": "cuda",
-            "source": "anime_recommendations_tpu_torch/csrc/fused_adam.cu",
-            "replaces": "anime_recommendations_tpu/ops/fused_adam.py:71",
-            "launches": trained["launches"][optimizer],
-            "max_abs_err": max(r["max_abs_err"] for r in cases),
-            "ms": users["ms"],
-            "plain_ms": users["plain_ms"],
-        })
+    for name, replaces, case_rows, launches in (
+        ("fused_adam", "anime_recommendations_tpu/ops/fused_adam.py:71", adam_rows,
+         lambda opt: trained["launches"][opt]),
+        ("fused_adam_gather", "anime_recommendations_tpu/ops/fused_adam.py:189", gather_rows,
+         lambda opt: gathered[opt]["kernel_gather"]["launches"]["fused_adam_gather"]),
+    ):
+        for label, optimizer, sr in (("f32 moments", "fused_adam", False),
+                                     ("bf16 moments, stochastic rounding", "fused_adam_bf16m", True)):
+            cases = [r for r in case_rows if r["sr"] == sr]
+            users = next(r for r in cases
+                         if r["case"].startswith("users") and "one_id" not in r["case"])
+            kernels.append({
+                "name": f"{name} ({label})",
+                "route": "cuda",
+                "source": "anime_recommendations_tpu_torch/csrc/fused_adam.cu",
+                "replaces": replaces,
+                "launches": launches(optimizer),
+                "max_abs_err": max(r["max_abs_err"] for r in cases),
+                "ms": users["ms"],
+                "plain_ms": users["plain_ms"],
+                "bound_ms": users["bound_ms"],
+                "bound_by": users["bound_by"],
+                # A scatter-add, the Adam math and a gather: no single call.
+                "library_ms": None,
+            })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

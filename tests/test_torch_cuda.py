@@ -22,7 +22,10 @@ where a row's duplicate gradients are summed in the same order the results
 are equal; the plain version on the card sums duplicates
 with index_add_'s atomics, in another order, so W', mu' and nu' are held to
 1e-5 relative to each tensor's largest entry, bf16 moments to one bf16 ulp,
-and sumsq to 1e-5 relative.
+and sumsq to 1e-5 relative. Fused Adam with the gather (K5): the update is
+K1's device code, so its tables and sumsq equal K1's bit for bit on the same
+inputs, and its rows equal w'[next_ids] exactly (zero rows for ids outside
+the table); against the plain version as K1.
 """
 
 import numpy as np
@@ -360,3 +363,76 @@ def test_fused_train_step_on_the_card_matches_the_cpu(cuda, moments):
         atol = 3 * 1e-3 * 2.0 ** -6 if (moments == "bf16" and k in ("user_emb", "anime_emb")) else 0.0
         np.testing.assert_allclose(card[k], cpu[k], rtol=rel, atol=max(atol, 1e-4 * scale),
                                    err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16_sr"])
+@pytest.mark.parametrize("shape", [(5000, 128, 2000, False), (1000, 32, 777, False),
+                                   (1001, 16, 500, True), (20, 8, 30, False)],
+                         ids=["skewed", "ragged", "one_row", "one_block"])
+def test_fused_adam_gather_kernel_matches_k1_and_plain(cuda, dtype, shape):
+    """Next ids with duplicates and ids below 0, past n and in the ragged
+    block's padding; the table outputs against K1's on the same inputs."""
+    n, d, b, one_row = shape
+    w, mu, nu, ids, g = adam_case(cuda, n, d, b, seed=n + 1, one_row=one_row)
+    mu, nu = mu.to(dtype), nu.to(dtype)
+    rng = np.random.default_rng(n)
+    nids = np.concatenate([rng.integers(0, n, 3 * b // 4), np.full(b // 8, 7),
+                           [-1, n, n + 5, -(2 ** 20), 2 ** 30]]).astype(np.int32)
+    nids = torch.from_numpy(rng.permutation(nids)).to(cuda)
+    k1 = [x.clone() for x in (w, mu, nu)]
+    plain = [x.clone() for x in (w, mu, nu)]
+    before = dict(_kernels.launches)
+    got = fused_adam.sparse_adam_update(w, mu, nu, ids, g, 3, 1e-3, l2=1e-4, next_ids=nids)
+    assert _kernels.launches["fused_adam_gather"] == before.get("fused_adam_gather", 0) + 1
+    assert _kernels.launches["fused_adam"] == before.get("fused_adam", 0)
+    ref = fused_adam.sparse_adam_update(*k1, ids, g, 3, 1e-3, l2=1e-4)
+    torch.cuda.synchronize()
+    assert got[0] is w and len(got) == 5
+    for a, c in zip(got[:4], ref):
+        assert torch.equal(a, c)                        # K1's tables, bit for bit
+    inside = (nids >= 0) & (nids < n)
+    assert torch.equal(got[4][inside], w[nids[inside].long()])
+    assert not bool(got[4][~inside].any())
+    order = torch.argsort(ids, stable=True)
+    scal = fused_adam.adam_scalars(3, 1e-3, 1e-4, 0.9, 0.999, 1e-7)
+    want = fused_adam._sparse_adam_update_plain(*plain, ids[order], g[order], scal, 3,
+                                                dtype == torch.bfloat16)
+    want_rows = fused_adam._gather_rows_plain(want[0], nids)
+    assert_update_close(got[:4], want, dtype)
+    assert bool(((got[4] - want_rows).abs() <= 1e-5 * float(want[0].abs().max())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["f32", "bf16"])
+def test_kernel_gather_step_pair_on_the_card(cuda, moments):
+    """fused_train_step_pipelined with kernel_gather True and False from one
+    state over 3 chained steps: equal bit for bit, K5 launched twice a step."""
+    from anime_recommendations_tpu_torch.train import trainer as tr
+    from anime_recommendations_tpu_torch.train.fused import fused_train_step_pipelined
+
+    states = []
+    for _ in range(2):
+        state = tr.init_train_state(3000, 500, 128, generator=torch.Generator().manual_seed(1),
+                                    device=cuda)
+        states.append(tr.cast_table_moments(state, torch.bfloat16) if moments == "bf16" else state)
+    rng = np.random.default_rng(5)
+    batches = [[torch.from_numpy(np.asarray(c, dt)).to(cuda) for c, dt in zip(
+        (rng.zipf(1.3, 1024) % 3000, rng.zipf(1.3, 1024) % 500, rng.uniform(0, 1, 1024),
+         np.ones(1024)), (np.int32, np.int32, np.float32, np.float32))] for _ in range(4)]
+    rows = [(s.model.user_emb.detach()[batches[0][0]], s.model.anime_emb.detach()[batches[0][1]])
+            for s in states]
+    for i in range(3):
+        nxt = batches[i + 1][:2]
+        before = _kernels.launches["fused_adam_gather"]
+        outs = [fused_train_step_pipelined(s, *r, *batches[i], *nxt, 1e-3, 1e-4,
+                                           kernel_gather=kg)
+                for s, r, kg in zip(states, rows, (True, False))]
+        assert _kernels.launches["fused_adam_gather"] == before + 2
+        assert torch.equal(outs[0][1], outs[1][1]) and torch.equal(outs[0][2], outs[1][2])
+        rows = [o[3:] for o in outs]
+        for a, c in zip(*rows):
+            assert torch.equal(a, c)
+    gathered, plain = (tr.train_state_to_numpy(s) for s in states)
+    for k, v in plain.items():
+        np.testing.assert_array_equal(gathered[k], v, err_msg=k)

@@ -7,7 +7,11 @@ seeds. Tolerances: the cases of tests/test_fused_adam.py, with the port's
 exact f32 scatter held to 5e-6 against JAX ``precision="highest"`` and to
 2e-4 against ``"fast"`` (the TPU's two-pass bf16 scatter); bf16 moments
 without stochastic rounding within one bf16 ulp (2^-8 relative: the two
-scatters may differ in the last f32 bit, which flips a rounding).
+scatters may differ in the last f32 bit, which flips a rounding). With
+``next_ids`` (K5) the table outputs equal the call without it bit for bit,
+the gathered rows equal the port's own w'[next_ids] exactly (zero rows for
+ids outside the table), and they are held to JAX's with the table
+tolerances above.
 
 The stochastic rounding has its own statistical tests: every output is a
 bf16 neighbour of its f32 value, the rounding is unbiased, and an EMA of
@@ -122,16 +126,87 @@ def test_ids_outside_the_table_contribute_nothing():
 
 def test_rejects_what_it_does_not_take():
     w, mu, nu, ids, g = (torch.from_numpy(x) for x in make_case(16, 8, 4, seed=6))
-    with pytest.raises(NotImplementedError, match="K5"):
-        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, next_ids=ids)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):   # as JAX: dense_grad + next_ids
+        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, next_ids=ids, dense_grad=w)
+    with pytest.raises(TypeError):
+        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, next_ids=ids.float())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, dense_grad=w)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, order=torch.argsort(ids))
     with pytest.raises(ValueError):
         fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, precision="default")
     with pytest.raises(TypeError):
         fused_adam.sparse_adam_update(w, mu, nu.bfloat16(), ids, g, 1, 1e-3)
     with pytest.raises(ValueError):
         fused_adam.sparse_adam_update(w, mu, nu, ids, g, 0, 1e-3)
+
+
+# ---- K5: the update with the next batch's rows gathered --------------------------
+
+def gather_case(kind):
+    """test_pipelined_gather_matches_direct's case (N = 300, a ragged block of
+    64, D = 32, 128 ids, 200 next ids); ``dups_outside`` makes most next ids
+    repeat and adds ids below 0, in the ragged block's padding and past it."""
+    case = make_case(300, 32, 128, seed=4)
+    rng = np.random.default_rng(7)
+    nids = rng.integers(0, 300, 200)
+    if kind == "dups_outside":
+        nids = np.concatenate([rng.integers(0, 12, 190), [-1, 300, 310, 1000, -(2 ** 20)],
+                               nids[:5]])
+        nids = rng.permutation(nids)
+    return case, nids.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "dups_outside"])
+@pytest.mark.parametrize("precision,tol", [("highest", 5e-6), ("fast", 2e-4)])
+def test_gather_update_matches_jax(precision, tol, kind):
+    case, nids = gather_case(kind)
+    args = (3, 1e-3, 1e-4)
+    got = port_update(*case, *args, precision=precision, next_ids=torch.from_numpy(nids))
+    alone = port_update(*case, *args, precision=precision)
+    for a, b in zip(got[:4], alone):
+        np.testing.assert_array_equal(a, b)              # tables as without next_ids
+    inside = (nids >= 0) & (nids < 300)
+    want_rows = np.zeros((len(nids), 32), np.float32)
+    want_rows[inside] = got[0][nids[inside]]
+    np.testing.assert_array_equal(got[4], want_rows)     # w'[next_ids], zero outside
+    want = jax_result(*case, *args, block_rows=64, chunk=32, precision=precision,
+                      next_ids=jnp.asarray(nids))
+    for g, w in zip(got[:3] + got[4:], want[:3] + want[4:]):
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5)
+    assert not np.any(want[4][~inside])
+
+
+def test_gather_update_bf16_moments_match_jax_without_stochastic_rounding():
+    case, nids = gather_case("dups_outside")
+    kw = dict(dtype=torch.bfloat16, stochastic_rounding=False)
+    got = port_update(*case, 3, 1e-3, 1e-4, next_ids=torch.from_numpy(nids), **kw)
+    alone = port_update(*case, 3, 1e-3, 1e-4, **kw)
+    for a, b in zip(got[:4], alone):
+        np.testing.assert_array_equal(a, b)
+    want = jax_result(*case, 3, 1e-3, 1e-4, dtype=jnp.bfloat16, block_rows=64, chunk=32,
+                      precision="highest", next_ids=jnp.asarray(nids))
+    np.testing.assert_allclose(got[1], want[1], rtol=1 / 128, atol=1e-9)
+    np.testing.assert_allclose(got[2], want[2], rtol=1 / 128, atol=1e-12)
+    for g, w in ((got[0], want[0]), (got[4], want[4])):
+        np.testing.assert_allclose(g, w, rtol=5e-6, atol=5e-6)
+
+
+def test_gathered_rows_are_copies_in_next_ids_order():
+    w, mu, nu, ids, g = (torch.from_numpy(x) for x in make_case(40, 8, 16, seed=9))
+    nids = torch.tensor([39, 0, 7, 7, -3, 40, 0], dtype=torch.int32)
+    *_, rows = fused_adam.sparse_adam_update(w, mu, nu, ids, g, 2, 1e-3, next_ids=nids)
+    assert rows.shape == (7, 8) and rows.untyped_storage().data_ptr() != w.untyped_storage().data_ptr()
+    np.testing.assert_array_equal(rows[[0, 1, 2, 3, 6]].numpy(), w[[39, 0, 7, 7, 0]].numpy())
+    assert not rows[[4, 5]].any()
+    before = w.clone()
+    rows += 1.0                                          # writing them leaves the table alone
+    assert torch.equal(w, before)
+    empty = fused_adam.sparse_adam_update(w, mu, nu, ids, g, 3, 1e-3,
+                                          next_ids=torch.zeros(0, dtype=torch.int64))
+    assert empty[4].shape == (0, 8)
 
 
 # ---- stochastic rounding --------------------------------------------------------

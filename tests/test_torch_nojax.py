@@ -30,6 +30,8 @@ MODULES = [
     "anime_recommendations_tpu_torch.train.fused",
     "anime_recommendations_tpu_torch.train.device_loop",
     "anime_recommendations_tpu_torch.train.checkpoint",
+    "anime_recommendations_tpu_torch.train.lazy",
+    "anime_recommendations_tpu_torch.train.convergence",
     "anime_recommendations_tpu_torch.data.ingest",
 ]
 

@@ -36,6 +36,9 @@ from anime_recommendations_tpu.pipeline.artifacts import ArtifactStore as JStore
 from anime_recommendations_tpu.train import device_loop as jdl
 from anime_recommendations_tpu.train import trainer as jtr
 from anime_recommendations_tpu.train.fused import fused_train_step as jfused_step
+from anime_recommendations_tpu.train.fused import (
+    fused_train_step_pipelined as jfused_pipelined,
+)
 from anime_recommendations_tpu.train.model_io import load_model as jload_model
 from anime_recommendations_tpu_torch import cli
 from anime_recommendations_tpu_torch.config import Config
@@ -192,26 +195,56 @@ def test_chained_steps_match_jax(kind):
 def test_fused_step_tracks_dense_step_and_pipelined_equals_fused():
     n_users, n_anime, d, b, l2 = 150, 40, 16, 64, 1e-4
     arrays = initial_arrays(n_users, n_anime, d, seed=1)
-    dense, fused, piped = (tr.train_state_from_numpy(arrays, "cpu") for _ in range(3))
+    dense, fused, piped, gathered = (tr.train_state_from_numpy(arrays, "cpu")
+                                     for _ in range(4))
     batches = [tuple(map(torch.from_numpy, batch(n_users, n_anime, b, seed=s)))
                for s in range(5)]
     u_rows = piped.model.user_emb.detach()[batches[0][0]]
     a_rows = piped.model.anime_emb.detach()[batches[0][1]]
+    g_rows = (u_rows.clone(), a_rows.clone())
     for i, (u, a, r, w) in enumerate(batches[:4]):
         dense, loss_d, _ = tr.train_step(dense, u, a, r, w, 1e-3, l2)
         fused, loss_f, mse_f = fused_train_step(fused, u, a, r, w, 1e-3, l2)
         nu_, na_ = batches[i + 1][:2]
         piped, loss_p, mse_p, u_rows, a_rows = fused_train_step_pipelined(
             piped, u_rows, a_rows, u, a, r, w, nu_, na_, 1e-3, l2)
+        # kernel_gather=True (K5's gather inside the update) is the same step.
+        gathered, loss_g, mse_g, *g_rows = fused_train_step_pipelined(
+            gathered, *g_rows, u, a, r, w, nu_, na_, 1e-3, l2, kernel_gather=True)
         assert abs(float(loss_f) - float(loss_d)) < 2e-6
         assert float(loss_p) == float(loss_f) and float(mse_p) == float(mse_f)
+        assert float(loss_g) == float(loss_p) and float(mse_g) == float(mse_p)
+        assert torch.equal(g_rows[0], u_rows) and torch.equal(g_rows[1], a_rows)
     for k, v in tr.train_state_to_numpy(piped).items():
         np.testing.assert_array_equal(v, tr.train_state_to_numpy(fused)[k], err_msg=k)
+        np.testing.assert_array_equal(v, tr.train_state_to_numpy(gathered)[k], err_msg=k)
     close_to_scale(fused.model.user_emb.detach().numpy(),
                    dense.model.user_emb.detach().numpy(), 1e-5)
-    with pytest.raises(NotImplementedError, match="K5"):
-        fused_train_step_pipelined(piped, u_rows, a_rows, *batches[0], *batches[1][:2],
-                                   1e-3, l2, kernel_gather=True)
+
+
+def test_pipelined_kernel_gather_step_matches_jax():
+    """4 chained fused_train_step_pipelined(kernel_gather=True) steps, the
+    rows each returns carried to the next, in both packages."""
+    n_users, n_anime, d, b, l2 = 150, 40, 16, 64, 1e-4
+    arrays = initial_arrays(n_users, n_anime, d, seed=4)
+    js, ts = numpy_to_jax(arrays), tr.train_state_from_numpy(arrays, "cpu")
+    batches = [batch(n_users, n_anime, b, seed=10 + s, padded=s == 2) for s in range(5)]
+    t_rows = (ts.model.user_emb.detach()[torch.from_numpy(batches[0][0])],
+              ts.model.anime_emb.detach()[torch.from_numpy(batches[0][1])])
+    j_rows = (js.params.user_emb[batches[0][0]], js.params.anime_emb[batches[0][1]])
+    for i in range(4):
+        nxt = batches[i + 1][:2]
+        js, jloss, jmse, *j_rows = jfused_pipelined(
+            js, *j_rows, *map(jnp.asarray, batches[i]), *map(jnp.asarray, nxt),
+            jnp.float32(1e-3), l2, kernel_gather=True)
+        ts, loss, mse, *t_rows = fused_train_step_pipelined(
+            ts, *t_rows, *map(torch.from_numpy, batches[i]), *map(torch.from_numpy, nxt),
+            1e-3, l2, kernel_gather=True)
+        assert abs(float(loss) - float(jloss)) < 2e-6
+        assert abs(float(mse) - float(jmse)) < 2e-6
+        for t, j in zip(t_rows, j_rows):
+            close_to_scale(t.numpy(), np.asarray(j), 1e-5)
+    assert_states_match(ts, js)
 
 
 def test_train_state_numpy_round_trip_keeps_bf16_moments():
@@ -236,7 +269,7 @@ def ratings(n_users, n_anime, rows, seed):
             rng.uniform(0, 1, rows).astype(np.float32))
 
 
-@pytest.mark.parametrize("optimizer", ["adam", "fused_adam"])
+@pytest.mark.parametrize("optimizer", ["adam", "fused_adam", "lazy_adam"])
 def test_train_epoch_and_eval_epoch_match_jax(optimizer):
     n_users, n_anime, d, bs, l2 = 120, 30, 8, 50, 1e-4
     cols = ratings(n_users, n_anime, 420, seed=3)    # 9 batches, the last padded
@@ -319,12 +352,14 @@ def assert_histories_match(got: pd.DataFrame, want: pd.DataFrame):
     np.testing.assert_array_equal(got["lr"], want["lr"])
 
 
-def test_trainer_fit_matches_jax_with_early_stop_and_best_restore():
+@pytest.mark.parametrize("optimizer", ["adam", "lazy_adam"])
+def test_trainer_fit_matches_jax_with_early_stop_and_best_restore(optimizer):
     train, holdout, n_users, n_anime = datasets()
     arrays = initial_arrays(n_users, n_anime, 8, seed=2)
-    jres = jtr.Trainer(**FIT).fit(JDataset(*train), JDataset(*holdout), n_users, n_anime,
-                                  initial_state=numpy_to_jax(arrays))
-    res = tr.Trainer(device="cpu", **FIT).fit(
+    jres = jtr.Trainer(optimizer=optimizer, **FIT).fit(
+        JDataset(*train), JDataset(*holdout), n_users, n_anime,
+        initial_state=numpy_to_jax(arrays))
+    res = tr.Trainer(device="cpu", optimizer=optimizer, **FIT).fit(
         RatingsDataset(*train), RatingsDataset(*holdout), n_users, n_anime,
         initial_state=tr.train_state_from_numpy(arrays, "cpu"))
     assert_histories_match(res.history, jres.history)
@@ -374,8 +409,14 @@ def test_checkpointer_keeps_the_best_only_and_restores_in_place(tmp_path):
 
 
 def test_trainer_rejects_unported_and_unknown_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.Trainer(optimizer="lazy_adam", device="cpu")
+    # lazy_adam is built and trains, on the per-step path and the device loop.
+    train, holdout, n_users, n_anime = datasets(seed=3)
+    for device_loop in (False, True):
+        res = tr.Trainer(optimizer="lazy_adam", device="cpu", device_loop=device_loop,
+                         **dict(FIT, epochs=2, patience=5)).fit(
+            RatingsDataset(*train), RatingsDataset(*holdout), n_users, n_anime)
+        assert res.epochs_run == 2 and np.isfinite(res.history.to_numpy()).all()
+        assert res.history["loss"].iloc[1] < res.history["loss"].iloc[0]
     with pytest.raises(ValueError):
         tr.Trainer(optimizer="sgd", device="cpu")
     with pytest.raises(ValueError):

@@ -6,7 +6,8 @@
 //
 // What it computes, for every query q and every 512-row chunk of the table:
 //   s = <query_q, row>                         full f32: fmaf over f32 values
-//                                              (bf16 tables widened to f32)
+//                                              in dimension order (bf16
+//                                              tables widened to f32)
 //   s = sigmoid(alpha * s + beta)              if a head is given
 //   the row is dead when masked, excluded or >= n
 // and emits the chunk's exact top kc = min(k, 512) live rows as (score, row)
@@ -15,223 +16,170 @@
 // [Q, n_chunks * kc], query-major, chunk c's pairs at [c * kc, (c + 1) * kc).
 // The caller merges the n_chunks * kc candidates of each query with a
 // stable descending sort: the layout is in row order between chunks, so
-// ties keep the lower row across chunks too.
-//
-// Each live row carries a 64-bit key: the order-preserving uint32 of its
-// score above 0xFFFFFFFF - row, so a max over keys is also the tie-break
-// (dead rows are key 0). When k >= 512 every row of the chunk is emitted in
-// row order with no extraction.
+// ties keep the lower row across chunks too. When k >= 512 every row of the
+// chunk is emitted in row order with no extraction.
 //
 // The TPU kernel skips a block when no score beats the running k-th best
 // of the blocks before it, which needs its sequential grid. Here blocks run
 // in no order, so every chunk extracts; the skip (per block, or a second
 // pass) is perf work that changes no result.
 //
-// Bound on the H100: the f32 user table (91,641 x 128) is 46.9 MB per read,
-// ~14 us at 3.35 TB/s; the table is re-read once per 8-query tile, and each
-// extraction round is a block-wide reduction per query, so at k of tens the
-// rounds, not the bytes, set the time.
+// Bound on the H100: reading the f32 user table (91,641 x 128) once is
+// 46.9 MB, ~14 us at 3.35 TB/s; at Q queries the scores are 2 * 128 * Q
+// f32 flops per row on the CUDA cores (67 TFLOP/s), which passes the bytes
+// from Q of about 8 (Q = 256: 90 us). So small Q is bound by bytes and
+// large Q by f32 operations, and both want the table read once per large
+// query tile with few shared-memory loads per fmaf.
 //
-// Design: the score phase is packed_topk.cu's (one block per (512-row
-// chunk, tile of up to QT queries), 256 threads each owning 2 rows, rows
-// staged through shared memory 16 dimensions at a time with coalesced
-// 16-byte loads, the query tile in shared memory as f32). Extraction: kc
-// rounds of a 64-bit max (warp shuffles, then the 8 warp maxima through
-// double-buffered shared memory, one barrier per round); the one thread that
-// holds the max knocks it out.
+// Design (the score phase is scan_common.cuh's, shared with packed_topk.cu):
+// one block per (512-row chunk, tile of 1, 8 or 32 queries), the query tiles
+// of a chunk adjacent in the grid so they share its rows through L2; the
+// chunk streamed through a cp.async double buffer of 16-dimension slabs;
+// register microtiles of 2 rows x 1 or 8 queries (256 threads) or, for the
+// 32-query tile, 8 rows x 8 queries (4 shared-memory loads of 16 bytes per
+// 64 fmaf). The 32-query tile is taken only when the grid still gives every
+// SM two blocks (query_tile; tools/scan_kernels.py --sweep timed both tiles
+// at 9 to 256 queries on an H100 and the rule picks the faster or ties it).
+// Extraction: the chunk's scores go to shared memory as ordered uint32 keys
+// (0 = dead), and one warp per query takes kc rounds of a warp max of the
+// lanes' best scores and a warp min of the tied lanes' positions (the lower
+// row wins a tie), with no block barrier.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_common.cuh"
+
+#ifndef EXACT_TOPK_TILE
+#define EXACT_TOPK_TILE 0   // 0: query_tile's rule
+#endif
 
 namespace {
 
-constexpr int kGroup = 512;
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = kGroup / kThreads;  // 2
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 16;             // table dimensions staged per step
-constexpr int kStride = kChunk + 4;    // padded smem row stride (floats)
-constexpr float kNeg = -1e30f;         // dead-slot score
+using scan::kGroup;
+constexpr int kMaxSmem = 232448;   // a block's dynamic shared memory on an H100
+constexpr float kNeg = -1e30f;     // dead-slot score
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Order-preserving map of a (non-NaN) float to uint32, and back.
-__device__ __forceinline__ uint32_t ordered(float s) {
-  const uint32_t u = __float_as_uint(s);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float unordered(uint32_t u) {
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
-template <typename T, int QT>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int RPT, int QPT, int QG>
+__global__ void __launch_bounds__(scan::Tile<T, RPT, QPT, QG>::kThreads, 2)
 exact_topk_kernel(const T* __restrict__ table, const T* __restrict__ queries,
-                  const uint8_t* __restrict__ mask,
-                  const int32_t* __restrict__ exclude,
+                  const uint8_t* __restrict__ mask, const int32_t* __restrict__ exclude,
                   const float* __restrict__ head, float* __restrict__ out_s,
                   int32_t* __restrict__ out_i, int n, int d, int nq_total, int kc) {
-  extern __shared__ float smem[];
-  float* tile = smem;                       // [kGroup][kStride]
-  float* qs = smem + kGroup * kStride;      // [QT][d]
-  __shared__ unsigned long long red[2][kWarps][QT];
-
+  using S = scan::Tile<T, RPT, QPT, QG>;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int c = blockIdx.x;
-  const int q0 = blockIdx.y * QT;
-  const int nq = min(QT, nq_total - q0);
+  const int c = blockIdx.y;
+  const int q0 = blockIdx.x * S::kQT;
+  const int nq = min(S::kQT, nq_total - q0);
   const int row0 = c * kGroup;
+  const int rg = t % S::kRowThreads;
+  const int qg = t / S::kRowThreads;
 
-  for (int i = t; i < QT * d; i += kThreads) {
-    const int q = i / d;
-    qs[i] = q < nq ? to_float(queries[(size_t)(q0 + q) * d + (i - q * d)]) : 0.f;
+  // Mask, exclude and head are read before the scan, their latency hidden by it.
+  unsigned row_ok = 0;   // bit i: row rg + kRowThreads * i is in the table and kept
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = row0 + rg + S::kRowThreads * i;
+    if (row < n && (mask == nullptr || mask[row] != 0)) row_ok |= 1u << i;
   }
-
-  float acc[kRowsPerThread][QT];
+  int excl[QPT];
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-    for (int q = 0; q < QT; ++q) acc[r][q] = 0.f;
-
-  constexpr int kUnitsPerRow = kChunk / 4;
-  for (int d0 = 0; d0 < d; d0 += kChunk) {
-    __syncthreads();  // previous chunk fully consumed (and qs written)
-    for (int u = t; u < kGroup * kUnitsPerRow; u += kThreads) {
-      const int r = u / kUnitsPerRow;
-      const int col = (u - r * kUnitsPerRow) * 4;
-      const int row = row0 + r;
-      const float4 v = row < n ? load4(table + (size_t)row * d + d0 + col)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(tile + r * kStride + col) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const float* trow = tile + (t + r * kThreads) * kStride;
-#pragma unroll
-      for (int col = 0; col < kChunk; col += 4) {
-        const float4 w = *reinterpret_cast<const float4*>(trow + col);
-#pragma unroll
-        for (int q = 0; q < QT; ++q) {
-          const float4 x = *reinterpret_cast<const float4*>(qs + q * d + d0 + col);
-          acc[r][q] = fmaf(w.x, x.x, acc[r][q]);
-          acc[r][q] = fmaf(w.y, x.y, acc[r][q]);
-          acc[r][q] = fmaf(w.z, x.z, acc[r][q]);
-          acc[r][q] = fmaf(w.w, x.w, acc[r][q]);
-        }
-      }
-    }
+  for (int j = 0; j < QPT; ++j) {
+    const int q = qg * QPT + j;
+    excl[j] = (exclude != nullptr && q < nq) ? exclude[q0 + q] : -1;
   }
-
-  // Scores -> 64-bit keys (0 = dead), kept in registers.
-  int excl[QT];
-#pragma unroll
-  for (int q = 0; q < QT; ++q)
-    excl[q] = (exclude != nullptr && q < nq) ? exclude[q0 + q] : -1;
   const float alpha = head != nullptr ? head[0] : 0.f;
   const float beta = head != nullptr ? head[1] : 0.f;
-  unsigned long long key[kRowsPerThread][QT];
+
+  float acc[RPT][QPT];
+  scan::score_group<T, RPT, QPT, QG>(table, queries, n, d, nq_total, q0, row0, smem, acc);
+
+  // Scores -> ordered uint32 keys (0 = dead) in the ring's place.
+  uint32_t* keys = reinterpret_cast<uint32_t*>(smem);   // [kQT][512]
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int row = row0 + t + r * kThreads;
-    const bool row_ok = row < n && (mask == nullptr || mask[row] != 0);
+  for (int i = 0; i < RPT; ++i) {
+    const int local = rg + S::kRowThreads * i;
+    const int row = row0 + local;
 #pragma unroll
-    for (int q = 0; q < QT; ++q) {
-      float s = acc[r][q];
+    for (int j = 0; j < QPT; ++j) {
+      float s = acc[i][j];
       if (head != nullptr)
         s = 1.f / (1.f + expf(-__fadd_rn(__fmul_rn(alpha, s), beta)));
       s = __fadd_rn(s, 0.f);  // -0 -> +0: equal scores tie on the row alone
-      key[r][q] = (row_ok && row != excl[q])
-          ? ((unsigned long long)ordered(s) << 32) | (0xffffffffu - (uint32_t)row)
-          : 0ull;
+      keys[(qg * QPT + j) * kGroup + local] =
+          ((row_ok >> i & 1u) && row != excl[j]) ? scan::ordered(s) : 0u;
     }
   }
+  __syncthreads();
 
-  const int ncols = gridDim.x * kc;
+  const int ncols = gridDim.y * kc;
   if (kc == kGroup) {
     // The chunk's every row is a candidate: emit them in row order.
-#pragma unroll
-    for (int q = 0; q < QT; ++q) {
-      if (q >= nq) break;
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const size_t o = (size_t)(q0 + q) * ncols + c * kc + t + r * kThreads;
-        const unsigned long long m = key[r][q];
-        out_s[o] = m ? unordered((uint32_t)(m >> 32)) : kNeg;
-        out_i[o] = m ? row0 + t + r * kThreads : -1;
-      }
+    for (int p = t; p < nq * kGroup; p += S::kThreads) {
+      const int q = p / kGroup;
+      const int local = p - q * kGroup;
+      const uint32_t key = keys[p];
+      const size_t o = (size_t)(q0 + q) * ncols + c * kc + local;
+      out_s[o] = key ? scan::unordered(key) : kNeg;
+      out_i[o] = key ? row0 + local : -1;
     }
     return;
   }
-
-  // kc rounds of block-wide max with knock-out (live keys are unique: the
-  // low 32 bits carry the row).
-  for (int j = 0; j < kc; ++j) {
-    const int buf = j & 1;
-#pragma unroll
-    for (int q = 0; q < QT; ++q) {
-      unsigned long long m = key[0][q];
-#pragma unroll
-      for (int r = 1; r < kRowsPerThread; ++r) m = max(m, key[r][q]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) red[buf][warp][q] = m;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < QT; ++q) {
-      unsigned long long m = red[buf][0][q];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) m = max(m, red[buf][w][q]);
-      if (m != 0) {
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-          if (key[r][q] == m) key[r][q] = 0ull;
-      }
-      if (t == q && q < nq) {
-        const size_t o = (size_t)(q0 + q) * ncols + c * kc + j;
-        out_s[o] = m ? unordered((uint32_t)(m >> 32)) : kNeg;
-        out_i[o] = m ? (int32_t)(0xffffffffu - (uint32_t)m) : -1;
-      }
-    }
+  for (int q = t >> 5; q < nq; q += S::kThreads / 32) {
+    const size_t o = (size_t)(q0 + q) * ncols + c * kc;
+    scan::warp_top_exact(keys + q * kGroup, kc, row0, out_s + o, out_i + o, t & 31);
   }
 }
 
-template <typename T, int QT>
+template <typename T, int RPT, int QPT, int QG>
 cudaError_t launch(const void* table, const void* queries, const uint8_t* mask,
-                   const int32_t* exclude, const float* head, float* out_s,
-                   int32_t* out_i, int n, int d, int nq, int kc, cudaStream_t stream) {
-  const int n_chunks = (n + kGroup - 1) / kGroup;
-  const dim3 grid(n_chunks, (nq + QT - 1) / QT);
-  const size_t smem = (size_t)(kGroup * kStride + QT * d) * sizeof(float);
-  auto kernel = exact_topk_kernel<T, QT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(table), static_cast<const T*>(queries), mask,
-      exclude, head, out_s, out_i, n, d, nq, kc);
+                   const int32_t* exclude, const float* head, float* out_s, int32_t* out_i,
+                   int n, int d, int nq, int kc, cudaStream_t stream) {
+  using S = scan::Tile<T, RPT, QPT, QG>;
+  const dim3 grid((nq + S::kQT - 1) / S::kQT, (n + kGroup - 1) / kGroup);
+  const size_t smem = S::smem_bytes(d);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t err = scan::allow_smem<exact_topk_kernel<T, RPT, QPT, QG>>(smem);
+  if (err != cudaSuccess) return err;
+  exact_topk_kernel<T, RPT, QPT, QG><<<grid, S::kThreads, smem, stream>>>(
+      static_cast<const T*>(table), static_cast<const T*>(queries), mask, exclude, head,
+      out_s, out_i, n, d, nq, kc);
   return cudaGetLastError();
+}
+
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return sms;
+}
+
+// The query tile: 1 query alone; else 32 when that still gives every SM two
+// blocks (the 8 x 8 microtile needs 4 shared-memory loads per 64 fmaf, the
+// 2 x 8 one 10 per 64), and 8 when the grid would be too small for the card
+// (the 17,560-row anime table has 35 chunks). EXACT_TOPK_TILE (8 or 32)
+// pins it, for measurement.
+int query_tile(int n, int nq) {
+  if (nq == 1) return 1;
+  if (EXACT_TOPK_TILE == 8 || EXACT_TOPK_TILE == 32) return EXACT_TOPK_TILE;
+  const int chunks = (n + kGroup - 1) / kGroup;
+  return nq > 8 && chunks * ((nq + 31) / 32) >= 2 * sm_count() ? 32 : 8;
+}
+
+template <typename T>
+cudaError_t launch_for(const void* table, const void* queries, const uint8_t* mask,
+                       const int32_t* exclude, const float* head, float* out_s, int32_t* out_i,
+                       int n, int d, int nq, int kc, cudaStream_t s) {
+  switch (query_tile(n, nq)) {
+    case 1:
+      return launch<T, 2, 1, 1>(table, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc, s);
+    case 8:
+      return launch<T, 2, 8, 1>(table, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc, s);
+    default:
+      return launch<T, 8, 8, 4>(table, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc, s);
+  }
 }
 
 }  // namespace
@@ -239,22 +187,18 @@ cudaError_t launch(const void* table, const void* queries, const uint8_t* mask,
 // dtype: 0 = float32, 1 = bfloat16 (table and queries share it). mask
 // (uint8 [n], nonzero keeps), exclude (int32 [nq], -1 = none) and head
 // (float32 [2]: alpha, beta) may be null. d must be a multiple of 16, 1 <=
-// kc <= 512, and out_s / out_i must each hold nq * ceil(n / 512) * kc
-// values. Returns a cudaError_t (0 on success).
+// kc <= 512, ceil(n / 512) <= 65535, and out_s / out_i must each hold nq *
+// ceil(n / 512) * kc values. Returns a cudaError_t (0 on success).
 extern "C" int exact_topk(const void* table, int dtype, const void* queries,
                           const uint8_t* mask, const int32_t* exclude,
                           const float* head, float* out_s, int32_t* out_i, int n,
                           int d, int nq, int kc, void* stream) {
-  if (n <= 0 || nq <= 0 || d <= 0 || d % kChunk != 0 || kc < 1 || kc > kGroup ||
-      (dtype != 0 && dtype != 1))
+  if (n <= 0 || nq <= 0 || d <= 0 || d % scan::kSlab != 0 || kc < 1 || kc > kGroup ||
+      (n + kGroup - 1) / kGroup > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 0)
-    err = nq == 1 ? launch<float, 1>(table, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc, s)
-                  : launch<float, 8>(table, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc, s);
-  else
-    err = nq == 1 ? launch<__nv_bfloat16, 1>(table, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc, s)
-                  : launch<__nv_bfloat16, 8>(table, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc, s);
-  return (int)err;
+    return (int)launch_for<float>(table, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc, s);
+  return (int)launch_for<__nv_bfloat16>(table, queries, mask, exclude, head, out_s, out_i, n, d,
+                                        nq, kc, s);
 }

@@ -3,7 +3,8 @@
 Each kernel is a ``csrc/<name>.cu`` file with a plain C interface. At first
 use it is compiled with nvcc for Hopper (``sm_90a``) into a shared library
 under ``build/kernels/`` at the repository root, named with a hash of its
-source and flags so an edited source is rebuilt, and loaded with ctypes.
+source, the ``csrc/*.cuh`` headers and the flags so an edited source is
+rebuilt, and loaded with ctypes.
 Nothing is built or loaded at import time: the CPU tests import every
 module on machines that have no nvcc.
 
@@ -84,8 +85,9 @@ def nvcc_path() -> str:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this exact source is already built."""
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():

@@ -13,6 +13,18 @@ and the same two stages:
           tensor this is the hand-written kernel csrc/packed_topk.cu; on a
           CPU tensor it is _packed_candidates_plain, the same function in
           torch ops.
+          Precision: below TF32_MIN_Q queries the scores are f32 products
+          with f32 sums. At and above it the kernel takes its tensor-core
+          branch, and for f32 tables both operands are first rounded to
+          TF32 (round_tf32: nearest, ties away from zero, as the card's
+          cvt.rna.tf32.f32); bf16 tables are exact in TF32 and multiply as
+          bf16. The plain version applies the same rule at the same query
+          count on every device, so kernel and plain keys agree within a
+          key step. This is within the JAX contract: the JAX stage 1 runs
+          at DEFAULT precision, one bf16 MXU pass even for f32 tables, and
+          its pool m = max(2k + 4, 24) was sized for that noise; the key
+          already drops 9 mantissa bits (~1.2e-4), and stage 2 rescores
+          every candidate in exact f32, so the returned values are exact.
   stage 2 (_rescore_pool) takes the top-m keys, rebuilds their rows from
           (position, key low bits), gathers those rows and rescores them in
           exact f32, and returns the pool's top-k.
@@ -49,6 +61,11 @@ import torch
 from anime_recommendations_tpu_torch.ops import _kernels
 
 GROUP = 512            # rows per extraction group (low key bits carry the lane)
+# Query count from which stage 1 runs on the tensor cores, with TF32
+# operands for f32 tables (module docstring). Must equal
+# PACKED_TOPK_LARGE_Q in csrc/packed_topk.cu; PERF.md gives the
+# measurement (tools/scan_kernels.py --sweep) that set it.
+TF32_MIN_Q = 2
 _NEG = -1e30           # dead-slot score sentinel
 _BIAS = 2.0            # makes every in-contract score positive
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -145,15 +162,28 @@ def _int8_biased_scores(table, queries, qscale, wscale, head):
     return torch.sigmoid(head[0] * s + head[1]) + _BIAS
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as cvt.rna.tf32.f32 rounds them: add half of the 13 dropped
+    bits to the magnitude, then clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def _packed_candidates_plain(table, queries, top_r, mask, exclude, head,
                              qscale=None, wscale=None):
-    """Stage 1 in plain torch ops: fp32 scores, the same keys, topk per group."""
+    """Stage 1 in plain torch ops: f32 scores (of TF32-rounded f32 operands
+    from TF32_MIN_Q queries, as the kernel), the same keys, topk per group."""
     n = table.shape[0]
     qn = queries.shape[0]
     n_groups = -(-n // GROUP)
     if table.dtype == torch.int8:
         s2 = _int8_biased_scores(table, queries, qscale, wscale, head)
     else:
+        if table.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("plain stage 1 needs torch.backends.cuda.matmul.allow_tf32 = False")
+        if table.dtype == torch.float32 and qn >= TF32_MIN_Q:
+            table, queries = round_tf32(table), round_tf32(queries)
         scores = queries.float() @ table.float().T                  # [Q, N]
         if head is not None:
             scores = torch.sigmoid(head[0] * scores + head[1])
@@ -212,9 +242,11 @@ def _check_scan_inputs(name, table, queries, dtypes, depth, max_depth):
         raise TypeError(f"{name}: queries must match the table's dtype and device")
     if queries.dim() != 2 or queries.shape[1] != d:
         raise ValueError(f"{name}: queries {tuple(queries.shape)} vs table {tuple(table.shape)}")
-    if d % 16 or not 1 <= depth <= max_depth or not 1 <= qn <= 8 * 65535:
+    if (d % 16 or not 1 <= depth <= max_depth or not 1 <= qn <= 8 * 65535
+            or n > GROUP * 65535):
         raise ValueError(f"{name}: needs D % 16 == 0, 1 <= depth <= {max_depth}, "
-                         f"1 <= Q <= {8 * 65535}; got D={d}, depth={depth}, Q={qn}")
+                         f"1 <= Q <= {8 * 65535}, N <= {GROUP * 65535}; "
+                         f"got D={d}, depth={depth}, Q={qn}, N={n}")
     for what, t in (("table", table), ("queries", queries)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} must be contiguous and 16-byte aligned")

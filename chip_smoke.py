@@ -14,16 +14,20 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            card at the shapes the serving path gives it (91,641 x 128 user
            table, 17,560 x 128 anime table; 1 to 256 queries; with and
            without head, mask and exclude), against a dense full-score
-           oracle, and timed (CUDA events, median of 20 runs after warm-up;
-           for K2q, K3 and K4 also the kernel's device time under
-           torch.profiler against its plain version's, and bytes / time
-           against 3.35 TB/s):
-             packed_topk (K2), f32 and bf16 tables, a k deep enough to
-               drive top_r above 64;
+           oracle, and timed: the kernel's device time under torch.profiler
+           (20 calls after warm-up) against its plain version's, the
+           CUDA-event median of a call beside it, and the share of the
+           card's bound (bytes at 3.35 TB/s or operations at the peak of
+           the type the kernel computes in) the kernel reaches:
+             packed_topk (K2; k2_cases), f32 and bf16 tables, both sides of
+               the tensor-core threshold (ops/topk.TF32_MIN_Q: TF32 for f32
+               tables from there, in the plain version too), a k deep
+               enough to drive top_r above 64;
              packed_topk_int8 (K2q), int8 tables, keys bit-equal to the
                plain version's without a head, a k that drives top_r above
                64;
-             exact_topk (K3), f32 and bf16 tables, k = 10 and 600;
+             exact_topk (K3; K3_CASES), f32 and bf16 tables, 1 to 256
+               queries, k = 10 and 600;
              l2_normalize (K4), the raw embedding tables, f32 and bf16 out.
   phase 3  the slice end to end at reference scale: synthetic data of
            ~91,641 users x 17,560 anime x 3M ratings made from a seed, D =
@@ -112,8 +116,8 @@ SEED = 7
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # Peak operations per second by type (H100 SXM data sheet, dense): f32
-# outside the tensor cores, int8 (tensor cores).
-PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+# outside the tensor cores; tf32, bf16 and int8 on the tensor cores.
+PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 BATCH = 10_000
 TRAIN_EPOCHS = 2
 DEVICE = "cuda"   # of the training phases (4 to 6)
@@ -155,6 +159,51 @@ def phase_device() -> str:
 
 
 # ---- phase 2 -------------------------------------------------------------------
+
+# Phase 2's float scan cases, K2 (k2_cases) and K3 (K3_CASES): (name, table,
+# dtype, Q, k, features); features "exclude" (each query's own row, from the
+# user table) or "head_mask" (the sigmoid head and an anime mask keeping
+# ~80 % of the rows). tools/scan_kernels.py times the same cases.
+DTYPES = {"f32": "float32", "bf16": "bfloat16"}
+
+
+def _named(cases) -> tuple:
+    named = {}
+    for which, dtype, q, k, features in cases:
+        name = f"{which}_{dtype}_q{q}_{features}" + ("" if k == 10 else f"_k{k}")
+        named[name] = (name, which, dtype, q, k, features)
+    return tuple(named.values())
+
+
+def k2_cases() -> tuple:
+    """K2's cases: 1 to 256 queries, both sides of the tensor-core threshold
+    (ops/topk.TF32_MIN_Q), f32 and bf16, and a k deep enough to drive top_r
+    above 64 (model_recs_batch asks for n_recs + max watched)."""
+    from anime_recommendations_tpu_torch.ops.topk import TF32_MIN_Q
+
+    return _named([("users", "f32", q, 10, "exclude")
+                   for q in (1, 8, TF32_MIN_Q - 1, TF32_MIN_Q, 64, 256)]
+                  + [("users", "bf16", q, 10, "exclude") for q in (1, 256)]
+                  + [("anime", "f32", q, 10, "head_mask") for q in (1, 64, 256)]
+                  + [("anime", "f32", 16, 600, "head_mask")])
+
+
+K3_CASES = _named([("users", "f32", q, 10, "exclude") for q in (1, 8, 256)]
+                  + [("anime", "f32", q, k, "head_mask")
+                     for q, k in ((1, 10), (64, 10), (256, 10), (16, 600))]
+                  + [("users", "bf16", q, 10, "exclude") for q in (8, 256)])
+
+
+def _case_inputs(rng, tables, case, head, anime_mask):
+    """(table, queries, kwargs) of a phase-2 case: queries are user rows."""
+    import torch
+
+    _, which, dtype, q, _, features = case
+    table = tables[which].to(getattr(torch, DTYPES[dtype]))
+    idx = torch.from_numpy(rng.choice(N_USERS, size=q, replace=False)).to(table.device)
+    kw = dict(exclude=idx) if features == "exclude" else dict(mask=anime_mask, head=head)
+    return table, tables["users"][idx], kw
+
 
 def _normal_table(rng, n, dtype, device):
     import torch
@@ -221,7 +270,8 @@ def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
     """torch.profiler over ``reps`` calls of fn after 3 warm-up calls: wall ms
     per call (host clock to a synchronize), device-busy ms per call (the sum
     of CUDA kernel times), the idle share, device ms per call by kernel, and
-    (``match``) the device ms per call of the kernels whose name holds it."""
+    (``match``) the device ms of one launch of the kernel whose name holds it
+    (fn launches it once a call) and how many of its launches were recorded."""
     import torch
 
     for _ in range(3):
@@ -251,9 +301,15 @@ def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
     out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
            "by_kernel": {e.key[:70]: e.self_device_time_total / 1e3 / reps for e in top[:8]}}
     if match is not None:
-        out["match_ms"] = sum(e.self_device_time_total for e in events if match in e.key) / 1e3 / reps
-        if not out["match_ms"] > 0:
-            raise AssertionError(f"the profiler saw no {match} time: {out}")
+        hits = [e for e in events if match in e.key]
+        launches = sum(e.count for e in hits)
+        if not launches:
+            raise AssertionError(f"the profiler saw no {match} launch: {out}")
+        # Each call launches one such kernel, and the profiler may drop a
+        # few launch records (seen on an H100: 19 of 20), so the time per
+        # call is the mean over the launches recorded.
+        out["match_ms"] = sum(e.self_device_time_total for e in hits) / 1e3 / launches
+        out["match_launches"] = launches
     return out
 
 
@@ -304,26 +360,38 @@ def _check_case(card, name, table, queries, k, *, mask=None, exclude=None, head=
                        for a, b in zip(i.tolist(), oi.tolist())])
     if overlap != 1.0:
         raise AssertionError(f"{name}: overlap with the dense oracle {overlap}")
-    # Stage 1 alone: the kernel's keys against the plain keys.
+    # Stage 1 alone: the kernel's keys against the plain keys (the same
+    # precision rule on both sides): the same live slots, one key step.
     args = (table, qt, r, mask, exclude, head)
     kk = topk._packed_candidates_cuda(*args)
     kp = topk._packed_candidates_plain(*args)
-    live = (kk > 0) & (kp > 0)
+    live = kp > 0
+    if not torch.equal(kk > 0, live):
+        raise AssertionError(f"{name}: stage-1 keys differ in which slots are live")
     key_err = float((_decoded(kk) - _decoded(kp)).abs()[live].max())
-    if not key_err <= 1e-3:
+    if not key_err <= 1.3e-4:
         raise AssertionError(f"{name}: stage-1 keys differ by {key_err}")
-    ms = _median_ms(lambda: topk._packed_candidates_cuda(*args))
-    plain_ms = _median_ms(lambda: topk._packed_candidates_plain(*args))
-    full_ms = _median_ms(lambda: topk.masked_topk(table, queries, k, mask=mask,
-                                                  exclude=exclude, head=head))
-    full_plain_ms = _median_ms(lambda: topk.two_stage_topk(
+    qn = queries.shape[0]
+    big = qn >= topk.TF32_MIN_Q
+    row = dict(card=card, case=name, n=table.shape[0], q=qn, dtype=str(table.dtype),
+               k=k, top_r=r, branch="tensor_core" if big else "small_q", max_abs_err=err,
+               key_err=key_err, overlap=overlap)
+    # ms: packed_topk's device time (torch.profiler); event_ms: one call's
+    # CUDA-event time, launch included.
+    row |= _timing(lambda: topk._packed_candidates_cuda(*args),
+                   lambda: topk._packed_candidates_plain(*args), "packed_topk")
+    row["masked_topk_event_ms"] = _median_ms(lambda: topk.masked_topk(
+        table, queries, k, mask=mask, exclude=exclude, head=head))
+    row["masked_topk_plain_event_ms"] = _median_ms(lambda: topk.two_stage_topk(
         topk._packed_candidates_plain, table, queries, k, mask=mask, exclude=exclude,
         head=head))
-    row = dict(card=card, case=name, n=table.shape[0], q=queries.shape[0], dtype=str(table.dtype),
-               k=k, top_r=r, max_abs_err=err, key_err=key_err, overlap=overlap,
-               stage1_ms=ms, stage1_plain_ms=plain_ms, masked_topk_ms=full_ms,
-               masked_topk_plain_ms=full_plain_ms)
-    row |= _scan_bound(_nbytes(table), qt, mask, exclude, _nbytes(kk), *table.shape)
+    # The table is read once per query tile (one query below the threshold,
+    # 64 from it); tiles of one group run side by side and may share its
+    # rows through L2.
+    row["table_reads"] = -(-qn // 64) if big else qn
+    kind = "f32" if not big else ("tf32" if table.dtype == torch.float32 else "bf16")
+    row |= _scan_bound(_nbytes(table), qt, mask, exclude, _nbytes(kk), *table.shape, kind=kind)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     print("[phase 2] " + json.dumps(row), flush=True)
     return row
 
@@ -335,35 +403,28 @@ def phase_kernels(card: str) -> list[dict]:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    users = _normal_table(rng, N_USERS, torch.float32, dev)
-    anime = _normal_table(rng, N_ANIME, torch.float32, dev)
+    tables = {"users": _normal_table(rng, N_USERS, torch.float32, dev),
+              "anime": _normal_table(rng, N_ANIME, torch.float32, dev)}
     head = torch.tensor([4.3, -0.7], device=dev)
     anime_mask = torch.from_numpy(rng.uniform(size=N_ANIME) > 0.2).to(dev)
-
-    def pick(n, q):
-        return torch.from_numpy(rng.choice(n, size=q, replace=False)).to(dev)
-
     rows = []
-    for q in (1, 8, 256):
-        idx = pick(N_USERS, q)
-        rows.append(_check_case(card, f"users_f32_q{q}_exclude", users, users[idx], 10,
-                                exclude=idx))
-    # The depth comes from ops/topk.top_r_policy (4 on this table at k = 10),
-    # where the JAX package takes 2 above 64 queries: what that depth costs.
-    qs = users[idx]
-    ms2 = _median_ms(lambda: topk._packed_candidates_cuda(users, qs, 2, None, idx, None))
-    print(f"[phase 2] users_f32_q256_exclude stage 1 at top_r=2: {ms2} ms ({card})", flush=True)
-    for q in (1, 64):
-        rows.append(_check_case(card, f"anime_f32_q{q}_head_mask", anime,
-                                users[pick(N_USERS, q)], 10, mask=anime_mask, head=head))
-    idx = pick(N_USERS, 1)
-    rows.append(_check_case(card, "users_bf16_q1_exclude", users.to(torch.bfloat16),
-                            users[idx].to(torch.bfloat16), 10, exclude=idx))
-    # model_recs_batch asks for n_recs + max watched; k = 600 drives top_r to 70.
-    rows.append(_check_case(card, "anime_f32_q16_head_mask_k600", anime,
-                            users[pick(N_USERS, 16)], 600, mask=anime_mask, head=head))
+    for case in k2_cases():
+        table, queries, kw = _case_inputs(rng, tables, case, head, anime_mask)
+        rows.append(_check_case(card, case[0], table, queries, case[4], **kw))
+        if case[0] == "users_f32_q256_exclude":
+            # The depth comes from ops/topk.top_r_policy (4 on this table at
+            # k = 10), where the JAX package takes 2 above 64 queries: what
+            # that depth costs.
+            qt, idx = queries.contiguous(), kw["exclude"]
+            shallow = (lambda: topk._packed_candidates_cuda(tables["users"], qt, 2, None,
+                                                            idx, None))
+            ms2 = _profiled(shallow, match="packed_topk")["match_ms"]
+            print(f"[phase 2] users_f32_q256_exclude stage 1 at top_r=2: {ms2} ms device "
+                  f"time, {_median_ms(shallow)} ms CUDA-event time ({card})", flush=True)
     if max(r["top_r"] for r in rows) <= 64:
         raise AssertionError("no phase-2 case drove top_r above 64")
+    if {r["branch"] for r in rows} != {"small_q", "tensor_core"}:
+        raise AssertionError("phase 2 did not drive both K2 branches")
     return rows
 
 
@@ -531,11 +592,14 @@ def _exact_case(card, name, table, queries, k, *, mask=None, exclude=None, head=
     row |= _timing(lambda: topk._exact_scan_cuda(table, tq, k, mask, exclude, head),
                    lambda: topk._exact_scan_plain(table, tq, k, mask, exclude, head),
                    "exact_topk_kernel")
-    row["bytes_read"] = table.numel() * table.element_size() * -(-queries.shape[0] // 8)
-    row["hbm_share"] = row["bytes_read"] / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    # The table is read once per query tile of 1, 8 or 32 queries (tiles of
+    # one chunk run side by side and may share its rows through L2).
+    qn = queries.shape[0]
+    row["table_reads"] = -(-qn // (1 if qn == 1 else 8 if qn <= 8 else 32))
     n_chunks, kc = -(-table.shape[0] // 512), min(k, 512)
     row |= _scan_bound(_nbytes(table), tq, mask, exclude, n_chunks * kc * tq.shape[0] * 8,
                        *table.shape)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     print("[phase 2] " + json.dumps(row), flush=True)
     return row
 
@@ -570,17 +634,14 @@ def phase_new_kernels(card: str) -> dict[str, list[dict]]:
         idx = pick(N_USERS, q)
         out["packed_topk_int8"].append(_int8_case(card, f"users_int8_q{q}_exclude", users_q,
                                                   users[idx], 10, exclude=idx))
-        out["exact_topk"].append(_exact_case(card, f"users_f32_q{q}_exclude", users, users[idx],
-                                             10, exclude=idx))
     for q, k in ((1, 10), (64, 10), (16, 600)):
         qs = users[pick(N_USERS, q)]
         out["packed_topk_int8"].append(_int8_case(card, f"anime_int8_q{q}_head_mask_k{k}", anime_q,
                                                   qs, k, mask=anime_mask, head=head))
-        out["exact_topk"].append(_exact_case(card, f"anime_f32_q{q}_head_mask_k{k}", anime, qs, k,
-                                             mask=anime_mask, head=head))
-    idx = pick(N_USERS, 8)
-    out["exact_topk"].append(_exact_case(card, "users_bf16_q8_exclude", users.to(torch.bfloat16),
-                                         users[idx], 10, exclude=idx))
+    tables = {"users": users, "anime": anime}
+    for case in K3_CASES:
+        table, queries, kw = _case_inputs(rng, tables, case, head, anime_mask)
+        out["exact_topk"].append(_exact_case(card, case[0], table, queries, case[4], **kw))
     if max(r["top_r"] for r in out["packed_topk_int8"]) <= 64:
         raise AssertionError("no K2q case drove top_r above 64")
     return out
@@ -1362,8 +1423,8 @@ def main() -> int:
         "replaces": "anime_recommendations_tpu/ops/topk.py:185",
         "launches": serving_launches["packed_topk"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": ref["stage1_ms"],
-        "plain_ms": ref["stage1_plain_ms"],
+        "ms": ref["ms"],
+        "plain_ms": ref["plain_ms"],
         "bound_ms": ref["bound_ms"],
         "bound_by": ref["bound_by"],
         "library_ms": None,   # no single PyTorch call makes stage-1 candidates

@@ -10,7 +10,9 @@ imports no jax, so it also runs on a machine without it:
 Tolerances. Top-k: values 1e-5 absolute for f32 tables, 1e-2 for bf16;
 indices equal except where the two rows' true scores tie within 1e-6;
 stage-1 keys within one key step (the 9 lane bits cut the score to ~1.2e-4
-absolute). int8 stage-1 keys: bit-equal without a head (an exact integer
+absolute), on both sides of the tensor-core threshold (from TF32_MIN_Q
+queries the plain version rounds f32 operands to TF32 as the kernel does,
+so only the summation order differs). int8 stage-1 keys: bit-equal without a head (an exact integer
 product, then one rounded f32 operation per step, in the plain version's
 order), one key step with the head (expf). Exact scan: values 1e-6
 relative (fmaf in row order against cuBLAS's order), indices equal except
@@ -19,10 +21,10 @@ exact. Row normalization: 1e-6 relative for f32 outputs (rsqrtf is not
 correctly rounded), one bf16 ulp for bf16 outputs, zero rows zero. Fused
 Adam: the kernel applies the plain version's operations in its order, so
 where a row's duplicate gradients are summed in the same order the results
-are equal; the plain version on the card sums duplicates
-with index_add_'s atomics, in another order, so W', mu' and nu' are held to
-1e-5 relative to each tensor's largest entry, bf16 moments to one bf16 ulp,
-and sumsq to 1e-5 relative. Fused Adam with the gather (K5): the update is
+are equal (rows hit once: bit for bit); the plain version on the card sums
+duplicates with index_add_'s atomics, in another order, so W', mu' and nu'
+are held to 1e-5 relative to each tensor's largest entry, bf16 moments to
+that plus one bf16 ulp, and sumsq to 1e-5 relative. Fused Adam with the gather (K5): the update is
 K1's device code, so its tables and sumsq equal K1's bit for bit on the same
 inputs, and its rows equal w'[next_ids] exactly (zero rows for ids outside
 the table); against the plain version as K1.
@@ -87,24 +89,69 @@ def test_masked_topk_kernel_matches_plain(cuda, dtype, feature):
     assert not bool(((i != pi) & (gap > 1e-6)).any())
 
 
+# Both sides of the tensor-core threshold, partial tiles of both branches.
+STAGE1_QS = sorted({1, 3, 8, 21, topk.TF32_MIN_Q - 1, topk.TF32_MIN_Q, topk.TF32_MIN_Q + 1, 130})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [1, 3, 8, 21])
-def test_stage1_keys_match_plain(cuda, q):
-    """Ragged last group (N = 1300), query tiles of 1 and 8 with a partial
-    tile, top_r up to the whole group."""
+@pytest.mark.parametrize("head", [False, True], ids=["mask_exclude", "mask_exclude_head"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("q", STAGE1_QS)
+def test_stage1_keys_match_plain(cuda, q, dtype, head):
+    """Ragged last group (N = 1300), both branches (below and from
+    TF32_MIN_Q, the tensor-core branch's TF32 rounding in the plain version
+    too), partial query tiles, top_r up to the whole group."""
     w, keep = inputs(cuda, n=1300, d=32)
-    queries = w[:q].contiguous()
-    excl = torch.arange(q, device=cuda)
+    w = w.to(dtype)
+    queries = torch.cat([w, w])[:q].contiguous()
+    excl = torch.arange(q, device=cuda) % 1300
+    excl[::5] = -1
+    h = torch.tensor([3.0, -0.5], device=cuda) if head else None
     for top_r in (1, 4, 512):
-        args = (w, queries, top_r, keep, excl, None)
-        got = topk._packed_candidates_cuda(*args)
+        args = (w, queries, top_r, keep, excl, h)
+        before = _kernels.launches["packed_topk"]
+        got = topk.packed_candidates(*args)
+        assert _kernels.launches["packed_topk"] == before + 1
         want = topk._packed_candidates_plain(*args)
+        torch.cuda.synchronize()
         assert got.shape == want.shape == (q, 3 * top_r)
         assert torch.equal(got > 0, want > 0)
         live = got > 0
         step = ((got & ~511).view(torch.float32) - (want & ~511).view(torch.float32)).abs()
         assert float(step[live].max()) <= 1.3e-4
         assert torch.equal(got[~live], want[~live])  # dead keys do not depend on scores
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("feature", sorted(FEATURES))
+def test_masked_topk_kernel_matches_plain_from_the_tf32_threshold(cuda, dtype, feature):
+    """130 queries (the tensor-core branch, three query tiles, the last
+    partial) against the plain two stages and the dense oracle."""
+    w, keep = inputs(cuda)
+    tw = w.to(dtype)
+    rows = torch.arange(0, 5000, 38, device=cuda)[:130]
+    tq = tw[rows]
+    kw = FEATURES[feature](cuda, keep)
+    if "exclude" in kw:
+        kw["exclude"] = torch.where(rows % 3 == 0, -1, rows)
+    v, i = topk.masked_topk(tw, tq, 10, **kw)
+    pv, pi = topk.two_stage_topk(topk._packed_candidates_plain, tw, tq, 10, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
+                               atol=1e-5 if dtype == torch.float32 else 1e-2, rtol=0)
+    gap = (row_scores(tw, tq, i, kw.get("head")) - row_scores(tw, tq, pi, kw.get("head"))).abs()
+    assert bool((i >= 0).all()) and not bool(((i != pi) & (gap > 1e-6)).any())
+    s = tq.double() @ tw.double().T
+    if "head" in kw:
+        s = torch.sigmoid(kw["head"][0].double() * s + kw["head"][1].double())
+    if "mask" in kw:
+        s = s.masked_fill(~kw["mask"][None, :], -torch.inf)
+    if "exclude" in kw:
+        has = torch.nonzero(kw["exclude"] >= 0).squeeze(1)
+        s[has, kw["exclude"][has]] = -torch.inf
+    oracle = s.topk(10, dim=1).indices
+    assert bool((i.sort(dim=1).values == oracle.sort(dim=1).values).all())
 
 
 @pytest.mark.cuda
@@ -232,6 +279,43 @@ def test_exact_topk_kernel_matches_plain(cuda, feature, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 600])
+@pytest.mark.parametrize("feature", ["mask_exclude", "mask_head", "duplicated_rows"])
+@pytest.mark.parametrize("q", [1, 9, 64, 100])
+def test_exact_topk_query_tiles_match_plain(cuda, q, feature, k):
+    """Every query tile of the kernel (1, 8 and 32 queries, partial last
+    tiles), with the adversarial ties (exact duplicate rows: the lower row,
+    in both) at every query count."""
+    w, keep = inputs(cuda)
+    if feature == "duplicated_rows":
+        w = integer_rows(cuda, 5000, 128, seed=4)
+    rows = torch.arange(7, 5000, 47, device=cuda)[:q]
+    kw = {"mask": keep}
+    if feature == "mask_head":
+        kw["head"] = torch.tensor([3.0, -0.5], device=cuda)
+    else:
+        kw["exclude"] = torch.where(rows % 4 == 0, -1, rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        tw = w.to(dtype)
+        tq = tw[rows].contiguous()
+        before = _kernels.launches["exact_topk"]
+        v, i = topk.masked_topk(tw, tq, k, exact_scan=True, **kw)
+        assert _kernels.launches["exact_topk"] == before + 1
+        pv, pi = topk._exact_scan_plain(tw, tq, k, **kw)
+        torch.cuda.synchronize()
+        assert v.shape == i.shape == (q, k)
+        assert torch.equal(v > -1e29, pv > -1e29) and torch.equal(i >= 0, v > -1e29)
+        np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(), rtol=1e-6, atol=1e-7)
+        if feature == "duplicated_rows":
+            assert torch.equal(i, pi)
+        else:
+            live = i >= 0
+            gap = (row_scores(tw, tq, i.clamp(0), kw.get("head"))
+                   - row_scores(tw, tq, pi.clamp(0), kw.get("head"))).abs()
+            assert not bool(((i != pi) & live & (gap > 1e-6)).any())
+
+
+@pytest.mark.cuda
 def test_exact_topk_fewer_live_rows_than_k(cuda):
     w, _ = inputs(cuda, n=1300, d=32)
     keep = torch.zeros(1300, dtype=torch.bool, device=cuda)
@@ -279,13 +363,17 @@ def adam_case(dev, n, d, b, seed, one_row=False):
 
 
 def assert_update_close(got, want, dtype):
+    """Hot-row bound (rows hit once are held bit-equal by the callers): 1e-5
+    of the tensor's largest entry, the f32 sum-order error; a bf16 moment one
+    bf16 ulp on top, since two different f32 values may round to
+    neighbouring bf16 values, and where mu' = b1 mu + (1 - b1) g nearly
+    cancels, the f32 error alone can exceed an ulp of the tiny result (as
+    chip_smoke.py's _hot_row_tol)."""
     for name, a, b in zip(("w", "mu", "nu"), got[:3], want[:3]):
         a, b = a.float(), b.float()
+        tol = 1e-5 * float(b.abs().max())
         if dtype == torch.bfloat16 and name != "w":
-            # One bf16 ulp where the f32 values differ in their last bits.
-            tol = b.abs() * 2.0 ** -7 + 1e-30
-        else:
-            tol = 1e-5 * float(b.abs().max())
+            tol = tol + torch.ldexp(torch.ones_like(b), torch.frexp(b).exponent - 8)
         assert bool(((a - b).abs() <= tol).all()), name
     assert abs(float(got[3]) - float(want[3])) <= 1e-5 * float(want[3])
 

@@ -194,3 +194,16 @@ def test_exact_scan_through_a_shuffled_table_and_score_topk_match_jax():
     ref = jscoring.score_topk(jnp.asarray(w), jnp.asarray(q), jnp.asarray(head), 11,
                               mask=jnp.asarray(keep), exact_scan=True)
     assert_exact_topk(port, ref, true_scores(w, q, head), exact_ties=True)
+
+
+@pytest.mark.parametrize("q", [9, 64])
+def test_exact_scan_at_the_kernels_query_tiles_matches_jax(q):
+    """Query counts that take the card kernel's 32-query tiles (9: one
+    partial tile; 64: two full ones), on a table of exact duplicates, with
+    mask and exclude: indices equal to JAX's."""
+    w, _ = integer_table(1100, 16, seed=23, distinct=50)
+    q_rows = np.arange(q) * 17 % 1100
+    keep = np.random.default_rng(23).uniform(size=1100) > 0.2
+    excl = np.where(np.arange(q) % 3 == 0, -1, q_rows).astype(np.int32)
+    port, ref = both(w, w[q_rows], 12, block_rows=512, mask=keep, exclude=excl)
+    assert_exact_topk(port, ref, true_scores(w, w[q_rows]), exact_ties=True)

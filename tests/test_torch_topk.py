@@ -299,3 +299,119 @@ def test_top_r_policy_and_unported_tables():
               topk.shuffle_rows(torch.from_numpy(w), seed=2)._replace(
                   table=quantize_rows(torch.from_numpy(w[np.random.default_rng(2).permutation(700)])))):
         assert_same_topk(topk.cosine_topk(t, torch.from_numpy(w[3]), 5), want, true_scores(w, w[[3]]))
+
+
+def tf32_reference(x: np.ndarray) -> np.ndarray:
+    """TF32 rounding from first principles, in f64: |x| = m 2^e with m in
+    [0.5, 1) has a TF32 step of 2^(e - 11); round |x| / step to nearest,
+    halves away from zero, and put the sign back (normal values only)."""
+    x64 = x.astype(np.float64)
+    _, e = np.frexp(np.abs(x64))
+    step = np.ldexp(1.0, e - 11)
+    return (np.sign(x64) * np.floor(np.abs(x64) / step + 0.5) * step).astype(np.float32)
+
+
+def test_round_tf32_matches_a_bit_level_reference():
+    rng = np.random.default_rng(21)
+    bits = rng.integers(0x00800000, 0x7F000000, 4000, dtype=np.int64)
+    edges = []
+    for hi in (0x3F800000, 0x3FFFE000, 0x40000000, 0x3F7FE000, 0x00800000, 0x7E800000):
+        # ties (0x1000), just below and above them, and values 1 step under
+        # the next binade (0x3FFFF000 rounds up to 2.0).
+        edges += [hi | low for low in (0x0000, 0x0FFF, 0x1000, 0x1001, 0x1FFF)]
+    bits = np.concatenate([bits, edges, [0x3FFFF000, 0x3F7FF000]]).astype(np.uint32)
+    x = np.concatenate([bits, bits | np.uint32(0x80000000)]).view(np.float32)   # and negatives
+    x = np.concatenate([x, (rng.standard_normal(4000) * 10.0 ** rng.integers(-6, 6, 4000))
+                        .astype(np.float32)])
+    got = topk.round_tf32(torch.from_numpy(x)).numpy()
+    want = tf32_reference(x)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert (got.view(np.uint32) & 0x1FFF == 0).all()
+    # The cases themselves: a tie rounds away from zero, on both signs, and
+    # a tie below a binade edge carries into the next binade.
+    one = np.float32(1.0).view(np.uint32)
+    tie = np.asarray([one | 0x1000, (one | 0x1000) | 0x80000000, 0x3FFFF000], np.uint32)
+    r = topk.round_tf32(torch.from_numpy(tie.view(np.float32))).numpy()
+    np.testing.assert_array_equal(r, np.asarray([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 2.0], np.float32))
+
+
+def test_tf32_threshold_is_the_kernels():
+    """The plain version applies TF32 from the query count at which the
+    kernel takes its tensor-core branch: one threshold for both."""
+    from pathlib import Path
+
+    src = (Path(topk.__file__).parents[1] / "csrc" / "packed_topk.cu").read_text()
+    assert f"#define PACKED_TOPK_LARGE_Q {topk.TF32_MIN_Q}\n" in src
+    assert topk.TF32_MIN_Q > 1
+
+
+# One key step (9 dropped bits of s2 < 4: 2^-13) plus the TF32 error of a
+# dot product of unit rows: two operands rounded to 2^-11 relative each,
+# so at most 2^-10 * sum |w_i q_i| <= 2^-10.
+KEY_STEP, TF32_NOISE = 2.0 ** -13, 2.0 ** -10
+
+
+@pytest.mark.parametrize("q", [topk.TF32_MIN_Q - 1, topk.TF32_MIN_Q])
+def test_plain_stage1_keys_across_the_tf32_threshold_match_jax(q):
+    """Below the threshold the plain stage 1 is f32; from it, TF32 (as the
+    kernel's tensor-core branch). Either way its keys against the JAX
+    Pallas stage 1 (interpret mode, N a multiple of 512 so both use the
+    same groups; every group's top_r in the pool): the same live rows per
+    (query, group) except where true scores tie within the noise at the
+    group's top_r boundary, and every live key within one key step, plus
+    the TF32 bound from the threshold, of its row's true score."""
+    n, r = 1536, 24
+    w = table(n, seed=13)
+    qs = table(q, seed=14)
+    keep = np.random.default_rng(13).uniform(size=n) > 0.3
+    excl = np.where(np.arange(q) % 3 == 0, -1, np.arange(q) * 37 % n).astype(np.int32)
+    head = np.asarray([2.5, 0.3], np.float32)
+    keys = topk._packed_candidates_plain(
+        torch.from_numpy(w), torch.from_numpy(qs), r, torch.from_numpy(keep),
+        torch.from_numpy(excl), torch.from_numpy(head))
+    cand, alive = topk._stage1_pool(keys, keys.shape[1], r)
+    qp = -(-q // 8) * 8
+    jc, ja = jtopk._packed_candidates(
+        jnp.asarray(w), jnp.pad(jnp.asarray(qs), ((0, qp - q), (0, 0))),
+        m=3 * r, n=n, qn=q, qp=qp, block_rows=512, mask=jnp.asarray(keep),
+        exclude_row=jnp.pad(jnp.asarray(excl).reshape(1, q), ((0, 0), (0, qp - q)),
+                            constant_values=-1),
+        head_arr=jnp.asarray(head).reshape(1, 2), use_head=True, interpret=True,
+        queries_f32=jnp.asarray(qs), tail_table=jnp.asarray(w), tail_k=5, top_r=r,
+    )
+    jc, ja = np.asarray(jc), np.asarray(ja)
+    s = true_scores(w, qs, head)
+    live_rows = keep[None, :] & (np.arange(n)[None, :] != excl[:, None])
+    # sigmoid' <= alpha / 4 carries the dot product's noise through the head.
+    tol = KEY_STEP + (head[0] / 4 * TF32_NOISE if q >= topk.TF32_MIN_Q else 1e-6)
+    decoded = ((keys & ~511).view(torch.float32) - 2.0).numpy()
+    top = keys.topk(keys.shape[1], dim=1).values.numpy()   # the pool's order
+    assert (decoded.max(axis=1) == ((top[:, 0] & ~511).view(np.float32) - 2.0)).all()
+    for row in range(q):
+        mine, theirs = cand[row][alive[row]].numpy(), jc[row][ja[row]]
+        assert live_rows[row, mine].all() and len(set(mine)) == len(mine)
+        got = (top[row][alive[row].numpy()] & ~511).view(np.float32) - 2.0
+        assert (np.abs(got - s[row, mine]) <= tol).all()
+        for g in range(n // 512):
+            a = set(x for x in mine if x // 512 == g)
+            b = set(int(x) for x in theirs if x // 512 == g)
+            assert len(a) == len(b)
+            group = np.sort(s[row, g * 512:(g + 1) * 512][live_rows[row, g * 512:(g + 1) * 512]])
+            boundary = group[-min(r, len(group))]
+            for x in a ^ b:
+                assert abs(s[row, x] - boundary) <= 2 * tol, (row, g, x)
+
+
+def test_masked_topk_from_the_tf32_threshold_matches_jax():
+    """masked_topk at and above TF32_MIN_Q (the TF32 stage 1) against the
+    JAX package and the dense oracle: values within 1e-5 (stage 2 is exact
+    f32), indices equal except true ties within 1e-6."""
+    w = table(1500, seed=22)
+    keep = np.random.default_rng(22).uniform(size=1500) > 0.25
+    for q in (topk.TF32_MIN_Q, 3 * topk.TF32_MIN_Q + 5):
+        rows = np.arange(q) * 41 % 1500
+        excl = np.where(np.arange(q) % 4 == 0, -1, rows).astype(np.int32)
+        port, ref = both(w, w[rows], 9, block_rows=256, mask=keep, exclude=excl)
+        scores = true_scores(w, w[rows])
+        assert_same_topk(port, ref, scores)
+        assert_same_topk(port, oracle(w, w[rows], 9, mask=keep, exclude=excl), scores)

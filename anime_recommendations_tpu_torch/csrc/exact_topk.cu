@@ -37,19 +37,17 @@
 // chunk streamed through a cp.async double buffer of 16-dimension slabs;
 // register microtiles of 2 rows x 1 or 8 queries (256 threads) or, for the
 // 32-query tile, 8 rows x 8 queries (4 shared-memory loads of 16 bytes per
-// 64 fmaf). The 32-query tile is taken only when the grid still gives every
-// SM two blocks (query_tile; tools/scan_kernels.py --sweep timed both tiles
-// at 9 to 256 queries on an H100 and the rule picks the faster or ties it).
+// 64 fmaf); the queries staged scan::kQueryDims dimensions at a time, so
+// every D % 16 == 0 fits in shared memory. The 32-query tile is taken only
+// when the grid still gives every SM two blocks (query_tile;
+// tools/scan_kernels.py --sweep timed both tiles at 9 to 256 queries on an
+// H100 and the rule picks the faster or ties it).
 // Extraction: the chunk's scores go to shared memory as ordered uint32 keys
 // (0 = dead), and one warp per query takes kc rounds of a warp max of the
 // lanes' best scores and a warp min of the tied lanes' positions (the lower
 // row wins a tie), with no block barrier.
 
 #include "scan_common.cuh"
-
-#ifndef EXACT_TOPK_TILE
-#define EXACT_TOPK_TILE 0   // 0: query_tile's rule
-#endif
 
 namespace {
 
@@ -135,8 +133,8 @@ cudaError_t launch(const void* table, const void* queries, const uint8_t* mask,
                    int n, int d, int nq, int kc, cudaStream_t stream) {
   using S = scan::Tile<T, RPT, QPT, QG>;
   const dim3 grid((nq + S::kQT - 1) / S::kQT, (n + kGroup - 1) / kGroup);
+  static_assert(S::kRingBytes + S::kQT * (scan::kQueryDims + 4) * 4 <= kMaxSmem, "any d fits");
   const size_t smem = S::smem_bytes(d);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t err = scan::allow_smem<exact_topk_kernel<T, RPT, QPT, QG>>(smem);
   if (err != cudaSuccess) return err;
   exact_topk_kernel<T, RPT, QPT, QG><<<grid, S::kThreads, smem, stream>>>(
@@ -159,11 +157,9 @@ int sm_count() {
 // The query tile: 1 query alone; else 32 when that still gives every SM two
 // blocks (the 8 x 8 microtile needs 4 shared-memory loads per 64 fmaf, the
 // 2 x 8 one 10 per 64), and 8 when the grid would be too small for the card
-// (the 17,560-row anime table has 35 chunks). EXACT_TOPK_TILE (8 or 32)
-// pins it, for measurement.
+// (the 17,560-row anime table has 35 chunks).
 int query_tile(int n, int nq) {
   if (nq == 1) return 1;
-  if (EXACT_TOPK_TILE == 8 || EXACT_TOPK_TILE == 32) return EXACT_TOPK_TILE;
   const int chunks = (n + kGroup - 1) / kGroup;
   return nq > 8 && chunks * ((nq + 31) / 32) >= 2 * sm_count() ? 32 : 8;
 }
@@ -188,7 +184,8 @@ cudaError_t launch_for(const void* table, const void* queries, const uint8_t* ma
 // (uint8 [n], nonzero keeps), exclude (int32 [nq], -1 = none) and head
 // (float32 [2]: alpha, beta) may be null. d must be a multiple of 16, 1 <=
 // kc <= 512, ceil(n / 512) <= 65535, and out_s / out_i must each hold nq *
-// ceil(n / 512) * kc values. Returns a cudaError_t (0 on success).
+// ceil(n / 512) * kc values; any such d fits (scan::kQueryDims). Returns a
+// cudaError_t (0 on success).
 extern "C" int exact_topk(const void* table, int dtype, const void* queries,
                           const uint8_t* mask, const int32_t* exclude,
                           const float* head, float* out_s, int32_t* out_i, int n,
@@ -202,3 +199,7 @@ extern "C" int exact_topk(const void* table, int dtype, const void* queries,
   return (int)launch_for<__nv_bfloat16>(table, queries, mask, exclude, head, out_s, out_i, n, d,
                                         nq, kc, s);
 }
+
+// The query tile exact_topk takes for n rows and nq queries (1, 8 or 32):
+// the table is read once per tile.
+extern "C" int exact_topk_query_tile(int n, int nq) { return query_tile(n, nq); }

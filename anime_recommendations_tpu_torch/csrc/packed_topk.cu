@@ -16,8 +16,8 @@
 // [g * top_r, (g + 1) * top_r). Rows are rebuilt from (position, key low
 // bits) by the caller.
 //
-// Two branches, chosen by the query count against PACKED_TOPK_LARGE_Q (the
-// same threshold as ops/topk.py's TF32_MIN_Q). It is 2: on an H100 (700 W)
+// Two branches: one query streams, more than one take the tensor cores
+// (ops/topk.py's TF32_MIN_Q = 2 is the same rule). On an H100 (700 W)
 // tools/scan_kernels.py --sweep timed the tensor-core branch at least as
 // fast as the streaming one from 2 queries up, f32 and bf16 (PERF.md).
 //
@@ -38,7 +38,8 @@
 // through L2; the product with mma.sync, bf16 x bf16 for bf16 tables, TF32
 // (operands rounded to nearest, ties away, as cvt.rna.tf32.f32) for f32
 // tables, f32 accumulation. The queries are the M side (4 m16 tiles, from
-// the shared query tile) and the table rows the N side: each of 16 warps
+// the shared query tile, staged scan::kQueryDims dimensions at a time so
+// that every D % 16 == 0 fits) and the table rows the N side: each of 16 warps
 // owns 32 rows of the group and loads their B fragments straight from
 // device memory (16 bytes a lane, each table element read by one thread;
 // the k index is permuted so a lane's 4 consecutive dimensions feed one
@@ -50,10 +51,6 @@
 // one bf16 pass even for f32 tables, and stage 2 rescores the pool in f32.
 
 #include "scan_common.cuh"
-
-#ifndef PACKED_TOPK_LARGE_Q   // tools/scan_kernels.py builds it with others
-#define PACKED_TOPK_LARGE_Q 2
-#endif
 
 namespace {
 
@@ -113,8 +110,8 @@ cudaError_t launch_small(const void* table, const void* queries, const uint8_t* 
                          int nq, int top_r, cudaStream_t stream) {
   using S = scan::Tile<T, 2, 1, 1>;
   const dim3 grid(nq, (n + kGroup - 1) / kGroup);
+  static_assert(S::kRingBytes + S::kQT * (scan::kQueryDims + 4) * 4 <= kMaxSmem, "any d fits");
   const size_t smem = S::smem_bytes(d);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = packed_topk_kernel<T>;
   const cudaError_t err = scan::allow_smem<packed_topk_kernel<T>>(smem);
   if (err != cudaSuccess) return err;
@@ -132,11 +129,15 @@ constexpr int kWarpRows = kGroup / (kBigThreads / 32);
 constexpr int kKeyStride = 520;      // keys row stride: 8-byte epilogue stores hit 32 banks
 constexpr int kChunks = 2;           // 16-dim chunks whose B fragments load together
 
-// Query row stride (elements) in shared memory: an odd multiple of 16, so
+// Query row stride (elements) in shared memory for a tile of min(d,
+// scan::kQueryDims) dimensions: an odd multiple of 16, so
 // the A-fragment loads of a quarter warp (f32, 16 bytes a lane: queries gid
 // 0 and 1 half a bank cycle apart) or a half warp (bf16, 8 bytes: queries
 // gid 0-3 a quarter apart) hit distinct banks.
-__host__ __device__ __forceinline__ int big_qstride(int d) { return (d & 16) ? d : d + 16; }
+__host__ __device__ __forceinline__ int big_qstride(int d) {
+  const int w = d < scan::kQueryDims ? d : scan::kQueryDims;
+  return (w & 16) ? w : w + 16;
+}
 
 __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t u;
@@ -241,11 +242,7 @@ packed_topk_mma_kernel(const T* __restrict__ table, const T* __restrict__ querie
       const int row = row0 + wrow0 + nt * 8 + 2 * tig + h;
       if (row < n && (mask == nullptr || mask[row] != 0)) live |= 1u << (2 * nt + h);
     }
-  scan::stage_queries<kBigQ, kBigThreads>(queries, d, q0, nq, [&](int q, int c, uint4 v) {
-    store_query(qs + q * qstride + c, v);
-  });
   if (t < kBigQ) excl[t] = (exclude != nullptr && t < nq) ? exclude[q0 + t] : -1;
-  __syncthreads();
 
   const int mtiles = (nq + 15) / 16;
   const T* wp[kWarpRows / 8];
@@ -265,22 +262,32 @@ packed_topk_mma_kernel(const T* __restrict__ table, const T* __restrict__ querie
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
 
-  for (int c0 = 0; c0 < d; c0 += 16 * kChunks) {
-    uint32_t w[kChunks][kWarpRows / 8][4];
+  // The queries' dims [s0, s0 + width) into the shared tile, then their product.
+  for (int s0 = 0; s0 < d; s0 += scan::kQueryDims) {
+    const int width = min(scan::kQueryDims, d - s0);
+    if (s0 > 0) __syncthreads();   // every warp is done with the previous dims
+    scan::stage_queries<kBigQ, kBigThreads>(queries + s0, d, width, q0, nq,
+                                            [&](int q, int c, uint4 v) {
+                                              store_query(qs + q * qstride + c, v);
+                                            });
+    __syncthreads();
+    for (int c0 = 0; c0 < width; c0 += 16 * kChunks) {
+      uint32_t w[kChunks][kWarpRows / 8][4];
 #pragma unroll
-    for (int u = 0; u < kChunks; ++u)
-#pragma unroll
-      for (int nt = 0; nt < kWarpRows / 8; ++nt)
-        load_frag(wp[nt] + c0 + 16 * u, wok[nt] && c0 + 16 * u < d, w[u][nt]);
-#pragma unroll
-    for (int u = 0; u < kChunks; ++u) {
-      if (c0 + 16 * u >= d) break;
-#pragma unroll
-      for (int mt = 0; mt < kBigQ / 16; ++mt) {
-        if (mt >= mtiles) break;
+      for (int u = 0; u < kChunks; ++u)
 #pragma unroll
         for (int nt = 0; nt < kWarpRows / 8; ++nt)
-          chunk_mma(c[mt][nt], xq + mt * 16 * qstride + c0 + 16 * u, qstride, w[u][nt]);
+          load_frag(wp[nt] + s0 + c0 + 16 * u, wok[nt] && c0 + 16 * u < width, w[u][nt]);
+#pragma unroll
+      for (int u = 0; u < kChunks; ++u) {
+        if (c0 + 16 * u >= width) break;
+#pragma unroll
+        for (int mt = 0; mt < kBigQ / 16; ++mt) {
+          if (mt >= mtiles) break;
+#pragma unroll
+          for (int nt = 0; nt < kWarpRows / 8; ++nt)
+            chunk_mma(c[mt][nt], xq + mt * 16 * qstride + c0 + 16 * u, qstride, w[u][nt]);
+        }
       }
     }
   }
@@ -320,7 +327,8 @@ cudaError_t launch_big(const void* table, const void* queries, const uint8_t* ma
   const dim3 grid((nq + kBigQ - 1) / kBigQ, (n + kGroup - 1) / kGroup);
   const size_t smem = (size_t)kBigQ * kKeyStride * sizeof(int) +
                       (size_t)kBigQ * big_qstride(d) * sizeof(T);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static_assert(kBigQ * kKeyStride * sizeof(int) + kBigQ * (scan::kQueryDims + 16) * sizeof(T) <=
+                    kMaxSmem, "any d fits");
   auto kernel = packed_topk_mma_kernel<T>;
   const cudaError_t err = scan::allow_smem<packed_topk_mma_kernel<T>>(smem);
   if (err != cudaSuccess) return err;
@@ -334,7 +342,7 @@ template <typename T>
 cudaError_t launch(const void* table, const void* queries, const uint8_t* mask,
                    const int32_t* exclude, const float* head, int32_t* out, int n, int d,
                    int nq, int top_r, cudaStream_t s) {
-  if (nq >= PACKED_TOPK_LARGE_Q)
+  if (nq > 1)
     return launch_big<T>(table, queries, mask, exclude, head, out, n, d, nq, top_r, s);
   return launch_small<T>(table, queries, mask, exclude, head, out, n, d, nq, top_r, s);
 }
@@ -345,8 +353,8 @@ cudaError_t launch(const void* table, const void* queries, const uint8_t* mask,
 // (uint8 [n], nonzero keeps), exclude (int32 [nq], -1 = none) and head
 // (float32 [2]: alpha, beta) may be null. d must be a multiple of 16, 1 <=
 // top_r <= 512, ceil(n / 512) <= 65535, and out must hold nq * ceil(n / 512)
-// * top_r int32. nq >= PACKED_TOPK_LARGE_Q takes the tensor-core branch
-// (TF32 products for f32 tables). Returns a cudaError_t (0 on success).
+// * top_r int32. nq > 1 takes the tensor-core branch (TF32 products for f32
+// tables). Every such d fits in shared memory (scan::kQueryDims). Returns a cudaError_t (0 on success).
 extern "C" int packed_topk(const void* table, int dtype, const void* queries,
                            const uint8_t* mask, const int32_t* exclude,
                            const float* head, int32_t* out, int n, int d,

@@ -7,7 +7,9 @@
 // while the other slab is computed; one barrier pair per slab). The query
 // tile sits in shared memory as f32 and is read by broadcast. Each thread
 // owns a register microtile of RPT rows x QPT queries and sums every score
-// with fmaf in dimension order (K3's exact f32 contract). The scores then
+// with fmaf in dimension order (K3's exact f32 contract). The queries are
+// staged kQueryDims dimensions at a time, so the shared memory a block
+// needs does not grow with D past that and every D % 16 == 0 runs. The scores then
 // go to shared memory as one 32-bit key per (query, row), in the ring's
 // place, and one warp per query extracts that query's best keys with warp
 // reductions alone: no block barrier per round.
@@ -26,6 +28,7 @@ constexpr int kGroup = 512;    // rows per block (K2's key lanes, K3's chunk)
 constexpr int kSlab = 16;      // table dimensions per ring stage
 constexpr int kStages = 2;
 constexpr int kKeysPerLane = kGroup / 32;
+constexpr int kQueryDims = 256;   // query dimensions staged at once
 
 // Padded row stride of a ring stage, in elements. f32 rows are read as
 // float4: a stride of 20 floats puts 8 consecutive rows on 32 distinct
@@ -50,8 +53,10 @@ struct Tile {
   static constexpr int kRingBytes =
       kStages * stage_bytes<T>() > kQT * kGroup * 4 ? kStages * stage_bytes<T>()
                                                      : kQT * kGroup * 4;
-  // Dynamic shared memory: the ring (then the keys), then the queries.
-  static size_t smem_bytes(int d) { return (size_t)kRingBytes + (size_t)kQT * (d + 4) * 4; }
+  // Dynamic shared memory: the ring (then the keys), then the queries (f32,
+  // up to kQueryDims dimensions of each, rows padded by 4).
+  __host__ __device__ static int qstride(int d) { return (d < kQueryDims ? d : kQueryDims) + 4; }
+  static size_t smem_bytes(int d) { return (size_t)kRingBytes + (size_t)kQT * qstride(d) * 4; }
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -92,17 +97,17 @@ __device__ __forceinline__ float4 tile4(const __nv_bfloat16* p) {
   return widen(*reinterpret_cast<const uint2*>(p));
 }
 
-// Rows [q0, q0 + nq) of queries [*, d] into a kQ-row tile: store(q, c, v)
-// gets the 16 bytes v holding elements [c, c + 16 / sizeof(T)) of tile row q
-// (zero past nq). Four 16-byte loads per thread are in flight at once: a
-// loop of single loads, each followed by its store, waits out the latency
-// of every one in turn.
+// Elements [0, width) of rows [q0, q0 + nq) of queries (row stride ld) into
+// a kQ-row tile: store(q, c, v) gets the 16 bytes v holding elements [c, c +
+// 16 / sizeof(T)) of tile row q (zero past nq). Four 16-byte loads per
+// thread are in flight at once: a loop of single loads, each followed by
+// its store, waits out the latency of every one in turn.
 template <int kQ, int kThreads, typename T, typename Store>
-__device__ __forceinline__ void stage_queries(const T* __restrict__ queries, int d, int q0,
-                                              int nq, Store store) {
+__device__ __forceinline__ void stage_queries(const T* __restrict__ queries, int ld, int width,
+                                              int q0, int nq, Store store) {
   constexpr int kPer = 16 / (int)sizeof(T);
   constexpr int kBatch = 4;
-  const int units = d / kPer;          // 16-byte units per row
+  const int units = width / kPer;      // 16-byte units per row
   const int total = kQ * units;
   for (int base = threadIdx.x; base < total; base += kBatch * kThreads) {
     uint4 v[kBatch];
@@ -111,7 +116,7 @@ __device__ __forceinline__ void stage_queries(const T* __restrict__ queries, int
       const int i = base + u * kThreads;
       const int q = i / units;
       v[u] = (i < total && q < nq)
-                 ? __ldg(reinterpret_cast<const uint4*>(queries + (size_t)(q0 + q) * d) +
+                 ? __ldg(reinterpret_cast<const uint4*>(queries + (size_t)(q0 + q) * ld) +
                          (i - q * units))
                  : make_uint4(0u, 0u, 0u, 0u);
     }
@@ -144,7 +149,9 @@ __device__ __forceinline__ void store_f32(float* dst, uint4 v, __nv_bfloat16) {
 
 // acc[i][j] = <row rg + kRowThreads * i, query qg * QPT + j> over the whole
 // of d, one fmaf per dimension in dimension order (queries past nq_total are
-// zero). Ends with a barrier, after which the ring may be overwritten.
+// zero). The queries' next kQueryDims dimensions are staged after the
+// barrier that ends the last slab of the previous ones. Ends with a
+// barrier, after which the ring may be overwritten.
 template <typename T, int RPT, int QPT, int QG>
 __device__ __forceinline__ void score_group(const T* __restrict__ table,
                                             const T* __restrict__ queries, int n, int d,
@@ -154,15 +161,20 @@ __device__ __forceinline__ void score_group(const T* __restrict__ table,
   const int t = threadIdx.x;
   const int rg = t % S::kRowThreads;
   const int qg = t / S::kRowThreads;
-  const int qstride = d + 4;
+  constexpr int kQuerySlabs = kQueryDims / kSlab;
+  const int qstride = S::qstride(d);
   float* qs = reinterpret_cast<float*>(smem + S::kRingBytes);
   const int nq = min(S::kQT, nq_total - q0);
+  auto stage_query_dims = [&](int c0) {   // dims [c0, c0 + kQueryDims) of the tile
+    stage_queries<S::kQT, S::kThreads>(queries + c0, d, min(kQueryDims, d - c0), q0, nq,
+                                       [&](int q, int c, uint4 v) {
+                                         store_f32(qs + q * qstride + c, v, T());
+                                       });
+  };
 
   stage_slab<T>(smem, 0, table, n, d, row0, 0, t, S::kThreads);
   cp_async_commit();
-  stage_queries<S::kQT, S::kThreads>(queries, d, q0, nq, [&](int q, int c, uint4 v) {
-    store_f32(qs + q * qstride + c, v, T());
-  });
+  stage_query_dims(0);
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -172,10 +184,11 @@ __device__ __forceinline__ void score_group(const T* __restrict__ table,
   for (int s = 0; s < nslabs; ++s) {
     if (s + 1 < nslabs) stage_slab<T>(smem, (s + 1) & 1, table, n, d, row0, s + 1, t, S::kThreads);
     cp_async_commit();
+    if (s > 0 && s % kQuerySlabs == 0) stage_query_dims(s * kSlab);
     cp_async_wait<1>();   // slab s has landed
     __syncthreads();
     const T* tile = reinterpret_cast<const T*>(smem + (s & 1) * stage_bytes<T>());
-    const float* qslab = qs + s * kSlab + qg * QPT * qstride;
+    const float* qslab = qs + (s % kQuerySlabs) * kSlab + qg * QPT * qstride;
 #pragma unroll
     for (int v = 0; v < kSlab; v += 4) {
       float4 w[RPT];
@@ -194,7 +207,7 @@ __device__ __forceinline__ void score_group(const T* __restrict__ table,
         }
       }
     }
-    __syncthreads();      // stage s & 1 is free again
+    __syncthreads();      // stage s & 1, and the queries' dims once read, are free again
   }
 }
 

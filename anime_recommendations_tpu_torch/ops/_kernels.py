@@ -43,6 +43,8 @@ SIGNATURES = {
     # table, dtype, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc,
     # stream
     "exact_topk": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # n, nq -> the query tile exact_topk takes (1, 8 or 32)
+    "exact_topk_query_tile": (_I, _I),
     # table, out, out_dtype, n, d, eps, stream
     "l2_normalize": (_P, _P, _I, _I, _I, _F, _P),
     # w, mu, nu, moment_dtype, ids, grads, starts, partials, n, d, block_rows,
@@ -54,7 +56,7 @@ SIGNATURES = {
                           _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
 }
 # Entry points defined in another source than csrc/<name>.cu.
-ENTRY_SOURCE = {"fused_adam_gather": "fused_adam"}
+ENTRY_SOURCE = {"fused_adam_gather": "fused_adam", "exact_topk_query_tile": "exact_topk"}
 # The sources to build: csrc/<source>.cu for each.
 SOURCES = tuple(dict.fromkeys(ENTRY_SOURCE.get(name, name) for name in SIGNATURES))
 
@@ -82,10 +84,11 @@ def nvcc_path() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this exact source is already built."""
-    src = CSRC / f"{name}.cu"
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+def build(name: str, csrc: Path = CSRC) -> Path:
+    """Compile ``<csrc>/<name>.cu`` unless this exact source is already built
+    (``csrc``: another version of the sources, for tools that compare)."""
+    src = csrc / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(
         src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
@@ -108,9 +111,15 @@ def build(name: str) -> Path:
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>.cu``, built on first call, with
     the C signatures of its entry points set."""
-    lib = ctypes.CDLL(str(build(source)))
+    return load(build(source), source)
+
+
+def load(path: Path, source: str) -> ctypes.CDLL:
+    """Load a library built from ``<source>.cu`` and set the C signatures of
+    its entry points."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
-        if ENTRY_SOURCE.get(name, name) == source:
+        if ENTRY_SOURCE.get(name, name) == source and hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int

@@ -12,10 +12,12 @@ and the same two stages:
           max is also an argmax. Each group keeps its top_r keys. On a CUDA
           tensor this is the hand-written kernel csrc/packed_topk.cu; on a
           CPU tensor it is _packed_candidates_plain, the same function in
-          torch ops.
-          Precision: below TF32_MIN_Q queries the scores are f32 products
-          with f32 sums. At and above it the kernel takes its tensor-core
-          branch, and for f32 tables both operands are first rounded to
+          torch ops. The kernel has two branches: one query streams the
+          table through the CUDA cores (counted as ``packed_topk``), more
+          take the tensor cores on 64-query tiles (``packed_topk_mma``).
+          Precision: for one query the scores are f32 products with f32
+          sums. From TF32_MIN_Q = 2 queries, the tensor-core branch, and
+          for f32 tables both operands are first rounded to
           TF32 (round_tf32: nearest, ties away from zero, as the card's
           cvt.rna.tf32.f32); bf16 tables are exact in TF32 and multiply as
           bf16. The plain version applies the same rule at the same query
@@ -62,9 +64,9 @@ from anime_recommendations_tpu_torch.ops import _kernels
 
 GROUP = 512            # rows per extraction group (low key bits carry the lane)
 # Query count from which stage 1 runs on the tensor cores, with TF32
-# operands for f32 tables (module docstring). Must equal
-# PACKED_TOPK_LARGE_Q in csrc/packed_topk.cu; PERF.md gives the
-# measurement (tools/scan_kernels.py --sweep) that set it.
+# operands for f32 tables (module docstring): csrc/packed_topk.cu takes that
+# branch for more than one query. PERF.md gives the measurement
+# (tools/scan_kernels.py --sweep) that set it.
 TF32_MIN_Q = 2
 _NEG = -1e30           # dead-slot score sentinel
 _BIAS = 2.0            # makes every in-contract score positive
@@ -256,8 +258,9 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _packed_candidates_cuda(table, queries, top_r, mask, exclude, head):
-    """Launch csrc/packed_topk.cu on PyTorch's current stream."""
+def _packed_candidates_cuda(table, queries, top_r, mask, exclude, head, lib=None):
+    """Launch csrc/packed_topk.cu (or ``lib``, a library of another version
+    of it) on PyTorch's current stream."""
     _check_scan_inputs("packed_topk", table, queries, tuple(_DTYPE_CODES), top_r, GROUP)
     (n, d), qn = table.shape, queries.shape[0]
     n_groups = -(-n // GROUP)
@@ -266,9 +269,9 @@ def _packed_candidates_cuda(table, queries, top_r, mask, exclude, head):
     side = _side_inputs("packed_topk", table, qn, mask, exclude, head)
     args += _ptrs(*side)
     args += [out.data_ptr(), n, d, qn, top_r, _stream(table)]
-    err = _kernels.library("packed_topk").packed_topk(*args)
+    err = (lib or _kernels.library("packed_topk")).packed_topk(*args)
     _kernels.check(err, "packed_topk")
-    _kernels.count_launch("packed_topk")
+    _kernels.count_launch("packed_topk_mma" if qn >= TF32_MIN_Q else "packed_topk")
     return out
 
 
@@ -411,7 +414,14 @@ def _exact_scan_cuda(table, queries, k, mask=None, exclude=None, head=None):
     min(k, 512), then the stable merge of the chunks' candidates."""
     if k < 1:
         raise ValueError(f"exact_topk: k must be >= 1, got {k}")
-    kc = min(k, GROUP)
+    return _merge_candidates(*_exact_candidates_cuda(table, queries, min(k, GROUP), mask,
+                                                     exclude, head), k)
+
+
+def _exact_candidates_cuda(table, queries, kc, mask, exclude, head, lib=None):
+    """csrc/exact_topk.cu (or ``lib``, a library of another version of it)
+    on PyTorch's current stream: each chunk's top kc, [Q, n_chunks * kc]
+    scores and rows."""
     _check_scan_inputs("exact_topk", table, queries, tuple(_DTYPE_CODES), kc, GROUP)
     (n, d), qn = table.shape, queries.shape[0]
     n_chunks = -(-n // GROUP)
@@ -421,10 +431,10 @@ def _exact_scan_cuda(table, queries, k, mask=None, exclude=None, head=None):
     side = _side_inputs("exact_topk", table, qn, mask, exclude, head)
     args += _ptrs(*side)
     args += [out_s.data_ptr(), out_i.data_ptr(), n, d, qn, kc, _stream(table)]
-    err = _kernels.library("exact_topk").exact_topk(*args)
+    err = (lib or _kernels.library("exact_topk")).exact_topk(*args)
     _kernels.check(err, "exact_topk")
     _kernels.count_launch("exact_topk")
-    return _merge_candidates(out_s, out_i, k)
+    return out_s, out_i
 
 
 class ShuffledTable(NamedTuple):

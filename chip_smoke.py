@@ -15,14 +15,16 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            table, 17,560 x 128 anime table; 1 to 256 queries; with and
            without head, mask and exclude), against a dense full-score
            oracle, and timed: the kernel's device time under torch.profiler
-           (20 calls after warm-up) against its plain version's, the
+           (20 calls after warm-up, a session kept only if it recorded
+           every launch) against its plain version's, the
            CUDA-event median of a call beside it, and the share of the
            card's bound (bytes at 3.35 TB/s or operations at the peak of
            the type the kernel computes in) the kernel reaches:
-             packed_topk (K2; k2_cases), f32 and bf16 tables, both sides of
-               the tensor-core threshold (ops/topk.TF32_MIN_Q: TF32 for f32
-               tables from there, in the plain version too), a k deep
-               enough to drive top_r above 64;
+             packed_topk (K2; k2_cases), f32 and bf16 tables, both of its
+               kernels: packed_topk_kernel for one query, and from
+               ops/topk.TF32_MIN_Q = 2 queries packed_topk_mma_kernel on
+               the tensor cores (TF32 for f32 tables, in the plain version
+               too), a k deep enough to drive top_r above 64;
              packed_topk_int8 (K2q), int8 tables, keys bit-equal to the
                plain version's without a head, a k that drives top_r above
                64;
@@ -38,7 +40,8 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            HTTP server answered by each and checked against a dense oracle
            on the card. Launch counters are reset before this phase: every
            scanning endpoint must launch its context's scan kernel
-           (packed_topk, packed_topk_int8 or exact_topk), and every context
+           (packed_topk or packed_topk_mma, packed_topk_int8, exact_topk;
+           each of them at least once), and every context
            build l2_normalize twice (the anime and the user table).
   phase 4  the fused sparse-Adam kernel (K1) and its variant that also
            gathers the next batch's rows (K5) against their plain PyTorch
@@ -150,12 +153,24 @@ def phase_device() -> str:
         _kernels.library(name)
     print(f"[phase 1] built and loaded {', '.join(names)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # torch.profiler's device tracing is set up here, before the HTTP
-    # server's threads have launched work: set up first after phase 3, it
-    # recorded no kernels in this script.
+    start_profiler()
+    return card
+
+
+def start_profiler() -> None:
+    """One short torch.profiler session, first thing in the process (set up
+    first after phase 3's server threads had launched work, the profiler
+    recorded no kernels in this script), and a check of the name of the
+    busy-wait kernel that frames _profiled's sessions."""
+    import torch
+
     if not _profiled(lambda: torch.ones(1 << 20, device="cuda").sum(), reps=1)["device_ms"] > 0:
         raise AssertionError("torch.profiler records no device time on this machine")
-    return card
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(FRAME_CYCLES // 100)
+        torch.cuda.synchronize()
+    if not any("spin_kernel" in e.key for e in prof.key_averages()):
+        raise AssertionError("the busy-wait kernel framing profiler sessions is not spin_kernel")
 
 
 # ---- phase 2 -------------------------------------------------------------------
@@ -165,6 +180,15 @@ def phase_device() -> str:
 # user table) or "head_mask" (the sigmoid head and an anime mask keeping
 # ~80 % of the rows). tools/scan_kernels.py times the same cases.
 DTYPES = {"f32": "float32", "bf16": "bfloat16"}
+# K2's launch counters: the streaming branch (one query) and the
+# tensor-core branch (more), as ops/topk._packed_candidates_cuda counts them.
+K2_COUNTERS = ("packed_topk", "packed_topk_mma")
+
+
+def _k2_launches() -> int:
+    from anime_recommendations_tpu_torch.ops import _kernels
+
+    return sum(_kernels.launches[c] for c in K2_COUNTERS)
 
 
 def _named(cases) -> tuple:
@@ -266,50 +290,66 @@ def _median_ms(fn) -> float:
     return statistics.median(times)
 
 
+PROFILER_SESSIONS = 5
+# A busy-wait kernel of this many clock cycles (about 10 ms on an H100)
+# opens and closes every profiler session: see _profiled.
+FRAME_CYCLES = 20_000_000
+
+
 def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
     """torch.profiler over ``reps`` calls of fn after 3 warm-up calls: wall ms
     per call (host clock to a synchronize), device-busy ms per call (the sum
-    of CUDA kernel times), the idle share, device ms per call by kernel, and
-    (``match``) the device ms of one launch of the kernel whose name holds it
-    (fn launches it once a call) and how many of its launches were recorded."""
+    of CUDA kernel times), the idle share, device ms per call by kernel, the
+    number of sessions it took, and (``match``) the device ms of one launch
+    of the kernel whose name holds it (fn launches it once a call) with the
+    count of its launches recorded.
+
+    A session counts only if it recorded every launch: each kernel a
+    multiple of ``reps`` times (fn launches the same kernels every call) and
+    ``match`` exactly ``reps`` times. On an H100 host sessions lost all
+    records now and then, and, in some processes, every session lost the
+    kernels of its first call or two: those that ran within ~0.1 ms of the
+    session's start, more the longer the process had run. So a busy-wait
+    kernel (FRAME_CYCLES, excluded from every number) fills the first and
+    the last ~10 ms of each session, with fn's calls between them, and an
+    incomplete session is profiled again, at most PROFILER_SESSIONS times
+    in all; then the run fails."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    # A profiler session now and then records no device activity at all
-    # (seen once in ~90 sessions on an H100 host): profile again, at most
-    # twice.
-    # A session that records other kernels but not ``match`` still fails.
-    for attempt in range(3):
+    for session in range(1, PROFILER_SESSIONS + 1):
         with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(FRAME_CYCLES)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda._sleep(FRAME_CYCLES)
+            torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-        if events:
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
+        hits = [e for e in events if match is not None and match in e.key]
+        counts = {e.key[:70]: e.count for e in events}
+        if (events and all(c % reps == 0 for c in counts.values())
+                and (match is None or sum(e.count for e in hits) == reps)):
             break
-        print(f"[profiler] session {attempt + 1} recorded no device activity", flush=True)
+        print(f"[profiler] session {session} of {reps} calls lost records: {counts}", flush=True)
     else:
-        raise AssertionError("torch.profiler recorded no device activity in 3 sessions")
+        raise AssertionError(f"torch.profiler lost records in {PROFILER_SESSIONS} sessions")
     busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
     out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
-           "by_kernel": {e.key[:70]: e.self_device_time_total / 1e3 / reps for e in top[:8]}}
+           "by_kernel": {e.key[:70]: e.self_device_time_total / 1e3 / reps for e in top[:8]},
+           "sessions": session}
     if match is not None:
-        hits = [e for e in events if match in e.key]
-        launches = sum(e.count for e in hits)
-        if not launches:
-            raise AssertionError(f"the profiler saw no {match} launch: {out}")
-        # Each call launches one such kernel, and the profiler may drop a
-        # few launch records (seen on an H100: 19 of 20), so the time per
-        # call is the mean over the launches recorded.
-        out["match_ms"] = sum(e.self_device_time_total for e in hits) / 1e3 / launches
-        out["match_launches"] = launches
+        out["match_ms"] = sum(e.self_device_time_total for e in hits) / 1e3 / reps
+        out["match_launches"] = sum(e.count for e in hits)
     return out
 
 
@@ -336,10 +376,13 @@ def _check_case(card, name, table, queries, k, *, mask=None, exclude=None, head=
     tol = 1e-5 if table.dtype == torch.float32 else 1e-2
     qt = queries.to(table.dtype).contiguous()
     r = topk.top_r_policy(k, table.shape[0])
-    before = _kernels.launches["packed_topk"]
+    qn = queries.shape[0]
+    big = qn >= topk.TF32_MIN_Q
+    counter = K2_COUNTERS[big]
+    before = _kernels.launches[counter]
     v, i = topk.masked_topk(table, queries, k, mask=mask, exclude=exclude, head=head)
     torch.cuda.synchronize()
-    if _kernels.launches["packed_topk"] <= before:
+    if _kernels.launches[counter] <= before:
         raise AssertionError(f"{name}: masked_topk did not launch the kernel")
     vp, ip = topk.two_stage_topk(topk._packed_candidates_plain, table, queries, k,
                                  mask=mask, exclude=exclude, head=head)
@@ -371,15 +414,13 @@ def _check_case(card, name, table, queries, k, *, mask=None, exclude=None, head=
     key_err = float((_decoded(kk) - _decoded(kp)).abs()[live].max())
     if not key_err <= 1.3e-4:
         raise AssertionError(f"{name}: stage-1 keys differ by {key_err}")
-    qn = queries.shape[0]
-    big = qn >= topk.TF32_MIN_Q
     row = dict(card=card, case=name, n=table.shape[0], q=qn, dtype=str(table.dtype),
                k=k, top_r=r, branch="tensor_core" if big else "small_q", max_abs_err=err,
                key_err=key_err, overlap=overlap)
     # ms: packed_topk's device time (torch.profiler); event_ms: one call's
     # CUDA-event time, launch included.
     row |= _timing(lambda: topk._packed_candidates_cuda(*args),
-                   lambda: topk._packed_candidates_plain(*args), "packed_topk")
+                   lambda: topk._packed_candidates_plain(*args), f"{counter}_kernel")
     row["masked_topk_event_ms"] = _median_ms(lambda: topk.masked_topk(
         table, queries, k, mask=mask, exclude=exclude, head=head))
     row["masked_topk_plain_event_ms"] = _median_ms(lambda: topk.two_stage_topk(
@@ -418,7 +459,7 @@ def phase_kernels(card: str) -> list[dict]:
             qt, idx = queries.contiguous(), kw["exclude"]
             shallow = (lambda: topk._packed_candidates_cuda(tables["users"], qt, 2, None,
                                                             idx, None))
-            ms2 = _profiled(shallow, match="packed_topk")["match_ms"]
+            ms2 = _profiled(shallow, match="packed_topk_mma_kernel")["match_ms"]
             print(f"[phase 2] users_f32_q256_exclude stage 1 at top_r=2: {ms2} ms device "
                   f"time, {_median_ms(shallow)} ms CUDA-event time ({card})", flush=True)
     if max(r["top_r"] for r in rows) <= 64:
@@ -430,11 +471,14 @@ def phase_kernels(card: str) -> list[dict]:
 
 def _timing(fn, plain_fn, kernel: str) -> dict:
     """The kernel's device time per call (torch.profiler, the kernel named
-    ``kernel`` alone), its plain version's (all of its kernels), and both
-    medians of CUDA-event times (launch overhead included)."""
-    return dict(ms=_profiled(fn, match=kernel)["match_ms"],
-                plain_ms=_profiled(plain_fn)["device_ms"],
-                event_ms=_median_ms(fn), plain_event_ms=_median_ms(plain_fn))
+    ``kernel`` alone, every launch recorded), its plain version's (all of its
+    kernels, every launch recorded), the launches and sessions behind each,
+    and both medians of CUDA-event times (launch overhead included)."""
+    prof, plain = _profiled(fn, match=kernel), _profiled(plain_fn)
+    return dict(ms=prof["match_ms"], match_launches=prof["match_launches"],
+                sessions=prof["sessions"], plain_ms=plain["device_ms"],
+                plain_sessions=plain["sessions"], event_ms=_median_ms(fn),
+                plain_event_ms=_median_ms(plain_fn))
 
 
 def _check_ties(name, table, queries, i, ip, head, exact=False):
@@ -592,10 +636,12 @@ def _exact_case(card, name, table, queries, k, *, mask=None, exclude=None, head=
     row |= _timing(lambda: topk._exact_scan_cuda(table, tq, k, mask, exclude, head),
                    lambda: topk._exact_scan_plain(table, tq, k, mask, exclude, head),
                    "exact_topk_kernel")
-    # The table is read once per query tile of 1, 8 or 32 queries (tiles of
-    # one chunk run side by side and may share its rows through L2).
+    # The table is read once per query tile of 1, 8 or 32 queries, as the
+    # kernel's own rule picks it (tiles of one chunk run side by side and may
+    # share its rows through L2).
     qn = queries.shape[0]
-    row["table_reads"] = -(-qn // (1 if qn == 1 else 8 if qn <= 8 else 32))
+    row["tile"] = _kernels.library("exact_topk").exact_topk_query_tile(table.shape[0], qn)
+    row["table_reads"] = -(-qn // row["tile"])
     n_chunks, kc = -(-table.shape[0] // 512), min(k, 512)
     row |= _scan_bound(_nbytes(table), tq, mask, exclude, n_chunks * kc * tq.shape[0] * 8,
                        *table.shape)
@@ -733,10 +779,11 @@ def _close(name, got, want, ids_got, ids_want):
         raise AssertionError(f"{name}: result set differs from the oracle")
 
 
-def _drive_endpoints(ctx, cfg, label, kernel="packed_topk") -> dict:
+def _drive_endpoints(ctx, cfg, label, kernels=K2_COUNTERS) -> dict:
     """Every endpoint through the HTTP server, checked against the oracle;
-    each scanning endpoint must launch ``kernel``. Returns per-endpoint
-    median latency (ms, host clock around the request)."""
+    each scanning endpoint must launch one of ``kernels`` (launch counter
+    names). Returns per-endpoint median latency (ms, host clock around the
+    request)."""
     from anime_recommendations_tpu_torch.ops import _kernels
     from anime_recommendations_tpu_torch.recommend.user_recs import user_recs
     from anime_recommendations_tpu_torch.serve.api import make_server
@@ -749,13 +796,13 @@ def _drive_endpoints(ctx, cfg, label, kernel="packed_topk") -> dict:
 
     def get(endpoint, scans=True, **params):
         url = f"{base}/{endpoint}?{urllib.parse.urlencode(params)}"
-        before = _kernels.launches[kernel]
+        before = sum(_kernels.launches[c] for c in kernels)
         t0 = time.perf_counter()
         with urllib.request.urlopen(url, timeout=120) as resp:
             body = json.loads(resp.read())
         latency.setdefault(endpoint, []).append((time.perf_counter() - t0) * 1e3)
-        if scans and _kernels.launches[kernel] <= before:
-            raise AssertionError(f"{label} /{endpoint}: {kernel} was not launched")
+        if scans and sum(_kernels.launches[c] for c in kernels) <= before:
+            raise AssertionError(f"{label} /{endpoint}: none of {kernels} was launched")
         if not body:
             raise AssertionError(f"{label} /{endpoint}: empty answer")
         return body
@@ -827,12 +874,13 @@ def _drive_endpoints(ctx, cfg, label, kernel="packed_topk") -> dict:
     return {e: statistics.median(t) for e, t in latency.items()}
 
 
-# label -> (similarity.retrieval_dtype, RecContext topk_kwargs, the scan kernel)
+# label -> (similarity.retrieval_dtype, RecContext topk_kwargs, the scan
+# kernels' launch counters)
 CONTEXTS = {
-    "f32": ("f32", None, "packed_topk"),
-    "bf16": ("bf16", None, "packed_topk"),
-    "int8": ("int8", None, "packed_topk_int8"),
-    "exact_scan": ("f32", {"exact_scan": True}, "exact_topk"),
+    "f32": ("f32", None, K2_COUNTERS),
+    "bf16": ("bf16", None, K2_COUNTERS),
+    "int8": ("int8", None, ("packed_topk_int8",)),
+    "exact_scan": ("f32", {"exact_scan": True}, ("exact_topk",)),
 }
 
 
@@ -846,7 +894,7 @@ def phase_slice(card: str, device: str = "cuda") -> dict:
     latencies = {}
     with tempfile.TemporaryDirectory() as tmp:
         _write_store(store_root(Config(), tmp))
-        for label, (dtype, topk_kwargs, kernel) in CONTEXTS.items():
+        for label, (dtype, topk_kwargs, kernels) in CONTEXTS.items():
             cfg = Config().with_overrides([f"similarity.retrieval_dtype={dtype}"])
             before = _kernels.launches["l2_normalize"]
             t0 = time.perf_counter()
@@ -860,7 +908,7 @@ def phase_slice(card: str, device: str = "cuda") -> dict:
             print(f"[phase 3] {label} context built on {ctx.device} in "
                   f"{time.perf_counter() - t0:.1f} s ({normalized} l2_normalize launches)",
                   flush=True)
-            latencies[label] = _drive_endpoints(ctx, cfg, label, kernel)
+            latencies[label] = _drive_endpoints(ctx, cfg, label, kernels)
             print(f"[phase 3] {label} endpoint latency ms (median, host clock; {card}): "
                   + json.dumps(latencies[label]), flush=True)
             del ctx
@@ -982,11 +1030,12 @@ def _adam_case(card, name, n, ids_np, dtype, seed):
     m_bytes = 2 if sr else 4
     moved = 2 * n * D * 4 + 4 * n * D * m_bytes + b * D * 4 + b * 4
     prof = _profiled(lambda: fused_adam._sparse_adam_update_cuda(
-        w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr))
-    row["ms"] = sum(v for k, v in prof["by_kernel"].items() if "fused_adam_kernel" in k)
+        w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr), match="fused_adam_kernel")
+    row["ms"], row["sessions"] = prof["match_ms"], prof["sessions"]
     row["prep_device_ms"] = prof["device_ms"] - row["ms"]
-    row["plain_ms"] = _profiled(lambda: fused_adam._sparse_adam_update_plain(
-        *plain, ids_s, g_s, scal, ADAM_STEP, sr))["device_ms"]
+    plain_prof = _profiled(lambda: fused_adam._sparse_adam_update_plain(
+        *plain, ids_s, g_s, scal, ADAM_STEP, sr))
+    row["plain_ms"], row["plain_sessions"] = plain_prof["device_ms"], plain_prof["sessions"]
     row["event_ms"] = _median_ms(lambda: fused_adam._sparse_adam_update_cuda(
         w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr))
     row["plain_event_ms"] = _median_ms(lambda: fused_adam._sparse_adam_update_plain(
@@ -1270,9 +1319,9 @@ def phase_train(card: str) -> dict:
         # The trained store serves: the latest model is fused_adam_bf16m's.
         ctx = runner.context()
         torch.cuda.synchronize()
-        before = _kernels.launches["packed_topk"]
+        before = _k2_launches()
         out["serving_ms"] = _drive_endpoints(ctx, cfg, "trained")
-        out["serving_launches"] = _kernels.launches["packed_topk"] - before
+        out["serving_launches"] = _k2_launches() - before
         print(f"[phase 5] trained store served every endpoint in agreement with the dense "
               f"oracle (overlap 1.0); latency ms ({card}): {json.dumps(out['serving_ms'])}",
               flush=True)
@@ -1403,7 +1452,7 @@ def main() -> int:
     phase_slice(card)
     serving_launches = dict(_kernels.launches)
     print(f"[phase 3] launches on the serving path: {json.dumps(serving_launches)}", flush=True)
-    for name in ("packed_topk", "packed_topk_int8", "exact_topk"):
+    for name in (*K2_COUNTERS, "packed_topk_int8", "exact_topk"):
         if serving_launches.get(name, 0) < 1:
             raise AssertionError(f"the serving path never launched {name}")
     if serving_launches.get("l2_normalize", 0) != 2 * len(CONTEXTS):
@@ -1415,20 +1464,25 @@ def main() -> int:
         raise AssertionError("the training path never launched fused_adam")
     gathered = phase_gather(card)   # resets the counters before each epoch
     phase_convergence(card)
-    ref = next(r for r in rows if r["case"] == "users_f32_q1_exclude")
-    kernels = [{
-        "name": "packed_topk",
-        "route": "cuda",
-        "source": "anime_recommendations_tpu_torch/csrc/packed_topk.cu",
-        "replaces": "anime_recommendations_tpu/ops/topk.py:185",
-        "launches": serving_launches["packed_topk"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": ref["ms"],
-        "plain_ms": ref["plain_ms"],
-        "bound_ms": ref["bound_ms"],
-        "bound_by": ref["bound_by"],
-        "library_ms": None,   # no single PyTorch call makes stage-1 candidates
-    }]
+    # K2's two kernels: the streaming one (one query; users f32 Q=1) and the
+    # tensor-core one (more; users f32 Q=256, bound by TF32).
+    kernels = []
+    for name, branch, case in (("packed_topk", "small_q", "users_f32_q1_exclude"),
+                               ("packed_topk_mma", "tensor_core", "users_f32_q256_exclude")):
+        ref = next(r for r in rows if r["case"] == case)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "anime_recommendations_tpu_torch/csrc/packed_topk.cu",
+            "replaces": "anime_recommendations_tpu/ops/topk.py:185",
+            "launches": serving_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["branch"] == branch),
+            "ms": ref["ms"],
+            "plain_ms": ref["plain_ms"],
+            "bound_ms": ref["bound_ms"],
+            "bound_by": ref["bound_by"],
+            "library_ms": None,   # no single PyTorch call makes stage-1 candidates
+        })
     for name, case, replaces in (
         ("packed_topk_int8", "users_int8_q1_exclude", "anime_recommendations_tpu/ops/topk.py:219"),
         ("exact_topk", "users_f32_q1_exclude", "anime_recommendations_tpu/ops/topk.py:84"),

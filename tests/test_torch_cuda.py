@@ -60,6 +60,11 @@ def row_scores(table, queries, idx, head=None):
     return s if head is None else torch.sigmoid(head[0].double() * s + head[1].double())
 
 
+def k2_counter(q):
+    """The launch counter of the K2 branch that serves q queries."""
+    return "packed_topk_mma" if q >= topk.TF32_MIN_Q else "packed_topk"
+
+
 FEATURES = {
     "plain": lambda dev, keep: {},
     "mask_exclude": lambda dev, keep: dict(
@@ -77,9 +82,9 @@ def test_masked_topk_kernel_matches_plain(cuda, dtype, feature):
     tw = w.to(dtype)
     tq = tw[[1, 2, 3, 4000, 4999]]
     kw = FEATURES[feature](cuda, keep)
-    before = _kernels.launches["packed_topk"]
+    before = _kernels.launches[k2_counter(5)]
     v, i = topk.masked_topk(tw, tq, 10, **kw)
-    assert _kernels.launches["packed_topk"] == before + 1
+    assert _kernels.launches[k2_counter(5)] == before + 1
     pv, pi = topk.two_stage_topk(topk._packed_candidates_plain, tw, tq, 10, **kw)
     torch.cuda.synchronize()
     np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
@@ -109,9 +114,9 @@ def test_stage1_keys_match_plain(cuda, q, dtype, head):
     h = torch.tensor([3.0, -0.5], device=cuda) if head else None
     for top_r in (1, 4, 512):
         args = (w, queries, top_r, keep, excl, h)
-        before = _kernels.launches["packed_topk"]
+        before = _kernels.launches[k2_counter(q)]
         got = topk.packed_candidates(*args)
-        assert _kernels.launches["packed_topk"] == before + 1
+        assert _kernels.launches[k2_counter(q)] == before + 1
         want = topk._packed_candidates_plain(*args)
         torch.cuda.synchronize()
         assert got.shape == want.shape == (q, 3 * top_r)
@@ -313,6 +318,43 @@ def test_exact_topk_query_tiles_match_plain(cuda, q, feature, k):
             gap = (row_scores(tw, tq, i.clamp(0), kw.get("head"))
                    - row_scores(tw, tq, pi.clamp(0), kw.get("head"))).abs()
             assert not bool(((i != pi) & live & (gap > 1e-6)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_scan_kernels_take_wide_rows(cuda, dtype, d):
+    """D past the 256 query dimensions a block stages at once, over 17,000
+    rows, with mask, exclude and head: K2's stage-1 keys and K3 at 1, 2, 9,
+    130 and 256 queries (K2's both branches and a partial 64-query tile;
+    K3's query tiles of 1, 8 and 32), held to their plain versions as at
+    D = 128."""
+    n = 17_000
+    w, keep = inputs(cuda, n=n, d=d, seed=d)
+    w = w.to(dtype)
+    head = torch.tensor([3.0, -0.5], device=cuda)
+    tiles = set()
+    for q in (1, 2, 9, 130, 256):
+        rows = torch.arange(3, n, 61, device=cuda)[:q]
+        queries = w[rows].contiguous()
+        excl = torch.where(rows % 3 == 0, -1, rows)
+        args = (w, queries, 4, keep, excl, head)
+        got, want = topk.packed_candidates(*args), topk._packed_candidates_plain(*args)
+        live = want > 0
+        assert torch.equal(got > 0, live)
+        step = ((got & ~511).view(torch.float32) - (want & ~511).view(torch.float32)).abs()
+        assert float(step[live].max()) <= 1.3e-4
+        before = _kernels.launches["exact_topk"]
+        v, i = topk.masked_topk(w, queries, 10, mask=keep, exclude=excl, head=head,
+                                exact_scan=True)
+        assert _kernels.launches["exact_topk"] == before + 1
+        pv, pi = topk._exact_scan_plain(w, queries, 10, keep, excl, head)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(), rtol=1e-6, atol=1e-7)
+        gap = (row_scores(w, queries, i, head) - row_scores(w, queries, pi, head)).abs()
+        assert bool((i >= 0).all()) and not bool(((i != pi) & (gap > 1e-6)).any())
+        tiles.add(_kernels.library("exact_topk").exact_topk_query_tile(n, q))
+    assert tiles == {1, 8, 32}
 
 
 @pytest.mark.cuda

@@ -335,14 +335,22 @@ def test_round_tf32_matches_a_bit_level_reference():
     np.testing.assert_array_equal(r, np.asarray([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 2.0], np.float32))
 
 
-def test_tf32_threshold_is_the_kernels():
-    """The plain version applies TF32 from the query count at which the
-    kernel takes its tensor-core branch: one threshold for both."""
-    from pathlib import Path
-
-    src = (Path(topk.__file__).parents[1] / "csrc" / "packed_topk.cu").read_text()
-    assert f"#define PACKED_TOPK_LARGE_Q {topk.TF32_MIN_Q}\n" in src
-    assert topk.TF32_MIN_Q > 1
+def test_tf32_threshold_is_the_kernels(monkeypatch):
+    """The kernel takes its tensor-core branch for more than one query, so
+    the plain version rounds an f32 table and its queries to TF32 from two
+    queries on, never for one query and never for a bf16 table."""
+    assert topk.TF32_MIN_Q == 2
+    rounded = []
+    real = topk.round_tf32
+    monkeypatch.setattr(topk, "round_tf32", lambda x: rounded.append(tuple(x.shape)) or real(x))
+    w = torch.from_numpy(table(700, seed=5))
+    topk._packed_candidates_plain(w, w[:1], 4, None, None, None)
+    assert rounded == []
+    topk._packed_candidates_plain(w, w[:2], 4, None, None, None)
+    assert rounded == [(700, 32), (2, 32)]
+    wb = w.to(torch.bfloat16)
+    topk._packed_candidates_plain(wb, wb[:5], 4, None, None, None)
+    assert rounded == [(700, 32), (2, 32)]
 
 
 # One key step (9 dropped bits of s2 < 4: 2^-13) plus the TF32 error of a

@@ -1,37 +1,39 @@
 #!/usr/bin/env python3
 """K2 and K3, the float scan kernels, on one CUDA card: build report, K2's
-branch threshold, and the kernels against an earlier version of their sources.
+branch threshold and K3's query tile, and the kernels against an earlier
+version of their sources.
 
     python3 tools/scan_kernels.py [--sweep] [--parent DIR] [--out FILE]
 
-Always: builds csrc/packed_topk.cu and csrc/exact_topk.cu with `-Xptxas -v`
-into build/scan_kernels/ and prints each kernel's registers, shared memory
-and spills.
+Always: `-Xptxas -v` of csrc/packed_topk.cu and csrc/exact_topk.cu, each
+kernel's registers, shared memory and spills.
 
---sweep: builds packed_topk.cu twice more, with PACKED_TOPK_LARGE_Q=1 (every
-query count takes the tensor-core branch) and past any query count (every
-count takes the small-Q branch). Over the 91,641 x 128 user table (unit rows
-from a seed), f32 and bf16, top_r 4 (k = 10), an exclude, for each query
-count Q: each branch's keys against the plain version under that branch's
-precision rule, and each branch's device time (torch.profiler, 20 calls after
-3 warm-up, the table warm in L2 as in chip_smoke.py phase 2) and CUDA-event
-time. Then the smallest Q from which the tensor-core branch is at least as
-fast at every larger Q measured, for both dtypes: the threshold that
-ops/topk.py's TF32_MIN_Q and the .cu's PACKED_TOPK_LARGE_Q should hold.
-Then exact_topk.cu built with each query tile pinned (EXACT_TOPK_TILE 8 and
-32), timed at 9 to 256 queries over the user table (exclude) and the anime
-table (head, mask), k = 10; the two tiles' outputs must be equal bit for
-bit.
+Every kernel below is launched through the port's own wrappers
+(ops/topk._packed_candidates_cuda, _exact_candidates_cuda) with the library
+of the version under test, and timed by chip_smoke._profiled (device time
+under torch.profiler, 20 calls after 3 warm-up, every launch recorded, the
+table warm in L2).
+
+--sweep: K2 with each branch forced, and K3 with each query tile forced:
+a copy of csrc/ under build/scan_kernels/<variant>/ with one line of the
+source patched (the branch test in packed_topk.cu's launch; query_tile in
+exact_topk.cu), built by ops/_kernels.build. K2 over the 91,641 x 128 user
+table (unit rows from a seed), f32 and bf16, top_r 4 (k = 10), an exclude,
+at 1 to 256 queries: each branch's device time and CUDA-event time, then
+the smallest Q from which the tensor-core branch is at least as fast at
+every larger Q measured, in both dtypes (the rule ops/topk.TF32_MIN_Q and
+packed_topk.cu hold). K3 with tiles of 8 and of 32 queries at 9 to 256
+queries over the user table (exclude) and the anime table (head, mask), k
+= 10; the two tiles' outputs must be equal bit for bit.
 
 --parent DIR: DIR holds another version of packed_topk.cu and exact_topk.cu
-(their C entry points are the same), e.g. the parent commit's
-`git archive <commit> anime_recommendations_tpu_torch/csrc` unpacked. At
-each of chip_smoke.py's phase-2 K2 and K3 cases (the same shapes, k and
-features; this script's own seeded data), the parent's kernel and this
-checkout's are timed in turn, parent, new, new, parent (device time under
-torch.profiler as above), and compared: K3's outputs must be equal bit for
-bit (both sum in dimension order), K2's keys live in the same slots and
-within a key step, plus TF32 noise from TF32_MIN_Q queries on f32 tables.
+(the same C entry points), e.g. the .cu files of `git archive <commit>
+anime_recommendations_tpu_torch/csrc`. At each of chip_smoke.py's phase-2 K2
+and K3 cases (the same shapes, k and features; this script's own seeded
+data) the parent's kernel and this checkout's are timed in turn, parent,
+new, new, parent, and compared: K3's outputs must be equal bit for bit
+(both sum in dimension order), K2's keys live in the same slots and within
+a key step, plus TF32 noise from TF32_MIN_Q queries on f32 tables.
 
 Prints JSON lines; --out also writes them to FILE.
 """
@@ -39,8 +41,8 @@ Prints JSON lines; --out also writes them to FILE.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -53,77 +55,61 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 
 SWEEP_QS = (1, 2, 4, 8, 9, 12, 16, 24, 32, 48, 64, 96, 128, 256)
-BRANCHES = {"tensor_core": 1, "small_q": 1 << 30}
-K3_TILES = (8, 32)
+CSRC = REPO / "anime_recommendations_tpu_torch" / "csrc"
 BUILD = REPO / "build" / "scan_kernels"
+# variant -> (source, the line patched, its replacement)
+K2_BRANCH = "  if (nq > 1)\n    return launch_big"
+K3_TILE = "  if (nq == 1) return 1;\n"
+VARIANTS = {
+    "tensor_core": ("packed_topk", K2_BRANCH, K2_BRANCH.replace("nq > 1", "nq > 0")),
+    "small_q": ("packed_topk", K2_BRANCH, K2_BRANCH.replace("nq > 1", "nq < 0")),
+    "tile8": ("exact_topk", K3_TILE, K3_TILE + "  return 8;\n"),
+    "tile32": ("exact_topk", K3_TILE, K3_TILE + "  return 32;\n"),
+}
 
 
-def _build(src: Path, tag: str, defines=()) -> tuple[ctypes.CDLL, list[str]]:
-    """Compile one .cu into build/scan_kernels/ and load it with the C
-    signature its entry point has in ops/_kernels.py."""
+def ptxas_report(source: str) -> list[str]:
+    """Registers, shared memory and spills of each kernel in csrc/<source>.cu."""
     from anime_recommendations_tpu_torch.ops import _kernels
 
-    out = BUILD / f"lib{src.stem}_{tag}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     proc = subprocess.run(
-        [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", *defines, "-o", str(out),
-         str(src)],
+        [_kernels.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v",
+         "-o", str(BUILD / f"{source}.cubin"), str(CSRC / f"{source}.cu")],
         capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    fn = getattr(lib, src.stem)
-    fn.argtypes = list(_kernels.SIGNATURES[src.stem])
-    fn.restype = ctypes.c_int
-    report = [line.strip() for line in proc.stderr.splitlines()
-              if "Compiling entry function" in line or "Used" in line or "spill" in line]
-    return lib, report
+        raise RuntimeError(f"nvcc failed on {source}.cu:\n{proc.stdout}{proc.stderr}")
+    return [line.strip() for line in proc.stderr.splitlines()
+            if "Compiling entry function" in line or "Used" in line or "spill" in line]
+
+
+def variant_library(name: str):
+    """The library of csrc/ with VARIANTS[name]'s one line patched."""
+    from anime_recommendations_tpu_torch.ops import _kernels
+
+    source, old, new = VARIANTS[name]
+    dst = BUILD / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(CSRC, dst)
+    path = dst / f"{source}.cu"
+    text = path.read_text()
+    if text.count(old) != 1:
+        raise RuntimeError(f"{name}: the line to patch is not in {source}.cu once")
+    path.write_text(text.replace(old, new))
+    return _kernels.load(_kernels.build(source, csrc=dst), source)
 
 
 def _k2(lib, table, queries, top_r, mask=None, exclude=None, head=None):
-    """packed_topk through ``lib``, as ops/topk._packed_candidates_cuda calls it."""
-    import torch
+    from anime_recommendations_tpu_torch.ops import topk
 
-    from anime_recommendations_tpu_torch.ops import _kernels, topk
-
-    (n, d), qn = table.shape, queries.shape[0]
-    out = torch.empty((qn, -(-n // topk.GROUP) * top_r), dtype=torch.int32, device=table.device)
-    side = topk._side_inputs("packed_topk", table, qn, mask, exclude, head)
-    err = lib.packed_topk(table.data_ptr(), topk._DTYPE_CODES[table.dtype], queries.data_ptr(),
-                          *topk._ptrs(*side), out.data_ptr(), n, d, qn, top_r,
-                          topk._stream(table))
-    _kernels.check(err, "packed_topk")
-    return out
+    return topk._packed_candidates_cuda(table, queries, top_r, mask, exclude, head, lib=lib)
 
 
 def _k3(lib, table, queries, kc, mask=None, exclude=None, head=None):
-    """exact_topk through ``lib``: the per-chunk candidates, before the merge."""
-    import torch
-
-    from anime_recommendations_tpu_torch.ops import _kernels, topk
-
-    (n, d), qn = table.shape, queries.shape[0]
-    cols = -(-n // topk.GROUP) * kc
-    out_s = torch.empty((qn, cols), dtype=torch.float32, device=table.device)
-    out_i = torch.empty((qn, cols), dtype=torch.int32, device=table.device)
-    side = topk._side_inputs("exact_topk", table, qn, mask, exclude, head)
-    err = lib.exact_topk(table.data_ptr(), topk._DTYPE_CODES[table.dtype], queries.data_ptr(),
-                         *topk._ptrs(*side), out_s.data_ptr(), out_i.data_ptr(), n, d, qn, kc,
-                         topk._stream(table))
-    _kernels.check(err, "exact_topk")
-    return out_s, out_i
-
-
-def _plain_keys(rule_q, *args):
-    """The plain stage 1 under the precision rule of a TF32_MIN_Q of rule_q."""
     from anime_recommendations_tpu_torch.ops import topk
 
-    saved = topk.TF32_MIN_Q
-    topk.TF32_MIN_Q = rule_q
-    try:
-        return topk._packed_candidates_plain(*args)
-    finally:
-        topk.TF32_MIN_Q = saved
+    return topk._exact_candidates_cuda(table, queries, kc, mask, exclude, head, lib=lib)
 
 
 def _key_err(got, want) -> float:
@@ -140,11 +126,7 @@ def sweep(card: str, emit) -> None:
 
     from anime_recommendations_tpu_torch.ops import topk
 
-    libs = {}
-    for branch, large_q in BRANCHES.items():
-        libs[branch], report = _build(REPO / "anime_recommendations_tpu_torch/csrc/packed_topk.cu",
-                                      branch, [f"-DPACKED_TOPK_LARGE_Q={large_q}"])
-        emit("ptxas", {"source": "packed_topk.cu", "build": branch, "report": report})
+    libs = {name: variant_library(name) for name in VARIANTS}
     rng = np.random.default_rng(cs.SEED)
     users = cs._normal_table(rng, cs.N_USERS, torch.float32, torch.device("cuda"))
     top_r = topk.top_r_policy(10, cs.N_USERS)
@@ -155,11 +137,11 @@ def sweep(card: str, emit) -> None:
             idx = torch.from_numpy(rng.choice(cs.N_USERS, size=q, replace=False)).to("cuda")
             queries = table[idx].contiguous()
             row = dict(card=card, dtype=str(dtype), q=q, top_r=top_r)
-            for branch, lib in libs.items():
-                run = (lambda lib=lib: _k2(lib, table, queries, top_r, exclude=idx))
-                row[f"{branch}_key_err"] = _key_err(
-                    run(), _plain_keys(BRANCHES[branch], table, queries, top_r, None, idx, None))
-                row[f"{branch}_ms"] = cs._profiled(run, match="packed_topk")["match_ms"]
+            for branch in ("tensor_core", "small_q"):
+                run = (lambda lib=libs[branch]: _k2(lib, table, queries, top_r, exclude=idx))
+                prof = cs._profiled(run, match="packed_topk")
+                row[f"{branch}_ms"] = prof["match_ms"]
+                row[f"{branch}_sessions"] = prof["sessions"]
                 row[f"{branch}_event_ms"] = cs._median_ms(run)
             times[(dtype, q)] = (row["tensor_core_ms"], row["small_q_ms"])
             emit("sweep", row)
@@ -167,15 +149,8 @@ def sweep(card: str, emit) -> None:
                       if all(times[(dt, qq)][0] <= times[(dt, qq)][1]
                              for dt in (torch.float32, torch.bfloat16)
                              for qq in SWEEP_QS if qq >= q)), None)
-    emit("sweep", {"card": card, "tensor_core_from_q": threshold,
-                   "compiled_threshold": topk.TF32_MIN_Q})
+    emit("sweep", {"card": card, "tensor_core_from_q": threshold, "rule": topk.TF32_MIN_Q})
 
-    # K3's query tile, 8 against 32, on both tables (outputs equal bit for bit).
-    tiles = {}
-    for tile in K3_TILES:
-        tiles[tile], report = _build(REPO / "anime_recommendations_tpu_torch/csrc/exact_topk.cu",
-                                     f"tile{tile}", [f"-DEXACT_TOPK_TILE={tile}"])
-        emit("ptxas", {"source": "exact_topk.cu", "build": f"tile{tile}", "report": report})
     anime = cs._normal_table(rng, cs.N_ANIME, torch.float32, torch.device("cuda"))
     mask = torch.from_numpy(rng.uniform(size=cs.N_ANIME) > 0.2).to("cuda")
     head = torch.tensor([4.3, -0.7], device="cuda")
@@ -186,10 +161,11 @@ def sweep(card: str, emit) -> None:
             kw = dict(exclude=idx) if which == "users" else dict(mask=mask, head=head)
             row = dict(card=card, table=which, q=q, k=10)
             outs = []
-            for tile, lib in tiles.items():
-                run = (lambda lib=lib: _k3(lib, table, queries, 10, **kw))
+            for tile in ("tile8", "tile32"):
+                run = (lambda lib=libs[tile]: _k3(lib, table, queries, 10, **kw))
                 outs.append(run())
-                row[f"tile{tile}_ms"] = cs._profiled(run, match="exact_topk")["match_ms"]
+                prof = cs._profiled(run, match="exact_topk")
+                row[f"{tile}_ms"], row[f"{tile}_sessions"] = prof["match_ms"], prof["sessions"]
             row["equal"] = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
             if not row["equal"]:
                 raise AssertionError(f"exact_topk {which} q={q}: the tiles' outputs differ")
@@ -199,14 +175,12 @@ def sweep(card: str, emit) -> None:
 def compare(card: str, parent: Path, emit) -> None:
     import torch
 
-    from anime_recommendations_tpu_torch.ops import topk
+    from anime_recommendations_tpu_torch.ops import _kernels, topk
 
-    csrc = REPO / "anime_recommendations_tpu_torch" / "csrc"
     libs = {}
     for name in ("packed_topk", "exact_topk"):
-        for tag, src in (("parent", parent / f"{name}.cu"), ("new", csrc / f"{name}.cu")):
-            libs[name, tag], report = _build(src, tag)
-            emit("ptxas", {"source": f"{name}.cu", "build": tag, "report": report})
+        libs[name, "parent"] = _kernels.load(_kernels.build(name, csrc=parent), name)
+        libs[name, "new"] = _kernels.library(name)
     dev = torch.device("cuda")
     rng = np.random.default_rng(cs.SEED + 5)
     tables = {"users": cs._normal_table(rng, cs.N_USERS, torch.float32, dev),
@@ -246,9 +220,9 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--sweep", action="store_true", help="K2's branch sweep")
+    parser.add_argument("--sweep", action="store_true", help="K2's branches and K3's tiles")
     parser.add_argument("--parent", type=Path, default=None,
-                        help="a csrc/ directory of an earlier version to compare with")
+                        help="a directory of another version's .cu files to compare with")
     parser.add_argument("--out", type=Path, default=None, help="also write the JSON lines here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -259,15 +233,14 @@ def main() -> int:
     lines = []
 
     def emit(tag, obj):
-        line = json.dumps(obj)
-        lines.append(f"[{tag}] {line}")
-        print(f"[{tag}] {line}", flush=True)
+        line = f"[{tag}] {json.dumps(obj)}"
+        lines.append(line)
+        print(line, flush=True)
 
     emit("card", {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
-    csrc = REPO / "anime_recommendations_tpu_torch" / "csrc"
+    cs.start_profiler()
     for name in ("packed_topk", "exact_topk"):
-        emit("ptxas", {"source": f"{name}.cu", "build": "default",
-                       "report": _build(csrc / f"{name}.cu", "default")[1]})
+        emit("ptxas", {"source": f"{name}.cu", "report": ptxas_report(name)})
     if args.sweep:
         sweep(card, emit)
     if args.parent is not None:

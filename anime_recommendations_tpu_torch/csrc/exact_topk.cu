@@ -40,8 +40,8 @@
 // 64 fmaf); the queries staged scan::kQueryDims dimensions at a time, so
 // every D % 16 == 0 fits in shared memory. The 32-query tile is taken only
 // when the grid still gives every SM two blocks (query_tile;
-// tools/scan_kernels.py --sweep timed both tiles at 9 to 256 queries on an
-// H100 and the rule picks the faster or ties it).
+// tools/scan_kernels.py --time sweep timed both tiles at 9 to 256 queries
+// on an H100: the rule picks the faster tile, or one within 5 % of it).
 // Extraction: the chunk's scores go to shared memory as ordered uint32 keys
 // (0 = dead), and one warp per query takes kc rounds of a warp max of the
 // lanes' best scores and a warp min of the tied lanes' positions (the lower

@@ -18,8 +18,8 @@
 //
 // Two branches: one query streams, more than one take the tensor cores
 // (ops/topk.py's TF32_MIN_Q = 2 is the same rule). On an H100 (700 W)
-// tools/scan_kernels.py --sweep timed the tensor-core branch at least as
-// fast as the streaming one from 2 queries up, f32 and bf16 (PERF.md).
+// tools/scan_kernels.py --time sweep timed the tensor-core branch at least
+// as fast as the streaming one from 2 queries up, f32 and bf16 (PERF.md).
 //
 // One query (similar_anime, similar_users, model_recs, ...) is bound by
 // bytes: 46.9 MB for the 91,641 x 128 f32 user table, 14 us at 3.35 TB/s,
@@ -208,7 +208,11 @@ __device__ __forceinline__ void store_query(__nv_bfloat16* dst, uint4 v) {
   *reinterpret_cast<uint4*>(dst) = v;
 }
 
-template <typename T>
+// kWide: d may pass scan::kQueryDims, so the queries are staged in several
+// passes. Without it (every d <= kQueryDims) the one pass is fixed at compile
+// time: the loop's registers cost the f32 kernel a 12-byte spill and 3-7 %
+// of its time at d = 128 on an H100 (PERF.md).
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kBigThreads)
 packed_topk_mma_kernel(const T* __restrict__ table, const T* __restrict__ queries,
                        const uint8_t* __restrict__ mask, const int32_t* __restrict__ exclude,
@@ -263,8 +267,8 @@ packed_topk_mma_kernel(const T* __restrict__ table, const T* __restrict__ querie
       for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
 
   // The queries' dims [s0, s0 + width) into the shared tile, then their product.
-  for (int s0 = 0; s0 < d; s0 += scan::kQueryDims) {
-    const int width = min(scan::kQueryDims, d - s0);
+  for (int s0 = 0; s0 < (kWide ? d : 1); s0 += scan::kQueryDims) {
+    const int width = kWide ? min(scan::kQueryDims, d - s0) : d;
     if (s0 > 0) __syncthreads();   // every warp is done with the previous dims
     scan::stage_queries<kBigQ, kBigThreads>(queries + s0, d, width, q0, nq,
                                             [&](int q, int c, uint4 v) {
@@ -320,7 +324,7 @@ packed_topk_mma_kernel(const T* __restrict__ table, const T* __restrict__ querie
                         out + (size_t)(q0 + q) * ncols + g * top_r, lane);
 }
 
-template <typename T>
+template <typename T, bool kWide>
 cudaError_t launch_big(const void* table, const void* queries, const uint8_t* mask,
                        const int32_t* exclude, const float* head, int32_t* out, int n, int d,
                        int nq, int top_r, cudaStream_t stream) {
@@ -329,8 +333,8 @@ cudaError_t launch_big(const void* table, const void* queries, const uint8_t* ma
                       (size_t)kBigQ * big_qstride(d) * sizeof(T);
   static_assert(kBigQ * kKeyStride * sizeof(int) + kBigQ * (scan::kQueryDims + 16) * sizeof(T) <=
                     kMaxSmem, "any d fits");
-  auto kernel = packed_topk_mma_kernel<T>;
-  const cudaError_t err = scan::allow_smem<packed_topk_mma_kernel<T>>(smem);
+  auto kernel = packed_topk_mma_kernel<T, kWide>;
+  const cudaError_t err = scan::allow_smem<packed_topk_mma_kernel<T, kWide>>(smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kBigThreads, smem, stream>>>(
       static_cast<const T*>(table), static_cast<const T*>(queries), mask, exclude, head, out,
@@ -342,8 +346,10 @@ template <typename T>
 cudaError_t launch(const void* table, const void* queries, const uint8_t* mask,
                    const int32_t* exclude, const float* head, int32_t* out, int n, int d,
                    int nq, int top_r, cudaStream_t s) {
+  if (nq > 1 && d > scan::kQueryDims)
+    return launch_big<T, true>(table, queries, mask, exclude, head, out, n, d, nq, top_r, s);
   if (nq > 1)
-    return launch_big<T>(table, queries, mask, exclude, head, out, n, d, nq, top_r, s);
+    return launch_big<T, false>(table, queries, mask, exclude, head, out, n, d, nq, top_r, s);
   return launch_small<T>(table, queries, mask, exclude, head, out, n, d, nq, top_r, s);
 }
 

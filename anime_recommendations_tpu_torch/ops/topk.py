@@ -66,7 +66,7 @@ GROUP = 512            # rows per extraction group (low key bits carry the lane)
 # Query count from which stage 1 runs on the tensor cores, with TF32
 # operands for f32 tables (module docstring): csrc/packed_topk.cu takes that
 # branch for more than one query. PERF.md gives the measurement
-# (tools/scan_kernels.py --sweep) that set it.
+# (tools/scan_kernels.py --time sweep) that set it.
 TF32_MIN_Q = 2
 _NEG = -1e30           # dead-slot score sentinel
 _BIAS = 2.0            # makes every in-contract score positive

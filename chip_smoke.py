@@ -15,8 +15,9 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            table, 17,560 x 128 anime table; 1 to 256 queries; with and
            without head, mask and exclude), against a dense full-score
            oracle, and timed: the kernel's device time under torch.profiler
-           (20 calls after warm-up, a session kept only if it recorded
-           every launch) against its plain version's, the
+           (20 calls after warm-up; every kernel counted as its mean
+           recorded time times its launches per call, and the launch records
+           the profiler lost counted) against its plain version's, the
            CUDA-event median of a call beside it, and the share of the
            card's bound (bytes at 3.35 TB/s or operations at the peak of
            the type the kernel computes in) the kernel reaches:
@@ -298,22 +299,20 @@ FRAME_CYCLES = 20_000_000
 
 def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
     """torch.profiler over ``reps`` calls of fn after 3 warm-up calls: wall ms
-    per call (host clock to a synchronize), device-busy ms per call (the sum
-    of CUDA kernel times), the idle share, device ms per call by kernel, the
-    number of sessions it took, and (``match``) the device ms of one launch
-    of the kernel whose name holds it (fn launches it once a call) with the
-    count of its launches recorded.
+    per call (host clock to a synchronize), device-busy ms per call, the idle
+    share, device ms per call by kernel, the sessions it took and the launch
+    records they lost, and (``match``) the device ms per call of the kernel
+    whose name holds it (fn launches it once a call) with its records.
 
-    A session counts only if it recorded every launch: each kernel a
-    multiple of ``reps`` times (fn launches the same kernels every call) and
-    ``match`` exactly ``reps`` times. On an H100 host sessions lost all
-    records now and then, and, in some processes, every session lost the
-    kernels of its first call or two: those that ran within ~0.1 ms of the
-    session's start, more the longer the process had run. So a busy-wait
-    kernel (FRAME_CYCLES, excluded from every number) fills the first and
-    the last ~10 ms of each session, with fn's calls between them, and an
-    incomplete session is profiled again, at most PROFILER_SESSIONS times
-    in all; then the run fails."""
+    Every kernel is counted by one rule: its mean recorded duration times
+    its launches per call (its records over ``reps``, rounded). On an H100
+    host a session lost every record now and then, and in some processes
+    one record of a small kernel (an arange, a dtype copy) in every session.
+    So a busy-wait kernel (FRAME_CYCLES, excluded from every number) opens
+    and closes each session; the records lost (launches per call times
+    ``reps``, less the records) are counted; and a session with no records,
+    or with fewer than ``reps`` of ``match``, is profiled again, at most
+    PROFILER_SESSIONS times in all, and then the run fails."""
     import torch
 
     for _ in range(3):
@@ -335,20 +334,25 @@ def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
         hits = [e for e in events if match is not None and match in e.key]
-        counts = {e.key[:70]: e.count for e in events}
-        if (events and all(c % reps == 0 for c in counts.values())
-                and (match is None or sum(e.count for e in hits) == reps)):
+        if events and (match is None or sum(e.count for e in hits) == reps):
             break
-        print(f"[profiler] session {session} of {reps} calls lost records: {counts}", flush=True)
+        print(f"[profiler] session {session} of {reps} calls recorded "
+              f"{sum(e.count for e in hits)} of {match}, {len(events)} kernels", flush=True)
     else:
         raise AssertionError(f"torch.profiler lost records in {PROFILER_SESSIONS} sessions")
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+    per_call = {e.key: e.self_device_time_total / e.count * round(e.count / reps) / 1e3
+                for e in events}
+    lost = sum(abs(round(e.count / reps) * reps - e.count) for e in events)
+    if lost:
+        print(f"[profiler] {lost} launch records lost: "
+              f"{ {e.key[:60]: e.count for e in events} }", flush=True)
+    busy = sum(per_call.values())
+    top = sorted(per_call.items(), key=lambda kv: kv[1], reverse=True)
     out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
-           "by_kernel": {e.key[:70]: e.self_device_time_total / 1e3 / reps for e in top[:8]},
-           "sessions": session}
+           "by_kernel": {k[:70]: v for k, v in top[:8]}, "sessions": session,
+           "records_lost": lost}
     if match is not None:
-        out["match_ms"] = sum(e.self_device_time_total for e in hits) / 1e3 / reps
+        out["match_ms"] = sum(per_call[e.key] for e in hits)
         out["match_launches"] = sum(e.count for e in hits)
     return out
 
@@ -477,8 +481,8 @@ def _timing(fn, plain_fn, kernel: str) -> dict:
     prof, plain = _profiled(fn, match=kernel), _profiled(plain_fn)
     return dict(ms=prof["match_ms"], match_launches=prof["match_launches"],
                 sessions=prof["sessions"], plain_ms=plain["device_ms"],
-                plain_sessions=plain["sessions"], event_ms=_median_ms(fn),
-                plain_event_ms=_median_ms(plain_fn))
+                plain_sessions=plain["sessions"], plain_records_lost=plain["records_lost"],
+                event_ms=_median_ms(fn), plain_event_ms=_median_ms(plain_fn))
 
 
 def _check_ties(name, table, queries, i, ip, head, exact=False):
@@ -1033,9 +1037,11 @@ def _adam_case(card, name, n, ids_np, dtype, seed):
         w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr), match="fused_adam_kernel")
     row["ms"], row["sessions"] = prof["match_ms"], prof["sessions"]
     row["prep_device_ms"] = prof["device_ms"] - row["ms"]
+    row["records_lost"] = prof["records_lost"]
     plain_prof = _profiled(lambda: fused_adam._sparse_adam_update_plain(
         *plain, ids_s, g_s, scal, ADAM_STEP, sr))
     row["plain_ms"], row["plain_sessions"] = plain_prof["device_ms"], plain_prof["sessions"]
+    row["plain_records_lost"] = plain_prof["records_lost"]
     row["event_ms"] = _median_ms(lambda: fused_adam._sparse_adam_update_cuda(
         w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr))
     row["plain_event_ms"] = _median_ms(lambda: fused_adam._sparse_adam_update_plain(

@@ -1,39 +1,33 @@
 #!/usr/bin/env python3
-"""K2 and K3, the float scan kernels, on one CUDA card: build report, K2's
-branch threshold and K3's query tile, and the kernels against an earlier
-version of their sources.
+"""K2 and K3, the float scan kernels, on one CUDA card.
 
-    python3 tools/scan_kernels.py [--sweep] [--parent DIR] [--out FILE]
+    python3 tools/scan_kernels.py --report
+    python3 tools/scan_kernels.py --time phase2|sweep [--csrc DIR | --variant NAME]
+                                  [--out FILE]
 
-Always: `-Xptxas -v` of csrc/packed_topk.cu and csrc/exact_topk.cu, each
+--report: `-Xptxas -v` of csrc/packed_topk.cu and csrc/exact_topk.cu, each
 kernel's registers, shared memory and spills.
 
-Every kernel below is launched through the port's own wrappers
-(ops/topk._packed_candidates_cuda, _exact_candidates_cuda) with the library
-of the version under test, and timed by chip_smoke._profiled (device time
-under torch.profiler, 20 calls after 3 warm-up, every launch recorded, the
-table warm in L2).
+--time: builds packed_topk and exact_topk from one version of the sources
+(this checkout's csrc/ by default; DIR, another version's .cu files with
+the same C entry points, e.g. those of `git archive <commit>
+anime_recommendations_tpu_torch/csrc`; or NAME, a copy of csrc/ under
+build/scan_kernels/NAME with one line patched, VARIANTS), then starts
+torch.profiler as chip_smoke.py does and times each case through the port's
+wrappers (ops/topk._packed_candidates_cuda, _exact_candidates_cuda) with
+that library: device time per call by chip_smoke._profiled (20 calls after
+3 warm-up, every launch of the kernel recorded, the table warm in L2) and
+the CUDA-event median of a call; a variant times its own kernel only.
+`phase2`: chip_smoke.py's phase-2 K2 and K3 cases (the same shapes, k and
+features; this script's own seeded data). `sweep`: K2
+over the 91,641 x 128 user table, f32 and bf16, top_r 4 (k = 10), an
+exclude, at 1 to 256 queries; K3 at 9 to 256 queries over the user table
+(exclude) and the anime table (head, mask), k = 10.
 
---sweep: K2 with each branch forced, and K3 with each query tile forced:
-a copy of csrc/ under build/scan_kernels/<variant>/ with one line of the
-source patched (the branch test in packed_topk.cu's launch; query_tile in
-exact_topk.cu), built by ops/_kernels.build. K2 over the 91,641 x 128 user
-table (unit rows from a seed), f32 and bf16, top_r 4 (k = 10), an exclude,
-at 1 to 256 queries: each branch's device time and CUDA-event time, then
-the smallest Q from which the tensor-core branch is at least as fast at
-every larger Q measured, in both dtypes (the rule ops/topk.TF32_MIN_Q and
-packed_topk.cu hold). K3 with tiles of 8 and of 32 queries at 9 to 256
-queries over the user table (exclude) and the anime table (head, mask), k
-= 10; the two tiles' outputs must be equal bit for bit.
-
---parent DIR: DIR holds another version of packed_topk.cu and exact_topk.cu
-(the same C entry points), e.g. the .cu files of `git archive <commit>
-anime_recommendations_tpu_torch/csrc`. At each of chip_smoke.py's phase-2 K2
-and K3 cases (the same shapes, k and features; this script's own seeded
-data) the parent's kernel and this checkout's are timed in turn, parent,
-new, new, parent, and compared: K3's outputs must be equal bit for bit
-(both sum in dimension order), K2's keys live in the same slots and within
-a key step, plus TF32 noise from TF32_MIN_Q queries on f32 tables.
+One version per process. On an H100 host, processes that had loaded two
+builds of the same kernels, or built kernels after their first profiler
+session, lost a launch record in most sessions. So two versions are
+compared by one process each, in turn: parent, new, new, parent.
 
 Prints JSON lines; --out also writes them to FILE.
 """
@@ -54,7 +48,7 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
 
-SWEEP_QS = (1, 2, 4, 8, 9, 12, 16, 24, 32, 48, 64, 96, 128, 256)
+SOURCES = ("packed_topk", "exact_topk")
 CSRC = REPO / "anime_recommendations_tpu_torch" / "csrc"
 BUILD = REPO / "build" / "scan_kernels"
 # variant -> (source, the line patched, its replacement)
@@ -66,6 +60,8 @@ VARIANTS = {
     "tile8": ("exact_topk", K3_TILE, K3_TILE + "  return 8;\n"),
     "tile32": ("exact_topk", K3_TILE, K3_TILE + "  return 32;\n"),
 }
+SWEEP_K2_QS = (1, 2, 4, 8, 9, 12, 16, 24, 32, 48, 64, 96, 128, 256)
+SWEEP_K3_QS = (9, 16, 32, 64, 128, 256)
 
 
 def ptxas_report(source: str) -> list[str]:
@@ -84,152 +80,88 @@ def ptxas_report(source: str) -> list[str]:
             if "Compiling entry function" in line or "Used" in line or "spill" in line]
 
 
-def variant_library(name: str):
-    """The library of csrc/ with VARIANTS[name]'s one line patched."""
-    from anime_recommendations_tpu_torch.ops import _kernels
-
-    source, old, new = VARIANTS[name]
-    dst = BUILD / name
+def sources_dir(csrc: Path | None, variant: str | None) -> Path:
+    """The directory to build from: csrc, or a patched copy of the checkout's."""
+    if variant is None:
+        return csrc or CSRC
+    source, old, new = VARIANTS[variant]
+    dst = BUILD / variant
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(CSRC, dst)
     path = dst / f"{source}.cu"
     text = path.read_text()
     if text.count(old) != 1:
-        raise RuntimeError(f"{name}: the line to patch is not in {source}.cu once")
+        raise RuntimeError(f"{variant}: the line to patch is not in {source}.cu once")
     path.write_text(text.replace(old, new))
-    return _kernels.load(_kernels.build(source, csrc=dst), source)
+    return dst
 
 
-def _k2(lib, table, queries, top_r, mask=None, exclude=None, head=None):
-    from anime_recommendations_tpu_torch.ops import topk
-
-    return topk._packed_candidates_cuda(table, queries, top_r, mask, exclude, head, lib=lib)
-
-
-def _k3(lib, table, queries, kc, mask=None, exclude=None, head=None):
-    from anime_recommendations_tpu_torch.ops import topk
-
-    return topk._exact_candidates_cuda(table, queries, kc, mask, exclude, head, lib=lib)
-
-
-def _key_err(got, want) -> float:
+def cases(which: str, tables, rng, head, anime_mask):
+    """(kernel, case name, table, queries, k, kwargs) of phase 2 or the sweep."""
     import torch
 
-    if not torch.equal(got > 0, want > 0):
-        raise AssertionError("stage-1 keys differ in which slots are live")
-    live = got > 0
-    return float((cs._decoded(got) - cs._decoded(want)).abs()[live].max())
-
-
-def sweep(card: str, emit) -> None:
-    import torch
-
-    from anime_recommendations_tpu_torch.ops import topk
-
-    libs = {name: variant_library(name) for name in VARIANTS}
-    rng = np.random.default_rng(cs.SEED)
-    users = cs._normal_table(rng, cs.N_USERS, torch.float32, torch.device("cuda"))
-    top_r = topk.top_r_policy(10, cs.N_USERS)
-    times = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        table = users.to(dtype)
-        for q in SWEEP_QS:
+    if which == "phase2":
+        for kernel, named in (("packed_topk", cs.k2_cases()), ("exact_topk", cs.K3_CASES)):
+            for case in named:
+                table, queries, kw = cs._case_inputs(rng, tables, case, head, anime_mask)
+                yield kernel, case[0], table, queries.to(table.dtype), case[4], kw
+        return
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        table = tables["users"].to(dtype)
+        for q in SWEEP_K2_QS:
             idx = torch.from_numpy(rng.choice(cs.N_USERS, size=q, replace=False)).to("cuda")
-            queries = table[idx].contiguous()
-            row = dict(card=card, dtype=str(dtype), q=q, top_r=top_r)
-            for branch in ("tensor_core", "small_q"):
-                run = (lambda lib=libs[branch]: _k2(lib, table, queries, top_r, exclude=idx))
-                prof = cs._profiled(run, match="packed_topk")
-                row[f"{branch}_ms"] = prof["match_ms"]
-                row[f"{branch}_sessions"] = prof["sessions"]
-                row[f"{branch}_event_ms"] = cs._median_ms(run)
-            times[(dtype, q)] = (row["tensor_core_ms"], row["small_q_ms"])
-            emit("sweep", row)
-    threshold = next((q for q in SWEEP_QS
-                      if all(times[(dt, qq)][0] <= times[(dt, qq)][1]
-                             for dt in (torch.float32, torch.bfloat16)
-                             for qq in SWEEP_QS if qq >= q)), None)
-    emit("sweep", {"card": card, "tensor_core_from_q": threshold, "rule": topk.TF32_MIN_Q})
-
-    anime = cs._normal_table(rng, cs.N_ANIME, torch.float32, torch.device("cuda"))
-    mask = torch.from_numpy(rng.uniform(size=cs.N_ANIME) > 0.2).to("cuda")
-    head = torch.tensor([4.3, -0.7], device="cuda")
-    for which, table in (("users", users), ("anime", anime)):
-        for q in (9, 16, 32, 64, 128, 256):
+            yield "packed_topk", f"users_{tag}_q{q}", table, table[idx], 10, dict(exclude=idx)
+    for which_table in ("users", "anime"):
+        for q in SWEEP_K3_QS:
             idx = torch.from_numpy(rng.choice(cs.N_USERS, size=q, replace=False)).to("cuda")
-            queries = users[idx].contiguous()
-            kw = dict(exclude=idx) if which == "users" else dict(mask=mask, head=head)
-            row = dict(card=card, table=which, q=q, k=10)
-            outs = []
-            for tile in ("tile8", "tile32"):
-                run = (lambda lib=libs[tile]: _k3(lib, table, queries, 10, **kw))
-                outs.append(run())
-                prof = cs._profiled(run, match="exact_topk")
-                row[f"{tile}_ms"], row[f"{tile}_sessions"] = prof["match_ms"], prof["sessions"]
-            row["equal"] = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
-            if not row["equal"]:
-                raise AssertionError(f"exact_topk {which} q={q}: the tiles' outputs differ")
-            emit("sweep_k3", row)
+            kw = (dict(exclude=idx) if which_table == "users"
+                  else dict(mask=anime_mask, head=head))
+            yield ("exact_topk", f"{which_table}_f32_q{q}", tables[which_table],
+                   tables["users"][idx], 10, kw)
 
 
-def compare(card: str, parent: Path, emit) -> None:
+def time_cases(card: str, which: str, label: str, libs, kernels, emit) -> None:
     import torch
 
-    from anime_recommendations_tpu_torch.ops import _kernels, topk
+    from anime_recommendations_tpu_torch.ops import topk
 
-    libs = {}
-    for name in ("packed_topk", "exact_topk"):
-        libs[name, "parent"] = _kernels.load(_kernels.build(name, csrc=parent), name)
-        libs[name, "new"] = _kernels.library(name)
     dev = torch.device("cuda")
     rng = np.random.default_rng(cs.SEED + 5)
     tables = {"users": cs._normal_table(rng, cs.N_USERS, torch.float32, dev),
               "anime": cs._normal_table(rng, cs.N_ANIME, torch.float32, dev)}
     head = torch.tensor([4.3, -0.7], device=dev)
     anime_mask = torch.from_numpy(rng.uniform(size=cs.N_ANIME) > 0.2).to(dev)
-    for kernel, cases in (("packed_topk", cs.k2_cases()), ("exact_topk", cs.K3_CASES)):
-        for case in cases:
-            name, k = case[0], case[4]
-            table, queries, kw = cs._case_inputs(rng, tables, case, head, anime_mask)
-            queries = queries.to(table.dtype).contiguous()
-            n = table.shape[0]
-            if kernel == "packed_topk":
-                depth = topk.top_r_policy(k, n)
-                calls = {tag: (lambda lib=libs[kernel, tag]: _k2(lib, table, queries, depth, **kw))
-                         for tag in ("parent", "new")}
-                row = dict(kernel=kernel, case=name, card=card, top_r=depth,
-                           key_err_new_vs_parent=_key_err(calls["new"](), calls["parent"]()))
-            else:
-                kc = min(k, topk.GROUP)
-                calls = {tag: (lambda lib=libs[kernel, tag]: _k3(lib, table, queries, kc, **kw))
-                         for tag in ("parent", "new")}
-                new, old = calls["new"](), calls["parent"]()
-                equal = torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
-                if not equal:
-                    raise AssertionError(f"exact_topk {name}: new output differs from the parent's")
-                row = dict(kernel=kernel, case=name, card=card, kc=kc, equal_to_parent=equal)
-            order = ("parent", "new", "new", "parent")
-            ms = [cs._profiled(calls[tag], match=kernel)["match_ms"] for tag in order]
-            row |= dict(parent_ms=(ms[0] + ms[3]) / 2, new_ms=(ms[1] + ms[2]) / 2,
-                        runs_ms=dict(zip(("parent_1", "new_1", "new_2", "parent_2"), ms)))
-            row["speedup"] = row["parent_ms"] / row["new_ms"]
-            emit("compare", row)
+    for kernel, name, table, queries, k, kw in cases(which, tables, rng, head, anime_mask):
+        if kernel not in kernels:
+            continue
+        queries = queries.contiguous()
+        side = (kw.get("mask"), kw.get("exclude"), kw.get("head"))
+        if kernel == "packed_topk":
+            depth = topk.top_r_policy(k, table.shape[0])
+            launch = topk._packed_candidates_cuda
+        else:
+            depth = min(k, topk.GROUP)
+            launch = topk._exact_candidates_cuda
+
+        def run():
+            return launch(table, queries, depth, *side, lib=libs[kernel])
+
+        prof = cs._profiled(run, match=kernel)
+        emit("time", dict(card=card, version=label, kernel=kernel, case=name,
+                          q=queries.shape[0], depth=depth, ms=prof["match_ms"],
+                          sessions=prof["sessions"], records_lost=prof["records_lost"],
+                          event_ms=cs._median_ms(run)))
 
 
 def main() -> int:
-    import torch
-
     parser = argparse.ArgumentParser()
-    parser.add_argument("--sweep", action="store_true", help="K2's branches and K3's tiles")
-    parser.add_argument("--parent", type=Path, default=None,
-                        help="a directory of another version's .cu files to compare with")
+    parser.add_argument("--report", action="store_true", help="the ptxas report")
+    parser.add_argument("--time", choices=("phase2", "sweep"), default=None)
+    parser.add_argument("--csrc", type=Path, default=None,
+                        help="a directory of another version's .cu files")
+    parser.add_argument("--variant", choices=sorted(VARIANTS), default=None)
     parser.add_argument("--out", type=Path, default=None, help="also write the JSON lines here")
     args = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("scan_kernels: torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
     lines = []
 
     def emit(tag, obj):
@@ -237,14 +169,28 @@ def main() -> int:
         lines.append(line)
         print(line, flush=True)
 
-    emit("card", {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
-    cs.start_profiler()
-    for name in ("packed_topk", "exact_topk"):
-        emit("ptxas", {"source": f"{name}.cu", "report": ptxas_report(name)})
-    if args.sweep:
-        sweep(card, emit)
-    if args.parent is not None:
-        compare(card, args.parent, emit)
+    if args.report:
+        for name in SOURCES:
+            emit("ptxas", {"source": f"{name}.cu", "report": ptxas_report(name)})
+    if args.time is not None:
+        import torch
+
+        from anime_recommendations_tpu_torch.ops import _kernels
+
+        if not torch.cuda.is_available():
+            raise SystemExit("scan_kernels: torch.cuda.is_available() is False")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True).stdout.strip()
+        src = sources_dir(args.csrc, args.variant)
+        # Every build and load before the first profiler session.
+        libs = {name: _kernels.load(_kernels.build(name, csrc=src), name) for name in SOURCES}
+        cs.start_profiler()
+        label = args.variant or (str(args.csrc) if args.csrc else "checkout")
+        # A variant times only the kernel it changes.
+        kernels = (VARIANTS[args.variant][0],) if args.variant else SOURCES
+        time_cases(card, args.time, label, libs, kernels, emit)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")

@@ -3,6 +3,8 @@
     python -m anime_recommendations_tpu_torch.cli ingest --run-dir runs
     python -m anime_recommendations_tpu_torch.cli preprocess --run-dir runs
     python -m anime_recommendations_tpu_torch.cli train --run-dir runs [--set model.optimizer=fused_adam]
+    python -m torch.distributed.run --nproc_per_node=2 -m anime_recommendations_tpu_torch.cli \
+        train --run-dir runs --device cpu       # the routed trainer, tables striped over 2 ranks
     python -m anime_recommendations_tpu_torch.cli serve --run-dir runs [--port 8080]
     python -m anime_recommendations_tpu_torch.cli similar-anime "Cowboy Bebop" -k 10 --run-dir runs
     python -m anime_recommendations_tpu_torch.cli similar-users 153695 -k 10 --run-dir runs
@@ -88,7 +90,13 @@ def main(argv=None) -> int:
         from anime_recommendations_tpu_torch.pipeline.runner import PipelineRunner
 
         runner = PipelineRunner(cfg, args.run_dir, device=args.device)
-        result = getattr(runner, f"step_{args.cmd}")()
+        try:
+            result = getattr(runner, f"step_{args.cmd}")()
+        finally:
+            import torch.distributed as dist
+
+            if dist.is_initialized():   # torchrun: train went through parallel/
+                dist.destroy_process_group()
         if result is not None:
             print(f"best epoch {result.best_epoch}, val_loss {result.best_val_loss:.6f}, "
                   f"{result.epochs_run} epochs, {result.examples_per_sec:.0f} examples/s")

@@ -3,7 +3,8 @@
 // batch's rows out of the updated table.
 //
 // Replaces: anime_recommendations_tpu/ops/fused_adam.py::_fused_adam_kernel
-// with its stochastic rounding _sr_store (bf16 moments) -> fused_adam, and
+// with its stochastic rounding _sr_store (bf16 moments) -> fused_adam (its
+// has_dense branch -> fused_adam with a dense gradient), and
 // ::_fused_adam_gather_kernel -> fused_adam_gather.
 //
 // What it computes, for a table W [n, d] f32 and moments mu, nu [n, d] (f32,
@@ -11,6 +12,7 @@
 // sorted ascending (int32 [B]) and their gradients in the same order (f32
 // [B, d]):
 //   dscat  = sum of the gradient rows whose id == r    (exact f32, in order)
+//   dscat  = dscat + dense[r]          (only with a dense gradient [n, d])
 //   g      = dscat + 2*l2*W
 //   mu'    = b1*mu + (1-b1)*g ;  nu' = b2*nu + (1-b2)*g*g   (f32 math)
 //   W'     = W - lr*(mu'/bc1)/(sqrt(nu'/bc2) + eps)       (in place)
@@ -31,6 +33,8 @@
 // Bound on the H100: memory. One call reads and writes W, mu and nu once
 // (6 x 46.9 MB for the 91,641 x 128 f32 user table; 4 x 46.9 MB with bf16
 // moments) plus the batch's gradient rows, and does ~20 flops per element.
+// A dense gradient (the routed trainer's overflow rounds) adds one read of
+// one more [n, d] f32 table, streamed a float4 at a time beside W.
 // The gather adds only its output (5.1 MB for 10,000 next rows of 128): the
 // rows are copied out of the block the update just wrote, which is in L1/L2.
 //
@@ -141,10 +145,12 @@ __device__ __forceinline__ int lower_bound(const int32_t* ids, int lo, int hi, i
 
 // The update of block blockIdx.x's rows [row0, min(row0 + 32, n)) and its
 // sumsq partial. Ends after a __syncthreads() that follows every W' store.
-template <typename M>
+// kDense: add dense[row, c..c+3] to each run's sum before the update.
+template <typename M, bool kDense>
 __device__ __forceinline__ void adam_block(float* __restrict__ w, M* __restrict__ mu,
                                            M* __restrict__ nu, const int32_t* __restrict__ ids,
                                            const float* __restrict__ grads,
+                                           const float* __restrict__ dense,
                                            const int32_t* __restrict__ starts,
                                            float* __restrict__ partials, int n, int d,
                                            const Scalars& s, int sr, uint32_t step) {
@@ -195,6 +201,7 @@ __device__ __forceinline__ void adam_block(float* __restrict__ w, M* __restrict_
     }
     for (; j < j_end; ++j)
       acc = add4(acc, __ldg(reinterpret_cast<const float4*>(gc + (size_t)j * d)));
+    if constexpr (kDense) acc = add4(acc, __ldg(reinterpret_cast<const float4*>(dense + off)));
 
     float4 wv = *reinterpret_cast<const float4*>(w + off);
     sq = fmaf(wv.x, wv.x, sq);
@@ -229,7 +236,18 @@ fused_adam_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restrict__ nu,
                   const int32_t* __restrict__ ids, const float* __restrict__ grads,
                   const int32_t* __restrict__ starts, float* __restrict__ partials,
                   int n, int d, Scalars s, int sr, uint32_t step) {
-  adam_block<M>(w, mu, nu, ids, grads, starts, partials, n, d, s, sr, step);
+  adam_block<M, false>(w, mu, nu, ids, grads, nullptr, starts, partials, n, d, s, sr, step);
+}
+
+// The same with a dense gradient: its own kernel, so a profile tells the two apart.
+template <typename M>
+__global__ void __launch_bounds__(kThreads)
+fused_adam_dense_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restrict__ nu,
+                        const int32_t* __restrict__ ids, const float* __restrict__ grads,
+                        const float* __restrict__ dense, const int32_t* __restrict__ starts,
+                        float* __restrict__ partials, int n, int d, Scalars s, int sr,
+                        uint32_t step) {
+  adam_block<M, true>(w, mu, nu, ids, grads, dense, starts, partials, n, d, s, sr, step);
 }
 
 // Copies d floats (d % 4 == 0), one float4 per lane of a warp, or zeros them
@@ -250,7 +268,7 @@ fused_adam_gather_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restric
                          const int32_t* __restrict__ nids, const int32_t* __restrict__ norder,
                          const int32_t* __restrict__ gstarts, float* __restrict__ rows_out,
                          int n_next, int n, int d, Scalars s, int sr, uint32_t step) {
-  adam_block<M>(w, mu, nu, ids, grads, starts, partials, n, d, s, sr, step);
+  adam_block<M, false>(w, mu, nu, ids, grads, nullptr, starts, partials, n, d, s, sr, step);
   // Read after write: every W' store of this block precedes the barrier, so
   // the plain (coherent, not __ldg) loads below see the updated rows.
   __syncthreads();
@@ -280,6 +298,8 @@ int check_args(int n, int d, int block_rows, int moment_dtype) {
 
 // moment_dtype: 0 = float32, 1 = bfloat16 (mu and nu share it). ids (int32
 // [B], ascending) and grads (f32 [B, d], same order) may be null when B = 0.
+// dense (f32 [n, d], 16-byte aligned) is added to every row's gradient sum,
+// or null for none.
 // starts (int32 [nb + 1], nb = ceil(n / block_rows)) holds where each block's
 // rows [b * block_rows, min((b + 1) * block_rows, n)) begin in the sorted ids,
 // and partials (f32 [nb]) receives one sumsq partial per block. block_rows
@@ -288,7 +308,7 @@ int check_args(int n, int d, int block_rows, int moment_dtype) {
 // stochastically. Updates W, mu and nu in place. Returns a cudaError_t
 // (0 on success).
 extern "C" int fused_adam(float* w, void* mu, void* nu, int moment_dtype,
-                          const int32_t* ids, const float* grads,
+                          const int32_t* ids, const float* grads, const float* dense,
                           const int32_t* starts, float* partials, int n, int d,
                           int block_rows, float lr, float bc1, float bc2, float eps,
                           float l2, float b1, float b2, int sr, unsigned int step,
@@ -297,14 +317,25 @@ extern "C" int fused_adam(float* w, void* mu, void* nu, int moment_dtype,
   const Scalars s{lr, bc1, bc2, eps, l2, b1, b2};
   const dim3 grid((n + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (moment_dtype == 0)
-    fused_adam_kernel<float><<<grid, kThreads, 0, st>>>(
-        w, static_cast<float*>(mu), static_cast<float*>(nu), ids, grads, starts,
-        partials, n, d, s, 0, step);
-  else
-    fused_adam_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        w, static_cast<__nv_bfloat16*>(mu), static_cast<__nv_bfloat16*>(nu), ids,
-        grads, starts, partials, n, d, s, sr, step);
+  if (moment_dtype == 0) {
+    float* m = static_cast<float*>(mu);
+    float* v = static_cast<float*>(nu);
+    if (dense)
+      fused_adam_dense_kernel<float><<<grid, kThreads, 0, st>>>(
+          w, m, v, ids, grads, dense, starts, partials, n, d, s, 0, step);
+    else
+      fused_adam_kernel<float><<<grid, kThreads, 0, st>>>(
+          w, m, v, ids, grads, starts, partials, n, d, s, 0, step);
+  } else {
+    __nv_bfloat16* m = static_cast<__nv_bfloat16*>(mu);
+    __nv_bfloat16* v = static_cast<__nv_bfloat16*>(nu);
+    if (dense)
+      fused_adam_dense_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+          w, m, v, ids, grads, dense, starts, partials, n, d, s, sr, step);
+    else
+      fused_adam_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+          w, m, v, ids, grads, starts, partials, n, d, s, sr, step);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -47,11 +47,12 @@ SIGNATURES = {
     "exact_topk_query_tile": (_I, _I),
     # table, out, out_dtype, n, d, eps, stream
     "l2_normalize": (_P, _P, _I, _I, _I, _F, _P),
-    # w, mu, nu, moment_dtype, ids, grads, starts, partials, n, d, block_rows,
-    # lr, bc1, bc2, eps, l2, b1, b2, sr, step, stream
-    "fused_adam": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+    # w, mu, nu, moment_dtype, ids, grads, dense, starts, partials, n, d,
+    # block_rows, lr, bc1, bc2, eps, l2, b1, b2, sr, step, stream
+    "fused_adam": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                    _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
-    # the same, then nids, norder, gstarts, rows_out, n_next before n
+    # fused_adam without dense, then nids, norder, gstarts, rows_out, n_next
+    # before n
     "fused_adam_gather": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
 }

@@ -1,11 +1,12 @@
 """Fused sparse-gradient scatter + L2 decay + Adam update of one table.
 
 Counterpart of anime_recommendations_tpu/ops/fused_adam.py::sparse_adam_update
-(K1, ``_fused_adam_kernel`` with its stochastic rounding ``_sr_store``; with
-``next_ids``, K5, ``_fused_adam_gather_kernel``). One call does, in one pass
-over the table:
+(K1, ``_fused_adam_kernel`` with its stochastic rounding ``_sr_store`` and its
+``has_dense`` branch; with ``next_ids``, K5, ``_fused_adam_gather_kernel``).
+One call does, in one pass over the table:
 
     dscat  = zeros_like(w).index_add(ids, g_rows)      # rows outside [0, n) dropped
+    dscat  = dscat + dense_grad                         # only with dense_grad
     g      = dscat + 2*l2*w
     mu'    = b1*mu + (1-b1)*g ;  nu' = b2*nu + (1-b2)*g^2
     w'     = w - lr * (mu'/bc1) / (sqrt(nu'/bc2) + eps)
@@ -25,13 +26,21 @@ else holds the old values) and returned. The moments are f32, or bf16 for
 ``sr_random_bits``). The gathered rows add 5.1 MB of writes at 10,000 next
 ids of 128, and no table read: they are copied out of the block just updated.
 
-On a CUDA tensor this launches csrc/fused_adam.cu (``fused_adam``, or
-``fused_adam_gather`` with ``next_ids``); on a CPU tensor it runs
-``_sparse_adam_update_plain`` (then ``_gather_rows_plain``), the same
-function in torch ops. There is no fallback between them.
+``dense_grad`` ([N, D] f32) is a gradient already summed per row: the routed
+trainer's overflow rounds (parallel/routing.route_grad_rows). It costs one
+more read of an [N, D] table. With ``next_ids`` it is an error, as in JAX.
+
+On a CUDA tensor this launches csrc/fused_adam.cu (``fused_adam``, counted as
+``fused_adam_dense`` when it takes a dense gradient, or ``fused_adam_gather``
+with ``next_ids``); on a CPU tensor it runs ``_sparse_adam_update_plain``
+(then ``_gather_rows_plain``), the same function in torch ops. There is no
+fallback between them.
 
 Host-side preparation, on the tensors' device: a stable argsort of the batch
-ids, the gradient rows gathered into that order, and (for the kernel) the
+ids (or the caller's ``order``, computed earlier: any permutation that sorts
+the ids ascending; the routed trainer's ``routing.receipt_sort_order`` is the
+stable one, so the result is the same bit for bit), the gradient rows
+gathered into that order, and (for the kernel) the
 block starts from ``searchsorted`` over bounds clamped to n. Unlike the TPU
 kernel, nothing is padded: the kernel searches each block's own slice of the
 sorted ids, so it needs no chunk-aligned tail. With ``next_ids``: their
@@ -142,11 +151,12 @@ def sparse_adam_update(
     ``stochastic_rounding``: None rounds bf16 moments stochastically, False
     to nearest; f32 moments are stored as they are. ``step`` and ``lr`` are
     host numbers: the scalars go to the kernel by value, with no device sync.
+    ``dense_grad`` ([N, D] f32) is added to the scattered sums; ``order`` ([B]
+    int) replaces the argsort of ``ids`` (module docstring).
     """
-    if dense_grad is not None or order is not None:
-        raise NotImplementedError(
-            "dense_grad and order (the routed multi-chip path; dense_grad alone or "
-            "with next_ids) are not ported yet: ROADMAP.md Queue 1 parallel/")
+    if dense_grad is not None and next_ids is not None:
+        raise NotImplementedError("dense_grad with next_ids: an unused combination, "
+                                  "unsupported as in the JAX package")
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if w.dim() != 2 or w.dtype != torch.float32:
@@ -167,17 +177,27 @@ def sparse_adam_update(
                                  or next_ids.is_complex()):
         raise TypeError(f"sparse_adam_update: next_ids must be [B2] integers, got "
                         f"{next_ids.dtype} {tuple(next_ids.shape)}")
-    operands = (("mu", mu), ("nu", nu), ("ids", ids), ("g_rows", g_rows), ("next_ids", next_ids))
+    if dense_grad is not None and (dense_grad.shape != w.shape
+                                   or dense_grad.dtype != torch.float32):
+        raise ValueError(f"sparse_adam_update: dense_grad must be [N, D] f32 like w, got "
+                         f"{dense_grad.dtype} {tuple(dense_grad.shape)}")
+    if order is not None and (order.shape != ids.shape or order.is_floating_point()
+                              or order.is_complex()):
+        raise ValueError(f"sparse_adam_update: order must be [B] integers, got "
+                         f"{order.dtype} {tuple(order.shape)}")
+    operands = (("mu", mu), ("nu", nu), ("ids", ids), ("g_rows", g_rows), ("next_ids", next_ids),
+                ("dense_grad", dense_grad), ("order", order))
     for name, t in operands:
         if t is not None and t.device != w.device:
             raise ValueError(f"sparse_adam_update: {name} is on {t.device}, w on {w.device}")
     sr = mu.dtype == torch.bfloat16 and stochastic_rounding is not False
-    order = torch.argsort(ids, stable=True)
+    if order is None:
+        order = torch.argsort(ids, stable=True)
     ids_s = ids[order].to(torch.int32)
     g_s = g_rows[order].float()
     scal = adam_scalars(int(step), float(lr), float(l2), b1, b2, eps)
     if w.device.type == "cpu":
-        out = _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal, int(step), sr)
+        out = _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal, int(step), sr, dense_grad)
         return out if next_ids is None else out + (_gather_rows_plain(w, next_ids),)
     if w.device.type != "cuda":
         raise ValueError(f"sparse_adam_update: unsupported device {w.device}")
@@ -185,18 +205,22 @@ def sparse_adam_update(
     if next_ids is not None:
         norder = torch.argsort(next_ids, stable=True)
         gather = (next_ids[norder].to(torch.int32), norder.to(torch.int32))
-    return _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal, int(step), sr, gather)
+    return _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal, int(step), sr, gather,
+                                    dense=dense_grad)
 
 
 def _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int,
-                              sr: bool):
+                              sr: bool, dense=None):
     """The update in plain torch ops, in place, from the sorted ids and
-    gradients: the reference for the kernel (same operations, same order,
-    same stochastic-rounding bits)."""
+    gradients (and ``dense``, an [N, D] gradient added to the scattered
+    sums): the reference for the kernel (same operations, same order, same
+    stochastic-rounding bits)."""
     n, d = w.shape
     dev = w.device
     keep = (ids_s >= 0) & (ids_s < n)
     dscat = torch.zeros_like(w).index_add_(0, ids_s[keep].long(), g_s[keep])
+    if dense is not None:
+        dscat = dscat + dense
     sumsq = torch.sum(torch.square(w))
     f = np.float32
     two_l2 = float(f(2) * f(scal.l2))
@@ -232,11 +256,11 @@ def _check_cuda_operand(name: str, t: torch.Tensor, align: int) -> None:
 
 
 def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int,
-                             sr: bool, gather=None):
-    """Launch csrc/fused_adam.cu on PyTorch's current stream: ``fused_adam``,
-    or with ``gather`` = (sorted next ids, their original positions), both
-    int32, ``fused_adam_gather``, whose gathered rows come last in the
-    result."""
+                             sr: bool, gather=None, dense=None):
+    """Launch csrc/fused_adam.cu on PyTorch's current stream: ``fused_adam``
+    (with ``dense``, an [N, D] f32 gradient, its dense kernel), or with
+    ``gather`` = (sorted next ids, their original positions), both int32,
+    ``fused_adam_gather``, whose gathered rows come last in the result."""
     n, d = w.shape
     if d % 4:
         raise ValueError(f"fused_adam: needs D % 4 == 0, got D={d}")
@@ -247,6 +271,10 @@ def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int
     _check_cuda_operand("mu", mu, 16 if mu.dtype == torch.float32 else 8)
     _check_cuda_operand("nu", nu, 16 if nu.dtype == torch.float32 else 8)
     _check_cuda_operand("g_rows", g_s, 16)
+    if dense is not None:
+        if gather is not None:
+            raise ValueError("fused_adam_gather takes no dense gradient")
+        _check_cuda_operand("dense_grad", dense, 16)
     nb = -(-n // BLOCK_ROWS)
     bounds = torch.clamp_max(
         torch.arange(nb + 1, dtype=torch.int32, device=w.device) * BLOCK_ROWS, n)
@@ -258,8 +286,9 @@ def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int
     tail = (n, d, BLOCK_ROWS, *scal, int(sr), step & 0xFFFFFFFF,
             ctypes.c_void_p(torch.cuda.current_stream(w.device).cuda_stream))
     if gather is None:
-        name, rows = "fused_adam", ()
-        err = lib.fused_adam(*head, *tail)
+        name, rows = ("fused_adam", ()) if dense is None else ("fused_adam_dense", ())
+        err = lib.fused_adam(*head[:6], None if dense is None else dense.data_ptr(), *head[6:],
+                             *tail)
     else:
         nids_s, norder = gather
         if nids_s.shape[0] >= 2**31:

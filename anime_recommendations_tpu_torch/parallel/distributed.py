@@ -1,0 +1,288 @@
+"""Multi-process runtime: the process group, batch feeding and the worker.
+
+Counterpart of anime_recommendations_tpu/parallel/distributed.py. Every rank
+calls ``initialize()`` before any collective; it sets up the default process
+group from torchrun's environment (MASTER_ADDR, MASTER_PORT, RANK,
+WORLD_SIZE, LOCAL_RANK): NCCL with one card per rank, or gloo with
+``device="cpu"``. Data loading stays rank-local: each rank feeds only its
+slice of a global batch (host_batch_slice).
+
+    python -m torch.distributed.run --nproc_per_node=2 \\
+        -m anime_recommendations_tpu_torch.parallel.distributed --worker --device cpu
+    python -m torch.distributed.run --nproc_per_node=2 \\
+        -m anime_recommendations_tpu_torch.parallel.distributed --worker --fit --device cpu
+
+``--worker`` runs ``steps`` sharded train steps on random data (worker_step);
+``--fit`` a full ShardedTrainer.fit with checkpoints and same-world resume
+(worker_fit); ``--replay IN.npz --out OUT.npz`` runs saved states and
+batches through ShardedTrainStep (worker_replay), to hold the steps to
+another implementation's on the same inputs. Each prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+
+def initialize(device: str = "cuda", init_method: str | None = None,
+               world_size: int | None = None, rank: int | None = None) -> bool:
+    """Initialize the default process group when running multi-process;
+    returns True when a process group is active after the call.
+
+    With no arguments it reads torchrun's environment; without WORLD_SIZE
+    there (a plain single process) it does nothing. ``device``: "cuda" takes
+    NCCL and this rank's card (LOCAL_RANK), "cpu" gloo."""
+    if dist.is_initialized():
+        return True
+    env = os.environ
+    if world_size is None and "WORLD_SIZE" not in env:
+        return False
+    world_size = int(env["WORLD_SIZE"]) if world_size is None else world_size
+    rank = int(env.get("RANK", 0)) if rank is None else rank
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", rank)))
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=init_method,
+                            world_size=world_size, rank=rank)
+    logger.info("torch.distributed initialized: rank %d/%d, backend %s", rank, world_size,
+                dist.get_backend())
+    return True
+
+
+def host_batch_slice(global_batch: int) -> slice:
+    """This rank's slice of a global batch. The batch must divide by the
+    world size: pad a ragged one with pad_batch_for_hosts first (weight-0
+    rows are inert in every loss, metric and optimizer path)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by {n} ranks; "
+                         "pad with pad_batch_for_hosts (zero-weight rows are inert)")
+    per = global_batch // n
+    i = dist.get_rank() if dist.is_initialized() else 0
+    return slice(i * per, (i + 1) * per)
+
+
+def pad_batch_for_hosts(users, anime, ratings, weights=None, n_shards: int | None = None):
+    """Zero-weight-pad a global batch to a multiple of ``n_shards`` (default:
+    the world size). Returns (users, anime, ratings, weights) numpy arrays;
+    padded rows have weight 0, ids 0 and rating 0."""
+    if n_shards is None:
+        n_shards = dist.get_world_size() if dist.is_initialized() else 1
+    b = len(users)
+    pad = -(-b // n_shards) * n_shards - b
+    if weights is None:
+        weights = np.ones(b, np.float32)
+    return (
+        np.pad(np.asarray(users), (0, pad)),
+        np.pad(np.asarray(anime), (0, pad)),
+        np.pad(np.asarray(ratings, dtype=np.float32), (0, pad)),
+        np.pad(np.asarray(weights, dtype=np.float32), (0, pad)),
+    )
+
+
+# ---- the worker -------------------------------------------------------------------
+
+
+def worker_step(data_axis: int = -1, model_axis: int = 1, n_users: int = 1024,
+                n_anime: int = 256, batch: int = 512, steps: int = 2,
+                optimizer: str = "adam", seed: int = 0, device: str = "cuda") -> dict:
+    """``steps`` sharded train steps on random data; every rank feeds only
+    its slice. Returns {rank, world_size, loss, mse}: the loss and mse are
+    the global batch's, equal on every rank."""
+    from anime_recommendations_tpu_torch.parallel.mesh import make_world
+    from anime_recommendations_tpu_torch.parallel.sharded_train import ShardedTrainStep
+    from anime_recommendations_tpu_torch.parallel.trainer import init_placed_state
+
+    world = make_world(data_axis, model_axis, device)
+    state = init_placed_state(world, n_users, n_anime, 32, torch.Generator().manual_seed(seed))
+    step = ShardedTrainStep(world, l2_reg_factor=1e-4, optimizer=optimizer)
+    rng = np.random.default_rng(seed + 1)
+    sl = host_batch_slice(batch)
+
+    def feed(col):
+        return torch.from_numpy(col[sl]).to(world.device)
+
+    loss = mse = None
+    for _ in range(steps):
+        # The same stream on every rank; each keeps only its slice.
+        users = rng.integers(0, n_users, batch).astype(np.int32)
+        anime = rng.integers(0, n_anime, batch).astype(np.int32)
+        ratings = rng.uniform(0, 1, batch).astype(np.float32)
+        weights = np.ones(batch, np.float32)
+        state, loss, mse = step.train_step(state, feed(users), feed(anime), feed(ratings),
+                                           feed(weights), 5e-5)
+    return {"rank": world.rank, "world_size": world.size, "loss": float(loss),
+            "mse": float(mse)}
+
+
+# The trainer settings of worker_fit, beside batch_size, epochs and optimizer.
+FIT_KWARGS = dict(embedding_size=16, max_lr=5e-3, start_lr=1e-3, min_lr=1e-3, rampup_epochs=2,
+                  device_loop=True, verbose=False)
+
+
+def fit_data(n_users: int = 512, n_anime: int = 128, rows: int = 8192, batch: int = 512,
+             seed: int = 0):
+    """(train, holdout) of worker_fit: uniform random ratings from the seed."""
+    from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
+
+    rng = np.random.default_rng(seed + 17)
+    users = rng.integers(0, n_users, rows).astype(np.int32)
+    anime = rng.integers(0, n_anime, rows).astype(np.int32)
+    ratings = rng.uniform(0, 1, rows).astype(np.float32)
+    cut = rows - max(rows // 8, batch)
+    return (RatingsDataset(users[:cut], anime[:cut], ratings[:cut]),
+            RatingsDataset(users[cut:], anime[cut:], ratings[cut:]))
+
+
+def worker_fit(data_axis: int = -1, model_axis: int = 1, n_users: int = 512,
+               n_anime: int = 128, rows: int = 8192, batch: int = 512, epochs: int = 3,
+               optimizer: str = "fused_adam", seed: int = 0, checkpoint_dir: str | None = None,
+               resume: bool = False, device: str = "cuda", capacity: int | None = None) -> dict:
+    """A full ShardedTrainer.fit on every rank: the device loop with planned
+    epochs, the holdout evaluated on the world, best-only checkpoints per
+    rank and, with ``resume``, a same-world resume. Every rank builds the
+    same data from the seed (fit_data); the history is the same on every
+    rank and, to reduction order, the same at any world size."""
+    from anime_recommendations_tpu_torch.parallel.trainer import ShardedTrainer
+
+    train, holdout = fit_data(n_users, n_anime, rows, batch, seed)
+    trainer = ShardedTrainer(
+        batch_size=batch, epochs=epochs, data_axis=data_axis, model_axis=model_axis,
+        optimizer=optimizer, seed=seed, patience=max(epochs, 3), checkpoint_dir=checkpoint_dir,
+        device=device, capacity=capacity, **FIT_KWARGS)
+    result = trainer.fit(train, holdout, n_users, n_anime, resume=resume)
+    moments = {str(v.dtype) for v in result.state.adam.mu.values()}
+    return {
+        "rank": trainer.world.rank,
+        "world_size": trainer.world.size,
+        "capacity": trainer.capacity,
+        "loss": result.history["loss"].round(6).tolist(),
+        "val_loss": result.history["val_loss"].round(6).tolist(),
+        "best_epoch": result.best_epoch,
+        "epochs_run": result.epochs_run,
+        "moment_dtypes": sorted(moments),
+        # Equal on every rank iff the fit and the gather of the state worked.
+        "user_emb_absum": float(result.state.model.user_emb.detach().abs().sum()),
+    }
+
+
+def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> dict:
+    """Run saved states and batches through ShardedTrainStep. ``in_path``
+    (.npz) holds ``jobs`` (JSON: a list of {name, optimizer, capacity,
+    steps, state, batch, lr, l2}), each named state as the keys of
+    train.trainer.train_state_to_numpy under ``<state>/`` (LOGICAL order,
+    rows a multiple of the world size) and each named global batch as
+    ``<batch>/users``, ``/anime``, ``/ratings``, ``/weights``. Per job, from
+    the placed state: the gradients (``<name>/grads/<param>``, logical), the
+    eval sums (``<name>/eval``), then ``steps`` train steps on the batch:
+    ``<name>/loss``, ``<name>/mse`` per step, the state after the first and
+    the last (``<name>/step1/<key>``, ``<name>/final/<key>``, logical). Rank 0
+    writes them to ``out_path``. Returns {rank, world_size, jobs}."""
+    from anime_recommendations_tpu_torch.parallel.mesh import make_world
+    from anime_recommendations_tpu_torch.parallel.sharded_train import (
+        ShardedTrainStep,
+        _gather_rows,
+        place_state,
+        unstripe_state,
+    )
+    from anime_recommendations_tpu_torch.train.trainer import (
+        TABLE_KEYS,
+        train_state_from_numpy,
+        train_state_to_numpy,
+    )
+
+    world = make_world(device=device)
+    with np.load(in_path) as z:
+        arrays = {k: z[k] for k in z.files}
+    jobs = json.loads(str(arrays.pop("jobs")))
+    out = {}
+
+    def group(prefix):
+        return {k[len(prefix) + 1:]: v for k, v in arrays.items() if k.startswith(prefix + "/")}
+
+    for job in jobs:
+        name = job["name"]
+        logical = group(job["state"])
+        moments = torch.bfloat16 if job.get("bf16_moments") else torch.float32
+        state = place_state(train_state_from_numpy(logical, "cpu", moments), world)
+        step = ShardedTrainStep(world, l2_reg_factor=job["l2"], optimizer=job["optimizer"],
+                                capacity=job.get("capacity"))
+        batch = group(job["batch"])
+        sl = host_batch_slice(len(batch["users"]))
+        cols = [torch.from_numpy(np.asarray(batch[k])[sl]).to(world.device)
+                for k in ("users", "anime", "ratings", "weights")]
+        grads = step.grads(state, *cols)
+        for k, g in grads.items():
+            out[f"{name}/grads/{k}"] = (_gather_rows(g, world.size) if k in TABLE_KEYS
+                                        else g).detach().cpu().numpy()
+        out[f"{name}/eval"] = np.array([float(x) for x in step.eval_sums(
+            state.model, state.model.bn_state(), *cols)], np.float64)
+        losses, mses = [], []
+        for i in range(job["steps"]):
+            state, loss, mse = step.train_step(state, *cols, job["lr"])
+            losses.append(float(loss))
+            mses.append(float(mse))
+            tags = [t for t, at in (("step1", 0), ("final", job["steps"] - 1)) if i == at]
+            if tags:
+                logical = train_state_to_numpy(unstripe_state(state, world))
+                out.update({f"{name}/{t}/{k}": v for t in tags for k, v in logical.items()})
+        out[f"{name}/loss"] = np.array(losses, np.float64)
+        out[f"{name}/mse"] = np.array(mses, np.float64)
+    if out_path is not None and world.rank == 0:
+        np.savez(out_path, **out)
+    return {"rank": world.rank, "world_size": world.size, "jobs": [j["name"] for j in jobs]}
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--worker", action="store_true")
+    parser.add_argument("--fit", action="store_true",
+                        help="run a full ShardedTrainer.fit instead of raw steps")
+    parser.add_argument("--replay", default=None, metavar="IN.npz",
+                        help="run the saved jobs of IN.npz (worker_replay)")
+    parser.add_argument("--out", default=None, metavar="OUT.npz")
+    parser.add_argument("--device", default="cuda", help="cuda (NCCL) or cpu (gloo)")
+    parser.add_argument("--data-axis", type=int, default=-1)
+    parser.add_argument("--model-axis", type=int, default=1)
+    parser.add_argument("--batch", type=int, default=512)
+    parser.add_argument("--steps", type=int, default=2)
+    parser.add_argument("--epochs", type=int, default=3)
+    parser.add_argument("--optimizer", default="adam")
+    parser.add_argument("--capacity", type=int, default=None)
+    parser.add_argument("--checkpoint-dir", default=None)
+    parser.add_argument("--resume", action="store_true")
+    args = parser.parse_args(argv)
+    if not args.worker:
+        parser.error("nothing to do: pass --worker")
+
+    initialize(args.device)
+    try:
+        if args.replay:
+            out = worker_replay(args.replay, args.out, device=args.device)
+        elif args.fit:
+            out = worker_fit(
+                args.data_axis, args.model_axis, batch=args.batch, epochs=args.epochs,
+                optimizer=args.optimizer, checkpoint_dir=args.checkpoint_dir,
+                resume=args.resume, device=args.device, capacity=args.capacity)
+        else:
+            out = worker_step(args.data_axis, args.model_axis, batch=args.batch,
+                              steps=args.steps, optimizer=args.optimizer, device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,287 @@
+"""Sharded trainer: the one-device epoch loop over the routed steps.
+
+Counterpart of anime_recommendations_tpu/parallel/trainer.py (routing
+``"alltoall"``), a drop-in for train/trainer.Trainer on every rank of a
+process group (parallel.distributed.initialize). It handles:
+  * table rows zero-padded to a multiple of the world size (inert under the
+    L2 term), both tables striped over the ranks (parallel/routing.py), and
+    the fitted state gathered back to logical row order on every rank;
+  * the global batch split over the ranks (batch_size % world size == 0);
+  * optimizer="lazy_adam": owner-side row-sparse Adam on the routed path;
+    "fused_adam": owner-side fused dense Adam through K1, exact under any
+    overflow (its dense branch takes the overflow rounds);
+    "fused_adam_bf16m": the same with bf16 table moments;
+  * capacity=-1: the slot count measured per fit from sampled batches;
+  * the holdout evaluated on the whole world, and best-only checkpoints per
+    rank in the physical layout (``<checkpoint_dir>/rank<r>-of-<m>``), so a
+    resume needs the same world size.
+
+The device loop (``device_loop=True``) stages the data on every rank's
+device and shuffles it as the one-device loop does (train/device_loop.py:
+the same host shuffle and per-epoch granule shuffle, so at any world size
+the steps see the one-device trainer's batches); each rank takes its shard
+of every batch. Before an epoch's steps, the routed optimizers compute every
+batch's exchange plans (and fused_adam its receipt orders) with one
+all_reduce and one host sync (sharded_train.build_plans). This departs from
+the JAX package, which fixes batch composition per fit and permutes batch
+order per epoch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
+from anime_recommendations_tpu_torch.models.two_tower import BNState, TwoTower
+from anime_recommendations_tpu_torch.parallel import routing as rt
+from anime_recommendations_tpu_torch.parallel.mesh import make_world, pad_table
+from anime_recommendations_tpu_torch.parallel.sharded_train import (
+    ShardedTrainStep,
+    build_plans,
+    place_state,
+    unstripe_state,
+)
+from anime_recommendations_tpu_torch.train import device_loop as dl
+from anime_recommendations_tpu_torch.train.trainer import (
+    TABLE_KEYS,
+    Trainer,
+    TrainResult,
+    TrainState,
+    batch_to_device,
+    init_train_state,
+    train_state_from_numpy,
+    train_state_to_numpy,
+)
+
+ROUTED = ("lazy_adam", "fused_adam")
+
+
+def init_placed_state(world, n_users: int, n_anime: int, embedding_size: int,
+                      generator: torch.Generator, bf16_moments: bool = False) -> TrainState:
+    """This rank's stripes of the one-device trainer's initial state (the
+    same draws from the same generator), zero-padded to a multiple of the
+    world size; bf16 table moments with ``bf16_moments``."""
+    arrays = train_state_to_numpy(init_train_state(
+        n_users, n_anime, embedding_size, generator=generator, device="cpu"))
+    for k in TABLE_KEYS:
+        for prefix in ("", "mu.", "nu."):
+            arrays[prefix + k] = pad_table(arrays[prefix + k], world.size)
+    moments = torch.bfloat16 if bf16_moments else torch.float32
+    return place_state(train_state_from_numpy(arrays, "cpu", moments), world)
+
+
+@dataclass
+class ShardedTrainer(Trainer):
+    data_axis: int = -1
+    model_axis: int = 1
+    shard_anime: bool = False
+    # "alltoall": tables striped over the whole world, lookups routed so
+    # each row crosses the wire once ("psum" is not ported: ROADMAP.md).
+    routing: str = "alltoall"
+    # Per-(sender, owner) all-to-all slot count; None = auto (2x the uniform
+    # expectation, routing.default_capacity); -1 = measured per fit from
+    # sampled batches (the largest per-owner bucket + 25 % + 8). A lower
+    # count moves fewer rows per round and takes more rounds under skew;
+    # the result does not depend on it.
+    capacity: int | None = None
+
+    def __post_init__(self):
+        super().__post_init__()  # optimizer validation
+        # bf16 moments ride the fused machinery: the moments' dtype in the
+        # placed state selects the kernel's storage.
+        self._bf16_moments = self.optimizer == "fused_adam_bf16m"
+        if self._bf16_moments:
+            self.optimizer = "fused_adam"
+        self._auto_capacity = self.capacity == -1
+        if self._auto_capacity:
+            self.capacity = None  # until fit measures it
+        self.world = make_world(self.data_axis, self.model_axis, self.device)
+        self.device = self.world.device
+        m = self.world.size
+        if self.batch_size % m:
+            raise ValueError(f"batch_size {self.batch_size} must divide by the world size {m}")
+        if self.world.rank != 0:
+            self.verbose = False
+        if self.checkpoint_dir is not None:
+            self.checkpoint_dir = str(Path(self.checkpoint_dir) / f"rank{self.world.rank}-of-{m}")
+        self._step = self._make_step()
+        if self.verbose:
+            self._log_comm_budget()
+
+    def _make_step(self) -> ShardedTrainStep:
+        return ShardedTrainStep(self.world, l2_reg_factor=self.l2_reg_factor,
+                                shard_anime=self.shard_anime, routing=self.routing,
+                                optimizer=self.optimizer, capacity=self.capacity)
+
+    def _shard(self, b: int) -> slice:
+        """This rank's part of a global batch of ``b`` rows."""
+        per = b // self.world.size
+        return slice(self.world.rank * per, (self.world.rank + 1) * per)
+
+    def _log_comm_budget(self):
+        m = self.world.size
+        b_dev = max(self.batch_size // m, 1)
+        cap = self._step.batch_capacity(b_dev)
+        a2a = rt.exchange_comm_bytes(b_dev, self.embedding_size, m, cap)
+        ps = rt.psum_comm_bytes(max(self.batch_size // max(self.world.data_axis, 1), 1),
+                                self.embedding_size, max(self.world.model_axis, 2))
+        self.log_fn(
+            f"routing={self.routing}: per-rank per-table lookup comm ~{a2a / 1e6:.2f} MB/step "
+            f"(all-to-all, capacity {cap}) vs ~{ps / 1e6:.2f} MB/step (psum block all-reduce)")
+
+    def _sample_shards(self, train: RatingsDataset, samples: int):
+        """(table name, ids of one rank's shard) of sampled batches."""
+        m = self.world.size
+        bs = min(self.batch_size, max(len(train), 1))
+        b_dev = max(bs // m, 1)
+        rng = np.random.default_rng(self.seed)
+        n = len(train)
+        for name, ids in (("user", train.users), ("anime", train.anime)):
+            for _ in range(min(samples, max(n // bs, 1))):
+                sel = rng.choice(n, size=min(bs, n), replace=False)
+                yield name, ids[sel][:b_dev]
+
+    def _log_plan_stats(self, train: RatingsDataset):
+        """Measured routing stats of sampled batches: unique ids, the largest
+        per-owner bucket and the rounds at the configured capacity."""
+        m = self.world.size
+        rounds_seen = {}
+        for name, shard in self._sample_shards(train, 4):
+            cap = self._step.batch_capacity(len(shard))
+            uniq, mx, rounds = rt.plan_stats(shard, m, cap)
+            rounds_seen[name] = max(rounds_seen.get(name, 0), rounds)
+            self.log_fn(f"plan[{name}]: B/rank={len(shard)} unique={uniq} max_bucket={mx} "
+                        f"capacity={cap} rounds={rounds}")
+        for name, rounds in rounds_seen.items():
+            if rounds > 1:
+                self.log_fn(f"plan[{name}]: skew overflow, {rounds} rounds: raise "
+                            "parallel.capacity to keep one-round exchanges")
+
+    def _measure_capacity(self, train: RatingsDataset) -> int:
+        """Slot count from measured per-owner buckets of sampled batches
+        (capacity=-1): the largest bucket of both tables + 25 % + 8, rounded
+        up to 8. An underestimate only costs rounds."""
+        m = self.world.size
+        b_dev = max(min(self.batch_size, max(len(train), 1)) // m, 1)
+        worst = 1
+        for _, shard in self._sample_shards(train, 8):
+            worst = max(worst, rt.plan_stats(shard, m, rt.default_capacity(b_dev, m))[1])
+        cap = -(-(worst + worst // 4 + 8) // 8) * 8
+        return max(8, min(b_dev, cap))
+
+    # ---- backend hooks ------------------------------------------------------------
+
+    def _init_state(self, generator: torch.Generator, n_users: int, n_anime: int) -> TrainState:
+        return init_placed_state(self.world, n_users, n_anime, self.embedding_size, generator,
+                                 self._bf16_moments)
+
+    def fit(self, train: RatingsDataset, holdout: RatingsDataset, n_users: int, n_anime: int,
+            initial_state: TrainState | None = None, resume: bool = False) -> TrainResult:
+        """Trainer.fit on every rank; ``initial_state``, if given, is a
+        LOGICAL-order state padded to the world size. The returned state is
+        logical (padded), on every rank."""
+        if self._auto_capacity:
+            self.capacity = self._measure_capacity(train)
+            if self.verbose:
+                self.log_fn(f"measured capacity: {self.capacity} slots/(sender, owner)")
+            self._step = self._make_step()
+        if self.verbose:
+            self._log_plan_stats(train)
+        if initial_state is not None:
+            initial_state = place_state(initial_state, self.world)
+        result = super().fit(train, holdout, n_users, n_anime, initial_state, resume)
+        result.state = unstripe_state(result.state, self.world)
+        return result
+
+    def _train_step(self, state, batch, lr):
+        sl = self._shard(batch[0].shape[0])
+        return self._step.train_step(state, *(x[sl] for x in batch), lr)
+
+    def evaluate(self, model: TwoTower, bn_state: BNState,
+                 ds: RatingsDataset) -> tuple[float, float]:
+        loss_sum = mse_sum = w_sum = 0.0
+        for batch in ds.iter_batches(self._eval_batch_size(len(ds)), shuffle=False):
+            cols = batch_to_device(batch, self.device)
+            sl = self._shard(cols[0].shape[0])
+            ls, ms, w = self._step.eval_sums(model, bn_state, *(x[sl] for x in cols))
+            loss_sum, mse_sum, w_sum = loss_sum + ls, mse_sum + ms, w_sum + w
+        w = max(float(w_sum), 1.0)
+        return float(loss_sum) / w, float(mse_sum) / w
+
+    def _eval_batch_size(self, n_rows: int) -> int:
+        k = self.world.size
+        size = min(self.batch_size, max(n_rows, k))
+        return max(size - size % k, k)
+
+    # ---- device-resident epochs ---------------------------------------------------
+
+    def _stage_device(self, train: RatingsDataset, holdout: RatingsDataset):
+        """The whole data staged on this rank's device, as the one-device
+        loop stages it (batch size rounded down to a multiple of the world)."""
+        m = self.world.size
+        bs = min(self.batch_size, max(len(train), 1))
+        bs = max(bs - bs % m, m)
+        eval_bs = self._eval_batch_size(len(holdout))
+        stage_seed = self.seed if self.shuffle_each_epoch else None
+        return (
+            dl.stage(train, bs, seed=stage_seed, device=self.device),
+            dl.stage(holdout, eval_bs, device=self.device),
+            bs, eval_bs,
+        )
+
+    def _device_epoch(self, staged, state, epoch: int, lr: float):
+        train_data, holdout_data, bs, eval_bs = staged
+        if self.shuffle_each_epoch:
+            generator = torch.Generator().manual_seed(self.seed * 1000 + epoch)
+            train_data = dl.granule_shuffle(train_data, generator)
+        state, losses, mses, wsums = self.train_epoch(state, train_data, bs, lr)
+        bw = wsums.cpu().numpy().astype(np.float64)
+        vl, vm = self.eval_epoch(state.model, holdout_data, eval_bs)
+        return (state, float(losses.cpu().numpy() @ bw), float(mses.cpu().numpy() @ bw),
+                float(bw.sum()), vl, vm)
+
+    def _local(self, x: torch.Tensor, nb: int, bs: int) -> torch.Tensor:
+        """This rank's shard of every batch of staged column x: [nb, bs / m]."""
+        return x[:nb * bs].view(nb, bs)[:, self._shard(bs)]
+
+    def train_epoch(self, state: TrainState, data: dl.DeviceData, batch_size: int, lr: float):
+        """The batches of ``data`` in order (no shuffle), each rank on its
+        shard. Returns (state, losses[nb], mses[nb], wsums[nb]) on the
+        device, the last the global batches' weights. The routed optimizers
+        compute every batch's plans first (build_plans)."""
+        nb = data.n // batch_size
+        users, anime, ratings, weights = (self._local(x, nb, batch_size) for x in data)
+        wsums = data.weights[:nb * batch_size].view(nb, batch_size).sum(dim=1)
+        table_rows = tuple(getattr(state.model, k).shape[0] * self.world.size
+                           for k in TABLE_KEYS)
+        plans = (build_plans(self._step, users, anime, table_rows)
+                 if self.optimizer in ROUTED else None)
+        losses, mses = [], []
+        for i in range(nb):
+            kw = {}
+            if plans is not None and self.optimizer == "fused_adam":
+                (pu, ou), (pa, oa) = plans[0][i], plans[1][i]
+                kw = dict(plans=(pu, pa), orders=(ou, oa))
+            elif plans is not None:
+                kw = dict(plans=(plans[0][i], plans[1][i]))
+            state, loss, mse = self._step.train_step(
+                state, users[i], anime[i], ratings[i], weights[i], lr, **kw)
+            losses.append(loss)
+            mses.append(mse)
+        return state, torch.stack(losses), torch.stack(mses), wsums
+
+    @torch.no_grad()
+    def eval_epoch(self, model: TwoTower, data: dl.DeviceData, batch_size: int):
+        """Weighted-mean (loss, mse) over the staged holdout, on the world."""
+        nb = data.n // batch_size
+        cols = [self._local(x, nb, batch_size) for x in data]
+        l_sum = m_sum = w_sum = torch.zeros((), device=self.device)
+        for i in range(nb):
+            ls, ms, w = self._step.eval_sums(model, model.bn_state(), *(c[i] for c in cols))
+            l_sum, m_sum, w_sum = l_sum + ls, m_sum + ms, w_sum + w
+        w = torch.clamp_min(w_sum, 1.0)
+        return float(l_sum / w), float(m_sum / w)

@@ -10,8 +10,10 @@ JAX pipeline, so a run written by either package serves in both:
                  anime_weights.csv / user_weights.csv when
                  model.export_weight_csvs is set
 
-Not ported yet (ROADMAP.md Queue 1 item 7): the loss plot, the recommend
-steps' CSV artifacts with assert_flow, the multi-device trainer, and the
+Under torchrun, ``step_train`` trains on every rank through the routed
+ShardedTrainer (parallel/), as the JAX runner does on a multi-device mesh;
+rank 0 logs the artifacts. Not ported yet (ROADMAP.md Queue 1): the loss
+plot, the recommend steps' CSV artifacts with assert_flow, and the
 ``pipeline`` subcommand. The weight CSVs use the clamped row normalization
 (two_tower.normalized_tables): the reference's bare ``emb / norm`` mints
 inf/NaN rows for rows decayed to zero (ROADMAP.md Queue 3).
@@ -23,11 +25,18 @@ import logging
 from pathlib import Path
 
 import pandas as pd
+import torch.distributed as dist
 
 from anime_recommendations_tpu_torch.config import Config
 from anime_recommendations_tpu_torch.data.catalog import Catalog
 from anime_recommendations_tpu_torch.data.dataset import train_holdout_split
 from anime_recommendations_tpu_torch.data.vocab import Vocab, build_vocab, encode_frame
+from anime_recommendations_tpu_torch.models.two_tower import (
+    BUFFER_KEYS,
+    PARAM_KEYS,
+    TwoTower,
+    params_from_numpy,
+)
 from anime_recommendations_tpu_torch.pipeline.artifacts import ArtifactStore
 from anime_recommendations_tpu_torch.recommend.context import RecContext
 from anime_recommendations_tpu_torch.train.model_io import load_model
@@ -62,6 +71,16 @@ def context_from_store(cfg: Config, run_dir: str | Path | None = None, *,
         retrieval_dtype=cfg.similarity.retrieval_dtype, ann=cfg.similarity.ann,
         topk_kwargs=topk_kwargs,
     )
+
+
+def _trimmed(model: TwoTower, n_users: int, n_anime: int) -> TwoTower:
+    """``model`` with its tables cut to n_users and n_anime rows."""
+    if model.user_emb.shape[0] == n_users and model.anime_emb.shape[0] == n_anime:
+        return model
+    arrays = {k: getattr(model, k).detach().cpu().numpy() for k in PARAM_KEYS + BUFFER_KEYS}
+    arrays["user_emb"] = arrays["user_emb"][:n_users]
+    arrays["anime_emb"] = arrays["anime_emb"][:n_anime]
+    return params_from_numpy(arrays, model.user_emb.device)
 
 
 class PipelineRunner:
@@ -116,12 +135,20 @@ class PipelineRunner:
 
     def step_train(self):
         """Train on the latest preprocessed data, log the model, vocab,
-        history and (optionally) weight CSVs. Returns the TrainResult."""
+        history and (optionally) weight CSVs. Returns the TrainResult.
+
+        The routed ShardedTrainer trains when a process group exists (torchrun
+        started the process: parallel.distributed.initialize) and spans more
+        than one rank, or ``parallel.capacity`` is set; the one-device Trainer
+        otherwise."""
         from anime_recommendations_tpu_torch.models.two_tower import normalized_tables
+        from anime_recommendations_tpu_torch.parallel.distributed import initialize
         from anime_recommendations_tpu_torch.train.model_io import save_model
         from anime_recommendations_tpu_torch.train.trainer import Trainer
 
-        mc = self.cfg.model
+        initialize(self.device)   # a plain single process: nothing to do
+        mc, pc = self.cfg.model, self.cfg.parallel
+        sharded = dist.is_initialized() and (dist.get_world_size() > 1 or pc.capacity != 0)
         clean = pd.read_parquet(
             self.store.get("preprocessed_stats.parquet:latest").file())
         vocab = build_vocab(clean)
@@ -130,7 +157,7 @@ class PipelineRunner:
             encoded, test_size=min(mc.test_size, max(len(encoded) // 10, 1)),
             shuffle_seed=mc.vocab_shuffle_seed,
         )
-        trainer = Trainer(
+        common = dict(
             embedding_size=mc.embedding_size,
             l2_reg_factor=mc.l2_reg_factor,
             batch_size=min(mc.batch_size, max(len(train), 1)),
@@ -143,12 +170,25 @@ class PipelineRunner:
             log_fn=logger.info,
             device_loop=mc.device_loop, optimizer=mc.optimizer, device=self.device,
         )
+        if sharded:
+            from anime_recommendations_tpu_torch.parallel.trainer import ShardedTrainer
+
+            trainer = ShardedTrainer(
+                data_axis=pc.data_axis, model_axis=pc.model_axis,
+                shard_anime=pc.shard_anime_table, routing=pc.routing,
+                capacity=pc.capacity or None, **common)
+        else:
+            trainer = Trainer(**common)
         result = trainer.fit(train, holdout, vocab.n_users, vocab.n_anime,
                              resume=self.cfg.main.resume_training)
+        # The sharded trainer's tables come back on every rank, padded to the
+        # world size; rank 0 logs them without the padding.
+        model = _trimmed(result.state.model, vocab.n_users, vocab.n_anime)
+        if sharded and dist.get_rank() != 0:
+            return result
 
         tmp = self.run_dir / "tmp"
         tmp.mkdir(parents=True, exist_ok=True)
-        model = result.state.model
         model_path = save_model(tmp / "anime_nn_model", model)
         vocab_path = tmp / "vocab.json"
         vocab.save(vocab_path)

@@ -27,7 +27,9 @@ are held to 1e-5 relative to each tensor's largest entry, bf16 moments to
 that plus one bf16 ulp, and sumsq to 1e-5 relative. Fused Adam with the gather (K5): the update is
 K1's device code, so its tables and sumsq equal K1's bit for bit on the same
 inputs, and its rows equal w'[next_ids] exactly (zero rows for ids outside
-the table); against the plain version as K1.
+the table); against the plain version as K1. K1 with a dense gradient: its
+dense kernel against the plain version as K1 (rows hit at most once bit
+for bit), and a precomputed stable ``order`` bit for bit the call without.
 """
 
 import numpy as np
@@ -445,6 +447,38 @@ def test_fused_adam_kernel_matches_plain(cuda, dtype, shape):
         once = torch.bincount(ids.long(), minlength=n) <= 1
         for a, c in zip(got[:3], want[:3]):
             assert torch.equal(a[once], c[once])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(5000, 128, 2000), (1001, 32, 777)], ids=["skewed", "ragged"])
+def test_fused_adam_dense_kernel_matches_plain_and_order_changes_nothing(cuda, dtype, shape):
+    """K1's dense branch at a table of a row count not a multiple of 32, ids
+    past the table (the routed receipts' drop marker n) among the batch."""
+    n, d, b = shape
+    w, mu, nu, ids, g = adam_case(cuda, n, d, b, seed=n + 1)
+    ids[::7] = n
+    mu, nu = mu.to(dtype), nu.to(dtype)
+    dense = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).mul_(0.1).to(cuda)
+    plain = [x.clone() for x in (w, mu, nu)]
+    no_order = [x.clone() for x in (w, mu, nu)]
+    order = torch.argsort(ids, stable=True)
+    before = dict(_kernels.launches)
+    got = fused_adam.sparse_adam_update(w, mu, nu, ids, g, 3, 1e-3, l2=1e-4, dense_grad=dense,
+                                        order=order)
+    alone = fused_adam.sparse_adam_update(*no_order, ids, g, 3, 1e-3, l2=1e-4, dense_grad=dense)
+    assert _kernels.launches["fused_adam_dense"] == before.get("fused_adam_dense", 0) + 2
+    assert _kernels.launches["fused_adam"] == before.get("fused_adam", 0)
+    scal = fused_adam.adam_scalars(3, 1e-3, 1e-4, 0.9, 0.999, 1e-7)
+    want = fused_adam._sparse_adam_update_plain(*plain, ids[order], g[order], scal, 3,
+                                                dtype == torch.bfloat16, dense)
+    torch.cuda.synchronize()
+    for a, c in zip(got, alone):
+        assert torch.equal(a, c)
+    assert_update_close(got, want, dtype)
+    once = torch.bincount(ids.long(), minlength=n + 1)[:n] <= 1
+    for a, c in zip(got[:3], want[:3]):
+        assert torch.equal(a[once], c[once])
 
 
 @pytest.mark.cuda

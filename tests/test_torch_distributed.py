@@ -1,0 +1,110 @@
+"""The port's multi-process runtime: full ShardedTrainer fits in gloo ranks.
+
+``python -m anime_recommendations_tpu_torch.parallel.distributed --worker
+--fit`` in 2 ranks, against 1 rank and against the one-device Trainer of
+the same spec in this process (parallel.distributed.fit_data, FIT_KWARGS),
+in the pattern of tests/test_distributed.py: both ranks report the same
+curve; it matches a 1-rank run within 2e-4 relative (that test's bound:
+the ranks only reorder f32 sums); a same-world resume continues from the
+checkpoint; a measured capacity (-1) gives the default capacity's curve
+within 1e-5 (tests/test_sharded_trainer.py's bound); bf16 moments track
+the one-device bf16m fit within 2e-2 (tests/test_sharded_trainer.py's
+bound: stochastic rounding keys on the LOCAL row, so 2 ranks draw other
+bits than 1).
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from anime_recommendations_tpu_torch.parallel.distributed import FIT_KWARGS, fit_data
+from anime_recommendations_tpu_torch.train.trainer import Trainer
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(m: int, extra: list[str], timeout: int = 120) -> list[dict]:
+    """m gloo ranks of the distributed worker; their JSON lines."""
+    port = _free_port()
+    procs = []
+    for rank in range(m):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(m), LOCAL_RANK=str(rank), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "anime_recommendations_tpu_torch.parallel.distributed",
+             "--worker", "--device", "cpu", *extra],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"worker failed:\n{err[-3000:]}"
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    return outs
+
+
+FIT = ["--fit", "--epochs", "3", "--optimizer", "fused_adam"]
+
+
+@pytest.fixture(scope="module")
+def two_rank_fit(tmp_path_factory):
+    """(checkpoint dir, both ranks' results) of a 2-rank fused_adam fit."""
+    ck = str(tmp_path_factory.mktemp("dist") / "ck")
+    return ck, launch(2, FIT + ["--checkpoint-dir", ck])
+
+
+def test_two_rank_fit_matches_one_rank_and_resumes(two_rank_fit):
+    ck, outs = two_rank_fit
+    assert [o["world_size"] for o in outs] == [2, 2]
+    assert outs[0]["loss"] == outs[1]["loss"]
+    assert outs[0]["val_loss"] == outs[1]["val_loss"]
+    assert outs[0]["user_emb_absum"] == pytest.approx(outs[1]["user_emb_absum"], rel=1e-6)
+    assert len(outs[0]["loss"]) == 3
+    assert outs[0]["loss"][-1] < outs[0]["loss"][0]               # it trained
+    assert sorted(os.listdir(ck)) == ["rank0-of-2", "rank1-of-2"]  # per-rank checkpoints
+
+    solo = launch(1, FIT)[0]
+    for key in ("loss", "val_loss"):
+        np.testing.assert_allclose(solo[key], outs[0][key], rtol=2e-4)
+    assert solo["user_emb_absum"] == pytest.approx(outs[0]["user_emb_absum"], rel=2e-4)
+
+    # Resume on the same world size: the fit continues from the checkpoint
+    # (fewer fresh epochs, and a first loss below the cold start's).
+    res = launch(2, ["--fit", "--epochs", "4", "--optimizer", "fused_adam",
+                     "--checkpoint-dir", ck, "--resume"])
+    assert res[0]["loss"] == res[1]["loss"]
+    assert len(res[0]["loss"]) < 4
+    assert res[0]["loss"][0] < outs[0]["loss"][0]
+
+
+def test_measured_capacity_and_bf16_moments(two_rank_fit):
+    """capacity=-1 measures the slot count; bf16m trains with bf16 table
+    moments and tracks the one-device bf16m fit."""
+    default = two_rank_fit[1][0]
+    measured = launch(2, FIT + ["--capacity", "-1"])[0]
+    assert 8 <= measured["capacity"] < 256 and default["capacity"] is None
+    np.testing.assert_allclose(measured["loss"], default["loss"], rtol=1e-5)
+
+    bf16 = launch(2, ["--fit", "--epochs", "3", "--optimizer", "fused_adam_bf16m"])
+    assert bf16[0]["loss"] == bf16[1]["loss"]
+    assert "torch.bfloat16" in bf16[0]["moment_dtypes"]
+    train, holdout = fit_data()
+    one = Trainer(batch_size=512, epochs=3, optimizer="fused_adam_bf16m", seed=0, patience=3,
+                  device="cpu", **FIT_KWARGS).fit(train, holdout, 512, 128)
+    np.testing.assert_allclose(bf16[0]["loss"], one.history["loss"].to_numpy(), rtol=2e-2)
+    np.testing.assert_allclose(bf16[0]["val_loss"], one.history["val_loss"].to_numpy(), rtol=2e-2)

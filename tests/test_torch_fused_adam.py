@@ -11,7 +11,9 @@ scatters may differ in the last f32 bit, which flips a rounding). With
 ``next_ids`` (K5) the table outputs equal the call without it bit for bit,
 the gathered rows equal the port's own w'[next_ids] exactly (zero rows for
 ids outside the table), and they are held to JAX's with the table
-tolerances above.
+tolerances above. With ``dense_grad`` (K1's has_dense branch) the tables are
+held to JAX's at the same tolerances; ``order`` (a precomputed stable
+argsort) gives the call without it bit for bit.
 
 The stochastic rounding has its own statistical tests: every output is a
 bf16 neighbour of its f32 value, the rounding is unbiased, and an EMA of
@@ -126,20 +128,81 @@ def test_ids_outside_the_table_contribute_nothing():
 
 def test_rejects_what_it_does_not_take():
     w, mu, nu, ids, g = (torch.from_numpy(x) for x in make_case(16, 8, 4, seed=6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):   # as JAX: dense_grad + next_ids
+    with pytest.raises(NotImplementedError, match="unused combination"):   # as JAX
         fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, next_ids=ids, dense_grad=w)
     with pytest.raises(TypeError):
         fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, next_ids=ids.float())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, dense_grad=w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, order=torch.argsort(ids))
+    with pytest.raises(ValueError):
+        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, dense_grad=w[:8])
+    with pytest.raises(ValueError):
+        fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, order=torch.argsort(ids)[:2])
     with pytest.raises(ValueError):
         fused_adam.sparse_adam_update(w, mu, nu, ids, g, 1, 1e-3, precision="default")
     with pytest.raises(TypeError):
         fused_adam.sparse_adam_update(w, mu, nu.bfloat16(), ids, g, 1, 1e-3)
     with pytest.raises(ValueError):
         fused_adam.sparse_adam_update(w, mu, nu, ids, g, 0, 1e-3)
+
+
+# ---- K1's dense-gradient branch and a precomputed order ----------------------------
+
+def dense_case(seed):
+    """make_case's N = 300 (a ragged block of 64), D = 32, 128 ids with
+    duplicates, some outside the table (the routed receipts' drop marker n
+    and past it), and a dense [N, D] gradient."""
+    w, mu, nu, ids, g = make_case(300, 32, 128, seed=seed, dup_heavy=True)
+    ids[::9] = 300
+    ids[5] = 1000
+    dense = np.random.default_rng(seed + 50).standard_normal((300, 32)).astype(np.float32) * 0.1
+    return (w, mu, nu, ids, g), dense
+
+
+@pytest.mark.parametrize("precision,tol", [("highest", 5e-6), ("fast", 2e-4)])
+@pytest.mark.parametrize("t,l2", [(1, 0.0), (3, 1e-4)])
+def test_dense_grad_update_matches_jax(precision, tol, t, l2):
+    case, dense = dense_case(seed=11)
+    got = port_update(*case, t, 1e-3, l2, precision=precision,
+                      dense_grad=torch.from_numpy(dense))
+    want = jax_result(*case, t, 1e-3, l2, block_rows=64, chunk=32, precision=precision,
+                      dense_grad=jnp.asarray(dense), interpret=True)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5)
+    # The dense gradient is the same thing as those rows' scattered grads.
+    w, mu, nu, ids, g = case
+    all_ids = np.concatenate([ids, np.arange(300, dtype=np.int32)])
+    as_rows = port_update(w, mu, nu, all_ids, np.concatenate([g, dense]), t, 1e-3, l2)
+    for a, b in zip(got, as_rows):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_dense_grad_bf16_moments_match_jax_without_stochastic_rounding():
+    case, dense = dense_case(seed=12)
+    kw = dict(dtype=torch.bfloat16, stochastic_rounding=False, dense_grad=torch.from_numpy(dense))
+    got = port_update(*case, 3, 1e-3, 1e-4, **kw)
+    want = jax_result(*case, 3, 1e-3, 1e-4, dtype=jnp.bfloat16, block_rows=64, chunk=32,
+                      precision="highest", dense_grad=jnp.asarray(dense), interpret=True)
+    np.testing.assert_allclose(got[1], want[1], rtol=1 / 128, atol=1e-9)
+    np.testing.assert_allclose(got[2], want[2], rtol=1 / 128, atol=1e-12)
+    np.testing.assert_allclose(got[0], want[0], rtol=5e-6, atol=5e-6)
+
+
+@pytest.mark.parametrize("with_dense", [False, True])
+def test_precomputed_order_gives_the_same_update(with_dense):
+    """A stable argsort passed as ``order`` equals the in-call sort bit for
+    bit; JAX's update with the same order agrees at its tolerance."""
+    case, dense = dense_case(seed=13)
+    kw = dict(dense_grad=torch.from_numpy(dense)) if with_dense else {}
+    order = np.argsort(case[3], kind="stable")
+    got = port_update(*case, 2, 1e-3, 1e-4, order=torch.from_numpy(order), **kw)
+    alone = port_update(*case, 2, 1e-3, 1e-4, **kw)
+    for a, b in zip(got, alone):
+        np.testing.assert_array_equal(a, b)
+    jkw = dict(dense_grad=jnp.asarray(dense)) if with_dense else {}
+    want = jax_result(*case, 2, 1e-3, 1e-4, block_rows=64, chunk=32, precision="highest",
+                      order=jnp.asarray(order.astype(np.int32)), interpret=True, **jkw)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(a, b, rtol=5e-6, atol=5e-6)
 
 
 # ---- K5: the update with the next batch's rows gathered --------------------------

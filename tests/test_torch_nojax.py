@@ -33,6 +33,12 @@ MODULES = [
     "anime_recommendations_tpu_torch.train.lazy",
     "anime_recommendations_tpu_torch.train.convergence",
     "anime_recommendations_tpu_torch.data.ingest",
+    "anime_recommendations_tpu_torch.parallel",
+    "anime_recommendations_tpu_torch.parallel.mesh",
+    "anime_recommendations_tpu_torch.parallel.routing",
+    "anime_recommendations_tpu_torch.parallel.sharded_train",
+    "anime_recommendations_tpu_torch.parallel.trainer",
+    "anime_recommendations_tpu_torch.parallel.distributed",
 ]
 
 

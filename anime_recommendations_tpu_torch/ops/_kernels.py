@@ -47,17 +47,24 @@ SIGNATURES = {
     "exact_topk_query_tile": (_I, _I),
     # table, out, out_dtype, n, d, eps, stream
     "l2_normalize": (_P, _P, _I, _I, _I, _F, _P),
-    # w, mu, nu, moment_dtype, ids, grads, dense, starts, partials, n, d,
-    # block_rows, lr, bc1, bc2, eps, l2, b1, b2, sr, step, stream
-    "fused_adam": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+    # ids, grads, b, nids, n_next, tile_sums, starts, gstarts, n, d,
+    # block_rows, tile, stream
+    "fused_adam_tiles": (_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    # w, mu, nu, moment_dtype, ids, grads, dense, starts, tile_sums, partials,
+    # n, d, block_rows, tile, lr, bc1, bc2, eps, l2, b1, b2, sr, step, stream
+    "fused_adam": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
-    # fused_adam without dense, then nids, norder, gstarts, rows_out, n_next
-    # before n
-    "fused_adam_gather": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
+    # w, mu, nu, moment_dtype, ids, grads, starts, tile_sums, partials, nids,
+    # norder, gstarts, rows_out, n_next, n, d, block_rows, tile, lr, bc1, bc2,
+    # eps, l2, b1, b2, sr, step, stream
+    "fused_adam_gather": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
+    # w, nids, norder, rows_out, n_next, n, d, tile, stream
+    "fused_adam_copies": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 # Entry points defined in another source than csrc/<name>.cu.
-ENTRY_SOURCE = {"fused_adam_gather": "fused_adam", "exact_topk_query_tile": "exact_topk"}
+ENTRY_SOURCE = {"fused_adam_tiles": "fused_adam", "fused_adam_gather": "fused_adam",
+                "fused_adam_copies": "fused_adam", "exact_topk_query_tile": "exact_topk"}
 # The sources to build: csrc/<source>.cu for each.
 SOURCES = tuple(dict.fromkeys(ENTRY_SOURCE.get(name, name) for name in SIGNATURES))
 

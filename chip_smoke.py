@@ -44,23 +44,30 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            (packed_topk or packed_topk_mma, packed_topk_int8, exact_topk;
            each of them at least once), and every context
            build l2_normalize twice (the anime and the user table).
-  phase 4  the fused sparse-Adam kernel (K1) and its variant that also
-           gathers the next batch's rows (K5) against their plain PyTorch
-           versions on the card at the training shapes: the 91,641 x 128
-           user table and the 17,560 x 128 anime table (neither a multiple
-           of the 32-row block), a 10,000-row batch of the synthetic
-           ratings' ids (their real skew), a case with every id the same, f32
+  phase 4  the fused sparse-Adam kernel (K1: its first pass over tiles of
+           sorted positions, fused_adam_tiles_kernel, then the update) and its
+           variant that also gathers the next batch's rows (K5: the first
+           pass, the update, the gather's second pass) against their plain
+           PyTorch versions on the card at the training shapes: the 91,641 x
+           128 user table and the 17,560 x 128 anime table (neither a
+           multiple of the 32-row block), a 10,000-row batch of the synthetic
+           ratings' ids (their real skew), a case with every id the same,
+           bench.py:570-692's skewed ids (_zipf_ratings' first 10,000), f32
            moments and bf16 moments with stochastic rounding. K1: rows the
            batch hits at most once must match bit for bit (W', mu', nu'), hot
-           rows within the stated tolerances, and the bf16 stores must round
-           the other way than round-to-nearest about a quarter of the time.
-           K5, with the next 10,000-row batch's ids as next ids (duplicates
-           among them) and a few ids outside the table: its tables and sumsq
-           must equal K1's on the same inputs bit for bit, its rows equal
-           W'[next_ids] exactly (zero outside), and both are held to the
-           plain version as K1 is. Each kernel's device time and its plain
-           version's (torch.profiler, 20 calls after warm-up), bytes moved /
-           time against 3.35 TB/s, and each call's CUDA-event time.
+           rows within the stated tolerances, every row bit for bit the plain
+           version fed the kernel's own tile order, the first pass's tile
+           sums its plain version's, and the bf16 stores must round the other
+           way than round-to-nearest about a quarter of the time. K5, with
+           the next 10,000 ids of the same data as next ids (duplicates among
+           them) and a few ids outside the table: its tables and sumsq must
+           equal K1's on the same inputs bit for bit, its rows equal
+           W'[next_ids] exactly (zero outside), the second pass its plain
+           version's, and both are held to the plain version as K1 is. Each
+           case's launches by kernel, the device time of its kernels and of
+           each one, its plain version's (torch.profiler, 20 calls after
+           warm-up), bytes moved / time against 3.35 TB/s, its share of the
+           bound, and each call's CUDA-event time.
   phase 5  training end to end at full width: PipelineRunner.step_train on
            phase 3's store, 2 epochs of 297 batches of 10,000 rows, once per
            optimizer (adam, lazy_adam, fused_adam, fused_adam_bf16m; one
@@ -80,23 +87,27 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            kernel (kernel_gather=True) and one with the gather after it, from
            the same state and the same shuffle, for fused_adam and
            fused_adam_bf16m. Counters are reset before each: the first must
-           launch fused_adam_gather 594 times and fused_adam never, the second
-           the reverse; losses, mses and the final tables and moments must be
+           launch fused_adam_gather and its second pass 594 times and
+           fused_adam never, the second the reverse, both the first pass 594
+           times; losses, mses and the final tables and moments must be
            equal bit for bit. ms/step, profiled device time and idle share as
-           in phase 5. Then the convergence harness at its CI scale on the
+           in phase 5, and the first epoch's minus the second's. Then the
+           convergence harness at its CI scale on the
            card for every optimizer: adam, fused_adam and fused_adam_bf16m
            must meet tests/test_convergence.py's thresholds, lazy_adam's best
            validation MSE must fall below its first epoch's.
   phase 7  the routed, row-sharded trainer (parallel/) on an NCCL process
            group of world size 1 (tcp://127.0.0.1, a free port; a failure to
            set it up fails the run), and K1's dense-gradient branch.
-           7a: before the group exists (NCCL's threads cost torch.profiler
-           launch records), K1 with a dense [N, D] gradient from a seed (its kernel
-           fused_adam_dense_kernel) on phase 4's tables and batches, f32 and
-           bf16 moments with stochastic rounding, against its plain version
-           (rows hit at most once bit for bit, hot rows at phase 4's
-           tolerances) and with a precomputed stable order bit for bit the
-           call without; then the routed trainer's own receipts at capacity
+           7a: right after phase 4 (later, after phase 6's runs and once
+           the group exists, torch.profiler sessions lose launch records),
+           K1 with a dense [N, D] gradient from a seed (its kernel
+           fused_adam_dense_kernel) on phase 4's tables and batches (the
+           skewed anime batch too), f32 and bf16 moments with stochastic
+           rounding, against its plain version (rows hit at most once bit for
+           bit, hot rows at phase 4's tolerances, every row bit for bit in
+           the kernel's tile order) and with a precomputed stable order bit
+           for bit the call without; then the routed trainer's own receipts at capacity
            512 (route_grad_rows: staged receipts plus the dense overflow of
            rounds past 4) with receipt_sort_order's order, bit for bit the
            call without and the plain version. Timed as phase 4.
@@ -113,12 +124,22 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            1e-5 relative: tests/test_parallel.py's), and one timed routed
            epoch per optimizer (and the capped fused one) gives ms per step
            beside phase 5's, with 10 steps under torch.profiler.
+  phase 8  a table trained on skewed ids, served: bench.py:570-692's
+           protocol at 91,641 users (6 fused_adam epochs at lr 3e-4 over 2M
+           ratings of pareto-skewed ids, through K1; ms per step), then the
+           256 hottest users' top-10 on the shuffled user table against the
+           exact scan: f32 at Q=256 (tensor cores) and one query at a time,
+           bf16 against the f32 and the bf16 exact scans, int8 at Q=256 and
+           Q=8, beside BENCH_r05's records (phase_trained says which must
+           reach them).
 
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
 time, the plain version's, the least time the card could take for the work
 at 3.35 TB/s and the data sheet's peak rates, and one PyTorch call's time
-where one computes the same function), and {"ok": true, "device": {...}}.
+where one computes the same function; K1's, its dense branch's and K5's
+times are those of all the kernels a call launches, their passes included,
+which are listed on their own too), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -193,11 +214,16 @@ def start_profiler() -> None:
 
     if not _profiled(lambda: torch.ones(1 << 20, device="cuda").sum(), reps=1)["device_ms"] > 0:
         raise AssertionError("torch.profiler records no device time on this machine")
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(FRAME_CYCLES // 100)
-        torch.cuda.synchronize()
-    if not any("spin_kernel" in e.key for e in prof.key_averages()):
-        raise AssertionError("the busy-wait kernel framing profiler sessions is not spin_kernel")
+    # A session loses its records now and then (_profiled): try again.
+    for _ in range(PROFILER_SESSIONS):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(FRAME_CYCLES // 100)
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()]
+        if any("spin_kernel" in k for k in keys):
+            return
+        print(f"[profiler] the framing session recorded {keys}", flush=True)
+    raise AssertionError("the busy-wait kernel framing profiler sessions is not spin_kernel")
 
 
 # ---- phase 2 -------------------------------------------------------------------
@@ -323,12 +349,13 @@ PROFILER_SESSIONS = 5
 FRAME_CYCLES = 20_000_000
 
 
-def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
+def _profiled(fn, reps: int = TIMED_RUNS, match=None) -> dict:
     """torch.profiler over ``reps`` calls of fn after 3 warm-up calls: wall ms
     per call (host clock to a synchronize), device-busy ms per call, the idle
     share, device ms per call by kernel, the sessions it took and the launch
-    records they lost, and (``match``) the device ms per call of the kernel
-    whose name holds it (fn launches it once a call) with its records.
+    records they lost, and (``match``, a name or a tuple of names) the device
+    ms per call of the kernels whose names hold one of them (fn launches each
+    once a call), their sum and their records.
 
     Every kernel is counted by one rule: its mean recorded duration times
     its launches per call (its records over ``reps``, rounded). On an H100
@@ -337,10 +364,12 @@ def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
     So a busy-wait kernel (FRAME_CYCLES, excluded from every number) opens
     and closes each session; the records lost (launches per call times
     ``reps``, less the records) are counted; and a session with no records,
-    or with fewer than ``reps`` - 1 of ``match``, is profiled again, at most
-    PROFILER_SESSIONS times in all, and then the run fails."""
+    a matched name with no kernel, or a matched kernel with fewer than
+    ``reps`` - 1 records, is profiled again, at most PROFILER_SESSIONS times
+    in all, and then the run fails."""
     import torch
 
+    names = (match,) if isinstance(match, str) else tuple(match or ())
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -359,14 +388,16 @@ def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
-        hits = [e for e in events if match is not None and match in e.key]
+        hits = [e for e in events if any(m in e.key for m in names)]
         # Some processes lose one record of one kernel in every session (an
         # arange in phase 4; K1's dense kernel in phase 7a): the mean of the
         # matched kernel's other reps - 1 records stands for it.
-        if events and (match is None or reps - 1 <= sum(e.count for e in hits) <= reps):
+        if (events and all(any(m in e.key for e in hits) for m in names)
+                and all(reps - 1 <= e.count <= reps for e in hits)):
             break
         print(f"[profiler] session {session} of {reps} calls recorded "
-              f"{sum(e.count for e in hits)} of {match}, {len(events)} kernels", flush=True)
+              f"{ {e.key[:60]: e.count for e in hits} } of {names}, {len(events)} kernels",
+              flush=True)
     else:
         raise AssertionError(f"torch.profiler lost records in {PROFILER_SESSIONS} sessions")
     per_call = {e.key: e.self_device_time_total / e.count * round(e.count / reps) / 1e3
@@ -380,10 +411,18 @@ def _profiled(fn, reps: int = TIMED_RUNS, match: str | None = None) -> dict:
     out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
            "by_kernel": {k[:70]: v for k, v in top[:8]}, "sessions": session,
            "records_lost": lost}
-    if match is not None:
+    if names:
         out["match_ms"] = sum(per_call[e.key] for e in hits)
         out["match_launches"] = sum(e.count for e in hits)
+        out["match_by_kernel"] = {_kernel_name(e.key): per_call[e.key] for e in hits}
     return out
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name without its namespace, template arguments
+    and parameters, e.g. fused_adam_kernel."""
+    head = key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    return head.split()[-1].split("::")[-1]
 
 
 def _row_scores(table, queries, idx, head=None):
@@ -502,13 +541,15 @@ def phase_kernels(card: str) -> list[dict]:
     return rows
 
 
-def _timing(fn, plain_fn, kernel: str) -> dict:
-    """The kernel's device time per call (torch.profiler, the kernel named
-    ``kernel`` alone, every launch recorded), its plain version's (all of its
+def _timing(fn, plain_fn, kernel) -> dict:
+    """The kernel's device time per call (torch.profiler, the kernels named
+    by ``kernel``, a name or a tuple, alone, every launch recorded; each one's
+    too), its plain version's (all of its
     kernels, every launch recorded), the launches and sessions behind each,
     and both medians of CUDA-event times (launch overhead included)."""
     prof, plain = _profiled(fn, match=kernel), _profiled(plain_fn)
-    return dict(ms=prof["match_ms"], match_launches=prof["match_launches"],
+    return dict(ms=prof["match_ms"], by_kernel_ms=prof["match_by_kernel"],
+                match_launches=prof["match_launches"],
                 sessions=prof["sessions"], plain_ms=plain["device_ms"],
                 plain_sessions=plain["sessions"], plain_records_lost=plain["records_lost"],
                 event_ms=_median_ms(fn), plain_event_ms=_median_ms(plain_fn))
@@ -987,19 +1028,124 @@ def _beyond_ulp(label: str, diff, c32) -> dict:
             f"{label}_beyond_one_ulp_largest_value": largest}
 
 
-def _adam_case(card, name, n, ids_np, dtype, seed):
+def _adam_tables(rng, n, b, dtype):
+    """W, mu, nu [n, D] (moments in dtype) and gradient rows [b, D] from rng."""
     import torch
 
-    from anime_recommendations_tpu_torch.ops import _kernels, fused_adam
-
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(seed)
-    b = ids_np.shape[0]
     w = torch.from_numpy(rng.uniform(-0.05, 0.05, (n, D)).astype(np.float32)).to(dev)
     mu = torch.from_numpy((rng.standard_normal((n, D)) * 1e-3).astype(np.float32)).to(dev, dtype)
     nu = torch.from_numpy(((rng.standard_normal((n, D)) * 1e-3) ** 2).astype(np.float32)).to(dev, dtype)
     g = torch.from_numpy((rng.standard_normal((b, D)) * 1e-3).astype(np.float32)).to(dev)
-    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    return w, mu, nu, g
+
+
+def _launched(fn) -> tuple:
+    """(fn(), the launches of each kernel it made)."""
+    from anime_recommendations_tpu_torch.ops import _kernels
+
+    before = dict(_kernels.launches)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in _kernels.launches.items()
+                 if v != before.get(k, 0)}
+
+
+def _tile_order_check(name, got, inputs, ids_s, g_s, scal, sr, dense=None) -> dict:
+    """Every row, hot ones too, bit for bit against the plain version fed
+    the kernel's own summation order (fused_adam.run_sums_in_tile_order, one
+    gradient row per table row): the tiles' edges, partials and order."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import fused_adam
+
+    n = inputs[0].shape[0]
+    sums = fused_adam.run_sums_in_tile_order(ids_s, g_s, n)
+    rows = torch.arange(n, dtype=torch.int32, device=sums.device)
+    want = fused_adam._sparse_adam_update_plain(*[x.clone() for x in inputs], rows, sums, scal,
+                                                ADAM_STEP, sr, dense)
+    for label, a, c in zip(("w", "mu", "nu"), got[:3], want[:3]):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{name}: {label}' differs from the plain version in the "
+                                 f"kernel's tile order on {int((a != c).sum())} elements")
+    return {"all_rows_bit_equal_in_tile_order": True}
+
+
+def _tile_pass_case(name, n, ids_s, g_s, nids_s) -> dict:
+    """The first pass alone against its plain versions (the tile sums it
+    writes and the block starts of the ids and next ids, bit for bit), its
+    bytes (the ids and next ids, the gradient rows of the crossing segments,
+    the slots and starts written) and the plain versions' device time."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import fused_adam
+
+    got, starts, gstarts = fused_adam._first_pass_cuda(ids_s, g_s, n, nids_s)
+    want, written = fused_adam._tile_sums_plain(ids_s, g_s, n)
+    if not (torch.equal(got[written], want[written])
+            and torch.equal(starts, fused_adam._block_starts_plain(ids_s, n))
+            and torch.equal(gstarts, fused_adam._block_starts_plain(nids_s, n))):
+        raise AssertionError(f"{name}: the first pass differs from its plain versions")
+    seg, _ = fused_adam._tile_sums_plain(ids_s, torch.ones_like(g_s[:, :4]), n)
+    summed = int(seg[written, 0].sum())
+    return {"tile_slots_written": int(written.sum()), "tile_rows_summed": summed,
+            "tiles_max_abs_err": float((got[written] - want[written]).abs().max())
+            if bool(written.any()) else 0.0,
+            "tiles_bytes": (ids_s.numel() + nids_s.numel() + 2 * starts.numel()) * 4
+            + (summed + int(written.sum())) * D * 4,
+            "tiles_plain_ms": _profiled(lambda: (
+                fused_adam._tile_sums_plain(ids_s, g_s, n),
+                fused_adam._block_starts_plain(ids_s, n),
+                fused_adam._block_starts_plain(nids_s, n)))["device_ms"]}
+
+
+def _copies_pass_case(name, w, nids_s, norder) -> dict:
+    """The gather's second pass alone against its plain version (rows
+    outside what it writes keep a sentinel in both), its bytes and the
+    plain version's device time."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import fused_adam
+
+    got = torch.full((nids_s.shape[0], D), 7.5, device=w.device)
+    want = got.clone()
+    fused_adam._copies_cuda(w, nids_s, norder, got)
+    fused_adam._copies_plain(w, nids_s, norder, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: the gather's second pass differs from the plain version")
+    n = w.shape[0]
+    first, last, left, right = fused_adam._tile_runs(nids_s)
+    tile = torch.arange(nids_s.shape[0], device=w.device) // fused_adam.TILE
+    outside = (nids_s < 0) | (nids_s >= n)
+    crossing = ~outside & ((left[tile] & (nids_s == first[tile]))
+                           | (right[tile] & (nids_s == last[tile])))
+    written = int((outside | crossing).sum())
+    distinct = int(torch.unique(nids_s[crossing]).numel())
+    return {"copies_written": written, "copies_distinct_rows": distinct,
+            "copies_max_abs_err": float((got - want).abs().max()),
+            "copies_bytes": nids_s.numel() * 8 + (distinct + written) * D * 4,
+            "copies_plain_ms": _profiled(lambda: fused_adam._copies_plain(
+                w, nids_s, norder, want))["device_ms"]}
+
+
+def _pass_times(row: dict, prof: dict) -> None:
+    """The case's device time: all of its kernels' (ms) and each one's."""
+    row["ms"] = prof["match_ms"]
+    row["by_kernel_ms"] = prof["match_by_kernel"]
+    row["sessions"], row["records_lost"] = prof["sessions"], prof["records_lost"]
+    row["prep_device_ms"] = prof["device_ms"] - row["ms"]
+    if not row["ms"] > 0:
+        raise AssertionError(f"{row['case']}: the profiler saw no kernel time: {prof}")
+
+
+def _adam_case(card, name, n, ids_np, dtype, seed):
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import fused_adam
+
+    rng = np.random.default_rng(seed)
+    b = ids_np.shape[0]
+    w, mu, nu, g = _adam_tables(rng, n, b, dtype)
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(w.device)
     sr = dtype == torch.bfloat16
     plain_in = [x.clone() for x in (w, mu, nu)]   # the inputs, kept as they were
     plain = [x.clone() for x in plain_in]
@@ -1007,19 +1153,22 @@ def _adam_case(card, name, n, ids_np, dtype, seed):
     ids_s, g_s = ids[order], g[order]
     scal = fused_adam.adam_scalars(ADAM_STEP, ADAM_LR, ADAM_L2, 0.9, 0.999, 1e-7)
 
-    before = _kernels.launches["fused_adam"]
-    got = fused_adam.sparse_adam_update(w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2)
-    if _kernels.launches["fused_adam"] != before + 1:
-        raise AssertionError(f"{name}: sparse_adam_update did not launch the kernel")
+    got, launches = _launched(lambda: fused_adam.sparse_adam_update(
+        w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2))
+    if launches != {"fused_adam_tiles": 1, "fused_adam": 1}:
+        raise AssertionError(f"{name}: sparse_adam_update launched {launches}")
     want = fused_adam._sparse_adam_update_plain(*plain, ids_s, g_s, scal, ADAM_STEP, sr)
     torch.cuda.synchronize()
     row = dict(card=card, case=name, n=n, n_mod_block=n % fused_adam.BLOCK_ROWS, batch=b,
-               distinct_ids=int(np.unique(ids_np).size), moments=str(dtype), sr=sr)
+               distinct_ids=int(np.unique(ids_np).size),
+               largest_run=int(np.bincount(ids_np).max()), moments=str(dtype), sr=sr,
+               launches=launches)
     # A row the batch hits at most once has no summation order to differ in:
     # W', mu' and nu' must equal the plain version's bit for bit there, which
     # pins the stochastic rounding's bits (any other rounding or hash lands
     # on the other bf16 neighbour for a share of the elements). Hot rows sum
-    # in another order than index_add_'s atomics: the tolerances below.
+    # in another order than index_add_'s atomics: the tolerances below; and
+    # in the kernel's own order (_tile_order_check) bit for bit.
     once = torch.bincount(ids.long(), minlength=n) <= 1
     row["rows_hit_at_most_once"] = int(once.sum())
     max_abs = 0.0
@@ -1041,6 +1190,7 @@ def _adam_case(card, name, n, ids_np, dtype, seed):
                                  f"{row[f'{label}_err_vs_scale']} of its scale")
         if label != "w" and sr:
             row |= _beyond_ulp(label, diff, c32)
+    row |= _tile_order_check(name, got, plain_in, ids_s, g_s, scal, sr)
     if sr:
         # Stochastic, not to nearest: about a quarter of the stores round the
         # other way than round-to-nearest would.
@@ -1057,16 +1207,15 @@ def _adam_case(card, name, n, ids_np, dtype, seed):
         raise AssertionError(f"{name}: sumsq differs by {row['sumsq_rel_err']}")
     row["max_abs_err"] = max_abs
 
-    # ms: the kernel's own device time (torch.profiler); plain_ms: the device
-    # time of all of the plain version's kernels. The CUDA-event times are
-    # what one call costs its caller on this host, launch overhead included.
+    # ms: the device time of the call's kernels (the first pass and the
+    # update; torch.profiler); plain_ms: the device time of all of the plain
+    # version's kernels. The CUDA-event times are what one call costs its
+    # caller on this host, launch overhead included.
     m_bytes = 2 if sr else 4
     moved = 2 * n * D * 4 + 4 * n * D * m_bytes + b * D * 4 + b * 4
-    prof = _profiled(lambda: fused_adam._sparse_adam_update_cuda(
-        w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr), match="fused_adam_kernel")
-    row["ms"], row["sessions"] = prof["match_ms"], prof["sessions"]
-    row["prep_device_ms"] = prof["device_ms"] - row["ms"]
-    row["records_lost"] = prof["records_lost"]
+    _pass_times(row, _profiled(lambda: fused_adam._sparse_adam_update_cuda(
+        w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr),
+        match=("fused_adam_tiles_kernel", "fused_adam_kernel")))
     plain_prof = _profiled(lambda: fused_adam._sparse_adam_update_plain(
         *plain, ids_s, g_s, scal, ADAM_STEP, sr))
     row["plain_ms"], row["plain_sessions"] = plain_prof["device_ms"], plain_prof["sessions"]
@@ -1077,12 +1226,11 @@ def _adam_case(card, name, n, ids_np, dtype, seed):
         *plain, ids_s, g_s, scal, ADAM_STEP, sr))
     row["with_sort_event_ms"] = _median_ms(lambda: fused_adam.sparse_adam_update(
         w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2))
-    if not row["ms"] > 0:
-        raise AssertionError(f"{name}: the profiler saw no fused_adam_kernel time: {prof}")
     row["bytes_moved"] = moved
     row["hbm_share"] = moved / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
     row["plain_hbm_share"] = moved / (row["plain_ms"] * 1e-3) / HBM_BYTES_PER_S
     row |= _bound(moved, ADAM_OPS * n * D + b * D)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     print("[phase 4] " + json.dumps(row), flush=True)
     return row
 
@@ -1093,17 +1241,13 @@ def _gather_case(card, name, n, ids_np, next_np, dtype, seed):
     version (K1's plain version, then the plain gather)."""
     import torch
 
-    from anime_recommendations_tpu_torch.ops import _kernels, fused_adam
+    from anime_recommendations_tpu_torch.ops import fused_adam
 
-    dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     b, b2 = ids_np.shape[0], next_np.shape[0]
-    w = torch.from_numpy(rng.uniform(-0.05, 0.05, (n, D)).astype(np.float32)).to(dev)
-    mu = torch.from_numpy((rng.standard_normal((n, D)) * 1e-3).astype(np.float32)).to(dev, dtype)
-    nu = torch.from_numpy(((rng.standard_normal((n, D)) * 1e-3) ** 2).astype(np.float32)).to(dev, dtype)
-    g = torch.from_numpy((rng.standard_normal((b, D)) * 1e-3).astype(np.float32)).to(dev)
-    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
-    nids = torch.from_numpy(next_np.astype(np.int32)).to(dev)
+    w, mu, nu, g = _adam_tables(rng, n, b, dtype)
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(w.device)
+    nids = torch.from_numpy(next_np.astype(np.int32)).to(w.device)
     sr = dtype == torch.bfloat16
     k1 = [x.clone() for x in (w, mu, nu)]
     plain = [x.clone() for x in (w, mu, nu)]
@@ -1113,12 +1257,10 @@ def _gather_case(card, name, n, ids_np, next_np, dtype, seed):
     gather = (nids[norder], norder.to(torch.int32))
     scal = fused_adam.adam_scalars(ADAM_STEP, ADAM_LR, ADAM_L2, 0.9, 0.999, 1e-7)
 
-    before = dict(_kernels.launches)
-    got = fused_adam.sparse_adam_update(w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2,
-                                        next_ids=nids)
-    if (_kernels.launches["fused_adam_gather"] != before.get("fused_adam_gather", 0) + 1
-            or _kernels.launches["fused_adam"] != before.get("fused_adam", 0)):
-        raise AssertionError(f"{name}: sparse_adam_update(next_ids=...) did not launch K5 alone")
+    got, launches = _launched(lambda: fused_adam.sparse_adam_update(
+        w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2, next_ids=nids))
+    if launches != {"fused_adam_tiles": 1, "fused_adam_gather": 1, "fused_adam_copies": 1}:
+        raise AssertionError(f"{name}: sparse_adam_update(next_ids=...) launched {launches}")
     ref = fused_adam.sparse_adam_update(*k1, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2)
     want = fused_adam._sparse_adam_update_plain(*plain, ids_s, g_s, scal, ADAM_STEP, sr)
     want_rows = fused_adam._gather_rows_plain(want[0], nids)
@@ -1136,8 +1278,9 @@ def _gather_case(card, name, n, ids_np, next_np, dtype, seed):
         raise AssertionError(f"{name}: the gathered rows alias the table")
     row = dict(card=card, case=name, n=n, batch=b, next_ids=b2,
                distinct_next_ids=int(np.unique(next_np).size),
+               largest_next_run=int(np.bincount(next_np[(next_np >= 0) & (next_np < n)]).max()),
                next_ids_outside=int((~inside).sum()), moments=str(dtype), sr=sr,
-               tables_bit_equal_to_k1=True, rows_equal_w_next=True)
+               launches=launches, tables_bit_equal_to_k1=True, rows_equal_w_next=True)
     # Against the plain version: the tolerances of _adam_case's hot rows.
     max_abs = 0.0
     for label, a, c in zip(("w", "mu", "nu", "rows"), got[:3] + (rows,), want[:3] + (want_rows,)):
@@ -1151,35 +1294,65 @@ def _gather_case(card, name, n, ids_np, next_np, dtype, seed):
         if label in ("mu", "nu") and sr:
             row |= _beyond_ulp(label, diff, c32)
     row["max_abs_err"] = max_abs
+    row |= _tile_pass_case(name, n, ids_s, g_s, gather[0])
+    row |= _copies_pass_case(name, w, *gather)
 
     m_bytes = 2 if sr else 4
     moved = (2 * n * D * 4 + 4 * n * D * m_bytes + b * D * 4 + b * 4
              + b2 * 4 * 2 + b2 * D * 4)   # + sorted next ids, their order, the rows
-    row |= _timing(lambda: fused_adam._sparse_adam_update_cuda(
-                       w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr, gather),
-                   lambda: (fused_adam._sparse_adam_update_plain(
-                       *plain, ids_s, g_s, scal, ADAM_STEP, sr),
-                       fused_adam._gather_rows_plain(plain[0], nids)),
-                   "fused_adam_gather_kernel")
+    kernels = ("fused_adam_tiles_kernel", "fused_adam_gather_kernel", "fused_adam_copies_kernel")
+    run = lambda: fused_adam._sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal, ADAM_STEP,
+                                                      sr, gather)
+    _pass_times(row, _profiled(run, match=kernels))
+    plain_prof = _profiled(lambda: (fused_adam._sparse_adam_update_plain(
+        *plain, ids_s, g_s, scal, ADAM_STEP, sr), fused_adam._gather_rows_plain(plain[0], nids)))
+    row["plain_ms"], row["plain_sessions"] = plain_prof["device_ms"], plain_prof["sessions"]
+    row["plain_records_lost"] = plain_prof["records_lost"]
+    row["event_ms"] = _median_ms(run)
     # K1 alone on the same inputs, in the same call: what the gather adds.
     row["k1_ms"] = _profiled(lambda: fused_adam._sparse_adam_update_cuda(
-        *k1, ids_s, g_s, scal, ADAM_STEP, sr), match="fused_adam_kernel")["match_ms"]
+        *k1, ids_s, g_s, scal, ADAM_STEP, sr),
+        match=("fused_adam_tiles_kernel", "fused_adam_kernel"))["match_ms"]
     row["with_sort_event_ms"] = _median_ms(lambda: fused_adam.sparse_adam_update(
         w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2, next_ids=nids))
     row["bytes_moved"] = moved
     row["hbm_share"] = moved / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
     row |= _bound(moved, ADAM_OPS * n * D + b * D)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     print("[phase 4] " + json.dumps(row), flush=True)
     return row
 
 
+ZIPF_SEED, ZIPF_RATINGS, ZIPF_LATENT = 5, 2_000_000, 16
+
+
+@functools.cache
+def _zipf_ratings():
+    """bench.py:570-692's trained-table data, drawn in its order from
+    np.random.default_rng(5): latent factors [91,641 | 17,560, 16], then
+    2,000,000 ratings of user min(pareto(1.1) * 40, 91,640) and anime
+    min(pareto(1.05) * 15, 17,559) (popular rows at low ids), rated
+    sigmoid(3 <u, a> + N(0, 0.35))."""
+    rng = np.random.default_rng(ZIPF_SEED)
+    u_lat = rng.normal(size=(N_USERS, ZIPF_LATENT)).astype(np.float32) / np.sqrt(ZIPF_LATENT)
+    a_lat = rng.normal(size=(N_ANIME, ZIPF_LATENT)).astype(np.float32) / np.sqrt(ZIPF_LATENT)
+    users = np.minimum((rng.pareto(1.1, ZIPF_RATINGS) * 40).astype(np.int64), N_USERS - 1)
+    anime = np.minimum((rng.pareto(1.05, ZIPF_RATINGS) * 15).astype(np.int64), N_ANIME - 1)
+    aff = np.einsum("ij,ij->i", u_lat[users], a_lat[anime])
+    ratings = 1.0 / (1.0 + np.exp(-(3.0 * aff + rng.normal(0, 0.35, ZIPF_RATINGS))))
+    return users.astype(np.int32), anime.astype(np.int32), ratings.astype(np.float32)
+
+
 def _adam_cases():
-    """(name, table rows, batch ids, moment dtype) of phase 4."""
+    """(name, table rows, batch ids, moment dtype) of phase 4: the synthetic
+    training data's first batch, every id on its hottest user, and
+    (``_skewed``) the first 10,000 of _zipf_ratings' ids."""
     import torch
 
     train, _ = _train_split()
     users, anime = train.users[:BATCH], train.anime[:BATCH]
     hot_user = np.bincount(users).argmax()
+    zu, za, _ = _zipf_ratings()
     return (
         ("users_f32", N_USERS, users, torch.float32),
         ("anime_f32", N_ANIME, anime, torch.float32),
@@ -1187,15 +1360,24 @@ def _adam_cases():
         ("anime_bf16_sr", N_ANIME, anime, torch.bfloat16),
         ("users_f32_one_id", N_USERS, np.full(BATCH, hot_user), torch.float32),
         ("users_bf16_sr_one_id", N_USERS, np.full(BATCH, hot_user), torch.bfloat16),
+        ("users_f32_skewed", N_USERS, zu[:BATCH], torch.float32),
+        ("anime_f32_skewed", N_ANIME, za[:BATCH], torch.float32),
+        ("users_bf16_sr_skewed", N_USERS, zu[:BATCH], torch.bfloat16),
+        ("anime_bf16_sr_skewed", N_ANIME, za[:BATCH], torch.bfloat16),
     )
 
 
 def _next_ids(name: str, n: int) -> np.ndarray:
     """The next batch's ids of a phase-4 case: the training data's next
     10,000 ids of its table (skewed: duplicates among them; all on one row
-    for a one-id case), 8 of them replaced by ids outside [0, n)."""
+    for a one-id case; _zipf_ratings' next 10,000 for a skewed case), 8 of
+    them replaced by ids outside [0, n)."""
     train, _ = _train_split()
-    ids = (train.users if name.startswith("users") else train.anime)[BATCH:2 * BATCH].copy()
+    zu, za, _ = _zipf_ratings()
+    if name.endswith("skewed"):
+        ids = (zu if name.startswith("users") else za)[BATCH:2 * BATCH].copy()
+    else:
+        ids = (train.users if name.startswith("users") else train.anime)[BATCH:2 * BATCH].copy()
     if "one_id" in name:
         ids[:] = np.bincount(ids).argmax()
     ids[np.arange(8) * (BATCH // 8) + 5] = [-1, n, n + 17, -(2 ** 20), 2 ** 30, -5, n + 31, n]
@@ -1317,17 +1499,18 @@ def phase_train(card: str) -> dict:
             result = runner.step_train()
             torch.cuda.synchronize()
             out["train_seconds"][optimizer] = time.perf_counter() - t0
-            launched = _kernels.launches["fused_adam"] - before.get("fused_adam", 0)
+            launched = {k: _kernels.launches[k] - before.get(k, 0)
+                        for k in ("fused_adam_tiles", "fused_adam", "fused_adam_gather")}
             steps = steps_per_epoch * result.epochs_run
             # The fused epochs run the pipelined loop with the gather after
             # the update (train_epoch's kernel_gather=False, as in JAX): K1
-            # twice a step, K5 never.
+            # (its first pass and the update) twice a step, K5 never.
             want = 2 * steps if optimizer in FUSED else 0
-            if launched != want or _kernels.launches["fused_adam_gather"] != before.get(
-                    "fused_adam_gather", 0):
-                raise AssertionError(f"{optimizer}: {launched} fused_adam launches for "
-                                     f"{steps} steps, expected {want}, and no K5")
-            out["launches"][optimizer] = launched
+            if launched != {"fused_adam_tiles": want, "fused_adam": want, "fused_adam_gather": 0}:
+                raise AssertionError(f"{optimizer}: launches {launched} for {steps} steps, "
+                                     f"expected {want} of K1 and its first pass, and no K5")
+            out["launches"][optimizer] = launched["fused_adam"]
+            out.setdefault("tile_launches", {})[optimizer] = launched["fused_adam_tiles"]
             hist = result.history
             if len(hist) != TRAIN_EPOCHS or not np.isfinite(hist.to_numpy()).all():
                 raise AssertionError(f"{optimizer}: history {hist.to_dict('list')}")
@@ -1339,7 +1522,7 @@ def phase_train(card: str) -> dict:
                         moments.nu[k].dtype for k in ("user_emb", "anime_emb")} != {torch.bfloat16}:
                     raise AssertionError("fused_adam_bf16m: table moments are not bf16")
             out["history"][optimizer] = hist
-            print(f"[phase 5] {optimizer}: {launched} fused_adam launches over {steps} steps, "
+            print(f"[phase 5] {optimizer}: {json.dumps(launched)} over {steps} steps, "
                   f"trained in {out['train_seconds'][optimizer]:.1f} s, "
                   f"{result.examples_per_sec:.0f} examples/s through fit (eval and "
                   f"checkpoints included); history {json.dumps(hist.to_dict('list'))}",
@@ -1393,10 +1576,14 @@ def phase_gather(card: str) -> dict:
             _kernels.launches.clear()
             (state, losses, mses), seconds = _host_timed(lambda: dl._fused_epoch(
                 state, data, 1e-5, BATCH, 1e-4, kernel_gather=kernel_gather))
-            launches = {k: _kernels.launches[k] for k in ("fused_adam", "fused_adam_gather")}
-            want = {"fused_adam": 0, "fused_adam_gather": 2 * steps}
+            launches = {k: _kernels.launches[k] for k in
+                        ("fused_adam_tiles", "fused_adam", "fused_adam_gather",
+                         "fused_adam_copies")}
+            want = {"fused_adam_tiles": 2 * steps, "fused_adam": 0,
+                    "fused_adam_gather": 2 * steps, "fused_adam_copies": 2 * steps}
             if not kernel_gather:
-                want = {"fused_adam": 2 * steps, "fused_adam_gather": 0}
+                want = {"fused_adam_tiles": 2 * steps, "fused_adam": 2 * steps,
+                        "fused_adam_gather": 0, "fused_adam_copies": 0}
             if launches != want:
                 raise AssertionError(f"{optimizer} kernel_gather={kernel_gather}: launches "
                                      f"{launches}, expected {want}")
@@ -1417,6 +1604,13 @@ def phase_gather(card: str) -> dict:
             raise AssertionError(f"{optimizer}: kernel_gather changes the state: {differ}")
         out[optimizer] = {kg: dict(launches=r["launches"], **r["timing"])
                           for kg, r in (("kernel_gather", a), ("gather_after", b))}
+        # Whether the gather inside the kernel now costs the epoch nothing:
+        # per step, on the host clock and on the device (profiled steps).
+        ta, tb = a["timing"], b["timing"]
+        out[optimizer]["kernel_gather_minus_after"] = {
+            "ms_per_step": ta["ms_per_step"] - tb["ms_per_step"],
+            "device_ms_per_step": (ta["profiled_step"]["device_ms"]
+                                   - tb["profiled_step"]["device_ms"])}
         print(f"[phase 6] {optimizer}: an epoch of {steps} steps with K5's gather equals the "
               f"epoch without it bit for bit (losses, mses, tables, moments); ({card}) "
               f"{json.dumps(out[optimizer])}", flush=True)
@@ -1502,54 +1696,55 @@ def _dense_case(card, name, n, ids_np, dtype, seed):
     precomputed stable order against the call without it."""
     import torch
 
-    from anime_recommendations_tpu_torch.ops import _kernels, fused_adam
+    from anime_recommendations_tpu_torch.ops import fused_adam
 
-    dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     b = ids_np.shape[0]
-    w = torch.from_numpy(rng.uniform(-0.05, 0.05, (n, D)).astype(np.float32)).to(dev)
-    mu = torch.from_numpy((rng.standard_normal((n, D)) * 1e-3).astype(np.float32)).to(dev, dtype)
-    nu = torch.from_numpy(((rng.standard_normal((n, D)) * 1e-3) ** 2).astype(np.float32)).to(dev, dtype)
-    g = torch.from_numpy((rng.standard_normal((b, D)) * 1e-3).astype(np.float32)).to(dev)
-    dense = torch.from_numpy((rng.standard_normal((n, D)) * 1e-4).astype(np.float32)).to(dev)
-    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    w, mu, nu, g = _adam_tables(rng, n, b, dtype)
+    dense = torch.from_numpy((rng.standard_normal((n, D)) * 1e-4).astype(np.float32)).to(w.device)
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(w.device)
     sr = dtype == torch.bfloat16
     order = torch.argsort(ids, stable=True)
     ids_s, g_s = ids[order], g[order]
     k1 = [x.clone() for x in (w, mu, nu)]
     no_order = [x.clone() for x in (w, mu, nu)]
     plain = [x.clone() for x in (w, mu, nu)]
+    inputs = [x.clone() for x in (w, mu, nu)]
     scal = fused_adam.adam_scalars(ADAM_STEP, ADAM_LR, ADAM_L2, 0.9, 0.999, 1e-7)
-    before = _kernels.launches["fused_adam_dense"]
-    got = fused_adam.sparse_adam_update(w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2,
-                                        dense_grad=dense, order=order)
-    alone = fused_adam.sparse_adam_update(*no_order, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2,
-                                          dense_grad=dense)
-    if _kernels.launches["fused_adam_dense"] != before + 2:
-        raise AssertionError(f"{name}: sparse_adam_update(dense_grad=...) did not launch "
-                             "the dense kernel")
+    (got, alone), launches = _launched(lambda: (
+        fused_adam.sparse_adam_update(w, mu, nu, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2,
+                                      dense_grad=dense, order=order),
+        fused_adam.sparse_adam_update(*no_order, ids, g, ADAM_STEP, ADAM_LR, l2=ADAM_L2,
+                                      dense_grad=dense)))
+    if launches != {"fused_adam_tiles": 2, "fused_adam_dense": 2}:
+        raise AssertionError(f"{name}: two calls of sparse_adam_update(dense_grad=...) "
+                             f"launched {launches}")
     want = fused_adam._sparse_adam_update_plain(*plain, ids_s, g_s, scal, ADAM_STEP, sr, dense)
     torch.cuda.synchronize()
     for label, a, c in zip(("w", "mu", "nu", "sumsq"), got, alone):
         if not torch.equal(a, c):
             raise AssertionError(f"{name}: {label}' with order= differs from without it")
     row = dict(card=card, case=name, n=n, n_mod_block=n % fused_adam.BLOCK_ROWS, batch=b,
-               distinct_ids=int(np.unique(ids_np).size), moments=str(dtype), sr=sr,
-               order_bit_equal=True)
+               distinct_ids=int(np.unique(ids_np).size),
+               largest_run=int(np.bincount(ids_np).max()), moments=str(dtype), sr=sr,
+               launches={k: v // 2 for k, v in launches.items()}, order_bit_equal=True)
     row |= _against_plain(name, got, want, ids, n, sr)
+    row |= _tile_order_check(name, got, inputs, ids_s, g_s, scal, sr, dense)
     m_bytes = 2 if sr else 4
     moved = 3 * n * D * 4 + 4 * n * D * m_bytes + b * D * 4 + b * 4   # + the dense read
     row |= _timing(lambda: fused_adam._sparse_adam_update_cuda(
                        w, mu, nu, ids_s, g_s, scal, ADAM_STEP, sr, dense=dense),
                    lambda: fused_adam._sparse_adam_update_plain(
                        *plain, ids_s, g_s, scal, ADAM_STEP, sr, dense),
-                   "fused_adam_dense_kernel")
+                   ("fused_adam_tiles_kernel", "fused_adam_dense_kernel"))
     # K1 without the dense gradient on the same inputs, in the same call.
     row["k1_ms"] = _profiled(lambda: fused_adam._sparse_adam_update_cuda(
-        *k1, ids_s, g_s, scal, ADAM_STEP, sr), match="fused_adam_kernel")["match_ms"]
+        *k1, ids_s, g_s, scal, ADAM_STEP, sr),
+        match=("fused_adam_tiles_kernel", "fused_adam_kernel"))["match_ms"]
     row["bytes_moved"] = moved
     row["hbm_share"] = moved / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
     row |= _bound(moved, (ADAM_OPS + 1) * n * D + b * D)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     print("[phase 7] " + json.dumps(row), flush=True)
     return row
 
@@ -1631,13 +1826,18 @@ def _receipts_case(card, name, n, ids_np, dtype, seed):
 
 def phase_dense(card: str, receipts: bool) -> list[dict]:
     """7a: K1's dense branch on phase 4's tables and training batches: the
-    seeded dense gradients (timed: before the process group exists, whose
-    threads cost torch.profiler records), or (``receipts``, on the group)
-    the routed trainer's receipts."""
+    seeded dense gradients (timed: right after phase 4, before phase 6's runs
+    and the process group, after which profiler sessions lose records; the
+    skewed anime batch too), or
+    (``receipts``, on the group) the routed trainer's receipts (the skewed
+    batch has too few distinct ids to take more than 4 rounds)."""
     case = _receipts_case if receipts else _dense_case
     tag = "receipts" if receipts else "dense"
+    cases = [c for c in _adam_cases() if c[0] in (
+        "users_f32", "anime_f32", "users_bf16_sr", "anime_bf16_sr",
+        *(() if receipts else ("anime_f32_skewed", "anime_bf16_sr_skewed")))]
     return [case(card, f"{name}_{tag}", n, ids, dtype, SEED + (50 if receipts else 40) + i)
-            for i, (name, n, ids, dtype) in enumerate(_adam_cases()[:4])]
+            for i, (name, n, ids, dtype) in enumerate(cases)]
 
 
 def _routed_trainer(optimizer: str, capacity=None):
@@ -1719,7 +1919,8 @@ def _agree_steps() -> dict:
                 if float(excess) > 0:
                     raise AssertionError(f"step {i}: {k} differs between the capacities")
     launches = dict(_kernels.launches)
-    if launches != {"fused_adam": AGREE_STEPS * 2, "fused_adam_dense": AGREE_STEPS * 2}:
+    if launches != {"fused_adam_tiles": AGREE_STEPS * 4, "fused_adam": AGREE_STEPS * 2,
+                    "fused_adam_dense": AGREE_STEPS * 2}:
         raise AssertionError(f"agreement steps launched {launches}")
     return dict(steps=AGREE_STEPS, largest_loss_rel_gap=worst["loss"],
                 largest_table_abs_gap=worst["tables"], launches=launches)
@@ -1755,10 +1956,12 @@ def phase_routed(card: str, trained: dict) -> dict:
             runner = PipelineRunner(cfg, tmp, device=DEVICE)
             _kernels.launches.clear()
             result, seconds = _host_timed(runner.step_train)
-            launches = {k: _kernels.launches[k] for k in ("fused_adam", "fused_adam_dense")}
-            want = {"fused_adam": 0, "fused_adam_dense": 0}
+            launches = {k: _kernels.launches[k]
+                        for k in ("fused_adam_tiles", "fused_adam", "fused_adam_dense")}
+            want = {"fused_adam_tiles": 0, "fused_adam": 0, "fused_adam_dense": 0}
             if optimizer in FUSED:
                 want["fused_adam" if capacity is None else "fused_adam_dense"] = 2 * steps
+                want["fused_adam_tiles"] = 2 * steps
             if launches != want or _kernels.launches["fused_adam_gather"]:
                 raise AssertionError(f"routed {label}: launches {dict(_kernels.launches)}, "
                                      f"expected {want}")
@@ -1790,6 +1993,106 @@ def phase_routed(card: str, trained: dict) -> dict:
     return out
 
 
+# ---- phase 8 -------------------------------------------------------------------
+
+ZIPF_EPOCHS, ZIPF_LR = 6, 3e-4
+# BENCH_r05.json's overlaps on the same protocol (the JAX package on its
+# TPU): what the port's trained-table overlaps are set beside.
+ZIPF_RECORDS = {"f32_q256_vs_exact": 0.99961, "f32_one_query_vs_exact": 0.99961,
+                "bf16_q256_vs_f32_exact": 0.99844, "bf16_q256_vs_bf16_exact": 0.99961,
+                "int8_q256_vs_exact": 0.99961, "int8_q8_vs_exact": 1.0}
+
+
+def _overlap(got, want) -> float:
+    """Mean share of each query's reference top-k rows returned."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    return float(np.mean([len(set(g) & set(w)) / want.shape[1] for g, w in zip(got, want)]))
+
+
+def phase_trained(card: str) -> dict:
+    """bench.py:570-692's protocol at 91,641 users through the port: 6
+    fused_adam epochs at lr 3e-4 over _zipf_ratings (batch 10,000, l2 1e-4,
+    shuffled with seed 1), then the 256 hottest users' top-10 on the
+    shuffled normalized user table (ops/topk.shuffle_rows, seed 13) against
+    exact_scan=True: f32 at Q=256 (tensor cores) and one query at a time
+    (streaming), bf16 against the f32 and the bf16 exact scans, int8 at
+    Q=256 and Q=8. Counters are reset before the training: K1 (its first
+    pass and the update) twice a step. Every overlap but bf16 against the
+    f32 exact scan (storage, not extraction) must reach its BENCH_r05
+    record, and the tensor-core branch may lose no exact row that the
+    streaming branch keeps."""
+    import torch
+
+    from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
+    from anime_recommendations_tpu_torch.models.two_tower import normalized_tables
+    from anime_recommendations_tpu_torch.ops import _kernels, topk
+    from anime_recommendations_tpu_torch.ops.quantized import quantize_rows
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    users, anime, ratings = _zipf_ratings()
+    ds = RatingsDataset(users=users, anime=anime, ratings=ratings)
+    state = tr.init_train_state(N_USERS, N_ANIME, D, generator=torch.Generator().manual_seed(6),
+                                device=DEVICE)
+    data = dl.stage(ds, BATCH, seed=1, device=DEVICE)
+    steps = data.n // BATCH
+    _kernels.launches.clear()
+    epoch_ms = []
+    for ep in range(ZIPF_EPOCHS):
+        (state, losses, _, _), seconds = _host_timed(lambda: dl.train_epoch(
+            state, data, torch.Generator().manual_seed(100 + ep), ZIPF_LR, BATCH, 1e-4,
+            optimizer="fused_adam"))
+        epoch_ms.append(seconds * 1e3 / steps)
+    launches = {k: _kernels.launches[k] for k in ("fused_adam_tiles", "fused_adam")}
+    if launches != dict.fromkeys(launches, 2 * steps * ZIPF_EPOCHS):
+        raise AssertionError(f"zipf training launched {launches} over {steps * ZIPF_EPOCHS} steps")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("zipf training: non-finite loss")
+    out = {"card": card, "steps": steps * ZIPF_EPOCHS, "launches": launches,
+           "ms_per_step_by_epoch": epoch_ms, "last_loss": float(losses[-1])}
+
+    _, user_n = normalized_tables(state.model)
+    hot = user_n[:256].contiguous()            # the hottest users: the lowest ids
+    _, exact = topk.masked_topk(user_n, hot, 10, exact_scan=True)
+    sh = topk.shuffle_rows(user_n, seed=13)
+    _kernels.launches.clear()
+    _, tc = topk.cosine_topk(sh, hot, 10)
+    one = torch.cat([topk.cosine_topk(sh, hot[i:i + 1], 10)[1] for i in range(hot.shape[0])])
+    if (_kernels.launches["packed_topk_mma"], _kernels.launches["packed_topk"]) != (1, 256):
+        raise AssertionError(f"the f32 scans did not take both K2 branches: {_kernels.launches}")
+    sh_b = topk.ShuffledTable(sh.table.to(torch.bfloat16), sh.perm, sh.inv)
+    _, bf = topk.cosine_topk(sh_b, hot, 10)
+    _, bf_exact = topk.masked_topk(sh.table.to(torch.bfloat16), hot.to(torch.bfloat16), 10,
+                                   exact_scan=True)
+    _, bf_phys = topk.masked_topk(sh.table.to(torch.bfloat16), hot.to(torch.bfloat16), 10)
+    sh_q = topk.ShuffledTable(quantize_rows(sh.table), sh.perm, sh.inv)
+    _, q256 = topk.cosine_topk(sh_q, hot, 10)
+    _, q8 = topk.cosine_topk(sh_q, hot[:8], 10)
+    out["overlaps"] = {
+        "f32_q256_vs_exact": _overlap(tc, exact),
+        "f32_one_query_vs_exact": _overlap(one, exact),
+        "bf16_q256_vs_f32_exact": _overlap(bf, exact),
+        "bf16_q256_vs_bf16_exact": _overlap(bf_phys, bf_exact),
+        "int8_q256_vs_exact": _overlap(q256, exact),
+        "int8_q8_vs_exact": _overlap(q8, exact[:8]),
+    }
+    out["records"] = ZIPF_RECORDS
+    # Exact rows the tensor-core branch loses that the streaming one keeps.
+    lost = sum(len((set(e) & set(s)) - set(t)) for e, s, t in zip(
+        exact.tolist(), one.tolist(), tc.tolist()))
+    out["tensor_core_losses_streaming_keeps"] = lost
+    print(f"[phase 8] {json.dumps(out)}", flush=True)
+    # bf16 against the f32 exact scan measures the table's storage as well
+    # (bf16 rows reorder near-ties); the extraction's own loss is bf16
+    # against the bf16 exact scan, which is held to its record.
+    below = {k: v for k, v in out["overlaps"].items()
+             if v < ZIPF_RECORDS[k] and k != "bf16_q256_vs_f32_exact"}
+    if below or lost:
+        raise AssertionError(f"trained-table overlaps below BENCH_r05's {below}, "
+                             f"{lost} rows lost by the tensor-core branch alone")
+    return out
+
+
 def main() -> int:
     card = phase_device()
     import torch
@@ -1808,6 +2111,9 @@ def main() -> int:
     if serving_launches.get("l2_normalize", 0) != 2 * len(CONTEXTS):
         raise AssertionError("the context builds did not launch l2_normalize twice each")
     adam_rows, gather_rows = phase_adam(card)
+    # 7a's timed dense cases here, beside phase 4's: after phase 6, sessions
+    # of torch.profiler lose a few records of every kernel in this process.
+    dense_rows = phase_dense(card, receipts=False)
     _kernels.launches.clear()
     trained = phase_train(card)
     if _kernels.launches["fused_adam"] < 1:
@@ -1816,13 +2122,13 @@ def main() -> int:
     phase_convergence(card)
     import torch.distributed as dist
 
-    dense_rows = phase_dense(card, receipts=False)
     init_nccl()
     try:
         dense_rows += phase_dense(card, receipts=True)
         routed = phase_routed(card, trained)   # resets the counters before each run
     finally:
         dist.destroy_process_group()
+    phase_trained(card)
     # K2's two kernels: the streaming one (one query; users f32 Q=1) and the
     # tensor-core one (more; users f32 Q=256, bound by TF32).
     kernels = []
@@ -1903,6 +2209,29 @@ def main() -> int:
             "bound_ms": users["bound_ms"],
             "bound_by": users["bound_by"],
             # No single call: a scatter-add plus a dense add, then the Adam math.
+            "library_ms": None,
+        })
+    # The two passes K1 (the first) and K5 (both) run around their update
+    # kernels, each timed in K5's skewed anime case, where both work; the
+    # entries above count them in their ms.
+    k5_skewed = next(r for r in gather_rows if r["case"] == "anime_f32_skewed")
+    for name, replaces, row, tag, launches in (
+        ("fused_adam_tiles", "anime_recommendations_tpu/ops/fused_adam.py:71", k5_skewed,
+         "tiles", trained["tile_launches"]["fused_adam"]),
+        ("fused_adam_copies", "anime_recommendations_tpu/ops/fused_adam.py:189", k5_skewed,
+         "copies", gathered["fused_adam"]["kernel_gather"]["launches"]["fused_adam_copies"]),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "anime_recommendations_tpu_torch/csrc/fused_adam.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r.get(f"{tag}_max_abs_err", 0.0) for r in adam_rows + gather_rows),
+            "ms": row["by_kernel_ms"][f"{name}_kernel"],
+            "plain_ms": row[f"{tag}_plain_ms"],
+            **_bound(row[f"{tag}_bytes"], 0),
+            # Segment sums of sorted runs; copies of rows: no single call.
             "library_ms": None,
         })
     print(card)

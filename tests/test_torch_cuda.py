@@ -30,6 +30,10 @@ inputs, and its rows equal w'[next_ids] exactly (zero rows for ids outside
 the table); against the plain version as K1. K1 with a dense gradient: its
 dense kernel against the plain version as K1 (rows hit at most once bit
 for bit), and a precomputed stable ``order`` bit for bit the call without.
+On runs laid out against the kernels' tiles of sorted positions, K1, its
+dense branch and K5 equal, every row bit for bit, the plain version fed the
+kernels' own summation order (fused_adam.run_sums_in_tile_order), and each
+pass alone equals its plain version.
 """
 
 import numpy as np
@@ -600,3 +604,142 @@ def test_kernel_gather_step_pair_on_the_card(cuda, moments):
     gathered, plain = (tr.train_state_to_numpy(s) for s in states)
     for k, v in plain.items():
         np.testing.assert_array_equal(gathered[k], v, err_msg=k)
+
+
+# ---- K1, its dense branch and K5 on skewed ids: the tiles of sorted positions ----
+
+def tile_layout(kind, n):
+    """Batch ids (unsorted) whose sorted runs meet fused_adam.TILE's edges as
+    ``kind`` says: a run exactly one tile long on a tile, runs crossing 1, 2
+    and many edges (8 and 9 tiles), every id on one row (41 tiles: past
+    fused_adam.LONG_PARTS, its tile sums added in chunks), no id, and ids
+    outside the table (runs of them crossing edges too), among rows hit once
+    or a few times."""
+    t = fused_adam.TILE
+    rng = np.random.default_rng(len(kind) + n)
+    filler = lambda k, lo: (lo + np.arange(k) // 2).tolist()   # rows hit twice, from lo
+    if kind == "empty":
+        ids = []
+    elif kind == "one_row":   # 41 tiles: their sums added in chunks
+        ids = [7] * (40 * t + 3)
+    elif kind == "one_tile_run":
+        ids = filler(t, 0) + [t] * t + filler(t + 5, t + 1)
+    elif kind == "crosses_one_edge":
+        ids = filler(t - 11, 0) + [t] * 20 + filler(t, t + 1)
+    elif kind == "crosses_two_edges":
+        ids = filler(t - 3, 0) + [t] * (t + 7) + [t + 1] * (t + 1) + filler(9, t + 2)
+    elif kind == "crosses_many_edges":   # 8 tiles, then 9
+        ids = [1] * 5 + [3] * (7 * t + 2) + [4] * (8 * t + 20) + filler(t + 3, 5)
+    else:   # "outside": runs of ids below 0 and past n crossing edges, n being the drop marker
+        ids = [-1] * (t + 2) + filler(t, 0) + [n - 1] * 3 + [n] * (2 * t) + [n + 9, 2 ** 30]
+    return rng.permutation(np.asarray(ids, np.int32))
+
+
+TILE_KINDS = ["one_tile_run", "crosses_one_edge", "crosses_two_edges", "crosses_many_edges",
+              "one_row", "empty", "outside"]
+
+
+def tile_case(dev, kind, d, dtype, n=300, seed=3):
+    rng = np.random.default_rng(seed + d)
+    ids = tile_layout(kind, n)
+    w = rng.standard_normal((n, d)).astype(np.float32) * 0.05
+    mu = rng.standard_normal((n, d)).astype(np.float32) * 0.01
+    nu = (rng.standard_normal((n, d)).astype(np.float32) * 0.01) ** 2
+    g = rng.standard_normal((ids.shape[0], d)).astype(np.float32) * 0.1
+    dense = rng.standard_normal((n, d)).astype(np.float32) * 0.1
+    nxt = tile_layout(kind if kind != "empty" else "crosses_many_edges", n)[::-1].copy()
+    out = [torch.from_numpy(x).to(dev) for x in (w, mu, nu, ids, g, dense, nxt)]
+    out[1], out[2] = out[1].to(dtype), out[2].to(dtype)
+    return out
+
+
+def in_tile_order(inputs, ids, g, sr, dense=None):
+    """The plain version fed the kernel's own summation order: every row bit
+    for bit (fused_adam.run_sums_in_tile_order)."""
+    order = torch.argsort(ids, stable=True)
+    n = inputs[0].shape[0]
+    sums = fused_adam.run_sums_in_tile_order(ids[order], g[order], n)
+    scal = fused_adam.adam_scalars(3, 1e-3, 1e-4, 0.9, 0.999, 1e-7)
+    return fused_adam._sparse_adam_update_plain(
+        *[x.clone() for x in inputs], torch.arange(n, dtype=torch.int32, device=ids.device),
+        sums, scal, 3, sr, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16_sr"])
+@pytest.mark.parametrize("d", [4, 32, 128, 512])
+@pytest.mark.parametrize("mode", ["k1", "dense", "k5"])
+@pytest.mark.parametrize("kind", TILE_KINDS)
+def test_fused_adam_tiles_on_the_card(cuda, kind, mode, d, dtype):
+    """K1, its dense branch and K5 on runs that meet the tiles' edges: every
+    row bit for bit the plain version in the kernel's tile order (rows hit
+    at most once bit for bit the index_add_ one, hot rows within its
+    tolerance), two calls bit-identical, order= bit-equal to none, K5's
+    tables K1's and its rows w'[next_ids]; the launches counted."""
+    w, mu, nu, ids, g, dense, nxt = tile_case(cuda, kind, d, dtype)
+    n, b = w.shape[0], ids.shape[0]
+    sr = dtype == torch.bfloat16
+    dense = dense if mode == "dense" else None
+    kw = dict(l2=1e-4, dense_grad=dense, next_ids=nxt if mode == "k5" else None)
+    inputs = [x.clone() for x in (w, mu, nu)]
+    copies = [[x.clone() for x in inputs] for _ in range(3)]
+    before = dict(_kernels.launches)
+    got = fused_adam.sparse_adam_update(w, mu, nu, ids, g, 3, 1e-3, **kw)
+    again = fused_adam.sparse_adam_update(*copies[0], ids, g, 3, 1e-3, **kw)
+    ordered = fused_adam.sparse_adam_update(*copies[1], ids, g, 3, 1e-3,
+                                            order=torch.argsort(ids, stable=True), **kw)
+    update = {"k1": "fused_adam", "dense": "fused_adam_dense", "k5": "fused_adam_gather"}[mode]
+    want_launches = {update: 3, "fused_adam_tiles": 3, "fused_adam_copies": 3 if mode == "k5" else 0}
+    assert {k: _kernels.launches[k] - before.get(k, 0) for k in want_launches} == want_launches
+    torch.cuda.synchronize()
+    for a, c, e in zip(got, again, ordered):
+        assert torch.equal(a, c) and torch.equal(a, e)
+    for a, c in zip(got[:3], in_tile_order(inputs, ids, g, sr, dense)[:3]):
+        assert torch.equal(a, c)
+    order = torch.argsort(ids, stable=True)
+    scal = fused_adam.adam_scalars(3, 1e-3, 1e-4, 0.9, 0.999, 1e-7)
+    want = fused_adam._sparse_adam_update_plain(*[x.clone() for x in inputs], ids[order],
+                                                g[order], scal, 3, sr, dense)
+    assert_update_close(got, want, dtype)
+    once = torch.bincount(ids.long().clamp(0, n), minlength=n + 1)[:n] <= 1
+    for a, c in zip(got[:3], want[:3]):
+        assert torch.equal(a[once], c[once])
+    if mode == "k5":
+        k1 = fused_adam.sparse_adam_update(*copies[2], ids, g, 3, 1e-3, l2=1e-4)
+        for a, c in zip(got[:4], k1):
+            assert torch.equal(a, c)
+        inside = (nxt >= 0) & (nxt < n)
+        assert torch.equal(got[4][inside], w[nxt[inside].long()])
+        assert not bool(got[4][~inside].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 128, 512])
+@pytest.mark.parametrize("kind", TILE_KINDS)
+def test_fused_adam_passes_match_their_plain_versions(cuda, kind, d):
+    """The first pass (its written tile sums and the block starts of the ids
+    and the next ids) and the gather's second pass, each alone, bit for bit
+    against _tile_sums_plain, _block_starts_plain and _copies_plain."""
+    w, _, _, ids, g, _, nxt = tile_case(cuda, kind, d, torch.float32)
+    n = w.shape[0]
+    order = torch.argsort(ids, stable=True)
+    ids_s, g_s = ids[order].int(), g[order].contiguous()
+    norder = torch.argsort(nxt, stable=True)
+    nids_s = nxt[norder].int()
+    got, starts, gstarts = fused_adam._first_pass_cuda(ids_s, g_s, n, nids_s)
+    assert fused_adam._first_pass_cuda(ids_s, g_s, n)[2] is None
+    want, written = fused_adam._tile_sums_plain(ids_s, g_s, n)
+    if ids.shape[0] == 0:
+        assert got is None and written.numel() == 0
+    else:
+        assert torch.equal(got[written], want[written])
+    assert torch.equal(starts, fused_adam._block_starts_plain(ids_s, n))
+    assert torch.equal(gstarts, fused_adam._block_starts_plain(nids_s, n))
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert torch.equal(fused_adam._first_pass_cuda(ids_s, g_s, n, empty)[2],
+                       torch.zeros_like(starts))
+    rows = torch.full((nxt.shape[0], d), 7.5, device=cuda)
+    rows_plain = rows.clone()
+    fused_adam._copies_cuda(w, nids_s, norder.int(), rows)
+    fused_adam._copies_plain(w, nids_s, norder.int(), rows_plain)
+    assert torch.equal(rows, rows_plain)

@@ -34,12 +34,20 @@ torch.set_num_threads(2)
 
 
 def make_case(n, d, b, seed, dup_heavy=False):
+    """Tables and a batch; ``dup_heavy`` True draws ids from the first n/20
+    rows, "long_runs" puts runs longer than a kernel tile (TILE sorted
+    positions) on rows 0, 3 and n - 1 (the ragged block's last row)."""
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((n, d)).astype(np.float32) * 0.05
     mu = rng.standard_normal((n, d)).astype(np.float32) * 0.01
     nu = (rng.standard_normal((n, d)).astype(np.float32) * 0.01) ** 2
-    hi = max(n // 20, 2) if dup_heavy else n
+    hi = max(n // 20, 2) if dup_heavy is True else n
     ids = rng.integers(0, hi, b).astype(np.int32)
+    if dup_heavy == "long_runs":
+        t = fused_adam.TILE
+        hot = np.repeat(np.array([3, 0, n - 1], np.int32), [t + 18, t + 8, t // 2 + 4])
+        ids[:hot.shape[0]] = hot
+        ids = rng.permutation(ids)
     g = rng.standard_normal((b, d)).astype(np.float32) * 0.1
     return w, mu, nu, ids, g
 
@@ -62,7 +70,7 @@ def jax_result(w, mu, nu, ids, g, t, lr, l2, dtype=jnp.float32, **kw):
 
 
 @pytest.mark.parametrize("precision,tol", [("highest", 5e-6), ("fast", 2e-4)])
-@pytest.mark.parametrize("dup_heavy", [False, True])
+@pytest.mark.parametrize("dup_heavy", [False, True, "long_runs"])
 def test_plain_update_matches_jax(precision, tol, dup_heavy):
     case = make_case(300, 32, 128, seed=0, dup_heavy=dup_heavy)
     args = (3, 1e-3, 1e-4)
@@ -106,8 +114,9 @@ def test_chained_steps_match_jax():
     np.testing.assert_allclose(tnu.numpy(), np.asarray(jnu), rtol=5e-5, atol=1e-9)
 
 
-def test_bf16_moments_match_jax_without_stochastic_rounding():
-    case = make_case(300, 32, 128, seed=4)
+@pytest.mark.parametrize("dup_heavy", [False, "long_runs"])
+def test_bf16_moments_match_jax_without_stochastic_rounding(dup_heavy):
+    case = make_case(300, 32, 128, seed=4, dup_heavy=dup_heavy)
     got = port_update(*case, 3, 1e-3, 1e-4, dtype=torch.bfloat16, stochastic_rounding=False)
     want = jax_result(*case, 3, 1e-3, 1e-4, dtype=jnp.bfloat16, block_rows=64, chunk=32,
                       precision="highest")
@@ -146,11 +155,11 @@ def test_rejects_what_it_does_not_take():
 
 # ---- K1's dense-gradient branch and a precomputed order ----------------------------
 
-def dense_case(seed):
+def dense_case(seed, dup_heavy=True):
     """make_case's N = 300 (a ragged block of 64), D = 32, 128 ids with
     duplicates, some outside the table (the routed receipts' drop marker n
     and past it), and a dense [N, D] gradient."""
-    w, mu, nu, ids, g = make_case(300, 32, 128, seed=seed, dup_heavy=True)
+    w, mu, nu, ids, g = make_case(300, 32, 128, seed=seed, dup_heavy=dup_heavy)
     ids[::9] = 300
     ids[5] = 1000
     dense = np.random.default_rng(seed + 50).standard_normal((300, 32)).astype(np.float32) * 0.1
@@ -158,9 +167,11 @@ def dense_case(seed):
 
 
 @pytest.mark.parametrize("precision,tol", [("highest", 5e-6), ("fast", 2e-4)])
-@pytest.mark.parametrize("t,l2", [(1, 0.0), (3, 1e-4)])
+@pytest.mark.parametrize("t,l2", [(1, 0.0), (3, 1e-4), (3, "long_runs")])
 def test_dense_grad_update_matches_jax(precision, tol, t, l2):
-    case, dense = dense_case(seed=11)
+    """(3, "long_runs"): l2 1e-4 with runs longer than a tile."""
+    case, dense = dense_case(seed=11, dup_heavy="long_runs" if l2 == "long_runs" else True)
+    l2 = 1e-4 if l2 == "long_runs" else l2
     got = port_update(*case, t, 1e-3, l2, precision=precision,
                       dense_grad=torch.from_numpy(dense))
     want = jax_result(*case, t, 1e-3, l2, block_rows=64, chunk=32, precision=precision,
@@ -218,10 +229,14 @@ def gather_case(kind):
         nids = np.concatenate([rng.integers(0, 12, 190), [-1, 300, 310, 1000, -(2 ** 20)],
                                nids[:5]])
         nids = rng.permutation(nids)
+    if kind == "long_runs":   # runs of ids and of next ids longer than a tile
+        case = make_case(300, 32, 128, seed=4, dup_heavy="long_runs")
+        nids = rng.permutation(np.concatenate([np.full(70, 3), np.full(40, 299), [-1] * 35,
+                                               nids[:55]]))
     return case, nids.astype(np.int32)
 
 
-@pytest.mark.parametrize("kind", ["random", "dups_outside"])
+@pytest.mark.parametrize("kind", ["random", "dups_outside", "long_runs"])
 @pytest.mark.parametrize("precision,tol", [("highest", 5e-6), ("fast", 2e-4)])
 def test_gather_update_matches_jax(precision, tol, kind):
     case, nids = gather_case(kind)
@@ -270,6 +285,180 @@ def test_gathered_rows_are_copies_in_next_ids_order():
     empty = fused_adam.sparse_adam_update(w, mu, nu, ids, g, 3, 1e-3,
                                           next_ids=torch.zeros(0, dtype=torch.int64))
     assert empty[4].shape == (0, 8)
+
+
+# ---- the kernel's tiles of sorted positions (csrc/fused_adam.cu) ----------------
+
+def numpy_runs(ids_s, n):
+    """(row, lo, hi) of each run of an id in [0, n) in the sorted ids."""
+    runs, p = [], 0
+    while p < len(ids_s):
+        q = p
+        while q < len(ids_s) and ids_s[q] == ids_s[p]:
+            q += 1
+        if 0 <= ids_s[p] < n:
+            runs.append((int(ids_s[p]), p, q))
+        p = q
+    return runs
+
+
+def numpy_tile_order(ids_s, g_s, n, t, long_parts=32, chain=8):
+    """The kernel's dscat [n, D], one run at a time in f32: a run in one tile
+    of t positions summed from 0 in position order; a crossing run's segment
+    in each tile summed from 0, the segment sums added from 0 in order, or,
+    past ``long_parts`` segments, cut into at most ``chain`` chunks of
+    ceil(segments / chain), each summed from 0, and the chunk sums added from
+    0 in order. Also each run's segments (lo, hi) and the first pass's slot
+    of each."""
+    out = np.zeros((n, g_s.shape[1]), np.float32)
+    segments = {}
+    for row, lo, hi in numpy_runs(ids_s, n):
+        if lo // t == (hi - 1) // t:
+            acc = np.zeros(g_s.shape[1], np.float32)
+            for p in range(lo, hi):
+                acc = acc + g_s[p]
+            out[row] = acc
+            continue
+        segs, parts = [], []
+        for tile in range(lo // t, (hi - 1) // t + 1):
+            a, b = max(lo, tile * t), min(hi, (tile + 1) * t)
+            part = np.zeros(g_s.shape[1], np.float32)
+            for p in range(a, b):
+                part = part + g_s[p]
+            parts.append(part)
+            segs.append((a, b, 2 * tile + (1 if tile == lo // t else 0)))
+        q = -(-len(parts) // chain) if len(parts) > long_parts else 1
+        acc = np.zeros(g_s.shape[1], np.float32)
+        for c in range(0, len(parts), q):
+            chunk = np.zeros(g_s.shape[1], np.float32)
+            for part in parts[c:c + q]:
+                chunk = chunk + part
+            acc = acc + chunk
+        out[row] = acc
+        segments[row] = segs
+    return out, segments
+
+
+def skewed_sorted(seed, b, n):
+    """Sorted skewed ids: runs of every length up to several tiles, ids
+    outside [0, n) below and above, n itself (the drop marker) among them."""
+    rng = np.random.default_rng(seed)
+    ids = np.minimum((rng.pareto(0.8, b) * 3).astype(np.int64) - 3, n + 4)
+    return np.sort(ids).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed,b,n", [(0, 300, 40), (1, 513, 9), (2, 64, 500), (3, 1000, 3),
+                                      (4, 1, 5), (5, 0, 5), (6, 5000, 2)])
+def test_run_sums_in_tile_order_match_the_numpy_reference(seed, b, n):
+    """Bit for bit, and with integer gradients (exact sums) every gradient
+    row of an id in [0, n) counted once: each run covered once, in order."""
+    ids = skewed_sorted(seed, b, n)
+    g = np.random.default_rng(seed + 9).standard_normal((b, 8)).astype(np.float32)
+    want, _ = numpy_tile_order(ids, g, n, fused_adam.TILE, fused_adam.LONG_PARTS,
+                               fused_adam.CHAIN)
+    got = fused_adam.run_sums_in_tile_order(torch.from_numpy(ids), torch.from_numpy(g), n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    counts = np.random.default_rng(seed).integers(-3, 4, (b, 8)).astype(np.float32)
+    exact = np.zeros((n, 8), np.float32)
+    keep = (ids >= 0) & (ids < n)
+    np.add.at(exact, ids[keep], counts[keep])
+    got = fused_adam.run_sums_in_tile_order(torch.from_numpy(ids), torch.from_numpy(counts), n)
+    np.testing.assert_array_equal(got.numpy(), exact)
+
+
+@pytest.mark.parametrize("lengths", [(1100, 1500, 7), (33 * 32 + 1, 32 * 32, 40 * 32 + 5)])
+def test_run_sums_past_long_parts_are_added_in_chunks(lengths):
+    """Runs of more than LONG_PARTS tiles (row 0 of the first case: 35
+    tiles, 5 chunks of 8), beside ids outside the table: bit for bit the
+    numpy reference, and with integer gradients every row counted once."""
+    rng = np.random.default_rng(len(lengths))
+    ids = np.concatenate([[-1] * 50] + [[r] * k for r, k in enumerate(lengths)]
+                         + [[len(lengths) + 2] * 9]).astype(np.int32)
+    n = len(lengths) + 1
+    runs = numpy_runs(ids, n)
+    assert max((hi - 1) // fused_adam.TILE - lo // fused_adam.TILE + 1
+               for _, lo, hi in runs) > fused_adam.LONG_PARTS
+    g = rng.standard_normal((ids.shape[0], 8)).astype(np.float32)
+    want, _ = numpy_tile_order(ids, g, n, fused_adam.TILE, fused_adam.LONG_PARTS,
+                               fused_adam.CHAIN)
+    got = fused_adam.run_sums_in_tile_order(torch.from_numpy(ids), torch.from_numpy(g), n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    counts = rng.integers(-3, 4, g.shape).astype(np.float32)
+    exact = np.zeros((n, 8), np.float32)
+    keep = ids < n
+    np.add.at(exact, ids[keep & (ids >= 0)], counts[keep & (ids >= 0)])
+    got = fused_adam.run_sums_in_tile_order(torch.from_numpy(ids), torch.from_numpy(counts), n)
+    np.testing.assert_array_equal(got.numpy(), exact)
+
+
+@pytest.mark.parametrize("seed,b,n", [(0, 300, 40), (1, 513, 9), (3, 1000, 3), (4, 33, 5)])
+def test_tile_sums_plain_writes_each_crossing_segment_once(seed, b, n):
+    """The first pass's plain version: exactly the slots the update reads
+    (slot 2t + 1 of a crossing run's first tile, slot 2t of its others),
+    each its segment's sum from 0; the segments of a run tile it in order."""
+    ids = skewed_sorted(seed, b, n)
+    g = np.random.default_rng(seed + 9).standard_normal((b, 8)).astype(np.float32)
+    _, segments = numpy_tile_order(ids, g, n, fused_adam.TILE, fused_adam.LONG_PARTS,
+                               fused_adam.CHAIN)
+    sums, written = fused_adam._tile_sums_plain(torch.from_numpy(ids), torch.from_numpy(g), n)
+    tiles = -(-b // fused_adam.TILE)
+    assert sums.shape == (2 * tiles, 8) and written.shape == (2 * tiles,)
+    want_written = np.zeros(2 * tiles, bool)
+    for row, segs in segments.items():
+        assert segs[0][0] == min(p for p in range(b) if ids[p] == row)
+        assert [a for a, _, _ in segs[1:]] == [b_ for _, b_, _ in segs[:-1]]   # contiguous
+        for a, b_, slot in segs:
+            assert not want_written[slot]
+            want_written[slot] = True
+            part = np.zeros(8, np.float32)
+            for p in range(a, b_):
+                part = part + g[p]
+            np.testing.assert_array_equal(sums[slot].numpy(), part)
+    np.testing.assert_array_equal(written.numpy(), want_written)
+
+
+@pytest.mark.parametrize("seed,m,n", [(0, 300, 40), (1, 513, 9), (2, 64, 500), (4, 1, 5)])
+def test_copies_plain_and_the_update_split_the_next_ids(seed, m, n):
+    """The gather's second pass writes the rows of the next ids' runs that
+    cross a tile edge (w[id]) and of ids outside the table (0); the update
+    kernel stores the others, the runs inside one tile. Together: every
+    position once."""
+    nids = skewed_sorted(seed, m, n)
+    norder = np.random.default_rng(seed).permutation(m).astype(np.int32)
+    w = torch.from_numpy(np.random.default_rng(seed).standard_normal((n, 8)).astype(np.float32))
+    rows = torch.full((m, 8), 7.5)
+    fused_adam._copies_plain(w, torch.from_numpy(nids), torch.from_numpy(norder), rows)
+    t = fused_adam.TILE
+    by_update = np.zeros(m, bool)
+    for row, lo, hi in numpy_runs(nids, n):
+        if lo // t == (hi - 1) // t:
+            by_update[lo:hi] = True
+    written = ~(rows == 7.5).all(dim=1).numpy()[norder]
+    np.testing.assert_array_equal(written, ~by_update)
+    inside = (nids >= 0) & (nids < n)
+    pass_inside = written & inside
+    np.testing.assert_array_equal(rows.numpy()[norder[pass_inside]], w.numpy()[nids[pass_inside]])
+    assert not rows.numpy()[norder[~inside]].any()
+
+
+@pytest.mark.parametrize("seed,b,n", [(0, 300, 40), (1, 513, 9), (2, 64, 500), (3, 1000, 3),
+                                      (4, 1, 5), (5, 0, 5), (6, 200, 1000)])
+def test_block_starts_are_the_first_pass_rule(seed, b, n):
+    """_block_starts_plain (searchsorted over each block's first row) equals
+    the first pass's rule: each position fills the blocks after its
+    predecessor's up to its own, the last position's successors get b."""
+    ids = skewed_sorted(seed, b, n)
+    rb = lambda i: -1 if i < 0 else (-(-n // fused_adam.BLOCK_ROWS) if i >= n
+                                     else i // fused_adam.BLOCK_ROWS)
+    nb = -(-n // fused_adam.BLOCK_ROWS)
+    want = np.full(nb + 1, -7, np.int64)
+    for p in range(b):
+        prev = -1 if p == 0 else rb(ids[p - 1])
+        want[prev + 1:rb(ids[p]) + 1] = p
+    want[(rb(ids[-1]) if b else -1) + 1:] = b
+    got = fused_adam._block_starts_plain(torch.from_numpy(ids), n)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ---- stochastic rounding --------------------------------------------------------

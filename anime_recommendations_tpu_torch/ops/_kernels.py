@@ -40,6 +40,8 @@ SIGNATURES = {
     # table, wscale, queries, qscale, mask, exclude, head, out, n, d, nq,
     # top_r, stream
     "packed_topk_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # n, nq -> the query tile packed_topk_int8 takes (1, 16 or 64)
+    "packed_topk_int8_query_tile": (_I, _I),
     # table, dtype, queries, mask, exclude, head, out_s, out_i, n, d, nq, kc,
     # stream
     "exact_topk": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -64,7 +66,8 @@ SIGNATURES = {
 }
 # Entry points defined in another source than csrc/<name>.cu.
 ENTRY_SOURCE = {"fused_adam_tiles": "fused_adam", "fused_adam_gather": "fused_adam",
-                "fused_adam_copies": "fused_adam", "exact_topk_query_tile": "exact_topk"}
+                "fused_adam_copies": "fused_adam", "exact_topk_query_tile": "exact_topk",
+                "packed_topk_int8_query_tile": "packed_topk_int8"}
 # The sources to build: csrc/<source>.cu for each.
 SOURCES = tuple(dict.fromkeys(ENTRY_SOURCE.get(name, name) for name in SIGNATURES))
 

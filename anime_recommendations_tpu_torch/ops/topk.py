@@ -32,7 +32,10 @@ and the same two stages:
           exact f32, and returns the pool's top-k.
 
 An int8 table (ops/quantized.py) takes the same two stages: stage 1 reads
-the int8 rows (csrc/packed_topk_int8.cu on the card) and stage 2 rescores
+the int8 rows (csrc/packed_topk_int8.cu on the card: one query on the CUDA
+cores, counted as ``packed_topk_int8``, from INT8_MMA_MIN_Q queries on the
+int8 tensor cores, ``packed_topk_int8_mma``; both sum the same exact
+integers, so the keys do not depend on the branch) and stage 2 rescores
 the pool against the f32 rows. ``exact_scan=True`` takes one exact stage
 instead (_exact_scan_topk: csrc/exact_topk.cu on the card): full-f32 scores,
 each 512-row chunk's exact top-k, and a stable merge, so ties go to the
@@ -68,6 +71,11 @@ GROUP = 512            # rows per extraction group (low key bits carry the lane)
 # branch for more than one query. PERF.md gives the measurement
 # (tools/scan_kernels.py --time sweep) that set it.
 TF32_MIN_Q = 2
+# Query count from which int8 stage 1 runs on the int8 tensor cores
+# (csrc/packed_topk_int8.cu's kMmaMinQ). Both branches compute the same
+# exact int32 products, so the plain version has no such rule. PERF.md gives
+# the measurement (tools/scan_kernels.py --time sweep) that set it.
+INT8_MMA_MIN_Q = 2
 _NEG = -1e30           # dead-slot score sentinel
 _BIAS = 2.0            # makes every in-contract score positive
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -275,8 +283,10 @@ def _packed_candidates_cuda(table, queries, top_r, mask, exclude, head, lib=None
     return out
 
 
-def _packed_candidates_int8_cuda(table, queries, top_r, mask, exclude, head, qscale, wscale):
-    """Launch csrc/packed_topk_int8.cu on PyTorch's current stream."""
+def _packed_candidates_int8_cuda(table, queries, top_r, mask, exclude, head, qscale, wscale,
+                                 lib=None):
+    """Launch csrc/packed_topk_int8.cu (or ``lib``, a library of another
+    version of it) on PyTorch's current stream."""
     _check_scan_inputs("packed_topk_int8", table, queries, (torch.int8,), top_r, GROUP)
     (n, d), qn = table.shape, queries.shape[0]
     scales = []
@@ -291,9 +301,9 @@ def _packed_candidates_int8_cuda(table, queries, top_r, mask, exclude, head, qsc
     side = _side_inputs("packed_topk_int8", table, qn, mask, exclude, head)
     args += _ptrs(*side)
     args += [out.data_ptr(), n, d, qn, top_r, _stream(table)]
-    err = _kernels.library("packed_topk_int8").packed_topk_int8(*args)
+    err = (lib or _kernels.library("packed_topk_int8")).packed_topk_int8(*args)
     _kernels.check(err, "packed_topk_int8")
-    _kernels.count_launch("packed_topk_int8")
+    _kernels.count_launch("packed_topk_int8_mma" if qn >= INT8_MMA_MIN_Q else "packed_topk_int8")
     return out
 
 

@@ -26,9 +26,12 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
                ops/topk.TF32_MIN_Q = 2 queries packed_topk_mma_kernel on
                the tensor cores (TF32 for f32 tables, in the plain version
                too), a k deep enough to drive top_r above 64;
-             packed_topk_int8 (K2q), int8 tables, keys bit-equal to the
-               plain version's without a head, a k that drives top_r above
-               64;
+             packed_topk_int8 (K2q; INT8_CASES), int8 tables, both of its
+               kernels: packed_topk_int8_kernel (dp4a) for one query, and
+               from ops/topk.INT8_MMA_MIN_Q = 2 queries
+               packed_topk_int8_mma_kernel on the int8 tensor cores, keys
+               bit-equal to the plain version's without a head on both, a k
+               that drives top_r above 64;
              exact_topk (K3; K3_CASES), f32 and bf16 tables, 1 to 256
                queries, k = 10 and 600;
              l2_normalize (K4), the raw embedding tables, f32 and bf16 out.
@@ -41,8 +44,9 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            HTTP server answered by each and checked against a dense oracle
            on the card. Launch counters are reset before this phase: every
            scanning endpoint must launch its context's scan kernel
-           (packed_topk or packed_topk_mma, packed_topk_int8, exact_topk;
-           each of them at least once), and every context
+           (packed_topk or packed_topk_mma, packed_topk_int8 or
+           packed_topk_int8_mma, exact_topk; each of them at least once),
+           and every context
            build l2_normalize twice (the anime and the user table).
   phase 4  the fused sparse-Adam kernel (K1: its first pass over tiles of
            sorted positions, fused_adam_tiles_kernel, then the update) and its
@@ -130,8 +134,8 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            256 hottest users' top-10 on the shuffled user table against the
            exact scan: f32 at Q=256 (tensor cores) and one query at a time,
            bf16 against the f32 and the bf16 exact scans, int8 at Q=256 and
-           Q=8, beside BENCH_r05's records (phase_trained says which must
-           reach them).
+           Q=8 (both on the int8 tensor cores), beside BENCH_r05's records
+           (phase_trained says which must reach them).
 
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
@@ -228,14 +232,16 @@ def start_profiler() -> None:
 
 # ---- phase 2 -------------------------------------------------------------------
 
-# Phase 2's float scan cases, K2 (k2_cases) and K3 (K3_CASES): (name, table,
-# dtype, Q, k, features); features "exclude" (each query's own row, from the
-# user table) or "head_mask" (the sigmoid head and an anime mask keeping
-# ~80 % of the rows). tools/scan_kernels.py times the same cases.
+# Phase 2's scan cases, K2 (k2_cases), K3 (K3_CASES) and K2q (INT8_CASES):
+# (name, table, dtype, Q, k, features); features "exclude" (each query's own
+# row, from the user table) or "head_mask" (the sigmoid head and an anime
+# mask keeping ~80 % of the rows). tools/scan_kernels.py times the same cases.
 DTYPES = {"f32": "float32", "bf16": "bfloat16"}
 # K2's launch counters: the streaming branch (one query) and the
-# tensor-core branch (more), as ops/topk._packed_candidates_cuda counts them.
+# tensor-core branch (more), as ops/topk._packed_candidates_cuda counts them;
+# K2q's: dp4a (one query) and the int8 tensor cores (from INT8_MMA_MIN_Q).
 K2_COUNTERS = ("packed_topk", "packed_topk_mma")
+INT8_COUNTERS = ("packed_topk_int8", "packed_topk_int8_mma")
 
 
 def _k2_launches() -> int:
@@ -271,15 +277,24 @@ K3_CASES = _named([("users", "f32", q, 10, "exclude") for q in (1, 8, 256)]
                   + [("users", "bf16", q, 10, "exclude") for q in (8, 256)])
 
 
+# Both sides of ops/topk.INT8_MMA_MIN_Q = 2 (Q = 1 and 8), one 64-query tile
+# and four, and the k = 600 model_recs_batch depth.
+INT8_CASES = _named([("users", "int8", q, 10, "exclude") for q in (1, 8, 64, 256)]
+                    + [("anime", "int8", q, k, "head_mask")
+                       for q, k in ((1, 10), (64, 10), (16, 600))])
+
+
 def _case_inputs(rng, tables, case, head, anime_mask):
-    """(table, queries, kwargs) of a phase-2 case: queries are user rows."""
+    """(table, queries, kwargs) of a phase-2 case: queries are user rows. An
+    int8 case takes ``tables`` of QuantizedTables, and f32 user rows."""
     import torch
 
     _, which, dtype, q, _, features = case
-    table = tables[which].to(getattr(torch, DTYPES[dtype]))
-    idx = torch.from_numpy(rng.choice(N_USERS, size=q, replace=False)).to(table.device)
+    table = tables[which] if dtype == "int8" else tables[which].to(getattr(torch, DTYPES[dtype]))
+    users = tables["users"].f32 if dtype == "int8" else tables["users"]
+    idx = torch.from_numpy(rng.choice(N_USERS, size=q, replace=False)).to(users.device)
     kw = dict(exclude=idx) if features == "exclude" else dict(mask=anime_mask, head=head)
-    return table, tables["users"][idx], kw
+    return table, users[idx], kw
 
 
 def _normal_table(rng, n, dtype, device):
@@ -634,12 +649,15 @@ def _int8_case(card, name, qt, queries, k, *, mask=None, exclude=None, head=None
     from anime_recommendations_tpu_torch.ops import _kernels, quantized, topk
 
     n = qt.q.shape[0]
+    qn = queries.shape[0]
     r = topk.top_r_policy(k, n)
-    before = _kernels.launches["packed_topk_int8"]
+    big = qn >= topk.INT8_MMA_MIN_Q
+    counter = INT8_COUNTERS[big]
+    before = _kernels.launches[counter]
     v, i = quantized.quantized_topk(qt, queries, k, mask=mask, exclude=exclude, head=head)
     torch.cuda.synchronize()
-    if _kernels.launches["packed_topk_int8"] <= before:
-        raise AssertionError(f"{name}: quantized_topk did not launch the kernel")
+    if _kernels.launches[counter] <= before:
+        raise AssertionError(f"{name}: quantized_topk did not launch {counter}")
     plain = functools.partial(quantized.quantized_two_stage, topk._packed_candidates_plain, qt,
                               queries, k, mask=mask, exclude=exclude, head=head)
     vp, ip = plain()
@@ -666,19 +684,25 @@ def _int8_case(card, name, qt, queries, k, *, mask=None, exclude=None, head=None
         key_err = float((_decoded(kk) - _decoded(kp)).abs()[live].max())
         if not key_err <= 1.3e-4:
             raise AssertionError(f"{name}: stage-1 keys differ by {key_err}")
-    row = dict(card=card, case=name, n=n, q=queries.shape[0], k=k, top_r=r, max_abs_err=err,
-               key_err=key_err, overlap=overlap)
+    row = dict(card=card, case=name, n=n, q=qn, k=k, top_r=r,
+               branch="tensor_core" if big else "small_q", max_abs_err=err, key_err=key_err,
+               overlap=overlap)
     row |= _timing(lambda: topk._packed_candidates_int8_cuda(*args, q_scale, qt.scale),
                    lambda: topk._packed_candidates_plain(*args, q_scale, qt.scale),
-                   "packed_topk_int8_kernel")
+                   f"{counter}_kernel")
     row["quantized_topk_ms"] = _median_ms(lambda: quantized.quantized_topk(
         qt, queries, k, mask=mask, exclude=exclude, head=head))
     row["quantized_topk_plain_ms"] = _median_ms(plain)
-    # The table (int8 rows and f32 row scales) is read once per 8-query tile.
-    row["bytes_read"] = (qt.q.numel() + 4 * n) * -(-queries.shape[0] // 8)
+    # The table (int8 rows and f32 row scales) is read once per query tile
+    # of 1, 16 or 64 queries, as the kernel's own rule picks it (the tensor
+    # cores' tiles of one group run side by side and share its rows in L2).
+    row["tile"] = _kernels.library("packed_topk_int8").packed_topk_int8_query_tile(n, qn)
+    row["table_reads"] = -(-qn // row["tile"])
+    row["bytes_read"] = _nbytes(qt.q, qt.scale) * row["table_reads"]
     row["hbm_share"] = row["bytes_read"] / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
     row |= _scan_bound(_nbytes(qt.q, qt.scale, q_scale), q_int, mask, exclude, _nbytes(kk),
                        *qt.q.shape, kind="int8")
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     print("[phase 2] " + json.dumps(row), flush=True)
     return row
 
@@ -745,25 +769,18 @@ def phase_new_kernels(card: str) -> dict[str, list[dict]]:
     anime = _normal_table(rng, N_ANIME, torch.float32, dev)
     head = torch.tensor([4.3, -0.7], device=dev)
     anime_mask = torch.from_numpy(rng.uniform(size=N_ANIME) > 0.2).to(dev)
-
-    def pick(n, q):
-        return torch.from_numpy(rng.choice(n, size=q, replace=False)).to(dev)
-
-    users_q, anime_q = quantized.quantize_rows(users), quantized.quantize_rows(anime)
-    for q in (1, 8, 256):
-        idx = pick(N_USERS, q)
-        out["packed_topk_int8"].append(_int8_case(card, f"users_int8_q{q}_exclude", users_q,
-                                                  users[idx], 10, exclude=idx))
-    for q, k in ((1, 10), (64, 10), (16, 600)):
-        qs = users[pick(N_USERS, q)]
-        out["packed_topk_int8"].append(_int8_case(card, f"anime_int8_q{q}_head_mask_k{k}", anime_q,
-                                                  qs, k, mask=anime_mask, head=head))
+    qtables = {"users": quantized.quantize_rows(users), "anime": quantized.quantize_rows(anime)}
+    for case in INT8_CASES:
+        table, queries, kw = _case_inputs(rng, qtables, case, head, anime_mask)
+        out["packed_topk_int8"].append(_int8_case(card, case[0], table, queries, case[4], **kw))
     tables = {"users": users, "anime": anime}
     for case in K3_CASES:
         table, queries, kw = _case_inputs(rng, tables, case, head, anime_mask)
         out["exact_topk"].append(_exact_case(card, case[0], table, queries, case[4], **kw))
     if max(r["top_r"] for r in out["packed_topk_int8"]) <= 64:
         raise AssertionError("no K2q case drove top_r above 64")
+    if {r["branch"] for r in out["packed_topk_int8"]} != {"small_q", "tensor_core"}:
+        raise AssertionError("phase 2 did not drive both K2q branches")
     return out
 
 
@@ -953,7 +970,7 @@ def _drive_endpoints(ctx, cfg, label, kernels=K2_COUNTERS) -> dict:
 CONTEXTS = {
     "f32": ("f32", None, K2_COUNTERS),
     "bf16": ("bf16", None, K2_COUNTERS),
-    "int8": ("int8", None, ("packed_topk_int8",)),
+    "int8": ("int8", None, INT8_COUNTERS),
     "exact_scan": ("f32", {"exact_scan": True}, ("exact_topk",)),
 }
 
@@ -2066,8 +2083,11 @@ def phase_trained(card: str) -> dict:
                                    exact_scan=True)
     _, bf_phys = topk.masked_topk(sh.table.to(torch.bfloat16), hot.to(torch.bfloat16), 10)
     sh_q = topk.ShuffledTable(quantize_rows(sh.table), sh.perm, sh.inv)
+    _kernels.launches.clear()
     _, q256 = topk.cosine_topk(sh_q, hot, 10)
     _, q8 = topk.cosine_topk(sh_q, hot[:8], 10)
+    if _kernels.launches["packed_topk_int8_mma"] != 2:
+        raise AssertionError(f"the int8 scans did not take the tensor cores: {_kernels.launches}")
     out["overlaps"] = {
         "f32_q256_vs_exact": _overlap(tc, exact),
         "f32_one_query_vs_exact": _overlap(one, exact),
@@ -2105,7 +2125,7 @@ def main() -> int:
     phase_slice(card)
     serving_launches = dict(_kernels.launches)
     print(f"[phase 3] launches on the serving path: {json.dumps(serving_launches)}", flush=True)
-    for name in (*K2_COUNTERS, "packed_topk_int8", "exact_topk"):
+    for name in (*K2_COUNTERS, *INT8_COUNTERS, "exact_topk"):
         if serving_launches.get(name, 0) < 1:
             raise AssertionError(f"the serving path never launched {name}")
     if serving_launches.get("l2_normalize", 0) != 2 * len(CONTEXTS):
@@ -2148,8 +2168,26 @@ def main() -> int:
             "bound_by": ref["bound_by"],
             "library_ms": None,   # no single PyTorch call makes stage-1 candidates
         })
+    # K2q's two kernels: dp4a (one query; users int8 Q=1) and the int8
+    # tensor cores (more; users int8 Q=256).
+    int8_rows = new_rows["packed_topk_int8"]
+    for name, branch, case in (("packed_topk_int8", "small_q", "users_int8_q1_exclude"),
+                               ("packed_topk_int8_mma", "tensor_core", "users_int8_q256_exclude")):
+        ref = next(r for r in int8_rows if r["case"] == case)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "anime_recommendations_tpu_torch/csrc/packed_topk_int8.cu",
+            "replaces": "anime_recommendations_tpu/ops/topk.py:219",
+            "launches": serving_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in int8_rows if r["branch"] == branch),
+            "ms": ref["ms"],
+            "plain_ms": ref["plain_ms"],
+            "bound_ms": ref["bound_ms"],
+            "bound_by": ref["bound_by"],
+            "library_ms": None,   # no single PyTorch call makes int8 stage-1 candidates
+        })
     for name, case, replaces in (
-        ("packed_topk_int8", "users_int8_q1_exclude", "anime_recommendations_tpu/ops/topk.py:219"),
         ("exact_topk", "users_f32_q1_exclude", "anime_recommendations_tpu/ops/topk.py:84"),
         ("l2_normalize", "users_f32_to_f32", "anime_recommendations_tpu/ops/normalize.py:20"),
     ):

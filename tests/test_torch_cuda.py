@@ -71,6 +71,11 @@ def k2_counter(q):
     return "packed_topk_mma" if q >= topk.TF32_MIN_Q else "packed_topk"
 
 
+def int8_counter(q):
+    """The launch counter of the K2q branch that serves q queries."""
+    return "packed_topk_int8_mma" if q >= topk.INT8_MMA_MIN_Q else "packed_topk_int8"
+
+
 FEATURES = {
     "plain": lambda dev, keep: {},
     "mask_exclude": lambda dev, keep: dict(
@@ -212,21 +217,31 @@ def int8_inputs(dev, n, d, q, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("head", [False, True], ids=["no_head", "head"])
-@pytest.mark.parametrize("q", [1, 3, 8, 21])
-def test_int8_stage1_keys_match_plain(cuda, q, head):
-    """Ragged last group (N = 1300), query tiles of 1 and 8 with a partial
-    tile, top_r up to the whole group, mask and exclude."""
-    w, keep, qt, q_int, q_scale = int8_inputs(cuda, 1300, 32, q, seed=17)
+@pytest.mark.parametrize("q", [1, 2, 3, 8, 16, 21, 63, 64, 65, 130])
+@pytest.mark.parametrize("d", [16, 32, 48, 128, 272])
+@pytest.mark.parametrize("n", [1300, 70_000])
+def test_int8_stage1_keys_match_plain(cuda, n, d, q, head):
+    """Ragged last group (N = 1300: 64-query tiles up to 16 queries, then
+    16-query tiles; N = 70,000: 16-query tiles up to 16 queries, then
+    64-query tiles, on an H100), both branches (one query on dp4a,
+    from INT8_MMA_MIN_Q on the tensor cores), queries across the 16-query
+    m-tile and the 64-query block tile with partial tiles, D % 64 != 0 (the
+    lanes past d zero-filled; D % 32 == 16 included) and D past the 256
+    dimensions staged at once, top_r up to the whole group, mask and
+    exclude; each case counted on the branch it should take."""
+    w, keep, qt, q_int, q_scale = int8_inputs(cuda, n, d, q, seed=17)
     excl = torch.arange(q, device=cuda)
     h = torch.tensor([3.0, -0.5], device=cuda) if head else None
+    counter = int8_counter(q)
     for top_r in (1, 4, 512):
         args = (qt.q, q_int, top_r, keep, excl, h)
-        before = _kernels.launches["packed_topk_int8"]
+        before = dict(_kernels.launches)
         got = topk.packed_candidates(*args, qscale=q_scale, wscale=qt.scale)
-        assert _kernels.launches["packed_topk_int8"] == before + 1
+        assert _kernels.launches[counter] == before.get(counter, 0) + 1
+        assert sum(_kernels.launches.values()) == sum(before.values()) + 1
         want = topk._packed_candidates_plain(*args, q_scale, qt.scale)
         torch.cuda.synchronize()
-        assert got.shape == want.shape == (q, 3 * top_r)
+        assert got.shape == want.shape == (q, -(-n // 512) * top_r)
         if not head:
             assert torch.equal(got, want)
             continue
@@ -244,9 +259,10 @@ def test_quantized_topk_on_the_card_matches_the_cpu(cuda, feature):
     kw = FEATURES[feature](cuda, keep)
     qt = quantized.quantize_rows(w)
     tq = w[[1, 2, 3, 4000, 4999]]
-    before = _kernels.launches["packed_topk_int8"]
+    counter = int8_counter(tq.shape[0])
+    before = _kernels.launches[counter]
     v, i = quantized.quantized_topk(qt, tq, 10, **kw)
-    assert _kernels.launches["packed_topk_int8"] == before + 1
+    assert _kernels.launches[counter] == before + 1
     cpu = {key: t.cpu() for key, t in kw.items()}
     pv, pi = quantized.quantized_topk(quantized.QuantizedTable(*(t.cpu() for t in qt)), tq.cpu(),
                                       10, **cpu)
@@ -254,6 +270,23 @@ def test_quantized_topk_on_the_card_matches_the_cpu(cuda, feature):
     gap = (row_scores(w, tq, i, kw.get("head")).cpu()
            - row_scores(w.cpu(), tq.cpu(), pi, cpu.get("head"))).abs()
     assert not bool(((i.cpu() != pi) & (gap > 1e-6)).any())
+
+
+@pytest.mark.cuda
+def test_int8_query_tile_follows_the_threshold(cuda):
+    """The tiling rule the library exports (chip_smoke.py counts table reads
+    by it): one query below ops/topk.INT8_MMA_MIN_Q; then up to 16 queries
+    16-query tiles where the table has more groups than the card has SMs,
+    and past 16 queries 16-query tiles where 64-query ones would leave SMs
+    idle; 64-query tiles otherwise."""
+    lib = _kernels.library("packed_topk_int8")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n in (1300, 17_560, 70_000, 91_641):
+        groups = -(-n // 512)
+        for q in range(1, 300):
+            short_grid = groups * -(-q // 64) <= sms
+            want = (1 if q < topk.INT8_MMA_MIN_Q else 16 if (q <= 16) != short_grid else 64)
+            assert lib.packed_topk_int8_query_tile(n, q) == want, (n, q)
 
 
 def integer_rows(dev, n, d, seed):

@@ -10,6 +10,9 @@ a numpy evaluation of the key formula without a head, within one key step
 (the 9 lane bits) with the sigmoid head, whose exp may differ by an ulp.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,6 +185,40 @@ def test_int8_plain_stage1_keys_match_the_formula(with_head):
         live = got > 0
         cos = np.take_along_axis(w[[0, 7, 1299]] @ w.T, np.clip(rows, 0, 1299), 1)
         assert np.abs(decoded - cos)[live].max() < 0.03    # int8 noise, ~1/127 per element
+
+
+def test_int8_mma_threshold_is_the_kernels():
+    """ops/topk.INT8_MMA_MIN_Q (the launch counters' rule) is the query count
+    from which csrc/packed_topk_int8.cu takes its tensor-core branch."""
+    src = (Path(topk.__file__).resolve().parents[1] / "csrc" / "packed_topk_int8.cu").read_text()
+    found = re.findall(r"constexpr int kMmaMinQ = (\d+);", src)
+    assert found == [str(topk.INT8_MMA_MIN_Q)]
+
+
+@pytest.mark.parametrize("with_head", [False, True], ids=["no_head", "head"])
+@pytest.mark.parametrize("d", [16, 48, 128])
+def test_int8_plain_stage1_keys_do_not_depend_on_the_query_count(d, with_head):
+    """Both kernel branches sum the same exact integers, so the plain version
+    has no query-count rule: each query's keys in a batch of 65 (across the
+    64-query tile) equal its keys alone, bit for bit, and the batch's keys
+    equal the key formula's without a head."""
+    rng = np.random.default_rng(d)
+    w = table(1300, d, seed=d)
+    qt = quantized.quantize_rows(torch.from_numpy(w))
+    q_int, q_scale = quantized._quantize(torch.from_numpy(w[:65]))
+    mask = torch.from_numpy(rng.uniform(size=1300) > 0.2)
+    excl = torch.arange(65, dtype=torch.int32)
+    head = torch.tensor([3.0, -0.5]) if with_head else None
+    batch = topk.packed_candidates(qt.q, q_int, 4, mask=mask, exclude=excl, head=head,
+                                   qscale=q_scale, wscale=qt.scale)
+    for i in (0, 15, 16, 63, 64):
+        alone = topk.packed_candidates(qt.q, q_int[i:i + 1], 4, mask=mask, exclude=excl[i:i + 1],
+                                       head=head, qscale=q_scale[i:i + 1], wscale=qt.scale)
+        assert torch.equal(alone, batch[i:i + 1])
+    if not with_head:
+        want = _numpy_keys(q_int.numpy(), q_scale.numpy(), qt.q.numpy(), qt.scale.numpy(), 4,
+                           mask.numpy(), excl.numpy(), None)
+        np.testing.assert_array_equal(batch.numpy(), want)
 
 
 def test_packed_candidates_int8_contract():

@@ -1,5 +1,6 @@
-"""Command-line interface of the PyTorch port: build, train and serve a run.
+"""Command-line interface of the PyTorch port: run the pipeline, train and serve.
 
+    python -m anime_recommendations_tpu_torch.cli pipeline --run-dir runs [--steps ...]
     python -m anime_recommendations_tpu_torch.cli ingest --run-dir runs
     python -m anime_recommendations_tpu_torch.cli preprocess --run-dir runs
     python -m anime_recommendations_tpu_torch.cli train --run-dir runs [--set model.optimizer=fused_adam]
@@ -12,17 +13,19 @@
     python -m anime_recommendations_tpu_torch.cli user-recs 153695 --run-dir runs
     python -m anime_recommendations_tpu_torch.cli model-recs 153695 --run-dir runs
 
-A run trained by either package serves (the artifact store's layout is
-shared). ingest, preprocess and train are the pipeline's first three steps;
-the ``pipeline`` subcommand and the recommend steps' artifacts are not
-ported yet. Every subcommand takes --config <yaml>, repeated --set
-section.key=value overrides, and --device (default cuda; cpu runs the
+``pipeline`` runs the eight steps (default main.execute_steps; --steps
+names some of them) and prints the timings JSON that run() writes to
+timings.json; ingest, preprocess and train run one step each. A run
+written by either package goes on and serves in the other (the artifact
+store's layout is shared). Every subcommand takes --config <yaml>, repeated
+--set section.key=value overrides, and --device (default cuda; cpu runs the
 kernels' plain versions).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 
@@ -55,6 +58,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="anime_recommendations_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = _base_parser(sub, "pipeline", "run the pipeline's steps")
+    p.add_argument("--steps", nargs="*", default=None)
+
     for step, help_ in (("ingest", "load raw data (local files, else synthetic)"),
                         ("preprocess", "clean and scale the ratings"),
                         ("train", "train the two-tower model")):
@@ -86,18 +92,26 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     cfg = load_config(args)
 
-    if args.cmd in ("ingest", "preprocess", "train"):
+    if args.cmd in ("pipeline", "ingest", "preprocess", "train"):
+        import torch.distributed as dist
+
         from anime_recommendations_tpu_torch.pipeline.runner import PipelineRunner
 
         runner = PipelineRunner(cfg, args.run_dir, device=args.device)
         try:
-            result = getattr(runner, f"step_{args.cmd}")()
+            if args.cmd == "pipeline":
+                runner.run(args.steps)
+                rank0 = not dist.is_initialized() or dist.get_rank() == 0
+            else:
+                result = getattr(runner, f"step_{args.cmd}")()
         finally:
-            import torch.distributed as dist
-
             if dist.is_initialized():   # torchrun: train went through parallel/
                 dist.destroy_process_group()
-        if result is not None:
+        if args.cmd == "pipeline":
+            if rank0:   # rank 0 wrote timings.json
+                print(json.dumps(json.loads((runner.run_dir / "timings.json").read_text()),
+                                 indent=2))
+        elif result is not None:
             print(f"best epoch {result.best_epoch}, val_loss {result.best_val_loss:.6f}, "
                   f"{result.epochs_run} epochs, {result.examples_per_sec:.0f} examples/s")
         return 0

@@ -1,10 +1,11 @@
 """Raw-data acquisition.
 
 Counterpart of anime_recommendations_tpu/data/ingest.py: local files take
-priority, read with pandas (parquet or CSV; the JAX package's native numeric
-CSV parser is not ported), and when they are missing a schema-identical
-synthetic dataset is generated from the config's seed. Downloading is not
-ported: a config that allows it for a missing file raises.
+priority (parquet through pandas; CSV through the native numeric parser,
+data/fastcsv.py, which hands files with string columns to pandas), and when
+they are missing a schema-identical synthetic dataset is generated from the
+config's seed. Downloading is not ported: a config that allows it for a
+missing file raises.
 """
 
 from __future__ import annotations
@@ -32,11 +33,16 @@ class RawData:
 def _read_any(path: Path) -> pd.DataFrame:
     if path.suffix == ".parquet":
         return pd.read_parquet(path)
+    if path.suffix == ".csv":
+        from anime_recommendations_tpu_torch.data.fastcsv import read_numeric_csv
+
+        return read_numeric_csv(path)
     return pd.read_csv(path)
 
 
-def load_raw(cfg: DataConfig) -> RawData:
-    """Resolve the three raw inputs: local files, else synthetic."""
+def load_raw(cfg: DataConfig, cache_dir: str | Path = "data") -> RawData:
+    """Resolve the three raw inputs: local files, else synthetic.
+    ``cache_dir`` is where the JAX package downloads a missing file to."""
     paths = {
         "ratings": (Path(cfg.stats_path), cfg.stats_url),
         "anime": (Path(cfg.anime_path), cfg.anime_url),
@@ -48,8 +54,8 @@ def load_raw(cfg: DataConfig) -> RawData:
             frames[key] = _read_any(path)
         elif cfg.allow_download and url:
             raise NotImplementedError(
-                f"{path} is missing and downloading ({url}) is not ported: "
-                "place the file locally (ROADMAP.md Queue 1 item 7)")
+                f"{path} is missing and downloading ({url} into {Path(cache_dir)}) is not "
+                "ported: place the file locally (ROADMAP.md Queue 1)")
         else:
             break
     if len(frames) == 3:

@@ -39,7 +39,7 @@ def score_all_items(model: TwoTower, user_index: int) -> torch.Tensor:
 
 
 def score_topk(
-    anime_table_normalized,               # [N, D] rows, QuantizedTable or ShuffledTable
+    anime_table_normalized,               # [N, D] rows, QuantizedTable, ShuffledTable, IVFIndex
     user_rows_normalized: torch.Tensor,   # [Qn, D] L2-normalized user rows
     head: torch.Tensor,                   # [2] (alpha, beta) from head_affine
     k: int,
@@ -49,10 +49,12 @@ def score_topk(
     exact_scan: bool = False,
     top_r: int | None = None,
     m: int | None = None,
+    probes: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused predict-all + mask + top-k: (ratings [Qn, k], anime rows). The
     keywords are ops/topk._dispatch_topk's."""
     if user_rows_normalized.dim() == 1:
         user_rows_normalized = user_rows_normalized[None, :]
     return _dispatch_topk(anime_table_normalized, user_rows_normalized, mask,
-                          exclude, head, k=k, exact_scan=exact_scan, top_r=top_r, m=m)
+                          exclude, head, k=k, exact_scan=exact_scan, top_r=top_r, m=m,
+                          probes=probes)

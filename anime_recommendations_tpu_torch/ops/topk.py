@@ -487,12 +487,16 @@ def _dispatch_topk(
     exact_scan: bool = False,
     top_r: int | None = None,
     m: int | None = None,
+    probes: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One entry for every retrieval flavour: a float table, an int8
-    QuantizedTable (ops/quantized.quantized_topk; ``m`` is its pool), or a
+    QuantizedTable (ops/quantized.quantized_topk; ``m`` is its pool), a
     ShuffledTable of either, whose masks, exclusions and results are
-    translated across its permutation. Masks and exclusions may be numpy
-    arrays. ``exact_scan`` is a float-table mode."""
+    translated across its permutation, or an IVFIndex (ops/ivf.ivf_topk
+    over its top ``probes`` clusters, None: every cluster; with
+    ``exact_scan`` the exact scan of its table). Masks and exclusions may be
+    numpy arrays. ``exact_scan`` is a float-table mode."""
+    from anime_recommendations_tpu_torch.ops.ivf import IVFIndex, ivf_topk
     from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable, quantized_topk
 
     inner = table.table if isinstance(table, ShuffledTable) else table
@@ -501,18 +505,23 @@ def _dispatch_topk(
             raise ValueError("exact_scan is a float-table mode; quantized retrieval "
                              "always exact-rescores its candidate pool instead")
         dev = inner.q.device
+    elif isinstance(inner, IVFIndex):
+        dev = inner.table.device
     elif isinstance(inner, torch.Tensor):
         dev = inner.device
     else:
-        raise NotImplementedError(
-            f"{type(table).__name__} retrieval tables are not ported yet: "
-            "IVF is ROADMAP.md Queue 1 ops/ivf.py"
-        )
+        raise TypeError(f"unsupported retrieval table {type(table).__name__}")
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
         mask = mask if mask.dtype == torch.bool else mask > 0
     if exclude is not None:
         exclude = torch.as_tensor(exclude, device=dev).long()
+    if isinstance(table, IVFIndex):
+        if exact_scan:
+            return masked_topk(table.table, queries, k, mask=mask, exclude=exclude, head=head,
+                               exact_scan=True)
+        return ivf_topk(table, queries, k, probes=table.n_clusters if probes is None else probes,
+                        mask=mask, exclude=exclude, head=head)
 
     def scan(t, mask, exclude):
         if isinstance(t, QuantizedTable):
@@ -543,11 +552,12 @@ def cosine_topk(
     exact_scan: bool = False,
     top_r: int | None = None,
     m: int | None = None,
+    probes: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k cosine similarity of query rows against a row-normalized table
-    (a tensor, a QuantizedTable, or a ShuffledTable of either); the query
-    rows are assumed normalized. The keywords are _dispatch_topk's."""
+    (a tensor, a QuantizedTable, a ShuffledTable of either, or an IVFIndex);
+    the query rows are assumed normalized. The keywords are _dispatch_topk's."""
     if query_rows.dim() == 1:
         query_rows = query_rows[None, :]
     return _dispatch_topk(table_normalized, query_rows, mask, exclude, None, k=k,
-                          exact_scan=exact_scan, top_r=top_r, m=m)
+                          exact_scan=exact_scan, top_r=top_r, m=m, probes=probes)

@@ -36,18 +36,26 @@ class ArtifactHandle:
     type: str
     metadata: dict[str, Any]
 
+    @property
+    def ref(self) -> str:
+        return f"{self.name}:v{self.version}"
+
     def file(self, filename: str | None = None) -> Path:
         """Path of a contained file; with no argument, the single file."""
         if filename is None:
-            files = sorted(p for p in self.dir.iterdir() if p.name != ".metadata.json")
+            files = self.files()
             if len(files) != 1:
-                raise ValueError(f"{self.name}:v{self.version} holds {len(files)} files; "
+                raise ValueError(f"{self.ref} holds {len(files)} files; "
                                  f"specify one of {[f.name for f in files]}")
             return files[0]
         path = self.dir / filename
         if not path.exists():
-            raise FileNotFoundError(f"{self.name}:v{self.version} has no file {filename!r}")
+            raise FileNotFoundError(f"{self.ref} has no file {filename!r}")
         return path
+
+    def files(self) -> list[Path]:
+        """The contained files, sorted by name."""
+        return sorted(p for p in self.dir.iterdir() if p.name != ".metadata.json")
 
 
 class ArtifactStore:
@@ -62,8 +70,7 @@ class ArtifactStore:
         """Create the next version of ``name`` from existing files on disk."""
         art_dir = self.root / _safe_dirname(name)
         art_dir.mkdir(parents=True, exist_ok=True)
-        latest = self._latest_version(art_dir)
-        version = 0 if latest is None else latest + 1
+        version = self._next_version(art_dir)
         vdir = art_dir / f"v{version}"
         vdir.mkdir()
         for fname, src in (files or {}).items():
@@ -107,11 +114,49 @@ class ArtifactStore:
             raise FileNotFoundError(f"{name}:v{version} does not exist")
         return self._handle(name, version, vdir)
 
+    def names(self) -> list[str]:
+        """Every artifact's name (as logged, not the directory's), from the
+        newest version that holds metadata; a directory without any gives
+        its own name."""
+        if not self.root.is_dir():
+            return []
+        dirs = [d for d in sorted(self.root.iterdir())
+                if d.is_dir() and not d.name.startswith(".") and self._versions(d)]
+        return [self._logged_name(d) for d in dirs]
+
+    @classmethod
+    def _logged_name(cls, art_dir: Path) -> str:
+        for version in reversed(cls._versions(art_dir)):
+            try:
+                return json.loads((art_dir / f"v{version}" / ".metadata.json").read_text())["name"]
+            except (FileNotFoundError, json.JSONDecodeError, KeyError):
+                continue
+        return art_dir.name
+
+    def exists(self, ref: str) -> bool:
+        try:
+            self.get(ref)
+            return True
+        except (FileNotFoundError, ValueError):
+            return False
+
+    def versions(self, name: str) -> list[int]:
+        art_dir = self.root / _safe_dirname(name)
+        return self._versions(art_dir) if art_dir.is_dir() else []
+
     @staticmethod
-    def _latest_version(art_dir: Path) -> int | None:
-        versions = [int(p.name[1:]) for p in art_dir.iterdir()
-                    if p.is_dir() and p.name[:1] == "v" and p.name[1:].isdigit()]
-        return max(versions) if versions else None
+    def _versions(art_dir: Path) -> list[int]:
+        return sorted(int(p.name[1:]) for p in art_dir.iterdir()
+                      if p.is_dir() and p.name[:1] == "v" and p.name[1:].isdigit())
+
+    def _next_version(self, art_dir: Path) -> int:
+        latest = self._latest_version(art_dir)
+        return 0 if latest is None else latest + 1
+
+    @classmethod
+    def _latest_version(cls, art_dir: Path) -> int | None:
+        versions = cls._versions(art_dir)
+        return versions[-1] if versions else None
 
     @staticmethod
     def _handle(name: str, version: int, vdir: Path) -> ArtifactHandle:

@@ -19,6 +19,7 @@ import torch
 from anime_recommendations_tpu_torch.data.catalog import Catalog
 from anime_recommendations_tpu_torch.data.vocab import Vocab
 from anime_recommendations_tpu_torch.models.two_tower import TwoTower
+from anime_recommendations_tpu_torch.ops.ivf import IVFIndex
 from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable
 from anime_recommendations_tpu_torch.ops.topk import ShuffledTable
 from anime_recommendations_tpu_torch.recommend.tables import build_tables
@@ -32,13 +33,14 @@ class RecContext:
     anime_norm: torch.Tensor       # [n_anime, D] L2-normalized rows, logical order, on device
     user_norm: torch.Tensor        # [n_users, D]
     head: torch.Tensor             # [2] (alpha, beta) folded eval-mode head
-    anime_scan: ShuffledTable      # what the scans read (recommend/tables.py)
-    user_scan: ShuffledTable
-    # The int8 scan tables (ops/quantized.py) of an int8 context; None = float.
+    anime_scan: ShuffledTable | IVFIndex   # what the scans read (recommend/tables.py)
+    user_scan: ShuffledTable | IVFIndex
+    # The int8 scan tables (ops/quantized.py) of an int8 context without
+    # IVF; None otherwise.
     anime_qt: QuantizedTable | None = None
     user_qt: QuantizedTable | None = None
     # Keywords merged into every cosine_topk/score_topk call the recommenders
-    # make, e.g. {"exact_scan": True}.
+    # make, e.g. {"exact_scan": True}, or an IVF context's {"probes": 16}.
     topk_kwargs: dict = field(default_factory=dict)
     _vocab_anime_meta: pd.DataFrame = field(default=None, repr=False)
 
@@ -62,28 +64,31 @@ class RecContext:
         retrieval_dtype=None,
         topk_kwargs: dict | None = None,
         ann: str = "off",
+        ann_probes: int = 16,
     ) -> "RecContext":
         """Retrieval numerics: None/"f32" = exact scans; "bf16" halves the
         scan traffic at ~1e-3 score error; "int8" stores the scan tables
         quantized (a quarter of the f32 bytes) and rescores a candidate pool
         in exact f32 (ops/quantized.py). ``topk_kwargs`` go to every scan
         (``{"exact_scan": True}`` for the single exact stage, f32 and bf16
-        only). ``ann="ivf"`` is not ported yet and raises
-        NotImplementedError. The scans read shuffled copies of the tables;
+        only). The scans read shuffled copies of the tables;
         ``anime_norm``/``user_norm`` stay in logical vocab order (f32 for
-        int8) for reading query rows."""
+        int8) for reading query rows.
+
+        ``ann="ivf"`` scans IVF indexes instead (ops/ivf.py): a query probes
+        the top ``ann_probes`` clusters and rescores their rows exactly,
+        the sublinear path for tables beyond ~1M rows. Its recall is set by
+        ``ann_probes``; probing every cluster is exact for f32 and bf16
+        tables (not for int8 storage)."""
+        t = build_tables(model, device=device, retrieval_dtype=retrieval_dtype, ann=ann)
+        topk_kwargs = dict(topk_kwargs or {})
         if ann == "ivf":
-            raise NotImplementedError(
-                "ann='ivf' is not ported yet: ROADMAP.md Queue 1 ops/ivf.py"
-            )
-        if ann != "off":
-            raise ValueError(f"ann must be 'off' or 'ivf', got {ann!r}")
-        t = build_tables(model, device=device, retrieval_dtype=retrieval_dtype)
+            topk_kwargs.setdefault("probes", ann_probes)
         return cls(
             vocab=vocab, catalog=catalog, ratings=ratings,
             anime_norm=t.anime_norm, user_norm=t.user_norm, head=t.head,
             anime_scan=t.anime_scan, user_scan=t.user_scan,
-            anime_qt=t.anime_qt, user_qt=t.user_qt, topk_kwargs=dict(topk_kwargs or {}),
+            anime_qt=t.anime_qt, user_qt=t.user_qt, topk_kwargs=topk_kwargs,
         )
 
     @property
@@ -92,11 +97,11 @@ class RecContext:
 
     # ---- retrieval-table accessors --------------------------------------------
 
-    def anime_table(self) -> ShuffledTable:
+    def anime_table(self) -> ShuffledTable | IVFIndex:
         """The anime table to hand to cosine_topk/score_topk."""
         return self.anime_scan
 
-    def user_table(self) -> ShuffledTable:
+    def user_table(self) -> ShuffledTable | IVFIndex:
         return self.user_scan
 
     # ---- per-user views -------------------------------------------------------
@@ -145,6 +150,18 @@ class RecContext:
             return np.empty(0, np.int64)
         cut = np.percentile(r, float(percentile))
         return self.catalog.positions_for_ids(aid[r >= cut])
+
+    def random_user(self, rng: np.random.Generator | None = None) -> int:
+        """A user id of the vocab, drawn as the JAX package draws it (one
+        rng.integers), so one seed picks the same user in both."""
+        rng = rng or np.random.default_rng()
+        return int(self.vocab.user_ids[rng.integers(len(self.vocab.user_ids))])
+
+    def random_anime_name(self, rng: np.random.Generator | None = None) -> str:
+        """A catalog title, drawn as the JAX package draws it."""
+        rng = rng or np.random.default_rng()
+        names = self.catalog.anime["Name"].unique()
+        return str(names[rng.integers(len(names))])
 
     # ---- masks over vocab rows ------------------------------------------------
 

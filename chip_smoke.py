@@ -136,6 +136,35 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            bf16 against the f32 and the bf16 exact scans, int8 at Q=256 and
            Q=8 (both on the int8 tensor cores), beside BENCH_r05's records
            (phase_trained says which must reach them).
+  phase 9  the whole pipeline and IVF retrieval. 9a: PipelineRunner.run()
+           over the eight steps at phase 3's scale (91,641 x 17,560 x 3M
+           synthetic ratings, seed 7, every user kept), D = 128, batches of
+           10,000, fused_adam, depth cut to one epoch. Counters are reset
+           before it; each step's launches are read: K1 and its first pass
+           twice per training step, l2_normalize twice for the context
+           build, K2 in similar_anime, similar_users, user_recs (a random
+           user outside the flow, whose similar users it scans) and
+           model_recs. Every artifact of tests/test_pipeline.py:91-101 must
+           exist (the PNGs only where matplotlib is installed; the skipped
+           ones are printed), the history header must be the golden one,
+           assert_flow must hold, and the similar_anime, similar_users and
+           model_recs CSVs must match a dense oracle on the card from the
+           stored weights. timings.json, the StepTimer sections and the
+           card's memory are printed. Then ``cli pipeline`` over the five
+           recommend steps runs in a subprocess on the same run: the same
+           seed makes the same picks, so its CSVs must equal the first
+           run's. 9b: on the trained store, an f32 IVF context probing
+           every cluster must answer every endpoint of the HTTP server as
+           the exact context does; an int8 IVF context (probing every
+           cluster is not exact there) must give the CPU's results on the
+           same indexes; the default 16 probes' overlap with the exact
+           context is printed. Then bench.py:467-517's protocol from this
+           script's seed: 2,000,000 x 128 unit rows from a rank-16 latent,
+           build_ivf(2048 clusters, 8 iterations, seed 3), 64 queries'
+           recall@10 at 8 and 32 probes against K3's exact scan (at least
+           BENCH_r05's 0.7109 and 0.9438 less 0.03), the build seconds and
+           the device ms of one query at p8, p32 and through the exact
+           scans, beside the card's name and power limit.
 
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
@@ -148,6 +177,7 @@ which are listed on their own too), and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import statistics
@@ -2113,6 +2143,471 @@ def phase_trained(card: str) -> dict:
     return out
 
 
+# ---- phase 9 -------------------------------------------------------------------
+
+# The pipeline's configuration: phase 3's synthetic data (seed SEED, every
+# user kept), D = 128, batches of 10,000, fused_adam; depth cut to
+# PIPELINE_EPOCHS. The similar_anime and model_recs filters are off (as in
+# tests/test_pipeline.py's small config), so the dense oracle needs only the
+# stored weights, the catalog and the ratings; user_recs takes a random user
+# outside the flow, so it scans for its similar users (in the flow it reads
+# them from similar_users.csv), and assert_flow is checked on the flow user.
+PIPELINE_EPOCHS = 1
+PIPELINE_SETS = [
+    f"data.synthetic_users={N_USERS}", f"data.synthetic_anime={N_ANIME}",
+    f"data.synthetic_interactions={N_RATINGS}", f"data.synthetic_seed={SEED}",
+    "data.num_reviews=1", f"model.embedding_size={D}", f"model.batch_size={BATCH}",
+    "model.optimizer=fused_adam", f"model.epochs={PIPELINE_EPOCHS}",
+    "similarity.an_spec_genres=false", "similarity.spec_types=false",
+    "users.ID_recs_from_flow=false", "users.recs_ID_from_conf=false",
+    "model_recs.specify_types=false",
+]
+RECOMMEND_STEPS = ("similar_anime", "similar_users", "user_prefs", "user_recs", "model_recs")
+# tests/test_pipeline.py:91-101's artifacts; the PNGs need matplotlib.
+PIPELINE_ARTIFACTS = (
+    "full_data_set.parquet", "all_anime.csv", "synopses.csv", "preprocessed_stats.parquet",
+    "anime_nn_model.npz", "anime_nn_history.csv", "neural_network_loss.png",
+    "similar_users.csv", "ID_used.csv", "user_prefs.csv", "user_recs.csv", "model_recs.csv",
+    "favorite_genres.png", "favorite_source_material.png",
+)
+# bench.py:467-517's IVF protocol, with this script's seed, and BENCH_r05's
+# recalls on it (the JAX package's records) less 0.03.
+IVF_ROWS, IVF_CLUSTERS, IVF_QUERIES = 2_000_000, 2048, 64
+IVF_RECALL_FLOOR = {8: 0.7109 - 0.03, 32: 0.9438 - 0.03}
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _counting_steps(runner, per_step: dict) -> None:
+    """Make each of runner's steps record the kernel launches it makes into
+    per_step[step] (run() calls the steps through getattr)."""
+    from collections import Counter
+
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.pipeline.runner import STEPS
+
+    for step in STEPS:
+        def counted(fn=getattr(runner, f"step_{step}"), step=step):
+            before = Counter(_kernels.launches)
+            fn()
+            per_step[step] = dict(Counter(_kernels.launches) - before)
+        setattr(runner, f"step_{step}", counted)
+
+
+def _normalized(w):
+    """Rows x * rsqrt(max(|x|^2, 1e-12)) in f32 (two_tower's clamp)."""
+    import torch
+
+    w = w.float()
+    return w * torch.rsqrt(torch.clamp_min((w * w).sum(dim=1, keepdim=True), 1e-12))
+
+
+def _pipeline_oracle(store, device, mrc) -> None:
+    """tests/test_pipeline_values.py's checks of the similar_anime,
+    similar_users and model_recs CSVs, against dense scores on the card from
+    the stored weights, catalog and ratings alone (values within 1e-5, the
+    same result set). model_recs keeps unwatched anime whose catalog Score
+    lies within ``mrc``'s bounds ("Unknown" does not)."""
+    import pandas as pd
+    import torch
+
+    art = store.get("anime_nn_model.npz:latest")
+    with np.load(art.file("anime_nn_model.npz")) as z:
+        w = {k: torch.from_numpy(np.asarray(z[k], np.float32)).to(device) for k in z.files}
+    vocab = json.loads(art.file("vocab.json").read_text())
+    user_ids, anime_ids = np.asarray(vocab["user_ids"]), np.asarray(vocab["anime_ids"])
+    catalog = pd.read_csv(store.get("all_anime.csv:latest").file())
+    anime_n, user_n = _normalized(w["anime_emb"]), _normalized(w["user_emb"])
+
+    sim = next(store.get(f"{n}:latest") for n in store.names()
+               if store.get(f"{n}:latest").metadata.get("Queried anime"))
+    got = pd.read_csv(sim.file())
+    q_id = int(catalog.loc[catalog["Name"] == sim.metadata["Queried anime"], "MAL_ID"].iloc[0])
+    qi = int(np.flatnonzero(anime_ids == q_id)[0])
+    v, i = _oracle_topk(anime_n, anime_n[[qi]], len(got), exclude=torch.tensor([qi], device=device))
+    name_of = catalog.set_index("MAL_ID")["Name"]
+    _close("pipeline similar_anime", got["Similarity"], v[0].cpu().numpy(), got["Name"],
+           name_of.loc[anime_ids[i[0].cpu().numpy()]])
+
+    got = pd.read_csv(store.get("similar_users.csv:latest").file())
+    uid = int(store.get("similar_users.csv:latest").metadata["Queried user"])
+    qi = int(np.flatnonzero(user_ids == uid)[0])
+    v, i = _oracle_topk(user_n, user_n[[qi]], len(got), exclude=torch.tensor([qi], device=device))
+    _close("pipeline similar_users", got["similarity"], v[0].cpu().numpy(),
+           got["similar_users"], user_ids[i[0].cpu().numpy()])
+
+    got = pd.read_csv(store.get("model_recs.csv:latest").file())
+    uid = int(store.get("model_recs.csv:latest").metadata["Queried user"])
+    stats = pd.read_parquet(store.get("preprocessed_stats.parquet:latest").file(),
+                            columns=["user_id", "anime_id"])
+    score = pd.to_numeric(catalog.set_index("MAL_ID")["Score"].reindex(anime_ids),
+                          errors="coerce").to_numpy()
+    keep = (~np.isin(anime_ids, stats.loc[stats["user_id"] == uid, "anime_id"])
+            & (score >= mrc.min_score) & (score <= mrc.max_score))
+    inv = torch.rsqrt(w["moving_var"] + 1e-3)   # the folded eval-mode head
+    head = torch.stack([w["bn_gamma"] * w["dense_w"] * inv,
+                        w["bn_gamma"] * (w["dense_b"] - w["moving_mean"]) * inv + w["bn_beta"]])
+    qi = int(np.flatnonzero(user_ids == uid)[0])
+    v, i = _oracle_topk(anime_n, user_n[[qi]], len(got), mask=torch.from_numpy(keep).to(device),
+                        head=head.reshape(2))
+    _close("pipeline model_recs", got["Prediction"], v[0].cpu().numpy(), got["anime_id"],
+           anime_ids[i[0].cpu().numpy()])
+
+
+def _same_answers(label, ctx, ref, cfg) -> int:
+    """Every endpoint of the HTTP server, served from ``ctx`` and from
+    ``ref`` with the same requests: the same rows, floats within 1e-5.
+    Returns the number of requests compared."""
+    from anime_recommendations_tpu_torch.serve.api import make_server
+
+    servers = [make_server(c, cfg, host="127.0.0.1", port=0) for c in (ctx, ref)]
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+    for t in threads:
+        t.start()
+
+    def close(a, b, where):
+        if isinstance(a, float) or isinstance(b, float):
+            if not (abs(a - b) <= 1e-5 or (a != a and b != b)):
+                raise AssertionError(f"{label} {where}: {a} vs {b}")
+        elif isinstance(a, dict):
+            if a.keys() != b.keys():
+                raise AssertionError(f"{label} {where}: keys {a.keys()} vs {b.keys()}")
+            for key in a:
+                close(a[key], b[key], where)
+        elif isinstance(a, list):
+            if len(a) != len(b):
+                raise AssertionError(f"{label} {where}: {len(a)} vs {len(b)} items")
+            for x, y in zip(a, b):
+                close(x, y, where)
+        elif a != b:
+            raise AssertionError(f"{label} {where}: {a!r} vs {b!r}")
+
+    rng = np.random.default_rng(SEED + 9)
+    vocab, catalog = ctx.vocab, ctx.catalog
+    name_of = dict(zip(catalog.anime["anime_id"], catalog.anime["Name"]))
+    users = [int(u) for u in rng.choice(vocab.user_ids, size=16, replace=False)]
+    names = [str(name_of[int(a)]) for a in rng.choice(vocab.anime_ids, size=6, replace=False)]
+    requests = (
+        [("similar_anime", dict(name=n, k=10)) for n in names[:3]]
+        + [("similar_anime", dict(name=names[3], k=10, types="TV"))]
+        + [("similar_users", dict(user_id=u, k=10)) for u in users[:3]]
+        + [("user_prefs", dict(user_id=users[3]))]
+        + [("user_recs", dict(user_id=u, k=10)) for u in users[4:7]]
+        + [("model_recs", dict(user_id=u, k=10)) for u in users[7:10]]
+        + [("similar_anime_batch", dict(names="|".join(names[4:6]), k=10)),
+           ("model_recs_batch", dict(user_ids=",".join(map(str, users[10:13])), k=10)),
+           ("similar_users_batch", dict(user_ids=",".join(map(str, users[13:16])), k=10))]
+    )
+    try:
+        for endpoint, params in requests:
+            bodies = []
+            for server in servers:
+                url = (f"http://127.0.0.1:{server.server_address[1]}/{endpoint}?"
+                       f"{urllib.parse.urlencode(params)}")
+                with urllib.request.urlopen(url, timeout=120) as resp:
+                    bodies.append(json.loads(resp.read()))
+            if not bodies[0]:
+                raise AssertionError(f"{label} /{endpoint}: empty answer")
+            close(bodies[0], bodies[1], f"/{endpoint} {params}")
+    finally:
+        for server, thread in zip(servers, threads):
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    return len(requests)
+
+
+def _ivf_cpu_agreement(label, ctx, rng) -> dict:
+    """ivf_topk of an int8-storage context on the card against the same
+    indexes copied to the CPU (probing every cluster is not exact for int8
+    storage, so the CPU result of the same index is the reference): 64
+    users' similar users (self excluded), 64 users' headed scores over the
+    catalog, 32 titles' similar anime. Values within 1e-5; rows equal
+    unless their true scores tie within 1e-6."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops.ivf import IVFIndex
+    from anime_recommendations_tpu_torch.ops.topk import cosine_topk
+    from anime_recommendations_tpu_torch.ops.scoring import score_topk
+
+    def cpu(index):
+        return IVFIndex(*(None if t is None else t.cpu() for t in index))
+
+    users = torch.from_numpy(rng.choice(ctx.vocab.n_users, 64, replace=False)).to(ctx.device)
+    anime = torch.from_numpy(rng.choice(ctx.vocab.n_anime, 32, replace=False)).to(ctx.device)
+    probes = ctx.topk_kwargs["probes"]
+    cases = {
+        "similar_users": (lambda t, d: cosine_topk(t, ctx.user_norm[users].to(d), 10,
+                                                   exclude=users.to(d), probes=probes),
+                          ctx.user_table(), ctx.user_norm, users, None),
+        "model_recs": (lambda t, d: score_topk(t, ctx.user_norm[users].to(d), ctx.head.to(d), 10,
+                                               probes=probes),
+                       ctx.anime_table(), ctx.user_norm, users, ctx.head),
+        "similar_anime": (lambda t, d: cosine_topk(t, ctx.anime_norm[anime].to(d), 10,
+                                                   exclude=anime.to(d), probes=probes),
+                          ctx.anime_table(), ctx.anime_norm, anime, None),
+    }
+    out = {}
+    for name, (scan, index, qtable, rows, head) in cases.items():
+        v, i = scan(index, ctx.device)
+        pv, pi = scan(cpu(index), "cpu")
+        err = float((v.cpu() - pv).abs().max())
+        q = qtable[rows]
+        gap = (_row_scores(index.table, q, i.clamp_min(0), head).cpu()
+               - _row_scores(index.table, q, pi.clamp_min(0).to(ctx.device), head).cpu()).abs()
+        differ = int(((i.cpu() != pi) & (gap > 1e-6)).sum())
+        if err > 1e-5 or differ:
+            raise AssertionError(f"{label} {name}: the card's IVF result differs from the CPU's "
+                                 f"(values by {err}, {differ} rows)")
+        out[name] = err
+    return out
+
+
+def _ivf_overlap(ctx, ref, rng) -> dict:
+    """Mean top-10 overlap of ``ctx``'s scans with ``ref``'s: 256 users'
+    similar users and headed scores, 256 titles' similar anime."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops.scoring import score_topk
+    from anime_recommendations_tpu_torch.ops.topk import cosine_topk
+
+    users = torch.from_numpy(rng.choice(ctx.vocab.n_users, 256, replace=False)).to(ctx.device)
+    anime = torch.from_numpy(rng.choice(ctx.vocab.n_anime, 256, replace=False)).to(ctx.device)
+    out = {}
+    for name, scan in {
+        "similar_users": lambda c: cosine_topk(c.user_table(), c.user_norm[users], 10,
+                                               exclude=users, **c.topk_kwargs),
+        "model_recs": lambda c: score_topk(c.anime_table(), c.user_norm[users], c.head, 10,
+                                           **c.topk_kwargs),
+        "similar_anime": lambda c: cosine_topk(c.anime_table(), c.anime_norm[anime], 10,
+                                               exclude=anime, **c.topk_kwargs),
+    }.items():
+        out[name] = _overlap(scan(ctx)[1], scan(ref)[1])
+    return out
+
+
+def phase_ivf_bench(card: str, device: str = "cuda") -> dict:
+    """bench.py:467-517's protocol: a 2,000,000 x 128 table of unit rows
+    from a rank-16 latent, build_ivf(2048 clusters, 8 iterations, seed 3),
+    64 queries' recall@10 at 8 and 32 probes against K3's exact scan, and the
+    device ms of one query at p8, p32 and through the exact scans (K3, and
+    the two-stage K2 scan)."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.ops.ivf import build_ivf, ivf_topk
+    from anime_recommendations_tpu_torch.ops.topk import masked_topk
+
+    rng = np.random.default_rng(SEED)
+    lat_u = torch.from_numpy(rng.standard_normal((IVF_ROWS, 16), dtype=np.float32)).to(device)
+    lat_p = torch.from_numpy(rng.standard_normal((16, D), dtype=np.float32) / 4.0).to(device)
+    w = lat_u @ lat_p
+    w = (w / torch.linalg.norm(w, dim=1, keepdim=True)).contiguous()
+    del lat_u
+    _sync(device)
+    t0 = time.perf_counter()
+    index = build_ivf(w, n_clusters=IVF_CLUSTERS, iters=8, seed=3)
+    _sync(device)
+    out = {"card": card, "rows": IVF_ROWS, "clusters": index.n_clusters,
+           "bucket_cap": index.bucket_cap, "spill": int((index.spill >= 0).sum()),
+           "build_s": time.perf_counter() - t0}
+    q = w[torch.from_numpy(rng.integers(0, IVF_ROWS, IVF_QUERIES)).to(device)]
+    before = _kernels.launches["exact_topk"]
+    _, exact = masked_topk(w, q, 10, exact_scan=True)
+    if device == "cuda" and _kernels.launches["exact_topk"] != before + 1:
+        raise AssertionError("the exact oracle did not launch exact_topk")
+    one = w[int(rng.integers(0, IVF_ROWS))][None, :].contiguous()
+    for probes in (8, 32):
+        _, ids = ivf_topk(index, q, 10, probes=probes)
+        out[f"p{probes}_recall_at10"] = _overlap(ids, exact)
+        prof = _profiled(lambda p=probes: ivf_topk(index, one, 10, probes=p))
+        out[f"q1_p{probes}_device_ms"] = prof["device_ms"]
+        out[f"q1_p{probes}_wall_ms"] = prof["wall_ms"]
+    for label, kw in (("exact_k3", dict(exact_scan=True)), ("two_stage_k2", {})):
+        prof = _profiled(lambda kw=kw: masked_topk(w, one, 10, **kw))
+        out[f"q1_{label}_device_ms"] = prof["device_ms"]
+        out[f"q1_{label}_wall_ms"] = prof["wall_ms"]
+    print(f"[phase 9] IVF at {IVF_ROWS:,} rows ({card}): {json.dumps(out)}", flush=True)
+    below = {p: out[f"p{p}_recall_at10"] for p, floor in IVF_RECALL_FLOOR.items()
+             if out[f"p{p}_recall_at10"] < floor}
+    if below:
+        raise AssertionError(f"IVF recall@10 below BENCH_r05's less 0.03: {below}")
+    del w, index
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline(card: str, device: str = "cuda") -> dict:
+    """9a: PipelineRunner.run() over the eight steps at full width on the
+    card, with the artifacts, assert_flow, the dense oracle and the launches
+    of each step checked, then ``cli pipeline`` over the five recommend
+    steps in a subprocess on the same run, whose CSVs must equal these. 9b:
+    IVF contexts on the trained store (f32 probing every cluster against the
+    exact context at every endpoint, int8 against the CPU, the default 16
+    probes' overlap), then phase_ivf_bench."""
+    import pandas as pd
+    import torch
+
+    from anime_recommendations_tpu_torch.config import Config
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.pipeline.runner import (
+        STEPS,
+        PipelineRunner,
+        context_from_store,
+    )
+    from anime_recommendations_tpu_torch.recommend.clouds import have_matplotlib
+    from anime_recommendations_tpu_torch.utils.profiling import device_memory_stats, trace
+
+    t_phase = time.perf_counter()
+    cfg = Config().with_overrides(PIPELINE_SETS)
+    print(f"[phase 9] the pipeline at {N_USERS:,} x {N_ANIME:,} x {N_RATINGS:,}, D = {D}, "
+          f"fused_adam; depth cut to {PIPELINE_EPOCHS} epoch", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runner = PipelineRunner(cfg, tmp, device=device)
+        per_step: dict[str, dict] = {}
+        _counting_steps(runner, per_step)
+        _kernels.launches.clear()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        timings = runner.run()
+        _sync(device)
+        launched = dict(_kernels.launches)
+        print(f"[phase 9] launches by step: {json.dumps(per_step)}", flush=True)
+        store = runner.store
+        # Every step's launches, checked: K1 (and its first pass) twice per
+        # training step; K4 twice for the one context build (in the first
+        # recommend step); K2 in each step that scans.
+        rows = store.get("preprocessed_stats.parquet:latest").metadata["rows_out"]
+        n_train = rows - min(cfg.model.test_size, max(rows // 10, 1))
+        steps = -(-n_train // min(BATCH, n_train)) * PIPELINE_EPOCHS
+        if device == "cuda":
+            k1 = {k: per_step["train"].get(k, 0) for k in ("fused_adam_tiles", "fused_adam")}
+            if k1 != dict.fromkeys(k1, 2 * steps):
+                raise AssertionError(f"train launched {per_step['train']} over {steps} steps")
+            if per_step["similar_anime"].get("l2_normalize") != 2 or launched["l2_normalize"] != 2:
+                raise AssertionError("the context build did not launch l2_normalize twice")
+            for step in ("similar_anime", "similar_users", "user_recs", "model_recs"):
+                if sum(per_step[step].get(c, 0) for c in K2_COUNTERS) < 1:
+                    raise AssertionError(f"step {step} launched no K2: {per_step[step]}")
+        # Artifacts, the golden header, the flow.
+        skipped = [] if have_matplotlib() else [a for a in PIPELINE_ARTIFACTS if a.endswith(".png")]
+        missing = [a for a in PIPELINE_ARTIFACTS
+                   if a not in skipped and not store.exists(f"{a}:latest")]
+        if missing or not all(store.exists(f"{a}:latest") for a in (
+                "user_recs_preferences.csv", "anime_weights.csv", "user_weights.csv")):
+            raise AssertionError(f"artifacts missing: {missing}")
+        print(f"[phase 9] every artifact logged; PNGs skipped (no matplotlib): {skipped}",
+              flush=True)
+        header = store.get("anime_nn_history.csv:latest").file().read_text().splitlines()[0]
+        if header != ",loss,mse,val_loss,val_mse,lr":
+            raise AssertionError(f"history header {header!r}")
+        flow_user = runner._flow_user()
+        if not runner.assert_flow(flow_user):
+            raise AssertionError("assert_flow failed")
+        if int(store.get("model_recs.csv:latest").metadata["Queried user"]) != flow_user:
+            raise AssertionError("model_recs did not take the flow user")
+        _pipeline_oracle(store, device, cfg.model_recs)
+        record = json.loads((runner.run_dir / "timings.json").read_text())
+        out.update(timings=timings, step_timer=record["step_timer"], launches=launched,
+                   launches_by_step=per_step, memory=device_memory_stats())
+        print(f"[phase 9] timings.json, wall s by step ({card}): {json.dumps(timings)}",
+              flush=True)
+        print(f"[phase 9] StepTimer sections: {json.dumps(record['step_timer'])}", flush=True)
+        print(f"[phase 9] device memory: {json.dumps(out['memory'])}", flush=True)
+
+        # The CLI over the five recommend steps on the same run: the same
+        # seed picks the same title and users, so the same CSVs.
+        versions = {n: store.versions(n)[-1] for n in store.names()}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "anime_recommendations_tpu_torch.cli", "pipeline",
+             "--steps", *RECOMMEND_STEPS, "--run-dir", tmp, "--device", device,
+             *[a for s in PIPELINE_SETS for a in ("--set", s)]],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"cli pipeline failed:\n{proc.stderr[-4000:]}")
+        cli_timings = json.loads(proc.stdout)
+        compared = 0
+        for name in store.names():
+            if store.versions(name)[-1] == versions.get(name):
+                continue   # not logged again by the CLI
+            new, old = store.get(f"{name}:latest"), store.get(f"{name}:v{versions[name]}")
+            if new.metadata != old.metadata or [f.name for f in new.files()] != [
+                    f.name for f in old.files()]:
+                raise AssertionError(f"cli pipeline: {name} differs in metadata or files")
+            for a, b in zip(new.files(), old.files()):
+                if a.suffix == ".csv":
+                    pd.testing.assert_frame_equal(pd.read_csv(a), pd.read_csv(b),
+                                                  check_exact=False, atol=1e-6, rtol=0)
+                    compared += 1
+        if compared < 6:
+            raise AssertionError(f"cli pipeline: {compared} CSVs compared")
+        print(f"[phase 9] cli pipeline {' '.join(RECOMMEND_STEPS)} in a subprocess "
+              f"({time.perf_counter() - t0:.1f} s): {compared} CSVs equal the in-process ones; "
+              f"its timings {json.dumps({k: v for k, v in cli_timings.items() if k in STEPS})}",
+              flush=True)
+
+        # The recommend steps again (new picks from the runner's generator)
+        # under torch.profiler: their wall time against the card's busy time.
+        trace_dir = Path(tmp) / "trace"
+        t0 = time.perf_counter()
+        with trace(trace_dir) as prof:
+            runner.run(list(RECOMMEND_STEPS))
+            _sync(device)
+        wall = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        out["recommend_profile"] = {"wall_s": wall, "device_busy_s": busy,
+                                    "idle_share": 1 - busy / wall,
+                                    "trace_files": len(list(trace_dir.glob("trace_*.json")))}
+        if out["recommend_profile"]["trace_files"] != 1:
+            raise AssertionError("utils.profiling.trace wrote no trace file")
+        print(f"[phase 9] the five recommend steps again under torch.profiler ({card}): "
+              f"{json.dumps(out['recommend_profile'])}", flush=True)
+
+        # 9b: IVF contexts on the trained store.
+        rng = np.random.default_rng(SEED + 10)
+        exact = context_from_store(cfg, tmp, device=device)
+        # Config.with_overrides changes the config it is given: a new one each.
+        probe_all = ["similarity.ann=ivf", "similarity.ann_probes=100000"]
+        ivf_cfg = Config().with_overrides(PIPELINE_SETS + probe_all)
+        before = _kernels.launches["l2_normalize"]
+        t0 = time.perf_counter()
+        ivf_all = context_from_store(ivf_cfg, tmp, device=device)
+        _sync(device)
+        if device == "cuda" and _kernels.launches["l2_normalize"] != before + 2:
+            raise AssertionError("the IVF context build did not launch l2_normalize twice")
+        build_s = time.perf_counter() - t0
+        n = _same_answers("IVF f32, every cluster probed", ivf_all, exact, cfg)
+        print(f"[phase 9] IVF f32 context ({ivf_all.anime_table().n_clusters} anime and "
+              f"{ivf_all.user_table().n_clusters} user clusters, built in {build_s:.1f} s), "
+              f"every cluster probed: {n} requests through the HTTP server answered as the "
+              f"exact context answers them", flush=True)
+        int8 = context_from_store(Config().with_overrides(
+            PIPELINE_SETS + probe_all + ["similarity.retrieval_dtype=int8"]), tmp, device=device)
+        err = _ivf_cpu_agreement("IVF int8", int8, rng)
+        print(f"[phase 9] IVF int8 context, every cluster probed: the card's results are the "
+              f"CPU's on the same indexes (largest value error {json.dumps(err)})", flush=True)
+        probes = Config().similarity.ann_probes
+        default = dataclasses.replace(ivf_all, topk_kwargs={"probes": probes})
+        out["ivf_overlap_p16"] = _ivf_overlap(default, exact, rng)
+        print(f"[phase 9] IVF f32 at the default {probes} probes, top-10 overlap with the "
+              f"exact context: {json.dumps(out['ivf_overlap_p16'])}", flush=True)
+        del exact, ivf_all, int8, default
+    out["ivf_bench"] = phase_ivf_bench(card, device)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[phase 9] wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     card = phase_device()
     import torch
@@ -2149,6 +2644,7 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     phase_trained(card)
+    phase_pipeline(card)
     # K2's two kernels: the streaming one (one query; users f32 Q=1) and the
     # tensor-core one (more; users f32 Q=256, bound by TF32).
     kernels = []

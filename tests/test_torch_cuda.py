@@ -33,14 +33,17 @@ for bit), and a precomputed stable ``order`` bit for bit the call without.
 On runs laid out against the kernels' tiles of sorted positions, K1, its
 dense branch and K5 equal, every row bit for bit, the plain version fed the
 kernels' own summation order (fused_adam.run_sums_in_tile_order), and each
-pass alone equals its plain version.
+pass alone equals its plain version. IVF retrieval (torch ops, no kernel of
+its own): an index built on the card holds every row once, and ivf_topk on
+it equals ivf_topk on its copy on the CPU, values within 1e-5, indices
+equal except where true scores tie within 1e-6.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from anime_recommendations_tpu_torch.ops import _kernels, fused_adam, normalize, quantized, topk
+from anime_recommendations_tpu_torch.ops import _kernels, fused_adam, ivf, normalize, quantized, topk
 
 
 @pytest.fixture
@@ -776,3 +779,25 @@ def test_fused_adam_passes_match_their_plain_versions(cuda, kind, d):
     fused_adam._copies_cuda(w, nids_s, norder.int(), rows)
     fused_adam._copies_plain(w, nids_s, norder.int(), rows_plain)
     assert torch.equal(rows, rows_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("feature", sorted(FEATURES))
+def test_ivf_topk_on_the_card_matches_the_cpu(cuda, feature, storage):
+    w, keep = inputs(cuda)
+    index = ivf.build_ivf(w, n_clusters=64, iters=4, seed=3, storage=storage)
+    rows = torch.cat([index.buckets.ravel(), index.spill])
+    rows = rows[rows >= 0]
+    assert rows.numel() == w.shape[0] == torch.unique(rows).numel()
+    cpu_index = ivf.IVFIndex(*(None if t is None else t.cpu() for t in index))
+    tq = w[[1, 2, 3, 4000, 4999]]
+    kw = FEATURES[feature](cuda, keep)
+    cpu = {key: t.cpu() for key, t in kw.items()}
+    for probes in (8, 64):
+        v, i = ivf.ivf_topk(index, tq, 10, probes=probes, **kw)
+        pv, pi = ivf.ivf_topk(cpu_index, tq.cpu(), 10, probes=probes, **cpu)
+        np.testing.assert_allclose(v.cpu().numpy(), pv.numpy(), atol=1e-5, rtol=0)
+        gap = (row_scores(w, tq, i.clamp_min(0), kw.get("head")).cpu()
+               - row_scores(w.cpu(), tq.cpu(), pi.clamp_min(0), cpu.get("head"))).abs()
+        assert not bool(((i.cpu() != pi) & (gap > 1e-6)).any())

@@ -24,8 +24,11 @@ MODULES = [
     "anime_recommendations_tpu_torch.recommend.model_recs",
     "anime_recommendations_tpu_torch.recommend.user_prefs",
     "anime_recommendations_tpu_torch.recommend.user_recs",
+    "anime_recommendations_tpu_torch.recommend.clouds",
     "anime_recommendations_tpu_torch.ops.normalize",
     "anime_recommendations_tpu_torch.ops.quantized",
+    "anime_recommendations_tpu_torch.ops.ivf",
+    "anime_recommendations_tpu_torch.utils.profiling",
     "anime_recommendations_tpu_torch.train.trainer",
     "anime_recommendations_tpu_torch.train.fused",
     "anime_recommendations_tpu_torch.train.device_loop",
@@ -33,6 +36,7 @@ MODULES = [
     "anime_recommendations_tpu_torch.train.lazy",
     "anime_recommendations_tpu_torch.train.convergence",
     "anime_recommendations_tpu_torch.data.ingest",
+    "anime_recommendations_tpu_torch.data.fastcsv",
     "anime_recommendations_tpu_torch.parallel",
     "anime_recommendations_tpu_torch.parallel.mesh",
     "anime_recommendations_tpu_torch.parallel.routing",

@@ -243,8 +243,8 @@ def test_unported_retrieval_modes_raise(data):
                                   retrieval_dtype="i8", topk_kwargs={"exact_scan": True})
     with pytest.raises(ValueError, match="float-table mode"):
         similar_anime(exact_int8, catalog.anime["Name"].iloc[5], count=3)
-    with pytest.raises(NotImplementedError, match="ivf"):
-        RecContext.build(model, vocab, catalog, encoded, device="cpu", ann="ivf")
+    with pytest.raises(ValueError, match="ann must be"):
+        RecContext.build(model, vocab, catalog, encoded, device="cpu", ann="hnsw")
     with pytest.raises(ValueError):
         RecContext.build(model, vocab, catalog, encoded, device="cpu", retrieval_dtype="f16")
 

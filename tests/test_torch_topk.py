@@ -288,7 +288,7 @@ def test_top_r_policy_and_unported_tables():
     assert topk.top_r_policy(600, 17_560) == 70   # the cover rule
     assert topk.top_r_policy(10, 120) == 65        # one group: cover + 1
     assert topk.top_r_policy(5, 1536, 30) == 30
-    with pytest.raises(NotImplementedError, match="IVF"):
+    with pytest.raises(TypeError, match="unsupported retrieval table"):
         topk.cosine_topk(object(), torch.zeros(4), 3)
     # int8 tables are ported: a QuantizedTable, bare or shuffled, scans.
     from anime_recommendations_tpu_torch.ops.quantized import quantize_rows

@@ -19,9 +19,10 @@ The functions are plain functions on tensors and return the new BatchNorm
 state instead of writing it into the module's buffers: the training step
 decides what to keep (train/trainer.py).
 
-The JAX package's ``take_rows`` (a sorted-scatter gradient for the TPU's
-slow random scatter) is not ported: the config's ``model.sorted_scatter``
-is parsed for parity and ignored; autograd's own index backward runs.
+``take_rows`` is the JAX package's sorted-scatter gather
+(``forward(..., sorted_scatter=...)``, the Trainer's ``sorted_scatter``
+flag); here it is the plain gather, whose backward already sorts on the
+card.
 """
 
 from __future__ import annotations
@@ -105,6 +106,19 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt(torch.clamp_min(sq, TF_L2_NORM_EPS))
 
 
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``: the JAX package's sorted-scatter gather. JAX's
+    take_rows gives the gather a backward that sorts the ids (unstably,
+    ``jnp.argsort(stable=False)``) and sums each run of equal ids. Autograd's
+    own index backward (``index_put_`` with accumulate) already does that on
+    the card: it sorts the ids and sums each run in order, with no atomics,
+    so its result does not vary between runs. On the CPU it sums in batch
+    order, or, for a large batch on several threads, with atomic adds whose
+    order may vary. Either way it differs from JAX's gradient only in f32
+    rounding, so the gather needs no backward of its own."""
+    return table[idx]
+
+
 def cosine_merge(u_rows: torch.Tensor, a_rows: torch.Tensor) -> torch.Tensor:
     """Dot(normalize=True): rowwise cosine similarity. [B,D]x[B,D]->[B]."""
     return torch.sum(_l2_normalize(u_rows) * _l2_normalize(a_rows), dim=-1)
@@ -149,13 +163,20 @@ def head(head_params, cos: torch.Tensor, bn_state: BNState, train: bool,
 
 def forward(model: TwoTower, bn_state: BNState, users: torch.Tensor,
             anime: torch.Tensor, train: bool, weights: torch.Tensor | None = None,
+            sorted_scatter: bool | str = False,
             merge: str = "cosine") -> tuple[torch.Tensor, BNState]:
     """Gathers -> cosine (or ``merge="dot"``) -> head. Returns (pred [B],
-    BNState)."""
+    BNState).
+
+    ``sorted_scatter``: False = plain gathers; True = take_rows on both
+    tables; "user" = take_rows on the user table only."""
     if merge not in MERGES:
         raise ValueError(f"unknown merge {merge!r}")
+    plain = lambda t, i: t[i]
+    u_gather = take_rows if sorted_scatter else plain
+    a_gather = take_rows if sorted_scatter is True else plain
     merge_fn = cosine_merge if merge == "cosine" else dot_merge
-    cos = merge_fn(model.user_emb[users], model.anime_emb[anime])
+    cos = merge_fn(u_gather(model.user_emb, users), a_gather(model.anime_emb, anime))
     return head(model.head_params(), cos, bn_state, train=train, weights=weights)
 
 
@@ -178,12 +199,13 @@ def loss_and_metrics(
     weights: torch.Tensor,
     l2_reg_factor: float,
     train: bool,
+    sorted_scatter: bool | str = False,
     merge: str = "cosine",
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, BNState]]:
     """Weighted-mean BCE + full-table L2, plus the mse metric.
     Returns (loss, (mse, new_bn_state))."""
     pred, new_state = forward(model, bn_state, users, anime, train=train,
-                              weights=weights, merge=merge)
+                              weights=weights, sorted_scatter=sorted_scatter, merge=merge)
     denom = torch.clamp_min(torch.sum(weights), 1.0)
     data_loss = torch.sum(bce(pred, ratings) * weights) / denom
     reg = l2_reg_factor * (

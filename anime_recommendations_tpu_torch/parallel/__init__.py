@@ -1,5 +1,6 @@
 """Row-sharded training over a torch.distributed process group (routing
-"alltoall"): counterpart of anime_recommendations_tpu/parallel/."""
+"alltoall", and the legacy "psum"): counterpart of
+anime_recommendations_tpu/parallel/."""
 
 from anime_recommendations_tpu_torch.parallel.mesh import World, make_world, mesh_shape_for
 from anime_recommendations_tpu_torch.parallel.sharded_train import ShardedTrainStep

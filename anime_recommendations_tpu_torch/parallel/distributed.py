@@ -57,16 +57,23 @@ def initialize(device: str = "cuda", init_method: str | None = None,
     return True
 
 
-def host_batch_slice(global_batch: int) -> slice:
-    """This rank's slice of a global batch. The batch must divide by the
-    world size: pad a ragged one with pad_batch_for_hosts first (weight-0
-    rows are inert in every loss, metric and optimizer path)."""
-    n = dist.get_world_size() if dist.is_initialized() else 1
+def host_batch_slice(global_batch: int, world=None, routing: str = "alltoall") -> slice:
+    """This rank's slice of a global batch: the world's rank-th under
+    "alltoall", or with ``world`` (parallel.mesh.World) and
+    ``routing="psum"`` the data_index-th of data_axis slices, the same on
+    every model rank of a data row (World.batch_shard). The batch must
+    divide by the shards: pad a ragged one with pad_batch_for_hosts first
+    (weight-0 rows are inert in every loss, metric and optimizer path)."""
+    if world is not None:
+        n, i = world.batch_shard(routing)
+    elif dist.is_initialized():
+        n, i = dist.get_world_size(), dist.get_rank()
+    else:
+        n, i = 1, 0
     if global_batch % n:
-        raise ValueError(f"global batch {global_batch} not divisible by {n} ranks; "
+        raise ValueError(f"global batch {global_batch} not divisible by {n} batch shards; "
                          "pad with pad_batch_for_hosts (zero-weight rows are inert)")
     per = global_batch // n
-    i = dist.get_rank() if dist.is_initialized() else 0
     return slice(i * per, (i + 1) * per)
 
 
@@ -145,10 +152,12 @@ def fit_data(n_users: int = 512, n_anime: int = 128, rows: int = 8192, batch: in
 def worker_fit(data_axis: int = -1, model_axis: int = 1, n_users: int = 512,
                n_anime: int = 128, rows: int = 8192, batch: int = 512, epochs: int = 3,
                optimizer: str = "fused_adam", seed: int = 0, checkpoint_dir: str | None = None,
-               resume: bool = False, device: str = "cuda", capacity: int | None = None) -> dict:
-    """A full ShardedTrainer.fit on every rank: the device loop with planned
-    epochs, the holdout evaluated on the world, best-only checkpoints per
-    rank and, with ``resume``, a same-world resume. Every rank builds the
+               resume: bool = False, device: str = "cuda", capacity: int | None = None,
+               routing: str = "alltoall", shard_anime: bool = False) -> dict:
+    """A full ShardedTrainer.fit on every rank: the device loop (with
+    planned epochs for the routed optimizers), the holdout evaluated on the
+    world, best-only checkpoints per rank and, with ``resume``, a
+    same-world resume. Every rank builds the
     same data from the seed (fit_data); the history is the same on every
     rank and, to reduction order, the same at any world size."""
     from anime_recommendations_tpu_torch.parallel.trainer import ShardedTrainer
@@ -157,7 +166,8 @@ def worker_fit(data_axis: int = -1, model_axis: int = 1, n_users: int = 512,
     trainer = ShardedTrainer(
         batch_size=batch, epochs=epochs, data_axis=data_axis, model_axis=model_axis,
         optimizer=optimizer, seed=seed, patience=max(epochs, 3), checkpoint_dir=checkpoint_dir,
-        device=device, capacity=capacity, **FIT_KWARGS)
+        device=device, capacity=capacity, routing=routing, shard_anime=shard_anime,
+        **FIT_KWARGS)
     result = trainer.fit(train, holdout, n_users, n_anime, resume=resume)
     moments = {str(v.dtype) for v in result.state.adam.mu.values()}
     return {
@@ -177,9 +187,12 @@ def worker_fit(data_axis: int = -1, model_axis: int = 1, n_users: int = 512,
 def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> dict:
     """Run saved states and batches through ShardedTrainStep. ``in_path``
     (.npz) holds ``jobs`` (JSON: a list of {name, optimizer, capacity,
-    steps, state, batch, lr, l2}), each named state as the keys of
+    steps, state, batch, lr, l2} and optionally routing (default
+    "alltoall"), shard_anime (false) and mesh ([data_axis, model_axis],
+    default [world size, 1])), each named state as the keys of
     train.trainer.train_state_to_numpy under ``<state>/`` (LOGICAL order,
-    rows a multiple of the world size) and each named global batch as
+    split tables' rows a multiple of their shards) and each named global
+    batch as
     ``<batch>/users``, ``/anime``, ``/ratings``, ``/weights``. Per job, from
     the placed state: the gradients (``<name>/grads/<param>``, logical), the
     eval sums (``<name>/eval``), then ``steps`` train steps on the batch:
@@ -189,7 +202,7 @@ def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> d
     from anime_recommendations_tpu_torch.parallel.mesh import make_world
     from anime_recommendations_tpu_torch.parallel.sharded_train import (
         ShardedTrainStep,
-        _gather_rows,
+        gather_table,
         place_state,
         unstripe_state,
     )
@@ -199,7 +212,6 @@ def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> d
         train_state_to_numpy,
     )
 
-    world = make_world(device=device)
     with np.load(in_path) as z:
         arrays = {k: z[k] for k in z.files}
     jobs = json.loads(str(arrays.pop("jobs")))
@@ -210,19 +222,23 @@ def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> d
 
     for job in jobs:
         name = job["name"]
+        routing, shard_anime = job.get("routing", "alltoall"), job.get("shard_anime", False)
+        world = make_world(*job.get("mesh", (-1, 1)), device=device)
+        layout = (world, routing, shard_anime)
         logical = group(job["state"])
         moments = torch.bfloat16 if job.get("bf16_moments") else torch.float32
-        state = place_state(train_state_from_numpy(logical, "cpu", moments), world)
-        step = ShardedTrainStep(world, l2_reg_factor=job["l2"], optimizer=job["optimizer"],
+        state = place_state(train_state_from_numpy(logical, "cpu", moments), *layout)
+        step = ShardedTrainStep(world, l2_reg_factor=job["l2"], shard_anime=shard_anime,
+                                routing=routing, optimizer=job["optimizer"],
                                 capacity=job.get("capacity"))
         batch = group(job["batch"])
-        sl = host_batch_slice(len(batch["users"]))
+        sl = host_batch_slice(len(batch["users"]), world, routing)
         cols = [torch.from_numpy(np.asarray(batch[k])[sl]).to(world.device)
                 for k in ("users", "anime", "ratings", "weights")]
         grads = step.grads(state, *cols)
         for k, g in grads.items():
-            out[f"{name}/grads/{k}"] = (_gather_rows(g, world.size) if k in TABLE_KEYS
-                                        else g).detach().cpu().numpy()
+            out[f"{name}/grads/{k}"] = (gather_table(g, world, k, routing, shard_anime)
+                                        if k in TABLE_KEYS else g).detach().cpu().numpy()
         out[f"{name}/eval"] = np.array([float(x) for x in step.eval_sums(
             state.model, state.model.bn_state(), *cols)], np.float64)
         losses, mses = [], []
@@ -232,13 +248,14 @@ def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> d
             mses.append(float(mse))
             tags = [t for t, at in (("step1", 0), ("final", job["steps"] - 1)) if i == at]
             if tags:
-                logical = train_state_to_numpy(unstripe_state(state, world))
+                logical = train_state_to_numpy(unstripe_state(state, *layout))
                 out.update({f"{name}/{t}/{k}": v for t in tags for k, v in logical.items()})
         out[f"{name}/loss"] = np.array(losses, np.float64)
         out[f"{name}/mse"] = np.array(mses, np.float64)
     if out_path is not None and world.rank == 0:
         np.savez(out_path, **out)
-    return {"rank": world.rank, "world_size": world.size, "jobs": [j["name"] for j in jobs]}
+    return {"rank": dist.get_rank(), "world_size": dist.get_world_size(),
+            "jobs": [j["name"] for j in jobs]}
 
 
 def main(argv=None) -> None:
@@ -262,6 +279,9 @@ def main(argv=None) -> None:
     parser.add_argument("--capacity", type=int, default=None)
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--routing", default="alltoall", choices=("alltoall", "psum"))
+    parser.add_argument("--shard-anime", action="store_true",
+                        help="psum: split the anime table over the model axis too")
     args = parser.parse_args(argv)
     if not args.worker:
         parser.error("nothing to do: pass --worker")
@@ -274,7 +294,8 @@ def main(argv=None) -> None:
             out = worker_fit(
                 args.data_axis, args.model_axis, batch=args.batch, epochs=args.epochs,
                 optimizer=args.optimizer, checkpoint_dir=args.checkpoint_dir,
-                resume=args.resume, device=args.device, capacity=args.capacity)
+                resume=args.resume, device=args.device, capacity=args.capacity,
+                routing=args.routing, shard_anime=args.shard_anime)
         else:
             out = worker_step(args.data_axis, args.model_axis, batch=args.batch,
                               steps=args.steps, optimizer=args.optimizer, device=args.device)

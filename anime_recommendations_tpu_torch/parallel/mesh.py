@@ -3,10 +3,16 @@
 Counterpart of anime_recommendations_tpu/parallel/mesh.py. JAX runs one
 controller over a ('data', 'model') mesh of devices; the port runs one
 process per device in a torch.distributed process group (NCCL on the card,
-gloo on the CPU). Routing "alltoall" splits both tables and the batch over
-the whole world, so the two axis sizes only have to multiply to the world
-size: rank r holds stripe r of both mod-striped tables and shard r of each
-batch, which is what JAX's flat ('data', 'model') index r holds.
+gloo on the CPU). Rank r = data_index * model_axis + model_index, the
+row-major layout of JAX's make_mesh, so rank r holds what JAX's flat device
+r holds.
+
+Routing "alltoall" splits both tables and the batch over the whole world:
+rank r holds stripe r of both mod-striped tables and shard r of each batch.
+Routing "psum" splits the batch over the data axis and the tables over the
+model axis, and reduces over the two axes' process groups: ``data_group``
+(the ranks that share this rank's model index) and ``model_group`` (the
+ranks that share its data index).
 """
 
 from __future__ import annotations
@@ -43,11 +49,41 @@ def mesh_shape_for(
 class World:
     """The initialized process group as the sharded step sees it."""
 
-    size: int           # ranks = data_axis * model_axis = table and batch shards
-    rank: int
+    size: int           # ranks = data_axis * model_axis
+    rank: int           # = data_index * model_axis + model_index
     data_axis: int
     model_axis: int
     device: torch.device
+    data_index: int = 0
+    model_index: int = 0
+    data_group: object = None    # the ranks of this model index, one per data index
+    model_group: object = None   # the ranks of this data index, one per model index
+
+    def batch_shard(self, routing: str) -> tuple[int, int]:
+        """(shards a global batch is split into, this rank's shard): the
+        whole world under "alltoall"; the data axis under "psum", where every
+        model rank of a data row takes the same shard."""
+        if routing == "psum":
+            return self.data_axis, self.data_index
+        return self.size, self.rank
+
+
+# (data_axis, model_axis) -> (default group, data groups, model groups): the
+# groups of a mesh shape are made once per default process group.
+_AXIS_GROUPS: dict = {}
+
+
+def _axis_groups(d: int, m: int) -> tuple[list, list]:
+    """The data groups (one per model index) and model groups (one per data
+    index) of a d x m mesh. dist.new_group is collective: every rank makes
+    every group, in this order."""
+    default = dist.group.WORLD
+    hit = _AXIS_GROUPS.get((d, m))
+    if hit is None or hit[0] is not default:
+        data = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)]
+        model = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
+        hit = _AXIS_GROUPS[(d, m)] = (default, data, model)
+    return hit[1], hit[2]
 
 
 def make_world(data_axis: int = -1, model_axis: int = 1, device=None) -> World:
@@ -65,7 +101,11 @@ def make_world(data_axis: int = -1, model_axis: int = 1, device=None) -> World:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return World(size=size, rank=dist.get_rank(), data_axis=d, model_axis=m, device=device)
+    rank = dist.get_rank()
+    data_groups, model_groups = _axis_groups(d, m)
+    return World(size=size, rank=rank, data_axis=d, model_axis=m, device=device,
+                 data_index=rank // m, model_index=rank % m,
+                 data_group=data_groups[rank % m], model_group=model_groups[rank // m])
 
 
 def pad_rows_for_shards(n_rows: int, n_shards: int) -> int:

@@ -1,41 +1,59 @@
-"""Sharded training step: row-striped tables over the ranks of a process group.
+"""Sharded training step: row-sharded tables over the ranks of a process group.
 
-Counterpart of anime_recommendations_tpu/parallel/sharded_train.py, routing
-``"alltoall"`` (the production path). Every rank runs this code on its own
-batch shard:
+Counterpart of anime_recommendations_tpu/parallel/sharded_train.py. Every
+rank runs this code on its own batch shard. Two routings, as in JAX:
 
+``routing="alltoall"`` (the production path):
   * batch       : split over the whole world (rank r takes shard r)
   * user table  : striped over the whole world (parallel/routing.py)
   * anime table : likewise
   * head + BN   : replicated, and kept equal by summing their gradients
+  Lookups go through routing's all-to-all exchange; the gradients of the
+  exchanged rows travel back to the owning rank, so no dense table gradient
+  crosses the wire.
 
-Lookups go through routing's all-to-all exchange; the gradients of the
-exchanged rows travel back to the owning rank, so no dense table gradient
-crosses the wire. ``routing="psum"`` and ``shard_anime`` (the JAX package's
-legacy comparison path) are not ported: ROADMAP.md Queue 1.
+``routing="psum"`` (the legacy comparison path; dense ``adam`` only):
+  * batch       : split over the data axis; every model rank of a data row
+                  takes the same shard (World.batch_shard)
+  * user table  : contiguous row blocks over the model axis (block j on the
+                  ranks of model index j), replicated over the data axis
+  * anime table : replicated, or blocked like the user table (shard_anime)
+  * head + BN   : replicated
+  A lookup is a masked local gather summed over ``model_group``
+  (``_sharded_lookup``); the loss, BatchNorm moments and eval sums reduce
+  over ``data_group``.
 
 Gradients through collectives. JAX differentiates the psum'd loss under
 shard_map; here each rank differentiates its copy of the replicated loss.
-``all_reduce_sum`` is an all-reduce whose backward all-reduces the
-cotangent, which makes the rank-local gradients those of the SUM of the m
-copies of the loss. The backward pass therefore starts from loss / m, which
-gives every exchanged row its exact gradient, and the head's gradients (the
-local partials of a replicated leaf) are summed over the ranks once. BatchNorm
-uses GLOBAL batch statistics (weighted moments over the whole batch), so the
-step is the one-device step's math at any world size.
+``all_reduce_sum`` is an all-reduce over a group whose backward all-reduces
+the cotangent over it, which makes the rank-local gradients those of the
+SUM of the group's n copies of the loss. The backward pass therefore starts
+from loss / n, n the batch shards (the world size, or data_axis for psum):
+every local term gets its exact gradient. The psum lookup's sum over
+``model_group`` is ``model_sum``, whose backward passes the cotangent
+through unchanged (JAX's transpose of a psum): every model rank of a data
+row holds the same loss, so its cotangent is already the exact one, and
+each scatters it into its own rows. The gradients of the leaves replicated
+over the batch shards (the head; for psum also the user block and the anime
+table) are then summed over the batch group once. BatchNorm uses GLOBAL
+batch statistics (weighted moments over the whole batch), so the step is
+the one-device step's math at any world size.
 
-The Keras L2 term is added analytically, 2*l2*W on the local stripe: each
-row has one copy, on its owner. The reported loss of ``adam`` and
-``fused_adam`` includes its value over both full tables.
+The Keras L2 term is added analytically, 2*l2*W on the local rows. The
+reported loss of ``adam`` and ``fused_adam`` includes its value over both
+full tables (``_reg_sum``).
 
-Collectives per step (every rank, in the same order): the exchange's
-all-to-alls (2 per round per table forward; 2 per round backward for
-``adam``, 2 per round in the gradient routing otherwise), 3 all-reduces of
-the forward and their 3 in the backward, 1 for the head's gradients and 1
-for the L2 value (``adam``, ``fused_adam``). Host syncs: 1 per table per step
-for the plans of an unplanned step (none at one rank with the default
-capacity), 1 per epoch for a planned epoch (``build_plans``), and 1 per
-round per table for ``lazy_adam``'s receipts.
+Collectives per step (every rank, in the same order). alltoall: the
+exchange's all-to-alls (2 per round per table forward; 2 per round backward
+for ``adam``, 2 per round in the gradient routing otherwise), 3 all-reduces
+of the forward and their 3 in the backward, 1 for the head's gradients and 1
+for the L2 value (``adam``, ``fused_adam``). psum: 1 model-group all-reduce
+per sharded table lookup, the 3 data-group all-reduces of the forward and
+their 3 in the backward, 3 data-group all-reduces of the gradients (head,
+user, anime) and 1 model-group all-reduce for the L2 value. Host syncs: 1 per
+table per step for the plans of an unplanned step (none at one rank with the
+default capacity), 1 per epoch for a planned epoch (``build_plans``), and 1
+per round per table for ``lazy_adam``'s receipts.
 """
 
 from __future__ import annotations
@@ -70,53 +88,115 @@ OPTIMIZERS = ("adam", "lazy_adam", "fused_adam")
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; the backward pass sums the cotangents too."""
+    """Sum over a group's ranks; the backward pass sums the cotangents too."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of x over the ranks (module docstring)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum of x over ``group``'s ranks (default: the world;
+    module docstring)."""
+    return _AllReduceSum.apply(x, group)
 
 
-def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+class _ModelSum(torch.autograd.Function):
+    """Sum over a group's ranks whose backward passes the cotangent through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def model_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of the psum lookup's masked gathers over ``group`` (the model
+    axis); its backward is the identity (module docstring)."""
+    return _ModelSum.apply(x, group)
+
+
+def _all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     y = x.detach().clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=group)
     return y
+
+
+def _sharded_lookup(table_local: torch.Tensor, ids: torch.Tensor, world: World) -> torch.Tensor:
+    """psum routing: masked gather of this rank's contiguous row block,
+    summed over the model group (each id has one owner there)."""
+    rows_local = table_local.shape[0]
+    local = ids - world.model_index * rows_local
+    owned = (local >= 0) & (local < rows_local)
+    safe = torch.clamp(local, 0, rows_local - 1)
+    gathered = table_local[safe] * owned[:, None].to(table_local.dtype)
+    return model_sum(gathered, world.model_group)
 
 
 # ---- state placement ------------------------------------------------------------
 
 
-def place_state(state: TrainState, world: World) -> TrainState:
-    """This rank's part of a LOGICAL-order TrainState (any device): stripe
-    ``rank`` of every table and table moment (rows rank, rank + m, ...), and
-    the head, BatchNorm statistics and head moments whole, on world.device.
-    Table rows must already be padded to a multiple of the world size
+def _table_layout(world: World, key: str, routing: str, shard_anime: bool):
+    """How table ``key`` is split, as (parts, part index, striped, group),
+    or None when every rank holds it whole: striped over the world
+    (alltoall), or in contiguous blocks over the model group (psum)."""
+    if routing == "alltoall":
+        return world.size, world.rank, True, None
+    if key == "user_emb" or shard_anime:
+        return world.model_axis, world.model_index, False, world.model_group
+    return None
+
+
+def table_shards(world: World, routing: str = "alltoall",
+                 shard_anime: bool = False) -> tuple[int, int]:
+    """The parts the (user, anime) tables are split into: the world size
+    for both under "alltoall"; the model axis for the user table under
+    "psum", and for the anime table with ``shard_anime`` (else 1, whole)."""
+    return tuple(1 if lay is None else lay[0]
+                 for lay in (_table_layout(world, k, routing, shard_anime) for k in TABLE_KEYS))
+
+
+def place_state(state: TrainState, world: World, routing: str = "alltoall",
+                shard_anime: bool = False) -> TrainState:
+    """This rank's part of a LOGICAL-order TrainState (any device), on
+    world.device: alltoall, stripe ``rank`` of every table and table moment
+    (rows rank, rank + m, ...); psum, the user table's row block
+    ``model_index`` (and the anime table's with ``shard_anime``, else the
+    whole table). The head, BatchNorm statistics and head moments whole.
+    Split tables' rows must already be padded to a multiple of their parts
     (parallel.mesh.pad_rows_for_shards)."""
-    m, r, dev = world.size, world.rank, world.device
+    dev = world.device
     model = state.model
-    n_users, d = model.user_emb.shape
-    n_anime = model.anime_emb.shape[0]
-    for n in (n_users, n_anime):
-        if n % m:
-            raise ValueError(f"table rows {n} not a multiple of the world size {m}")
-    local = TwoTower(n_users // m, n_anime // m, d, device=dev)
+    layouts = {k: _table_layout(world, k, routing, shard_anime) for k in TABLE_KEYS}
+    shapes = []
+    for k in TABLE_KEYS:
+        n, lay = getattr(model, k).shape[0], layouts[k]
+        if lay is not None and n % lay[0]:
+            raise ValueError(f"{k} rows {n} not a multiple of its {lay[0]} shards")
+        shapes.append(n if lay is None else n // lay[0])
+    local = TwoTower(*shapes, model.user_emb.shape[1], device=dev)
 
     def part(k, t):
-        t = t.detach()
-        return (t[r::m] if k in TABLE_KEYS else t).to(dev).contiguous()
+        t, lay = t.detach(), layouts.get(k)
+        if lay is not None:
+            parts, i, striped, _ = lay
+            rows = t.shape[0] // parts
+            t = t[i::parts] if striped else t[i * rows:(i + 1) * rows]
+        return t.to(dev).contiguous()
 
     with torch.no_grad():
         for k in PARAM_KEYS:
@@ -130,21 +210,31 @@ def place_state(state: TrainState, world: World) -> TrainState:
         nu={k: part(k, v) for k, v in adam.nu.items()}))
 
 
-def _gather_rows(t: torch.Tensor, m: int) -> torch.Tensor:
-    """The logical [m * R, D] table of every rank's stripe [R, D]."""
-    if m == 1:
+def gather_table(t: torch.Tensor, world: World, key: str, routing: str = "alltoall",
+                 shard_anime: bool = False) -> torch.Tensor:
+    """The LOGICAL table ``key`` (or its moment or gradient) from every
+    rank's part ``t``, on every rank (collective over the parts' group)."""
+    lay = _table_layout(world, key, routing, shard_anime)
+    if lay is None or lay[0] == 1:
         return t.detach().clone()
-    parts = [torch.empty_like(t, dtype=torch.float32) for _ in range(m)]
-    dist.all_gather(parts, t.detach().float().contiguous())
-    return torch.stack(parts, dim=1).reshape(-1, t.shape[1]).to(t.dtype)
+    parts_n, _, striped, group = lay
+    parts = [torch.empty_like(t, dtype=torch.float32) for _ in range(parts_n)]
+    dist.all_gather(parts, t.detach().float().contiguous(), group=group)
+    full = torch.stack(parts, dim=1) if striped else torch.stack(parts)
+    return full.reshape(-1, t.shape[1]).to(t.dtype)
 
 
-def unstripe_state(state: TrainState, world: World) -> TrainState:
-    """Every rank's stripes gathered into a LOGICAL-order TrainState, on
+def unstripe_state(state: TrainState, world: World, routing: str = "alltoall",
+                   shard_anime: bool = False) -> TrainState:
+    """Every rank's parts gathered into a LOGICAL-order TrainState, on
     every rank (collective), on world.device."""
-    m = world.size
     model = state.model
-    user, anime = (_gather_rows(getattr(model, k), m) for k in TABLE_KEYS)
+
+    def whole(k, t):
+        return gather_table(t, world, k, routing, shard_anime) if k in TABLE_KEYS else (
+            t.detach().clone())
+
+    user, anime = (whole(k, getattr(model, k)) for k in TABLE_KEYS)
     full = TwoTower(user.shape[0], anime.shape[0], user.shape[1], device=world.device)
     with torch.no_grad():
         full.user_emb.copy_(user)
@@ -153,14 +243,10 @@ def unstripe_state(state: TrainState, world: World) -> TrainState:
             getattr(full, k).copy_(getattr(model, k))
         full.moving_mean.copy_(model.moving_mean)
         full.moving_var.copy_(model.moving_var)
-
-    def whole(moments):
-        return {k: _gather_rows(v, m) if k in TABLE_KEYS else v.detach().clone()
-                for k, v in moments.items()}
-
     adam = state.adam
     return TrainState(model=full.train(), adam=AdamState(
-        count=adam.count, mu=whole(adam.mu), nu=whole(adam.nu)))
+        count=adam.count, mu={k: whole(k, v) for k, v in adam.mu.items()},
+        nu={k: whole(k, v) for k, v in adam.nu.items()}))
 
 
 # ---- the step -------------------------------------------------------------------
@@ -184,17 +270,24 @@ class ShardedTrainStep:
             raise ValueError(
                 f"unknown sharded optimizer {optimizer!r}: choose 'adam', "
                 "'lazy_adam', or 'fused_adam'")
-        if routing != "alltoall" or shard_anime:
-            raise NotImplementedError(
-                "routing='psum' and shard_anime (the legacy comparison path) are not "
-                "ported yet: ROADMAP.md Queue 1 parallel/")
+        if optimizer in ("lazy_adam", "fused_adam") and routing != "alltoall":
+            raise ValueError(
+                f"{optimizer} requires routing='alltoall' (owner-side "
+                "updates need the exchange plan; the psum path has no row "
+                "ownership for the gathered block)")
         self.world = world
         self.l2 = float(l2_reg_factor)
+        self.shard_anime = shard_anime
         self.routing = routing
         self.optimizer = optimizer
         # Per-(sender, owner) all-to-all slot count; None = default_capacity.
         self.capacity = capacity
         self._n_shards = world.size
+        # The group the batch is split over, and its size: the loss, the
+        # BatchNorm moments, the eval sums and the gradients of the leaves
+        # replicated over the batch shards reduce over it.
+        self._batch_group = world.data_group if routing == "psum" else None
+        self._n_batch = world.batch_shard(routing)[0]
 
     # ---- public API -------------------------------------------------------------
 
@@ -214,24 +307,28 @@ class ShardedTrainStep:
     def eval_sums(self, model: TwoTower, bn_state: BNState, users, anime, ratings, weights):
         """(loss_sum, mse_sum, weight_sum) over the global batch, with the
         moving BatchNorm statistics; loss_sum includes the L2 value."""
-        u_rows = self._lookup(model.user_emb, users)
-        a_rows = self._lookup(model.anime_emb, anime)
+        u_rows = self._lookup_user(model.user_emb, users)
+        a_rows = self._lookup_anime(model.anime_emb, anime)
         pred, _ = self._head(model.head_params(), cosine_merge(u_rows, a_rows), weights,
                              (bn_state.moving_mean, bn_state.moving_var))
-        sums = _all_reduce(torch.stack([
-            torch.sum(weights), torch.sum(bce(pred, ratings) * weights),
-            torch.sum(torch.square(pred - ratings) * weights), self._local_sumsq(model)]))
-        w_sum, loss_sum, mse_sum, sumsq = sums.unbind()
-        return loss_sum + self.l2 * sumsq * w_sum, mse_sum, w_sum
+        local = [torch.sum(weights), torch.sum(bce(pred, ratings) * weights),
+                 torch.sum(torch.square(pred - ratings) * weights)]
+        if self.routing == "alltoall":
+            # The tables' sum of squares rides the one all-reduce of the sums.
+            local.append(self._local_sumsq(model))
+        sums = _all_reduce(torch.stack(local), self._batch_group).unbind()
+        w_sum, loss_sum, mse_sum = sums[:3]
+        reg = self.l2 * sums[3] if self.routing == "alltoall" else self._reg_sum(model)
+        return loss_sum + reg * w_sum, mse_sum, w_sum
 
     def grads(self, state: TrainState, users, anime, ratings, weights) -> dict[str, torch.Tensor]:
-        """The exact global gradient of every parameter (head summed over
-        the ranks, analytic L2 added), before any optimizer transform. The
-        table gradients are this rank's stripes."""
+        """The exact global gradient of every parameter (replicated leaves
+        summed over the batch shards, analytic L2 added), before any
+        optimizer transform. The table gradients are this rank's parts."""
         model = state.model
         params = [getattr(model, k) for k in PARAM_KEYS]
         loss, _, _ = self._data_loss(model, users, anime, ratings, weights)
-        grads = dict(zip(PARAM_KEYS, torch.autograd.grad(loss / self._n_shards, params)))
+        grads = dict(zip(PARAM_KEYS, torch.autograd.grad(loss / self._n_batch, params)))
         return self._finish_grads(grads, model)
 
     def batch_capacity(self, batch_per_device: int) -> int:
@@ -242,17 +339,30 @@ class ShardedTrainStep:
 
     # ---- forward / loss -----------------------------------------------------------
 
-    def _lookup(self, table_local, ids):
+    def _exchange(self, table_local, ids):
         return rt.exchange_rows(table_local, ids, n_shards=self._n_shards,
                                 capacity=self.batch_capacity(ids.shape[0]))
+
+    def _lookup_user(self, table_local, ids):
+        if self.routing == "alltoall":
+            return self._exchange(table_local, ids)
+        return _sharded_lookup(table_local, ids, self.world)
+
+    def _lookup_anime(self, table_local, ids):
+        if self.routing == "alltoall":
+            return self._exchange(table_local, ids)
+        if self.shard_anime:
+            return _sharded_lookup(table_local, ids, self.world)
+        return table_local[ids]
 
     def _global_weighted_moments(self, z, w):
         """Weighted batch mean and variance over the global batch, and the
         global weight (at least 1)."""
-        s = all_reduce_sum(torch.stack([torch.sum(w), torch.sum(z * w)]))
+        g = self._batch_group
+        s = all_reduce_sum(torch.stack([torch.sum(w), torch.sum(z * w)]), g)
         denom = torch.clamp_min(s[0], 1.0)
         mean = s[1] / denom
-        var = all_reduce_sum(torch.sum(torch.square(z - mean) * w)) / denom
+        var = all_reduce_sum(torch.sum(torch.square(z - mean) * w), g) / denom
         return mean, var, denom
 
     def _head(self, head_params, cos, weights, bn_stats):
@@ -274,24 +384,40 @@ class ShardedTrainStep:
                                               weights, None)
         s = all_reduce_sum(torch.stack([
             torch.sum(bce(pred, ratings) * weights),
-            torch.sum(torch.square(pred - ratings) * weights)]))
+            torch.sum(torch.square(pred - ratings) * weights)]), self._batch_group)
         return s[0] / denom, s[1] / denom, (mean.detach(), var.detach())
 
     def _data_loss(self, model, users, anime, ratings, weights):
-        u_rows = self._lookup(model.user_emb, users)
-        a_rows = self._lookup(model.anime_emb, anime)
+        u_rows = self._lookup_user(model.user_emb, users)
+        a_rows = self._lookup_anime(model.anime_emb, anime)
         return self._loss_from_rows(u_rows, a_rows, model.head_params(), ratings, weights)
 
-    def _local_sumsq(self, model) -> torch.Tensor:
+    @staticmethod
+    def _local_sumsq(model) -> torch.Tensor:
         return torch.sum(torch.square(model.user_emb.detach())) + torch.sum(
             torch.square(model.anime_emb.detach()))
 
+    def _reg_sum(self, model) -> torch.Tensor:
+        """l2 * sum(W^2) over both full tables, on every rank."""
+        if self.routing == "alltoall":
+            return self.l2 * _all_reduce(self._local_sumsq(model))
+        user, anime = (torch.sum(torch.square(getattr(model, k).detach())) for k in TABLE_KEYS)
+        if self.shard_anime:
+            user, anime = _all_reduce(torch.stack([user, anime]), self.world.model_group)
+        else:
+            user = _all_reduce(user, self.world.model_group)
+        return self.l2 * (user + anime)
+
     def _finish_grads(self, grads: dict, model) -> dict:
-        """Sum the head's gradients over the ranks and add 2*l2*W to the
+        """Sum the gradients of the leaves replicated over the batch shards
+        over them (the head; for psum the tables too) and add 2*l2*W to the
         tables'."""
-        head = _all_reduce(torch.stack([grads[k] for k in HEAD_KEYS]))
+        g = self._batch_group
+        head = _all_reduce(torch.stack([grads[k] for k in HEAD_KEYS]), g)
         grads.update(zip(HEAD_KEYS, head.unbind()))
         for k in TABLE_KEYS:
+            if self.routing == "psum":
+                grads[k] = _all_reduce(grads[k], g)
             grads[k] = grads[k] + 2.0 * self.l2 * getattr(model, k).detach()
         return grads
 
@@ -304,12 +430,12 @@ class ShardedTrainStep:
     # ---- steps --------------------------------------------------------------------
 
     def _dense_step(self, state: TrainState, users, anime, ratings, weights, lr):
-        """Dense Adam (the one-device train_step) on the local stripes."""
+        """Dense Adam (the one-device train_step) on the local parts."""
         model, adam = state.model, state.adam
         params = [getattr(model, k) for k in PARAM_KEYS]
         loss, mse, (mean, var) = self._data_loss(model, users, anime, ratings, weights)
-        grads = dict(zip(PARAM_KEYS, torch.autograd.grad(loss / self._n_shards, params)))
-        reg = self.l2 * _all_reduce(self._local_sumsq(model))
+        grads = dict(zip(PARAM_KEYS, torch.autograd.grad(loss / self._n_batch, params)))
+        reg = self._reg_sum(model)
         grads = self._finish_grads(grads, model)
         t = adam.count + 1
         bc1, bc2 = bias_corrections(t)
@@ -417,6 +543,9 @@ def build_plans(step: ShardedTrainStep, users_batches, anime_batches, table_rows
     this rank's shard of each batch, [nb, B/m]. Returns (plans_u, plans_a),
     lists of plans; for ``fused_adam`` (pass ``table_rows`` = the PADDED
     (n_users, n_anime)) each entry is (plan, receipt order)."""
+    if step.routing != "alltoall" or step.optimizer not in ("lazy_adam", "fused_adam"):
+        raise ValueError("planned epoch requires routing='alltoall' with a routed "
+                         "owner-side optimizer (lazy_adam / fused_adam)")
     m = step._n_shards
     fused = step.optimizer == "fused_adam"
     if fused and table_rows is None:

@@ -1,20 +1,25 @@
 """Sharded trainer: the one-device epoch loop over the routed steps.
 
-Counterpart of anime_recommendations_tpu/parallel/trainer.py (routing
-``"alltoall"``), a drop-in for train/trainer.Trainer on every rank of a
-process group (parallel.distributed.initialize). It handles:
-  * table rows zero-padded to a multiple of the world size (inert under the
-    L2 term), both tables striped over the ranks (parallel/routing.py), and
-    the fitted state gathered back to logical row order on every rank;
-  * the global batch split over the ranks (batch_size % world size == 0);
+Counterpart of anime_recommendations_tpu/parallel/trainer.py, a drop-in
+for train/trainer.Trainer on every rank of a process group
+(parallel.distributed.initialize). It handles:
+  * table rows zero-padded to a multiple of their shards (inert under the
+    L2 term): routing "alltoall" stripes both tables over the whole world
+    (parallel/routing.py); "psum" splits the user table (and the anime
+    table with shard_anime) into row blocks over the model axis; the fitted
+    state is gathered back to logical row order on every rank;
+  * the global batch split over the batch shards (the world, or the data
+    axis for psum; batch_size must divide by their count);
   * optimizer="lazy_adam": owner-side row-sparse Adam on the routed path;
     "fused_adam": owner-side fused dense Adam through K1, exact under any
     overflow (its dense branch takes the overflow rounds);
     "fused_adam_bf16m": the same with bf16 table moments;
   * capacity=-1: the slot count measured per fit from sampled batches;
   * the holdout evaluated on the whole world, and best-only checkpoints per
-    rank in the physical layout (``<checkpoint_dir>/rank<r>-of-<m>``), so a
-    resume needs the same world size.
+    rank in the physical layout (``<checkpoint_dir>/rank<r>-of-<m>``),
+    written by each rank's AsyncCheckpointer, so a resume needs the same
+    world size, mesh and routing: each checkpoint names them, and a
+    restore under others raises.
 
 The device loop (``device_loop=True``) stages the data on every rank's
 device and shuffles it as the one-device loop does (train/device_loop.py:
@@ -43,6 +48,7 @@ from anime_recommendations_tpu_torch.parallel.sharded_train import (
     ShardedTrainStep,
     build_plans,
     place_state,
+    table_shards,
     unstripe_state,
 )
 from anime_recommendations_tpu_torch.train import device_loop as dl
@@ -61,17 +67,20 @@ ROUTED = ("lazy_adam", "fused_adam")
 
 
 def init_placed_state(world, n_users: int, n_anime: int, embedding_size: int,
-                      generator: torch.Generator, bf16_moments: bool = False) -> TrainState:
-    """This rank's stripes of the one-device trainer's initial state (the
-    same draws from the same generator), zero-padded to a multiple of the
-    world size; bf16 table moments with ``bf16_moments``."""
+                      generator: torch.Generator, bf16_moments: bool = False,
+                      routing: str = "alltoall", shard_anime: bool = False) -> TrainState:
+    """This rank's part of the one-device trainer's initial state (the same
+    draws from the same generator), each split table zero-padded to a
+    multiple of its shards (table_shards); bf16 table moments with
+    ``bf16_moments``."""
     arrays = train_state_to_numpy(init_train_state(
         n_users, n_anime, embedding_size, generator=generator, device="cpu"))
-    for k in TABLE_KEYS:
+    for k, shards in zip(TABLE_KEYS, table_shards(world, routing, shard_anime)):
         for prefix in ("", "mu.", "nu."):
-            arrays[prefix + k] = pad_table(arrays[prefix + k], world.size)
+            arrays[prefix + k] = pad_table(arrays[prefix + k], shards)
     moments = torch.bfloat16 if bf16_moments else torch.float32
-    return place_state(train_state_from_numpy(arrays, "cpu", moments), world)
+    return place_state(train_state_from_numpy(arrays, "cpu", moments), world, routing,
+                       shard_anime)
 
 
 @dataclass
@@ -79,8 +88,9 @@ class ShardedTrainer(Trainer):
     data_axis: int = -1
     model_axis: int = 1
     shard_anime: bool = False
-    # "alltoall": tables striped over the whole world, lookups routed so
-    # each row crosses the wire once ("psum" is not ported: ROADMAP.md).
+    # "alltoall" (default): tables striped over the whole world, lookups
+    # routed so each row crosses the wire once. "psum": the legacy dense
+    # [B, D] all-reduce over the model axis (comparison baseline; adam only).
     routing: str = "alltoall"
     # Per-(sender, owner) all-to-all slot count; None = auto (2x the uniform
     # expectation, routing.default_capacity); -1 = measured per fit from
@@ -101,16 +111,26 @@ class ShardedTrainer(Trainer):
             self.capacity = None  # until fit measures it
         self.world = make_world(self.data_axis, self.model_axis, self.device)
         self.device = self.world.device
-        m = self.world.size
-        if self.batch_size % m:
-            raise ValueError(f"batch_size {self.batch_size} must divide by the world size {m}")
+        # Shards the batch splits over, this rank's one, and the tables' shards.
+        self._n_batch_shards, self._batch_index = self.world.batch_shard(self.routing)
+        self._n_table_shards = table_shards(self.world, self.routing)[0]
+        if self.batch_size % self._n_batch_shards:
+            raise ValueError(f"batch_size {self.batch_size} must divide by batch shards "
+                             f"{self._n_batch_shards}")
         if self.world.rank != 0:
             self.verbose = False
         if self.checkpoint_dir is not None:
-            self.checkpoint_dir = str(Path(self.checkpoint_dir) / f"rank{self.world.rank}-of-{m}")
+            self.checkpoint_dir = str(
+                Path(self.checkpoint_dir) / f"rank{self.world.rank}-of-{self.world.size}")
         self._step = self._make_step()
         if self.verbose:
             self._log_comm_budget()
+
+    def _checkpoint_layout(self) -> str:
+        """The routing and mesh, and for psum whether the anime table is
+        split: what decides which rows each rank's tables hold."""
+        layout = f"{self.routing} {self.world.data_axis}x{self.world.model_axis}"
+        return layout + (" shard_anime" if self.routing == "psum" and self.shard_anime else "")
 
     def _make_step(self) -> ShardedTrainStep:
         return ShardedTrainStep(self.world, l2_reg_factor=self.l2_reg_factor,
@@ -119,13 +139,18 @@ class ShardedTrainer(Trainer):
 
     def _shard(self, b: int) -> slice:
         """This rank's part of a global batch of ``b`` rows."""
-        per = b // self.world.size
-        return slice(self.world.rank * per, (self.world.rank + 1) * per)
+        per = b // self._n_batch_shards
+        return slice(self._batch_index * per, (self._batch_index + 1) * per)
+
+    def _effective_capacity(self) -> int:
+        """The all-to-all slot count of a batch shard; 0 under "psum"."""
+        b_dev = max(self.batch_size // self._n_batch_shards, 1)
+        return self._step.batch_capacity(b_dev) if self.routing == "alltoall" else 0
 
     def _log_comm_budget(self):
-        m = self.world.size
-        b_dev = max(self.batch_size // m, 1)
-        cap = self._step.batch_capacity(b_dev)
+        m = self._n_table_shards
+        b_dev = max(self.batch_size // self._n_batch_shards, 1)
+        cap = self._effective_capacity() or rt.default_capacity(b_dev, m)
         a2a = rt.exchange_comm_bytes(b_dev, self.embedding_size, m, cap)
         ps = rt.psum_comm_bytes(max(self.batch_size // max(self.world.data_axis, 1), 1),
                                 self.embedding_size, max(self.world.model_axis, 2))
@@ -147,7 +172,10 @@ class ShardedTrainer(Trainer):
 
     def _log_plan_stats(self, train: RatingsDataset):
         """Measured routing stats of sampled batches: unique ids, the largest
-        per-owner bucket and the rounds at the configured capacity."""
+        per-owner bucket and the rounds at the configured capacity (alltoall
+        only)."""
+        if self.routing != "alltoall":
+            return
         m = self.world.size
         rounds_seen = {}
         for name, shard in self._sample_shards(train, 4):
@@ -177,14 +205,14 @@ class ShardedTrainer(Trainer):
 
     def _init_state(self, generator: torch.Generator, n_users: int, n_anime: int) -> TrainState:
         return init_placed_state(self.world, n_users, n_anime, self.embedding_size, generator,
-                                 self._bf16_moments)
+                                 self._bf16_moments, self.routing, self.shard_anime)
 
     def fit(self, train: RatingsDataset, holdout: RatingsDataset, n_users: int, n_anime: int,
             initial_state: TrainState | None = None, resume: bool = False) -> TrainResult:
         """Trainer.fit on every rank; ``initial_state``, if given, is a
-        LOGICAL-order state padded to the world size. The returned state is
-        logical (padded), on every rank."""
-        if self._auto_capacity:
+        LOGICAL-order state padded to the table shards. The returned state
+        is logical (padded), on every rank."""
+        if self._auto_capacity and self.routing == "alltoall":
             self.capacity = self._measure_capacity(train)
             if self.verbose:
                 self.log_fn(f"measured capacity: {self.capacity} slots/(sender, owner)")
@@ -192,9 +220,10 @@ class ShardedTrainer(Trainer):
         if self.verbose:
             self._log_plan_stats(train)
         if initial_state is not None:
-            initial_state = place_state(initial_state, self.world)
+            initial_state = place_state(initial_state, self.world, self.routing,
+                                        self.shard_anime)
         result = super().fit(train, holdout, n_users, n_anime, initial_state, resume)
-        result.state = unstripe_state(result.state, self.world)
+        result.state = unstripe_state(result.state, self.world, self.routing, self.shard_anime)
         return result
 
     def _train_step(self, state, batch, lr):
@@ -213,7 +242,7 @@ class ShardedTrainer(Trainer):
         return float(loss_sum) / w, float(mse_sum) / w
 
     def _eval_batch_size(self, n_rows: int) -> int:
-        k = self.world.size
+        k = self._n_batch_shards
         size = min(self.batch_size, max(n_rows, k))
         return max(size - size % k, k)
 
@@ -221,8 +250,9 @@ class ShardedTrainer(Trainer):
 
     def _stage_device(self, train: RatingsDataset, holdout: RatingsDataset):
         """The whole data staged on this rank's device, as the one-device
-        loop stages it (batch size rounded down to a multiple of the world)."""
-        m = self.world.size
+        loop stages it (batch size rounded down to a multiple of the batch
+        shards)."""
+        m = self._n_batch_shards
         bs = min(self.batch_size, max(len(train), 1))
         bs = max(bs - bs % m, m)
         eval_bs = self._eval_batch_size(len(holdout))
@@ -256,10 +286,11 @@ class ShardedTrainer(Trainer):
         nb = data.n // batch_size
         users, anime, ratings, weights = (self._local(x, nb, batch_size) for x in data)
         wsums = data.weights[:nb * batch_size].view(nb, batch_size).sum(dim=1)
-        table_rows = tuple(getattr(state.model, k).shape[0] * self.world.size
-                           for k in TABLE_KEYS)
-        plans = (build_plans(self._step, users, anime, table_rows)
-                 if self.optimizer in ROUTED else None)
+        plans = None
+        if self.optimizer in ROUTED:
+            table_rows = tuple(getattr(state.model, k).shape[0] * self.world.size
+                               for k in TABLE_KEYS)
+            plans = build_plans(self._step, users, anime, table_rows)
         losses, mses = [], []
         for i in range(nb):
             kw = {}

@@ -31,7 +31,7 @@ JAX runner writes them, and ``step_timer``, utils/profiling.StepTimer's
 summary of the steps and of sections inside them (``context``: the
 context build; ``train.fit``; ``train.weight_csvs``).
 
-Under torchrun, ``step_train`` trains on every rank through the routed
+Under torchrun, ``step_train`` trains on every rank through the
 ShardedTrainer (parallel/), as the JAX runner does on a multi-device mesh,
 and rank 0 logs the artifacts; run() runs every other step on rank 0 only,
 and the other ranks wait for its ingest and preprocess at a barrier before
@@ -248,9 +248,10 @@ class PipelineRunner:
         history, loss plot and (optionally) weight CSVs. Returns the
         TrainResult.
 
-        The routed ShardedTrainer trains when a process group exists (torchrun
+        The sharded ShardedTrainer trains when a process group exists (torchrun
         started the process: parallel.distributed.initialize) and spans more
-        than one rank, or ``parallel.capacity`` is set; the one-device Trainer
+        than one rank, or ``parallel.capacity``, ``parallel.routing=psum`` or
+        ``parallel.shard_anime_table`` is set; the one-device Trainer
         otherwise."""
         from anime_recommendations_tpu_torch.models.two_tower import normalized_tables
         from anime_recommendations_tpu_torch.parallel.distributed import initialize
@@ -259,7 +260,9 @@ class PipelineRunner:
 
         initialize(self.device)   # a plain single process: nothing to do
         mc, pc = self.cfg.model, self.cfg.parallel
-        sharded = dist.is_initialized() and (dist.get_world_size() > 1 or pc.capacity != 0)
+        sharded = dist.is_initialized() and (
+            dist.get_world_size() > 1 or pc.capacity != 0 or pc.routing != "alltoall"
+            or pc.shard_anime_table)
         clean = pd.read_parquet(
             self.store.get("preprocessed_stats.parquet:latest").file())
         vocab = build_vocab(clean)

@@ -107,6 +107,18 @@ class RecContext:
     # ---- per-user views -------------------------------------------------------
 
     @cached_property
+    def _by_user(self):
+        return self.ratings.groupby("user_id")
+
+    def user_rows(self, user_id: int) -> pd.DataFrame:
+        """All rating rows of one user (reference df[df.user_id == user]);
+        an empty frame for an unknown user."""
+        try:
+            return self._by_user.get_group(user_id)
+        except KeyError:
+            return self.ratings.iloc[0:0]
+
+    @cached_property
     def _user_csr(self):
         """Per-user rating slices as flat arrays sorted by user_id:
         (uid_sorted, rating, anime_id, anime_vocab_idx, watched_episodes)."""

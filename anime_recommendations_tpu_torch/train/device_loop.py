@@ -16,6 +16,7 @@ before and gathers the next batch's rows from the tables it just updated.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -97,11 +98,13 @@ def train_epoch(
     batch_size: int,
     l2_reg_factor: float,
     shuffle: bool = True,
+    sorted_scatter: bool | str = False,
     optimizer: str = "adam",
 ) -> tuple[TrainState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One epoch on the device. Returns (state, losses[nb], mses[nb],
     wsums[nb]), all on the device. ``optimizer="lazy_adam"`` takes the
-    row-sparse step of train/lazy.py, whose losses exclude the L2 term."""
+    row-sparse step of train/lazy.py, whose losses exclude the L2 term.
+    ``sorted_scatter``: the adam step's gathers (two_tower.forward)."""
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}")
     nb = data.n // batch_size
@@ -116,7 +119,7 @@ def train_epoch(
     if optimizer == "lazy_adam":
         from anime_recommendations_tpu_torch.train.lazy import lazy_train_step as step_fn
     else:
-        step_fn = train_step
+        step_fn = functools.partial(train_step, sorted_scatter=sorted_scatter)
     losses, mses = [], []
     for i in range(nb):
         state, loss, mse = step_fn(

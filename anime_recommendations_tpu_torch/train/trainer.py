@@ -3,7 +3,8 @@
 Counterpart of anime_recommendations_tpu/train/trainer.py, replacing the
 reference's Keras model.fit stack:
   * per-epoch LearningRateScheduler -> lr_for_epoch, a host float per epoch
-  * ModelCheckpoint(best val_loss)  -> best-state retention (+ torch.save)
+  * ModelCheckpoint(best val_loss)  -> best-state retention (+ torch.save on
+                                       a background thread, AsyncCheckpointer)
   * EarlyStopping(patience=3, restore_best_weights=True)
   * history csv                     -> the frame loss, mse, val_loss, val_mse, lr
 
@@ -136,14 +137,16 @@ def train_step(
     lr: float,
     l2_reg_factor: float,
     merge: str = "cosine",
+    sorted_scatter: bool | str = False,
 ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
     """One dense-Adam step. Returns (state, batch_loss, batch_mse), the last
-    two 0-dim device tensors (no host sync)."""
+    two 0-dim device tensors (no host sync). ``sorted_scatter``: the
+    gathers' backward (two_tower.forward)."""
     model, adam = state.model, state.adam
     params = [getattr(model, k) for k in PARAM_KEYS]
     loss, (mse, new_bn) = loss_and_metrics(
         model, model.bn_state(), users, anime, ratings, weights, l2_reg_factor,
-        True, merge=merge)
+        True, sorted_scatter=sorted_scatter, merge=merge)
     grads = torch.autograd.grad(loss, params)
     t = adam.count + 1
     bc1, bc2 = bias_corrections(t)
@@ -206,6 +209,11 @@ class Trainer:
     # Each epoch through train/device_loop.py: data staged on the device
     # once, a granule shuffle per epoch, no host sync until the epoch ends.
     device_loop: bool = False
+    # The device loop's adam gathers through two_tower.take_rows (True =
+    # both tables, "user" = the user table only, False = plain gathers).
+    # The same gradients, each row's terms summed in batch order (JAX's
+    # default; two_tower.take_rows).
+    sorted_scatter: bool | str = True
     # "adam" = dense Keras-parity Adam; "fused_adam" = the same semantics
     # through the K1 kernel per table (train/fused.py); "fused_adam_bf16m" =
     # fused_adam with bf16 table moments, stochastically rounded;
@@ -274,21 +282,27 @@ class Trainer:
     ) -> TrainResult:
         """Train with early stopping; ``resume=True`` restores the latest
         checkpoint under checkpoint_dir (epoch-level resume)."""
+        ckptr = None
+        if self.checkpoint_dir is not None:
+            from anime_recommendations_tpu_torch.train.checkpoint import AsyncCheckpointer
+
+            ckptr = AsyncCheckpointer(self.checkpoint_dir, layout=self._checkpoint_layout())
+        try:
+            return self._fit(train, holdout, n_users, n_anime, initial_state, resume, ckptr)
+        finally:
+            if ckptr is not None:
+                ckptr.close()
+
+    def _fit(self, train, holdout, n_users, n_anime, initial_state, resume, ckptr):
         generator = torch.Generator().manual_seed(self.seed)
         state = initial_state or self._init_state(generator, n_users, n_anime)
         start_epoch = 0
-        if resume and self.checkpoint_dir is not None and initial_state is None:
-            restored = self._try_restore(state)
+        if resume and ckptr is not None and initial_state is None:
+            restored = self._try_restore(ckptr, state)
             if restored is not None:
                 state, start_epoch = restored
 
         staged = self._stage_device(train, holdout) if self.device_loop else None
-
-        ckptr = None
-        if self.checkpoint_dir is not None:
-            from anime_recommendations_tpu_torch.train.checkpoint import Checkpointer
-
-            ckptr = Checkpointer(self.checkpoint_dir)
 
         best_val = float("inf")
         best_epoch = -1
@@ -356,6 +370,8 @@ class Trainer:
                     break
 
         elapsed = time.perf_counter() - t0
+        if ckptr is not None:
+            ckptr.wait()
         # restore_best_weights=True semantics; the Adam state stays the last.
         state.model.load_state_dict(best)
         return TrainResult(
@@ -391,6 +407,7 @@ class Trainer:
         state, ep_losses, ep_mses, ep_ws = dl.train_epoch(
             state, train_data, generator, lr, bs, self.l2_reg_factor,
             shuffle=self.shuffle_each_epoch,
+            sorted_scatter=self.sorted_scatter,
             optimizer=self.optimizer,
         )
         bw_arr = ep_ws.cpu().numpy().astype(np.float64)
@@ -414,10 +431,11 @@ class Trainer:
     def _eval_batch_size(self, n_rows: int) -> int:
         return min(self.batch_size, max(n_rows, 1))
 
-    def _try_restore(self, state: TrainState) -> tuple[TrainState, int] | None:
-        from anime_recommendations_tpu_torch.train.checkpoint import Checkpointer
+    def _checkpoint_layout(self) -> str | None:
+        """How the checkpointed state is split over ranks: not at all."""
+        return None
 
-        ckptr = Checkpointer(self.checkpoint_dir)
+    def _try_restore(self, ckptr, state: TrainState) -> tuple[TrainState, int] | None:
         step = ckptr.latest_step()
         if step is None:
             return None

@@ -165,6 +165,30 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            BENCH_r05's 0.7109 and 0.9438 less 0.03), the build seconds and
            the device ms of one query at p8, p32 and through the exact
            scans, beside the card's name and power limit.
+  phase 10 (on phase 7's NCCL group, after it) the rest of parallel/, take_rows
+           and the asynchronous checkpointer, at full width. 10a:
+           PipelineRunner.step_train with parallel.routing=psum, then with
+           parallel.shard_anime_table=true too: one adam epoch each, held to
+           phase 5's first adam epoch at phase 5's tolerances; ShardedTrainer
+           with psum must refuse lazy_adam and fused_adam; a timed psum epoch
+           and 10 profiled steps. 10b: parallel/scaling_bench's measure_mesh
+           at 1x1 with its defaults (91,641 x 17,560 x 128, batches of 8,192,
+           30 steps after 3): alltoall adam, alltoall fused_adam (K1 and its
+           first pass twice a step) and psum adam, then its launcher (one
+           torch.distributed.run of one NCCL rank) at 1x1 psum. 10c: the
+           device loop's adam with sorted_scatter True (two_tower.take_rows)
+           and False: Trainer.fit histories within 1e-5 relative, a timed
+           epoch each with 10 profiled steps, and the two tables' embedding
+           backward alone on a batch's ids (through take_rows and the
+           plain gather: autograd's index_put_ either way), within 1e-6 of
+           the largest entry, profiled. 10d:
+           Trainer.fit with AsyncCheckpointer: the saved best state restores
+           bit for bit, a fit stopped after 2 epochs and resumed equals the
+           uninterrupted 3-epoch fit bit for bit, a snapshot ignores an
+           in-place update made before its write, and the host time save
+           blocks against Checkpointer.save's. Counters are reset before
+           the phase: K1 and its first pass must run 66 times each (10b's
+           fused_adam), no other kernel.
 
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
@@ -1887,11 +1911,11 @@ def phase_dense(card: str, receipts: bool) -> list[dict]:
             for i, (name, n, ids, dtype) in enumerate(cases)]
 
 
-def _routed_trainer(optimizer: str, capacity=None):
+def _routed_trainer(optimizer: str, capacity=None, routing: str = "alltoall"):
     from anime_recommendations_tpu_torch.parallel.trainer import ShardedTrainer
 
     return ShardedTrainer(batch_size=BATCH, optimizer=optimizer, capacity=capacity, seed=SEED,
-                          verbose=False, device=DEVICE, device_loop=True)
+                          verbose=False, device=DEVICE, device_loop=True, routing=routing)
 
 
 def _rounds(capacity: int) -> dict:
@@ -1908,8 +1932,8 @@ def _rounds(capacity: int) -> dict:
     return out
 
 
-def _timed_routed_epoch(optimizer: str, capacity=None) -> dict:
-    """One routed epoch (plans included) from a fresh state, host clock
+def _timed_routed_epoch(optimizer: str, capacity=None, routing: str = "alltoall") -> dict:
+    """One sharded epoch (plans included) from a fresh state, host clock
     between synchronizes; then 10 steps under torch.profiler."""
     import torch
 
@@ -1917,7 +1941,7 @@ def _timed_routed_epoch(optimizer: str, capacity=None) -> dict:
 
     train, _ = _train_split()
     _, vocab, _, _ = _dataset()
-    trainer = _routed_trainer(optimizer, capacity)
+    trainer = _routed_trainer(optimizer, capacity, routing)
     state = trainer._init_state(torch.Generator().manual_seed(SEED), vocab.n_users, vocab.n_anime)
     data = dl.granule_shuffle(dl.stage(train, BATCH, seed=SEED, device=DEVICE),
                               torch.Generator().manual_seed(SEED))
@@ -2037,6 +2061,271 @@ def phase_routed(card: str, trained: dict) -> dict:
         base = trained["timed"][optimizer]["ms_per_step"]
         print(f"[phase 7] routed {label} timed epoch ({card}): {json.dumps(out['timed'][label])}; "
               f"one-device (phase 5) {base:.3f} ms/step", flush=True)
+    return out
+
+
+# ---- phase 10 ------------------------------------------------------------------
+
+# scaling_bench's defaults (the JAX harness's): global batch and timed steps,
+# after its 3 warm-up steps.
+SCALING_BATCH, SCALING_STEPS, SCALING_WARM = 8192, 30, 3
+SCALING_RUNS = (("alltoall", "adam"), ("alltoall", "fused_adam"), ("psum", "adam"))
+SORT_STEPS = 10   # the profiled window of 10c
+
+
+def _psum_runs(card: str, trained: dict) -> dict:
+    """10a: step_train with routing=psum, then with shard_anime_table too: one
+    adam epoch each against phase 5's first; the routed optimizers refused;
+    a timed psum epoch."""
+    from anime_recommendations_tpu_torch.config import Config
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.parallel.trainer import ShardedTrainer
+    from anime_recommendations_tpu_torch.pipeline.runner import PipelineRunner, store_root
+
+    train, _ = _train_split()
+    steps = -(-len(train) // BATCH)
+    out = {"history_gap": {}, "refused": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_store(store_root(Config(), tmp))
+        for label, sets in (("psum", []), ("psum_shard_anime", ["parallel.shard_anime_table=true"])):
+            cfg = Config().with_overrides([
+                "model.optimizer=adam", "model.epochs=1", "model.export_weight_csvs=false",
+                "model.device_loop=true", "parallel.routing=psum", *sets])
+            runner = PipelineRunner(cfg, tmp, device=DEVICE)
+            before = dict(_kernels.launches)
+            result, seconds = _host_timed(runner.step_train)
+            hist = result.history
+            if len(hist) != 1 or not np.isfinite(hist.to_numpy()).all():
+                raise AssertionError(f"{label}: history {hist.to_dict('list')}")
+            gap = _history_gap(hist, trained["history"]["adam"].iloc[:1])
+            out["history_gap"][label] = gap
+            launched = {k: v - before.get(k, 0) for k, v in _kernels.launches.items()}
+            print(f"[phase 10] {label} step_train, world size 1 on NCCL: {steps} steps, fit in "
+                  f"{seconds:.1f} s, launches {json.dumps(launched)}; history "
+                  f"{json.dumps(hist.to_dict('list'))}; largest relative gap to phase 5's first "
+                  f"adam epoch {json.dumps(gap)}, accepted {json.dumps(FUSED_TOL)}", flush=True)
+            if any(gap[c] > FUSED_TOL[c] for c in FUSED_TOL):
+                raise AssertionError(f"{label}: history does not track phase 5's adam")
+    for optimizer in ("lazy_adam", "fused_adam"):
+        try:
+            ShardedTrainer(batch_size=BATCH, optimizer=optimizer, routing="psum",
+                           verbose=False, device=DEVICE)
+        except ValueError as err:
+            out["refused"][optimizer] = str(err)
+        else:
+            raise AssertionError(f"routing=psum accepted {optimizer}")
+    print(f"[phase 10] routing=psum refuses: {json.dumps(out['refused'])}", flush=True)
+    out["timed"] = _timed_routed_epoch("adam", routing="psum")
+    print(f"[phase 10] psum adam timed epoch ({card}): {json.dumps(out['timed'])}; one-device "
+          f"(phase 5) {trained['timed']['adam']['ms_per_step']:.3f} ms/step", flush=True)
+    return out
+
+
+def _scaling_runs(card: str) -> dict:
+    """10b: parallel/scaling_bench at 1x1 with its defaults, in this process's
+    NCCL group (measure_mesh; K1's launches counted), then its launcher
+    (one torch.distributed.run of one NCCL rank) once."""
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.parallel import scaling_bench
+
+    out = {}
+    for routing, optimizer in SCALING_RUNS:
+        before = {k: _kernels.launches[k] for k in ("fused_adam_tiles", "fused_adam")}
+        res = scaling_bench.measure_mesh(1, 1, N_USERS, N_ANIME, D, SCALING_BATCH, SCALING_STEPS,
+                                         routing=routing, optimizer=optimizer, device=DEVICE)
+        launched = {k: _kernels.launches[k] - v for k, v in before.items()}
+        want = 2 * (SCALING_STEPS + SCALING_WARM) if optimizer == "fused_adam" else 0
+        if launched != dict.fromkeys(launched, want):
+            raise AssertionError(f"scaling_bench {routing} {optimizer}: launches {launched}, "
+                                 f"expected {want} each")
+        res["launches"] = launched
+        out[f"{routing}_{optimizer}"] = res
+        print(f"[phase 10] scaling_bench 1x1 ({card}): {json.dumps(res)}", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "anime_recommendations_tpu_torch.parallel.scaling_bench",
+         "--meshes", "1x1", "--routing", "psum", "--device", "cuda"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"scaling_bench's launcher failed:\n{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    if len(lines) != 2 or lines[0]["mesh"] != "1x1" or lines[1]["summary"][0]["efficiency"] != 1.0:
+        raise AssertionError(f"scaling_bench's launcher printed {proc.stdout}")
+    out["launcher"] = lines[0]
+    print(f"[phase 10] scaling_bench --meshes 1x1 --routing psum through torch.distributed.run "
+          f"({card}), {time.perf_counter() - t0:.1f} s: {json.dumps(lines)}", flush=True)
+    return out
+
+
+def _sorted_scatter_runs(card: str) -> dict:
+    """10c: the device loop's adam epoch with sorted_scatter True and False
+    (histories through Trainer.fit, then a timed epoch each from one state
+    on the same shuffle and 10 profiled steps), and the two tables'
+    embedding backward alone on a batch's ids, through take_rows and
+    through the plain gather (both autograd's index backward, index_put_
+    with accumulate)."""
+    import torch
+
+    from anime_recommendations_tpu_torch.models import two_tower as tt
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train.trainer import Trainer
+
+    train, holdout = _train_split()
+    _, vocab, _, _ = _dataset()
+    out = {"history": {}, "timed": {}, "backward": {}}
+    data = dl.stage(train, BATCH, seed=SEED, device=DEVICE)
+    steps = data.n // BATCH
+    window = dl.DeviceData(*(x[:SORT_STEPS * BATCH] for x in data))
+    for mode in (True, False):
+        fit = Trainer(embedding_size=D, batch_size=BATCH, epochs=1, seed=SEED, verbose=False,
+                      device=DEVICE, device_loop=True, sorted_scatter=mode).fit(
+            train, holdout, vocab.n_users, vocab.n_anime)
+        out["history"][str(mode)] = fit.history
+        state = _fresh_state("adam")
+        (_, losses, _, _), seconds = _host_timed(lambda: dl.train_epoch(
+            state, data, torch.Generator().manual_seed(SEED), 1e-5, BATCH, 1e-4,
+            sorted_scatter=mode, optimizer="adam"))
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"sorted_scatter={mode}: non-finite loss")
+        ms_per_step = seconds * 1e3 / steps
+        out["timed"][str(mode)] = dict(ms_per_step=ms_per_step, **_step_profile(
+            lambda: dl.train_epoch(state, window, None, 1e-5, BATCH, 1e-4, shuffle=False,
+                                   sorted_scatter=mode, optimizer="adam"),
+            SORT_STEPS, ms_per_step))
+    gap = _history_gap(out["history"]["True"], out["history"]["False"])
+    out["history_gap"] = gap
+    print(f"[phase 10] adam fit, sorted_scatter True vs False: histories "
+          f"{json.dumps({k: v.to_dict('list') for k, v in out['history'].items()})}; "
+          f"largest relative gap {json.dumps(gap)}, accepted 1e-5", flush=True)
+    if any(v > 1e-5 for v in gap.values()):
+        raise AssertionError("sorted_scatter changed the adam history")
+    g = torch.randn((BATCH, D), generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    for name, n, ids in (("users", vocab.n_users, data.users[:BATCH]),
+                         ("anime", vocab.n_anime, data.anime[:BATCH])):
+        table = torch.zeros((n, D), device=DEVICE, requires_grad=True)
+
+        def backward(gather):
+            rows = gather(table, ids)
+            return lambda: torch.autograd.grad(rows, table, g, retain_graph=True)[0]
+
+        take, plain = backward(tt.take_rows), backward(lambda t, i: t[i])
+        want = plain()
+        err = float((take() - want).abs().max())
+        if err > 1e-6 * float(want.abs().max()):
+            raise AssertionError(f"{name}: take_rows's backward differs from the plain by {err}")
+        out["backward"][name] = {"max_abs_err": err,
+                                 "take_rows_ms": _profiled(take, reps=10)["device_ms"],
+                                 "plain_ms": _profiled(plain, reps=10)["device_ms"]}
+    out["summary"] = {
+        mode: {"ms_per_step": out["timed"][mode]["ms_per_step"],
+               "device_ms_per_step": out["timed"][mode]["profiled_step"]["device_ms"],
+               "embedding_backward_ms": sum(b[key] for b in out["backward"].values())}
+        for mode, key in (("True", "take_rows_ms"), ("False", "plain_ms"))}
+    print(f"[phase 10] adam device loop ({card}), by sorted_scatter: "
+          f"{json.dumps(out['summary'])}; per table: {json.dumps(out['backward'])}; "
+          f"10 profiled steps: {json.dumps(out['timed'])}", flush=True)
+    return out
+
+
+def _checkpoint_runs(card: str) -> dict:
+    """10d: Trainer.fit through AsyncCheckpointer: the saved best state
+    restores bit for bit; a fit stopped after 2 epochs and resumed from its
+    checkpoint (its best epoch b) runs the uninterrupted 3-epoch fit's
+    epochs b+1.. bit for bit (history and the last Adam state); a snapshot
+    ignores in-place updates made before the write; the host time save
+    blocks, against Checkpointer.save."""
+    import copy
+
+    import torch
+
+    from anime_recommendations_tpu_torch.models.two_tower import PARAM_KEYS
+    from anime_recommendations_tpu_torch.train import trainer as tr
+    from anime_recommendations_tpu_torch.train.checkpoint import AsyncCheckpointer, Checkpointer
+
+    train, holdout = _train_split()
+    _, vocab, _, _ = _dataset()
+    data = (train, holdout, vocab.n_users, vocab.n_anime)
+    kw = dict(embedding_size=D, batch_size=BATCH, seed=SEED, verbose=False, device=DEVICE,
+              device_loop=True)
+
+    def arrays(state):
+        return copy.deepcopy(tr.train_state_to_numpy(state))
+
+    def equal(a, b, keys=None) -> bool:
+        return all(np.array_equal(a[k], b[k]) for k in (keys or a))
+
+    model_keys = list(PARAM_KEYS) + ["moving_mean", "moving_var"]
+    adam_keys = [f"{m}.{k}" for m in ("mu", "nu") for k in PARAM_KEYS] + ["count"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = tr.Trainer(epochs=3, checkpoint_dir=f"{tmp}/whole", **kw).fit(*data)
+        restored = Checkpointer(f"{tmp}/whole").restore(_fresh_state("adam"))
+        # The fit returns its best model and its last Adam state.
+        if not equal(arrays(restored), arrays(whole.state),
+                     model_keys + (adam_keys if whole.best_epoch == 2 else [])):
+            raise AssertionError("the checkpoint does not restore the fit's best state")
+        cut = tr.Trainer(epochs=2, checkpoint_dir=f"{tmp}/cut", **kw).fit(*data)
+        resumed = tr.Trainer(epochs=3, checkpoint_dir=f"{tmp}/cut", **kw).fit(*data, resume=True)
+        b = cut.best_epoch
+        if (not np.array_equal(resumed.history.to_numpy(), whole.history.iloc[b + 1:].to_numpy())
+                or not equal(arrays(resumed.state), arrays(whole.state), adam_keys)):
+            raise AssertionError(f"the fit resumed after epoch {b}, "
+                                 f"{resumed.history.to_dict('list')}, is not the uninterrupted "
+                                 f"one's {whole.history.to_dict('list')}")
+        out.update(history=whole.history.to_dict("list"), best_epoch=whole.best_epoch,
+                   resumed_after=b)
+        state = whole.state
+        before = arrays(state)
+        ck = AsyncCheckpointer(f"{tmp}/snap")
+        ck.save(0, state)
+        with torch.no_grad():
+            state.model.user_emb.add_(1.0)
+            state.adam.nu["user_emb"].mul_(2.0)
+        ck.close()
+        if not equal(arrays(Checkpointer(f"{tmp}/snap").restore(_fresh_state("adam"))), before):
+            raise AssertionError("an in-place update reached the snapshot")
+        times = {"async_save": [], "async_on_disk": [], "sync_save": []}
+        ck, sync = AsyncCheckpointer(f"{tmp}/async"), Checkpointer(f"{tmp}/sync")
+        for step in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(step, state)
+            times["async_save"].append((time.perf_counter() - t0) * 1e3)
+            ck.wait()
+            times["async_on_disk"].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sync.save(step, state)
+            times["sync_save"].append((time.perf_counter() - t0) * 1e3)
+        ck.close()
+    out["host_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    out["mb"] = sum(v.nbytes for v in before.values()) / 1e6
+    print(f"[phase 10] AsyncCheckpointer ({card}): the best state (epoch {out['best_epoch']}) "
+          f"restored bit for bit, the fit resumed after epoch {out['resumed_after']} equals the "
+          f"uninterrupted one, the snapshot ignores an in-place update; history "
+          f"{json.dumps(out['history'])}; host ms, median of 3, a {out['mb']:.0f} MB "
+          f"state: {json.dumps(out['host_ms'])}", flush=True)
+    return out
+
+
+def phase_psum(card: str, trained: dict) -> dict:
+    """Phase 10 on phase 7's NCCL group: psum, scaling_bench, take_rows and
+    AsyncCheckpointer. The counters are reset before it and read after it:
+    K1 and its first pass run in scaling_bench's fused_adam, nothing else."""
+    from anime_recommendations_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    _kernels.launches.clear()
+    out = {"psum": _psum_runs(card, trained), "scaling": _scaling_runs(card),
+           "sorted_scatter": _sorted_scatter_runs(card), "checkpoint": _checkpoint_runs(card)}
+    out["launches"] = dict(_kernels.launches)
+    want = 2 * (SCALING_STEPS + SCALING_WARM)
+    if out["launches"] != {"fused_adam_tiles": want, "fused_adam": want}:
+        raise AssertionError(f"phase 10 launched {out['launches']}: expected K1 and its first "
+                             f"pass {want} times each (scaling_bench's fused_adam), nothing else")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[phase 10] launches {json.dumps(out['launches'])}; wall time {out['wall_s']:.1f} s",
+          flush=True)
     return out
 
 
@@ -2641,6 +2930,7 @@ def main() -> int:
     try:
         dense_rows += phase_dense(card, receipts=True)
         routed = phase_routed(card, trained)   # resets the counters before each run
+        phase_psum(card, trained)
     finally:
         dist.destroy_process_group()
     phase_trained(card)

@@ -801,3 +801,87 @@ def test_ivf_topk_on_the_card_matches_the_cpu(cuda, feature, storage):
         gap = (row_scores(w, tq, i.clamp_min(0), kw.get("head")).cpu()
                - row_scores(w.cpu(), tq.cpu(), pi.clamp_min(0), cpu.get("head"))).abs()
         assert not bool(((i.cpu() != pi) & (gap > 1e-6)).any())
+
+
+# ---- sharded training (psum) and take_rows: torch ops, no kernel of their own ---
+
+@pytest.fixture
+def nccl_world(cuda):
+    """An NCCL process group of world size 1 on a free local port."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard_anime", [False, True], ids=["replicated", "shard_anime"])
+def test_psum_step_at_world_size_1_matches_the_one_device_step(cuda, nccl_world, shard_anime):
+    """Three ShardedTrainStep steps with routing="psum" against three
+    one-device train_steps from one state on the card: loss and mse 1e-5
+    relative, tables and moments 1e-5 of their largest entry (the same
+    math; the lookup's masked gather and the analytic L2 term reorder f32
+    sums)."""
+    from anime_recommendations_tpu_torch.parallel.mesh import make_world
+    from anime_recommendations_tpu_torch.parallel.sharded_train import (
+        ShardedTrainStep,
+        place_state,
+        unstripe_state,
+    )
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    arrays = tr.train_state_to_numpy(tr.init_train_state(
+        3000, 700, 64, generator=torch.Generator().manual_seed(2), device="cpu"))
+    world = make_world(1, 1, cuda)
+    sharded = place_state(tr.train_state_from_numpy(arrays, "cpu"), world, "psum", shard_anime)
+    ref = tr.train_state_from_numpy(arrays, cuda)
+    step = ShardedTrainStep(world, l2_reg_factor=1e-4, shard_anime=shard_anime, routing="psum")
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        cols = [torch.from_numpy(x).to(cuda) for x in (
+            rng.integers(0, 3000, 4096).astype(np.int32),
+            rng.integers(0, 700, 4096).astype(np.int32),
+            rng.uniform(0, 1, 4096).astype(np.float32), np.ones(4096, np.float32))]
+        sharded, loss, mse = step.train_step(sharded, *cols, 1e-3)
+        ref, loss_r, mse_r = tr.train_step(ref, *cols, 1e-3, 1e-4)
+        assert float(loss) == pytest.approx(float(loss_r), rel=1e-5)
+        assert float(mse) == pytest.approx(float(mse_r), rel=1e-5)
+    got = tr.train_state_to_numpy(unstripe_state(sharded, world, "psum", shard_anime))
+    want = tr.train_state_to_numpy(ref)
+    for k in ("user_emb", "anime_emb", "mu.user_emb", "mu.anime_emb", "nu.user_emb",
+              "nu.anime_emb"):
+        scale = float(np.abs(want[k]).max())
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5 * scale, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [91_641, 17_560, 7])
+def test_take_rows_gradient_on_the_card(cuda, n):
+    """take_rows's backward on the card (autograd's sorted index backward):
+    equal to itself on a second call (no atomics), and within 1e-6 of the
+    largest entry of the CPU's index_add_ (the same f32 terms, summed in
+    batch order)."""
+    from anime_recommendations_tpu_torch.models import two_tower as tt
+
+    gen = torch.Generator().manual_seed(n)
+    ids = torch.randint(0, n, (10_000,), generator=gen, dtype=torch.int32)
+    g = torch.randn((10_000, 128), generator=gen)
+    table = torch.zeros((n, 128), device=cuda, requires_grad=True)
+
+    def grad():
+        return torch.autograd.grad((tt.take_rows(table, ids.to(cuda)) * g.to(cuda)).sum(),
+                                   table)[0]
+
+    got = grad()
+    assert torch.equal(grad(), got)
+    want = torch.zeros((n, 128)).index_add_(0, ids.long(), g)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6 * scale)

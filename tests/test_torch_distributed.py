@@ -6,11 +6,11 @@ the same spec in this process (parallel.distributed.fit_data, FIT_KWARGS),
 in the pattern of tests/test_distributed.py: both ranks report the same
 curve; it matches a 1-rank run within 2e-4 relative (that test's bound:
 the ranks only reorder f32 sums); a same-world resume continues from the
-checkpoint; a measured capacity (-1) gives the default capacity's curve
-within 1e-5 (tests/test_sharded_trainer.py's bound); bf16 moments track
-the one-device bf16m fit within 2e-2 (tests/test_sharded_trainer.py's
-bound: stochastic rounding keys on the LOCAL row, so 2 ranks draw other
-bits than 1).
+checkpoint, and a resume under another layout raises; a measured capacity
+(-1) gives the default capacity's curve within 1e-5
+(tests/test_sharded_trainer.py's bound); bf16 moments track the one-device
+bf16m fit within 2e-2 (tests/test_sharded_trainer.py's bound: stochastic
+rounding keys on the LOCAL row, so 2 ranks draw other bits than 1).
 """
 
 import json
@@ -35,8 +35,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(m: int, extra: list[str], timeout: int = 120) -> list[dict]:
-    """m gloo ranks of the distributed worker; their JSON lines."""
+def launch(m: int, extra: list[str], timeout: int = 120, fail: bool = False) -> list:
+    """m gloo ranks of the distributed worker; their JSON lines, or with
+    ``fail`` (every rank must fail) their standard errors."""
     port = _free_port()
     procs = []
     for rank in range(m):
@@ -50,6 +51,10 @@ def launch(m: int, extra: list[str], timeout: int = 120) -> list[dict]:
     try:
         for p in procs:
             out, err = p.communicate(timeout=timeout)
+            if fail:
+                assert p.returncode != 0, f"worker did not fail:\n{out[-3000:]}"
+                outs.append(err)
+                continue
             assert p.returncode == 0, f"worker failed:\n{err[-3000:]}"
             outs.append(json.loads(out.strip().splitlines()[-1]))
     finally:
@@ -90,6 +95,18 @@ def test_two_rank_fit_matches_one_rank_and_resumes(two_rank_fit):
     assert res[0]["loss"] == res[1]["loss"]
     assert len(res[0]["loss"]) < 4
     assert res[0]["loss"][0] < outs[0]["loss"][0]
+
+
+def test_resume_under_another_layout_raises(two_rank_fit):
+    """The 2-rank alltoall checkpoint resumed by a psum 1 x 2 fit with the
+    anime table split: each rank's tables have the same shapes under both
+    layouts (256 user and 64 anime rows) but other rows, so the restore
+    must refuse it rather than load it."""
+    errs = launch(2, ["--fit", "--epochs", "4", "--optimizer", "adam", "--routing", "psum",
+                      "--data-axis", "1", "--model-axis", "2", "--shard-anime",
+                      "--checkpoint-dir", two_rank_fit[0], "--resume"], fail=True)
+    for err in errs:
+        assert "was written in the layout 'alltoall 2x1', not 'psum 1x2 shard_anime'" in err
 
 
 def test_measured_capacity_and_bf16_moments(two_rank_fit):

@@ -3,6 +3,9 @@
 The JAX side runs ``parallel.sharded_train.ShardedTrainStep`` in this
 process, on the virtual CPU mesh of tests/conftest.py (m = 2: a 2 x 1 mesh,
 m = 4: 2 x 2; the fused step runs its documented XLA math under shard_map).
+Routing "psum" runs at the meshes of PSUM_JOBS: 2 x 1 and 1 x 2 (m = 2),
+2 x 2 and 1 x 4 (m = 4), with shard_anime at 1 x 2 and 2 x 2; the port's
+ranks take the same mesh (rank r = data_index * model_axis + model_index).
 The port's side runs m gloo ranks of ``python -m
 anime_recommendations_tpu_torch.parallel.distributed --worker --replay``,
 one launch per world size for all jobs. Both start from one JAX-initialized
@@ -34,6 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from anime_recommendations_tpu.models import two_tower as jtt
 from anime_recommendations_tpu.parallel import routing as jrt
@@ -45,6 +49,9 @@ from anime_recommendations_tpu.parallel.sharded_train import (
 )
 from anime_recommendations_tpu.train import trainer as jtr
 from anime_recommendations_tpu_torch.parallel.distributed import pad_batch_for_hosts
+from anime_recommendations_tpu_torch.parallel.mesh import World
+from anime_recommendations_tpu_torch.parallel.sharded_train import ShardedTrainStep as PortStep
+from anime_recommendations_tpu_torch.parallel.sharded_train import build_plans
 
 REPO = Path(__file__).resolve().parents[1]
 N_USERS, N_ANIME, D, B = 64, 32, 8, 64
@@ -60,6 +67,13 @@ JOBS = {
     "fused_overflow": ("fused_adam", 1, "batch", STEPS),
     "padded_a": ("fused_adam", None, "padded_a", 1),
     "padded_b": ("fused_adam", None, "padded_b", 1),
+}
+# world size -> name -> (mesh, shard_anime): dense adam jobs with routing "psum".
+PSUM_JOBS = {
+    2: {"psum_2x1": ((2, 1), False), "psum_1x2": ((1, 2), False),
+        "psum_anime_1x2": ((1, 2), True)},
+    4: {"psum_2x2": ((2, 2), False), "psum_1x4": ((1, 4), False),
+        "psum_anime_2x2": ((2, 2), True)},
 }
 
 
@@ -128,17 +142,20 @@ def batches() -> dict:
     return {"batch": full, "padded_a": pa, "padded_b": pb}
 
 
-def jax_run(m: int, state_np: dict, batch, optimizer: str, capacity, steps: int) -> dict:
+def jax_run(m: int, state_np: dict, batch, optimizer: str, capacity, steps: int,
+            routing: str = "alltoall", shape=None, shard_anime: bool = False) -> dict:
     """JAX's grads, eval sums, per-step loss/mse and states (logical)."""
-    shape = {2: (2, 1), 4: (2, 2)}[m]
+    shape = shape or {2: (2, 1), 4: (2, 2)}[m]
     mesh = make_mesh(*shape, devices=jax.devices()[:m])
-    step = ShardedTrainStep(mesh, l2_reg_factor=L2, routing="alltoall", optimizer=optimizer,
-                            capacity=capacity)
+    step = ShardedTrainStep(mesh, l2_reg_factor=L2, shard_anime=shard_anime, routing=routing,
+                            optimizer=optimizer, capacity=capacity)
     cols = [jnp.asarray(x) for x in batch]
-    st = place_state(numpy_to_jax(state_np), mesh, routing="alltoall")
+    st = place_state(numpy_to_jax(state_np), mesh, shard_anime, routing)
     grads = step.grads(st, *cols)
-    out = {"grads": {k: (jrt.from_physical(np.asarray(getattr(grads, k)), m) if k in TABLES
-                         else np.asarray(getattr(grads, k))) for k in KEYS},
+    striped = routing == "alltoall"   # psum's block layout is the logical order
+    out = {"grads": {k: (jrt.from_physical(np.asarray(getattr(grads, k)), m)
+                         if k in TABLES and striped else np.asarray(getattr(grads, k)))
+                     for k in KEYS},
            "eval": np.array([float(x) for x in step.eval_sums(st.params, st.bn_state, *cols)]),
            "loss": [], "mse": []}
     for i in range(steps):
@@ -147,7 +164,7 @@ def jax_run(m: int, state_np: dict, batch, optimizer: str, capacity, steps: int)
         out["mse"].append(float(mse))
         for tag, at in (("step1", 0), ("final", steps - 1)):
             if i == at:
-                out[tag] = jax_to_numpy(unstripe_state(st, mesh))
+                out[tag] = jax_to_numpy(unstripe_state(st, mesh, routing))
     return out
 
 
@@ -164,15 +181,23 @@ def runs(tmp_path_factory):
     jobs = [{"name": name, "optimizer": opt, "capacity": cap, "steps": steps, "state": "init",
              "batch": batch, "lr": LR, "l2": L2}
             for name, (opt, cap, batch, steps) in JOBS.items()]
-    np.savez(tmp / "in.npz", jobs=json.dumps(jobs), **arrays)
     out = {}
     for m in WORLDS:
-        res = launch_workers(m, ["--replay", str(tmp / "in.npz"), "--out", str(tmp / f"out{m}.npz")])
+        psum = [{"name": name, "optimizer": "adam", "steps": STEPS, "state": "init",
+                 "batch": "batch", "lr": LR, "l2": L2, "routing": "psum", "mesh": shape,
+                 "shard_anime": shard_anime}
+                for name, (shape, shard_anime) in PSUM_JOBS[m].items()]
+        np.savez(tmp / f"in{m}.npz", jobs=json.dumps(jobs + psum), **arrays)
+        res = launch_workers(m, ["--replay", str(tmp / f"in{m}.npz"),
+                                 "--out", str(tmp / f"out{m}.npz")])
         assert [r["world_size"] for r in res] == [m] * m
         with np.load(tmp / f"out{m}.npz") as z:
             port = {k: z[k] for k in z.files}
         jax_res = {name: jax_run(m, state_np, data[batch], opt, cap, steps)
                    for name, (opt, cap, batch, steps) in JOBS.items() if batch == "batch"}
+        jax_res.update({name: jax_run(m, state_np, data["batch"], "adam", None, STEPS, "psum",
+                                      shape, shard_anime)
+                        for name, (shape, shard_anime) in PSUM_JOBS[m].items()})
         out[m] = (port, jax_res)
     return out
 
@@ -200,12 +225,8 @@ def assert_states_match(got: dict, want: dict, msg: str):
     assert int(got["count"]) == int(want["count"])
 
 
-@pytest.mark.parametrize("job", ["adam", "lazy_adam", "fused_adam", "fused_overflow"])
-@pytest.mark.parametrize("m", WORLDS)
-def test_sharded_step_matches_jax(runs, m, job):
+def assert_step_matches(port: dict, want: dict, job: str):
     """grads, then one and three train steps: losses, mses and states."""
-    port, jax_res = runs[m]
-    want = jax_res[job]
     grads = sub(port, f"{job}/grads")
     for k in KEYS:
         np.testing.assert_allclose(grads[k], want["grads"][k], atol=1e-5, rtol=1e-4, err_msg=k)
@@ -213,6 +234,36 @@ def test_sharded_step_matches_jax(runs, m, job):
     np.testing.assert_allclose(port[f"{job}/mse"], want["mse"], rtol=1e-5)
     for tag in ("step1", "final"):
         assert_states_match(sub(port, f"{job}/{tag}"), want[tag], f"{job} {tag}")
+
+
+@pytest.mark.parametrize("job", ["adam", "lazy_adam", "fused_adam", "fused_overflow"])
+@pytest.mark.parametrize("m", WORLDS)
+def test_sharded_step_matches_jax(runs, m, job):
+    port, jax_res = runs[m]
+    assert_step_matches(port, jax_res[job], job)
+
+
+@pytest.mark.parametrize("m,job", [(m, job) for m in WORLDS for job in PSUM_JOBS[m]])
+def test_psum_step_matches_jax(runs, m, job):
+    """routing="psum" (and shard_anime) on the job's data x model mesh."""
+    port, jax_res = runs[m]
+    assert_step_matches(port, jax_res[job], job)
+
+
+@pytest.mark.parametrize("optimizer", ["lazy_adam", "fused_adam"])
+def test_psum_refuses_the_routed_optimizers_as_jax_does(optimizer):
+    """lazy_adam and fused_adam need the exchange plan: with routing="psum"
+    both packages raise ValueError with one message; build_plans (the
+    planned epoch) raises for a psum step."""
+    world = World(size=1, rank=0, data_axis=1, model_axis=1, device=torch.device("cpu"))
+    with pytest.raises(ValueError) as port_err:
+        PortStep(world, routing="psum", optimizer=optimizer)
+    with pytest.raises(ValueError) as jax_err:
+        ShardedTrainStep(make_mesh(1, 1, devices=jax.devices()[:1]), routing="psum",
+                         optimizer=optimizer)
+    assert str(port_err.value) == str(jax_err.value)
+    with pytest.raises(ValueError, match="planned epoch requires routing='alltoall'"):
+        build_plans(PortStep(world, routing="psum"), None, None)
 
 
 @pytest.mark.parametrize("m", WORLDS)

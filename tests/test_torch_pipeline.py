@@ -298,3 +298,44 @@ def test_cli_pipeline_under_torchrun(tmp_path):
     for name in ("full_data_set.parquet", "anime_nn_model.npz", "similar_users.csv",
                  "ID_used.csv", "user_recs.csv", "model_recs.csv"):
         assert store.versions(name) == [0], name
+
+
+TRAIN_STEPS = ["--steps", "ingest", "preprocess", "train"]
+
+
+def _history(run_dir) -> pd.DataFrame:
+    store = PipelineRunner(Config(), run_dir, device="cpu").store
+    return pd.read_csv(store.get("anime_nn_history.csv:latest").file(), index_col=0)
+
+
+@pytest.fixture(scope="module")
+def one_process_history(tmp_path_factory):
+    """The history of ``cli pipeline`` over ingest, preprocess and train in
+    one process (the one-device Trainer), 2 epochs."""
+    run_dir = tmp_path_factory.mktemp("one")
+    subprocess.run([sys.executable, "-m", "anime_recommendations_tpu_torch.cli", "pipeline",
+                    "--run-dir", str(run_dir), "--device", "cpu", *TRAIN_STEPS,
+                    *[a for s in [*CLI_SETS, "model.epochs=2"] for a in ("--set", s)]],
+                   cwd=REPO, capture_output=True, text=True, timeout=600, check=True)
+    return _history(run_dir)
+
+
+@pytest.mark.parametrize("sets", [["parallel.model_axis=1"],
+                                  ["parallel.model_axis=2", "parallel.shard_anime_table=true"]],
+                         ids=["psum_2x1", "psum_anime_1x2"])
+def test_cli_train_psum_under_torchrun(tmp_path, sets, one_process_history):
+    """parallel.routing=psum on two gloo ranks (a 2 x 1 and a 1 x 2 mesh,
+    the second with the anime table sharded too) trains through the
+    ShardedTrainer: the one-device history, within tests/test_torch_train.py's
+    history tolerances (the ranks reorder f32 sums)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+           "-m", "anime_recommendations_tpu_torch.cli", "pipeline", "--run-dir", str(tmp_path),
+           "--device", "cpu", *TRAIN_STEPS,
+           *[a for s in [*CLI_SETS, "model.epochs=2", "parallel.routing=psum", *sets]
+             for a in ("--set", s)]]
+    subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600, check=True)
+    got, want = _history(tmp_path), one_process_history
+    assert len(got) == 2 and np.isfinite(got.to_numpy()).all()
+    np.testing.assert_allclose(got[["loss", "mse"]], want[["loss", "mse"]], rtol=1e-5)
+    np.testing.assert_allclose(got[["val_loss", "val_mse"]], want[["val_loss", "val_mse"]],
+                               rtol=2e-3)

@@ -161,6 +161,19 @@ def test_user_prefs_matches_jax(ctxs):
         assert got.source_frequencies == want.source_frequencies
 
 
+def test_user_rows_matches_jax(ctxs):
+    """Every rating row of a user, with its index, equal to JAX's frame; an
+    empty frame with the same columns for an unknown user."""
+    pctx, jctx = ctxs
+    for uid in users_of(pctx, 0, 3, 12):
+        got = pctx.user_rows(uid)
+        assert len(got) > 0
+        pd.testing.assert_frame_equal(got, jctx.user_rows(uid))
+    unknown = int(pctx.ratings["user_id"].max()) + 1
+    pd.testing.assert_frame_equal(pctx.user_rows(unknown), jctx.user_rows(unknown))
+    assert pctx.user_rows(unknown).empty
+
+
 MODEL_RECS_CALLS = {
     "plain": dict(n_recs=7),
     "score_bounds": dict(n_recs=20, min_score=6.0, max_score=9.0),

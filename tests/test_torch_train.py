@@ -23,6 +23,8 @@ interpret mode. Tolerances, with their reasons:
     above shows there (measured 5e-4 at these learning rates, 1e-2 at 10x).
 """
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,7 +50,7 @@ from anime_recommendations_tpu_torch.pipeline.artifacts import ArtifactStore
 from anime_recommendations_tpu_torch.pipeline.runner import PipelineRunner, latest_file
 from anime_recommendations_tpu_torch.train import device_loop as dl
 from anime_recommendations_tpu_torch.train import trainer as tr
-from anime_recommendations_tpu_torch.train.checkpoint import Checkpointer
+from anime_recommendations_tpu_torch.train.checkpoint import AsyncCheckpointer, Checkpointer
 from anime_recommendations_tpu_torch.train.fused import (
     fused_train_step,
     fused_train_step_pipelined,
@@ -150,6 +152,66 @@ def test_loss_and_grads_match_jax(padded):
     jpred = jtt.predict(params, bn, jnp.asarray(u), jnp.asarray(a))
     np.testing.assert_allclose(model.eval()(*(torch.from_numpy(x) for x in (u, a)))
                                .detach().numpy(), np.asarray(jpred), atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", [True, "user", False], ids=["both", "user", "plain"])
+def test_take_rows_grads_match_jax_and_the_plain_gather(mode):
+    """sorted_scatter (two_tower.take_rows) against JAX's take_rows at the
+    tolerances of test_loss_and_grads_match_jax, on a batch with many
+    duplicate ids (tests/test_model.py's case), and against the port's plain
+    gather within 1e-6 of each gradient's largest entry (the same terms,
+    summed in another order)."""
+    arrays = initial_arrays(50, 30, 16)
+    u, a, r, w = batch(50, 30, 64, seed=3)
+    j = numpy_to_jax(arrays)
+    jgrads = jax.grad(lambda p: jtt.loss_and_metrics(
+        p, j.bn_state, *(jnp.asarray(x) for x in (u, a, r, w)), 1e-4, True, mode)[0])(j.params)
+
+    def grads(sorted_scatter):
+        model = tt.params_from_numpy(arrays, "cpu").train()
+        loss, _ = tt.loss_and_metrics(model, model.bn_state(),
+                                      *(torch.from_numpy(x) for x in (u, a, r, w)), 1e-4, True,
+                                      sorted_scatter=sorted_scatter)
+        return torch.autograd.grad(loss, [getattr(model, k) for k in KEYS])
+
+    got, plain = grads(mode), grads(False)
+    for k, g, p in zip(KEYS, got, plain):
+        rel = 1e-5 if k in tr.TABLE_KEYS else 1e-4
+        tol = 1e-6 if k == "dense_b" else rel * float(np.abs(getattr(jgrads, k)).max())
+        np.testing.assert_allclose(g.numpy(), np.asarray(getattr(jgrads, k)), rtol=0,
+                                   atol=tol, err_msg=k)
+        close_to_scale(g.numpy(), p.numpy(), 1e-6)
+
+
+@pytest.mark.parametrize("mode,tables", [(True, 2), ("user", 1), (False, 0)])
+def test_sorted_scatter_modes_choose_the_gathers(monkeypatch, mode, tables):
+    """JAX's semantics: True takes take_rows for both tables, "user" for the
+    user table only, False for neither."""
+    seen = []
+
+    def counting(table, idx):
+        seen.append(table.shape[0])
+        return table[idx]
+
+    monkeypatch.setattr(tt, "take_rows", counting)
+    model = tt.params_from_numpy(initial_arrays(50, 30, 8), "cpu").train()
+    tt.forward(model, model.bn_state(), torch.tensor([1, 2]), torch.tensor([3, 4]), True,
+               sorted_scatter=mode)
+    assert seen == [50, 30][:tables]
+
+
+def test_take_rows_gradient_sums_each_rows_cotangents():
+    """Ids unsorted, repeated, absent and at both ends: each row of the
+    gradient is the sum of its cotangent rows (integers, so the sum is exact
+    in any order), and absent rows are zero."""
+    idx = torch.tensor([4, 0, 4, 2, 4, 0, 5], dtype=torch.int32)
+    g = torch.arange(7 * 3, dtype=torch.float32).reshape(7, 3) ** 2
+    want = torch.zeros(6, 3)
+    for i, row in zip(idx.tolist(), g):
+        want[i] += row
+    table = torch.zeros((6, 3), requires_grad=True)
+    got = torch.autograd.grad((tt.take_rows(table, idx) * g).sum(), table)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_init_params_ranges_and_moments():
@@ -294,6 +356,29 @@ def test_train_epoch_and_eval_epoch_match_jax(optimizer):
     assert abs(float(vl) - float(jvl)) < 2e-6 and abs(float(vm) - float(jvm)) < 2e-6
 
 
+@pytest.mark.parametrize("sorted_scatter", [True, "user"])
+def test_train_epoch_with_sorted_scatter_matches_jax(sorted_scatter):
+    """The device loop's adam epoch through take_rows against JAX's, at
+    test_train_epoch_and_eval_epoch_match_jax's tolerances."""
+    n_users, n_anime, d, bs, l2 = 120, 30, 8, 50, 1e-4
+    cols = ratings(n_users, n_anime, 420, seed=3)
+    arrays = initial_arrays(n_users, n_anime, d, seed=1)
+    jdata = jdl.stage(JDataset(*cols), bs, seed=None)
+    js, jl, jm, _ = jdl.train_epoch(numpy_to_jax(arrays), jdata, jax.random.PRNGKey(0),
+                                    jnp.float32(1e-3), bs, l2, shuffle=False,
+                                    sorted_scatter=sorted_scatter, optimizer="adam")
+    data = dl.stage(RatingsDataset(*cols), bs, seed=None, device="cpu")
+    ts, loss, mse, _ = dl.train_epoch(tr.train_state_from_numpy(arrays, "cpu"), data,
+                                      torch.Generator(), 1e-3, bs, l2, shuffle=False,
+                                      sorted_scatter=sorted_scatter, optimizer="adam")
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jl), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(mse.numpy(), np.asarray(jm), rtol=0, atol=2e-6)
+    close_to_scale(ts.model.user_emb.detach().numpy(), np.asarray(js.params.user_emb), 1e-5)
+    close_to_scale(ts.model.anime_emb.detach().numpy(), np.asarray(js.params.anime_emb), 1e-5)
+    # JAX's default on the Trainer, which its device loop passes on.
+    assert tr.Trainer(device="cpu").sorted_scatter is jtr.Trainer().sorted_scatter is True
+
+
 def test_granule_shuffle_visits_each_row_once():
     n, bs, g = 50_300, 1000, 512        # padded to 51,000; 99 granules and a tail
     ds = RatingsDataset(np.arange(n, dtype=np.int32), np.zeros(n, np.int32),
@@ -325,16 +410,18 @@ def test_granule_shuffle_visits_each_row_once():
 
 # ---- Trainer ---------------------------------------------------------------------
 
-def datasets(seed=0, n_users=80, n_anime=40, n=3000):
+def datasets(seed=0, n_users=80, n_anime=40, n=3000, invert=True):
     """Ratings of a planted rank-4 model; the holdout's are inverted (1 - y),
     so the validation loss rises from the first epoch on and early stopping
-    comes at a known epoch with a wide margin."""
+    comes at a known epoch with a wide margin (``invert=False``: the
+    holdout is the model's too)."""
     rng = np.random.default_rng(seed)
     U, V = rng.normal(size=(n_users, 4)), rng.normal(size=(n_anime, 4))
     users, anime = rng.integers(0, n_users, n), rng.integers(0, n_anime, n)
     y = (1 / (1 + np.exp(-np.einsum("ij,ij->i", U[users], V[anime])))).astype(np.float32)
     cut = int(n * 0.8)
-    y[cut:] = 1 - y[cut:]
+    if invert:
+        y[cut:] = 1 - y[cut:]
     cols = (users.astype(np.int32), anime.astype(np.int32), y)
     return [c[:cut] for c in cols], [c[cut:] for c in cols], n_users, n_anime
 
@@ -406,6 +493,80 @@ def test_checkpointer_keeps_the_best_only_and_restores_in_place(tmp_path):
     assert other.adam.count == 7 and other.adam.mu["anime_emb"].dtype == torch.bfloat16
     for k, v in tr.train_state_to_numpy(state).items():
         np.testing.assert_array_equal(tr.train_state_to_numpy(other)[k], v, err_msg=k)
+
+
+def test_async_checkpointer_round_trip_keeps_the_newest(tmp_path):
+    arrays = initial_arrays(20, 10, 8)
+    state = tr.cast_table_moments(tr.train_state_from_numpy(arrays, "cpu"), torch.bfloat16)
+    ck = AsyncCheckpointer(tmp_path / "ck", max_to_keep=2)
+    assert ck.latest_step() is None
+    saved = {}
+    for step in (0, 3, 5):
+        with torch.no_grad():
+            state.model.user_emb.add_(0.25)
+        state.adam.count = step + 1
+        ck.save(step, state)
+        saved[step] = {k: v.copy() for k, v in tr.train_state_to_numpy(state).items()}
+    ck.wait()
+    assert Checkpointer(tmp_path / "ck").steps() == [3, 5]
+    assert ck.latest_step() == 5
+    for step in (3, 5):
+        other = tr.train_state_from_numpy(initial_arrays(20, 10, 8, seed=9), "cpu")
+        ck.restore(other, step)
+        assert other.adam.mu["anime_emb"].dtype == torch.bfloat16
+        for k, v in saved[step].items():
+            np.testing.assert_array_equal(tr.train_state_to_numpy(other)[k], v, err_msg=k)
+    ck.close()
+
+
+def test_async_checkpointer_snapshot_survives_in_place_updates(tmp_path, monkeypatch):
+    """The write is held back until the state has been updated in place
+    (as the next training step does): the checkpoint is the state at save."""
+    release = threading.Event()
+    write = Checkpointer.write
+
+    def held_write(self, step, blob):
+        assert release.wait(timeout=60)
+        write(self, step, blob)
+
+    monkeypatch.setattr(Checkpointer, "write", held_write)
+    state = tr.train_state_from_numpy(initial_arrays(20, 10, 8), "cpu")
+    at_save = {k: v.copy() for k, v in tr.train_state_to_numpy(state).items()}
+    ck = AsyncCheckpointer(tmp_path / "ck")
+    ck.save(1, state)
+    with torch.no_grad():
+        for k in tt.PARAM_KEYS:
+            getattr(state.model, k).add_(1.0)
+            state.adam.mu[k].add_(1.0)
+            state.adam.nu[k].mul_(3.0)
+        state.model.moving_var.add_(1.0)
+    release.set()
+    ck.close()
+    restored = Checkpointer(tmp_path / "ck").restore(
+        tr.train_state_from_numpy(initial_arrays(20, 10, 8, seed=4), "cpu"))
+    for k, v in at_save.items():
+        np.testing.assert_array_equal(tr.train_state_to_numpy(restored)[k], v, err_msg=k)
+
+
+def test_trainer_resume_through_async_checkpoints_equals_one_fit(tmp_path):
+    """An adam fit of the device loop (take_rows) stopped after 2 epochs and
+    resumed from its AsyncCheckpointer's file gives the uninterrupted fit's
+    last epochs and final state bit for bit (every epoch improves, so the
+    checkpoint is the last epoch)."""
+    train, holdout, n_users, n_anime = datasets(seed=2, invert=False)
+    kw = dict(FIT, epochs=4, patience=5, device_loop=True, device="cpu")
+    data = (RatingsDataset(*train), RatingsDataset(*holdout), n_users, n_anime)
+    whole = tr.Trainer(**kw).fit(*data)
+    assert whole.best_epoch == 3
+    tr.Trainer(**dict(kw, epochs=2), checkpoint_dir=str(tmp_path)).fit(*data)
+    assert Checkpointer(tmp_path).latest_step() == 1
+    resumed = tr.Trainer(**kw, checkpoint_dir=str(tmp_path)).fit(*data, resume=True)
+    pd.testing.assert_frame_equal(resumed.history.reset_index(drop=True),
+                                  whole.history.iloc[2:].reset_index(drop=True),
+                                  check_exact=True)
+    got, want = (tr.train_state_to_numpy(r.state) for r in (resumed, whole))
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def test_trainer_rejects_unported_and_unknown_options():

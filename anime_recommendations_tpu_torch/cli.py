@@ -12,6 +12,7 @@
     python -m anime_recommendations_tpu_torch.cli user-prefs 153695 --run-dir runs
     python -m anime_recommendations_tpu_torch.cli user-recs 153695 --run-dir runs
     python -m anime_recommendations_tpu_torch.cli model-recs 153695 --run-dir runs
+    python -m anime_recommendations_tpu_torch.cli bench [--device cpu]
 
 ``pipeline`` runs the eight steps (default main.execute_steps; --steps
 names some of them) and prints the timings JSON that run() writes to
@@ -19,7 +20,8 @@ timings.json; ingest, preprocess and train run one step each. A run
 written by either package goes on and serves in the other (the artifact
 store's layout is shared). Every subcommand takes --config <yaml>, repeated
 --set section.key=value overrides, and --device (default cuda; cpu runs the
-kernels' plain versions).
+kernels' plain versions). ``bench`` runs the benchmark suite (bench.py in
+this package) and takes --device alone; it prints one JSON line.
 """
 
 from __future__ import annotations
@@ -89,7 +91,15 @@ def main(argv=None) -> int:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
 
+    p = sub.add_parser("bench", help="run the benchmark suite (one JSON line)")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
     args = parser.parse_args(argv)
+    if args.cmd == "bench":
+        from anime_recommendations_tpu_torch import bench
+
+        bench.main(device=args.device)
+        return 0
     cfg = load_config(args)
 
     if args.cmd in ("pipeline", "ingest", "preprocess", "train"):

@@ -189,6 +189,17 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            blocks against Checkpointer.save's. Counters are reset before
            the phase: K1 and its first pass must run 66 times each (10b's
            fused_adam), no other kernel.
+  phase 11 the benchmark suite: ``python -m anime_recommendations_tpu_torch.cli
+           bench`` (the port of bench.py, at bench.py's sizes) in a fresh
+           process with its own time limit. Its stdout must be one JSON line
+           holding every key bench.py writes (read from bench.py's source) but
+           scan_harness_base_ms and no other, with the card in ``device``;
+           topk_overlap_vs_oracle, topk_q256_overlap_vs_oracle and
+           score_topk_overlap_vs_oracle must read 1.0, the four trained-table
+           overlaps of phase 8's records at least 0.99961, IVF recall@10 at
+           least 0.68 (8 probes) and 0.91 (32); its ``[bench] launches`` line
+           must show K1, both K2 branches, both K2q branches, K3 and K4. Its
+           section times, keys and launches are printed.
 
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
@@ -220,10 +231,15 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
+from anime_recommendations_tpu_torch.bench import HBM_BYTES_PER_S  # noqa: E402
+from anime_recommendations_tpu_torch.utils.profiling import (  # noqa: E402
+    profiled as _profiled,
+    start_profiler,
+)
+
 N_USERS, N_ANIME, N_RATINGS, D = 91_641, 17_560, 3_000_000, 128
 SEED = 7
 TIMED_RUNS = 20
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # Peak operations per second by type (H100 SXM data sheet, dense): f32
 # outside the tensor cores; tf32, bf16 and int8 on the tensor cores.
 PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
@@ -261,27 +277,6 @@ def phase_device() -> str:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     start_profiler()
     return card
-
-
-def start_profiler() -> None:
-    """One short torch.profiler session, first thing in the process (set up
-    first after phase 3's server threads had launched work, the profiler
-    recorded no kernels in this script), and a check of the name of the
-    busy-wait kernel that frames _profiled's sessions."""
-    import torch
-
-    if not _profiled(lambda: torch.ones(1 << 20, device="cuda").sum(), reps=1)["device_ms"] > 0:
-        raise AssertionError("torch.profiler records no device time on this machine")
-    # A session loses its records now and then (_profiled): try again.
-    for _ in range(PROFILER_SESSIONS):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(FRAME_CYCLES // 100)
-            torch.cuda.synchronize()
-        keys = [e.key for e in prof.key_averages()]
-        if any("spin_kernel" in k for k in keys):
-            return
-        print(f"[profiler] the framing session recorded {keys}", flush=True)
-    raise AssertionError("the busy-wait kernel framing profiler sessions is not spin_kernel")
 
 
 # ---- phase 2 -------------------------------------------------------------------
@@ -410,88 +405,6 @@ def _median_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-PROFILER_SESSIONS = 5
-# A busy-wait kernel of this many clock cycles (about 10 ms on an H100)
-# opens and closes every profiler session: see _profiled.
-FRAME_CYCLES = 20_000_000
-
-
-def _profiled(fn, reps: int = TIMED_RUNS, match=None) -> dict:
-    """torch.profiler over ``reps`` calls of fn after 3 warm-up calls: wall ms
-    per call (host clock to a synchronize), device-busy ms per call, the idle
-    share, device ms per call by kernel, the sessions it took and the launch
-    records they lost, and (``match``, a name or a tuple of names) the device
-    ms per call of the kernels whose names hold one of them (fn launches each
-    once a call), their sum and their records.
-
-    Every kernel is counted by one rule: its mean recorded duration times
-    its launches per call (its records over ``reps``, rounded). On an H100
-    host a session lost every record now and then, and in some processes
-    one record of a small kernel (an arange, a dtype copy) in every session.
-    So a busy-wait kernel (FRAME_CYCLES, excluded from every number) opens
-    and closes each session; the records lost (launches per call times
-    ``reps``, less the records) are counted; and a session with no records,
-    a matched name with no kernel, or a matched kernel with fewer than
-    ``reps`` - 1 records, is profiled again, at most PROFILER_SESSIONS times
-    in all, and then the run fails."""
-    import torch
-
-    names = (match,) if isinstance(match, str) else tuple(match or ())
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for session in range(1, PROFILER_SESSIONS + 1):
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(FRAME_CYCLES)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / reps
-            torch.cuda._sleep(FRAME_CYCLES)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
-        hits = [e for e in events if any(m in e.key for m in names)]
-        # Some processes lose one record of one kernel in every session (an
-        # arange in phase 4; K1's dense kernel in phase 7a): the mean of the
-        # matched kernel's other reps - 1 records stands for it.
-        if (events and all(any(m in e.key for e in hits) for m in names)
-                and all(reps - 1 <= e.count <= reps for e in hits)):
-            break
-        print(f"[profiler] session {session} of {reps} calls recorded "
-              f"{ {e.key[:60]: e.count for e in hits} } of {names}, {len(events)} kernels",
-              flush=True)
-    else:
-        raise AssertionError(f"torch.profiler lost records in {PROFILER_SESSIONS} sessions")
-    per_call = {e.key: e.self_device_time_total / e.count * round(e.count / reps) / 1e3
-                for e in events}
-    lost = sum(abs(round(e.count / reps) * reps - e.count) for e in events)
-    if lost:
-        print(f"[profiler] {lost} launch records lost: "
-              f"{ {e.key[:60]: e.count for e in events} }", flush=True)
-    busy = sum(per_call.values())
-    top = sorted(per_call.items(), key=lambda kv: kv[1], reverse=True)
-    out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
-           "by_kernel": {k[:70]: v for k, v in top[:8]}, "sessions": session,
-           "records_lost": lost}
-    if names:
-        out["match_ms"] = sum(per_call[e.key] for e in hits)
-        out["match_launches"] = sum(e.count for e in hits)
-        out["match_by_kernel"] = {_kernel_name(e.key): per_call[e.key] for e in hits}
-    return out
-
-
-def _kernel_name(key: str) -> str:
-    """A profiler key's kernel name without its namespace, template arguments
-    and parameters, e.g. fused_adam_kernel."""
-    head = key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-    return head.split()[-1].split("::")[-1]
 
 
 def _row_scores(table, queries, idx, head=None):
@@ -1394,24 +1307,20 @@ def _gather_case(card, name, n, ids_np, next_np, dtype, seed):
     return row
 
 
-ZIPF_SEED, ZIPF_RATINGS, ZIPF_LATENT = 5, 2_000_000, 16
+ZIPF_SEED, ZIPF_RATINGS = 5, 2_000_000
 
 
 @functools.cache
 def _zipf_ratings():
     """bench.py:570-692's trained-table data, drawn in its order from
-    np.random.default_rng(5): latent factors [91,641 | 17,560, 16], then
-    2,000,000 ratings of user min(pareto(1.1) * 40, 91,640) and anime
-    min(pareto(1.05) * 15, 17,559) (popular rows at low ids), rated
-    sigmoid(3 <u, a> + N(0, 0.35))."""
-    rng = np.random.default_rng(ZIPF_SEED)
-    u_lat = rng.normal(size=(N_USERS, ZIPF_LATENT)).astype(np.float32) / np.sqrt(ZIPF_LATENT)
-    a_lat = rng.normal(size=(N_ANIME, ZIPF_LATENT)).astype(np.float32) / np.sqrt(ZIPF_LATENT)
-    users = np.minimum((rng.pareto(1.1, ZIPF_RATINGS) * 40).astype(np.int64), N_USERS - 1)
-    anime = np.minimum((rng.pareto(1.05, ZIPF_RATINGS) * 15).astype(np.int64), N_ANIME - 1)
-    aff = np.einsum("ij,ij->i", u_lat[users], a_lat[anime])
-    ratings = 1.0 / (1.0 + np.exp(-(3.0 * aff + rng.normal(0, 0.35, ZIPF_RATINGS))))
-    return users.astype(np.int32), anime.astype(np.int32), ratings.astype(np.float32)
+    np.random.default_rng(5) by the bench module's zipf_teacher: latent
+    factors [91,641 | 17,560, 16], then 2,000,000 ratings of user
+    min(pareto(1.1) * 40, 91,640) and anime min(pareto(1.05) * 15, 17,559)
+    (popular rows at low ids), rated sigmoid(3 <u, a> + N(0, 0.35))."""
+    from anime_recommendations_tpu_torch.bench import zipf_teacher
+
+    teacher = zipf_teacher(np.random.default_rng(ZIPF_SEED), N_USERS, N_ANIME, ZIPF_RATINGS)
+    return teacher.users, teacher.anime, teacher.ratings
 
 
 def _adam_cases():
@@ -2688,16 +2597,13 @@ def phase_ivf_bench(card: str, device: str = "cuda") -> dict:
     the two-stage K2 scan)."""
     import torch
 
+    from anime_recommendations_tpu_torch.bench import latent_table
     from anime_recommendations_tpu_torch.ops import _kernels
     from anime_recommendations_tpu_torch.ops.ivf import build_ivf, ivf_topk
     from anime_recommendations_tpu_torch.ops.topk import masked_topk
 
     rng = np.random.default_rng(SEED)
-    lat_u = torch.from_numpy(rng.standard_normal((IVF_ROWS, 16), dtype=np.float32)).to(device)
-    lat_p = torch.from_numpy(rng.standard_normal((16, D), dtype=np.float32) / 4.0).to(device)
-    w = lat_u @ lat_p
-    w = (w / torch.linalg.norm(w, dim=1, keepdim=True)).contiguous()
-    del lat_u
+    w = latent_table(rng, IVF_ROWS, D, device)
     _sync(device)
     t0 = time.perf_counter()
     index = build_ivf(w, n_clusters=IVF_CLUSTERS, iters=8, seed=3)
@@ -2897,6 +2803,157 @@ def phase_pipeline(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---- phase 11 ------------------------------------------------------------------
+
+BENCH_TIMEOUT_S = 600
+# The benchmark's gates: PERF.md section 2's limits. Exact retrieval reads
+# 1.0; the trained-table overlaps reach BENCH_r05's record; IVF recall reaches
+# BENCH_r05's less 0.03 (IVF_RECALL_FLOOR).
+BENCH_EXACT = ("topk_overlap_vs_oracle", "topk_q256_overlap_vs_oracle",
+               "score_topk_overlap_vs_oracle")
+BENCH_TRAINED = ("topk_trained_twostage_vs_exact_overlap", "topk_trained_int8_vs_exact_overlap",
+                 "topk_trained_bf16_vs_bf16exact_overlap",
+                 "topk_trained350k_twostage_vs_exact_overlap")
+BENCH_TRAINED_FLOOR = 0.99961
+# The counters of every kernel on the bench's path: K1, K2's two branches,
+# K2q's two, K3, K4.
+BENCH_KERNELS = ("fused_adam", *K2_COUNTERS, *INT8_COUNTERS, "exact_topk", "l2_normalize")
+
+
+def bench_key_patterns(path: Path = REPO / "bench.py") -> tuple[dict, set]:
+    """The keys bench.py writes into ``details``, read from its source: a
+    regular expression per key, mapped to whether bench.py sets it only
+    under an ``if``; and the keys of the dict it starts from. An f-string's
+    field becomes each value its name takes, where the source says: the
+    constants of a ``for`` over a literal tuple, or the constant arguments
+    of every call of the function whose parameter it is. Any other field
+    matches anything."""
+    import ast
+    import itertools
+    import re
+    from collections import defaultdict
+
+    tree = ast.parse(path.read_text())
+    calls = defaultdict(list)   # function name -> each call's constant arguments
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+            calls[node.func.id].append([a.value if isinstance(a, ast.Constant) else None
+                                        for a in node.args])
+
+    def loop_values(target, items) -> dict:
+        if not isinstance(items, (ast.Tuple, ast.List)):
+            return {}
+        names = [target] if isinstance(target, ast.Name) else list(target.elts)
+        out = {}
+        for pos, name in enumerate(names):
+            values = [el if isinstance(target, ast.Name) else
+                      (el.elts[pos] if isinstance(el, ast.Tuple) else None) for el in items.elts]
+            if isinstance(name, ast.Name) and all(isinstance(v, ast.Constant) for v in values):
+                out[name.id] = [v.value for v in values]
+        return out
+
+    def expand(node, scope) -> list[str]:
+        parts = node.values if isinstance(node, ast.JoinedStr) else [node]
+        options = []
+        for part in parts:
+            if isinstance(part, ast.Constant):
+                options.append([re.escape(str(part.value))])
+            elif isinstance(part.value, ast.Name) and part.value.id in scope:
+                options.append([re.escape(str(v)) for v in scope[part.value.id]])
+            else:
+                options.append([".+"])
+        return ["".join(combo) for combo in itertools.product(*options)]
+
+    patterns, initial = {}, set()
+
+    def visit(node, scope, conditional):
+        if isinstance(node, ast.FunctionDef):
+            scope = dict(scope)
+            for i, arg in enumerate(node.args.args):
+                values = [c[i] if i < len(c) else None for c in calls[node.name]]
+                if values and None not in values:
+                    scope[arg.arg] = values
+        elif isinstance(node, ast.For):
+            scope = {**scope, **loop_values(node.target, node.iter)}
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                if (isinstance(target, ast.Subscript) and isinstance(target.value, ast.Name)
+                        and target.value.id == "details"):
+                    for key in expand(target.slice, scope):
+                        patterns[key] = patterns.get(key, True) and conditional
+                elif (isinstance(target, ast.Name) and target.id == "details"
+                      and isinstance(node.value, ast.Dict)):
+                    initial.update(k.value for k in node.value.keys)
+        for child in ast.iter_child_nodes(node):
+            visit(child, scope, conditional or isinstance(node, ast.If))
+
+    visit(tree, {}, False)
+    return patterns, initial
+
+
+def bench_key_mismatch(details: dict) -> tuple[list, list]:
+    """(bench.py's keys that ``details`` lacks, ``details``' keys that are
+    not bench.py's): every key bench.py always writes is required but
+    scan_harness_base_ms, which the port has no counterpart of; the keys it
+    writes under an ``if`` may be absent."""
+    import re
+
+    patterns, initial = bench_key_patterns()
+    missing = sorted(p for p, conditional in patterns.items()
+                     if p != "scan_harness_base_ms" and not conditional
+                     and not any(re.fullmatch(p, k) for k in details))
+    missing += sorted(initial - details.keys())
+    unknown = sorted(k for k in details if k not in initial and k != "scan_harness_base_ms"
+                     and not any(re.fullmatch(p, k) for p in patterns))
+    return missing, unknown
+
+
+def phase_bench(card: str) -> None:
+    """``cli bench`` in a fresh process (host-clock numbers read slower in
+    this script's own process than in a fresh one: PERF.md section 6): its
+    result line and launches line, every key of bench.py but
+    scan_harness_base_ms, the exact and trained-table overlaps, IVF recall
+    and a launch of every kernel on its path."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "anime_recommendations_tpu_torch.cli", "bench"],
+        cwd=REPO, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench] ") and not line.startswith("[bench] launches"):
+            print(f"[phase 11] {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli bench failed:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    result = json.loads(lines[-1])
+    launches = json.loads(next(line for line in proc.stderr.splitlines()
+                               if line.startswith("[bench] launches "))[len("[bench] launches "):])
+    details = result["details"]
+    print(f"[phase 11] cli bench in a fresh process, {wall:.1f} s ({card}): "
+          f"{len(lines)} stdout line(s), metric {result['metric']} = {result['value']} "
+          f"{result['unit']}, vs_baseline {result['vs_baseline']}", flush=True)
+    print(f"[phase 11] details {json.dumps(details)}", flush=True)
+    print(f"[phase 11] launches {json.dumps(launches)}", flush=True)
+    missing, unknown = bench_key_mismatch(details)
+    faults = []
+    if len(lines) != 1 or result["metric"] != "train_examples_per_sec":
+        faults.append(f"stdout {lines[:-1]}, metric {result['metric']}")
+    if missing or unknown:
+        faults.append(f"keys missing {missing}, not bench.py's {unknown}")
+    if card.split(",")[0] not in details["device"]:
+        faults.append(f"device {details['device']!r} is not the card {card!r}")
+    faults += [f"{k} = {details.get(k)}" for k in BENCH_EXACT if details.get(k) != 1.0]
+    faults += [f"{k} = {details.get(k)} < {BENCH_TRAINED_FLOOR}" for k in BENCH_TRAINED
+               if not details.get(k, 0) >= BENCH_TRAINED_FLOOR]
+    faults += [f"ivf2m_p{p}_recall_at10 = {details.get(f'ivf2m_p{p}_recall_at10')} < {floor}"
+               for p, floor in IVF_RECALL_FLOOR.items()
+               if not details.get(f"ivf2m_p{p}_recall_at10", 0) >= floor]
+    faults += [f"{k} never launched" for k in BENCH_KERNELS if launches.get(k, 0) < 1]
+    if faults:
+        raise AssertionError(f"cli bench: {faults}")
+
+
 def main() -> int:
     card = phase_device()
     import torch
@@ -2935,6 +2992,8 @@ def main() -> int:
         dist.destroy_process_group()
     phase_trained(card)
     phase_pipeline(card)
+    torch.cuda.empty_cache()   # the bench's process shares the card
+    phase_bench(card)
     # K2's two kernels: the streaming one (one query; users f32 Q=1) and the
     # tensor-core one (more; users f32 Q=256, bound by TF32).
     kernels = []

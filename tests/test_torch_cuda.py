@@ -885,3 +885,27 @@ def test_take_rows_gradient_on_the_card(cuda, n):
     want = torch.zeros((n, 128)).index_add_(0, ids.long(), g)
     scale = float(want.abs().max())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.cuda
+def test_bench_suite_on_the_card(cuda):
+    """The benchmark suite (cli bench's module) at small sizes on the card:
+    the exact retrieval overlaps read 1.0, and every kernel on its path
+    launched: K1, both K2 branches, both K2q branches, K3 and K4."""
+    from anime_recommendations_tpu_torch import bench
+
+    sizes = bench.BenchSizes(
+        n_users=3000, n_anime=1500, d=32, batch=1024, steps=2, epoch_rows=8192,
+        n_users_full=5000, full_rows=4096, routed_steps=3, routed_batches=3, query_batches=4,
+        oracle_rows=4000, ivf_rows=20_000, ivf_clusters=64, trained_users=3000,
+        trained_users_full=5000, trained_rows=50_000, trained_epochs=2, serve_users=300,
+        serve_anime=120, serve_interactions=30_000, serve_d=32)
+    details = bench.main(sizes, "cuda")["details"]
+    assert details["backend"] == "cuda" and details["device"] != "cpu"
+    for key in ("topk_overlap_vs_oracle", "topk_q256_overlap_vs_oracle",
+                "score_topk_overlap_vs_oracle"):
+        assert details[key] == 1.0, key
+    launched = {name: _kernels.launches[name] for name in (
+        "fused_adam", "packed_topk", "packed_topk_mma", "packed_topk_int8",
+        "packed_topk_int8_mma", "exact_topk", "l2_normalize")}
+    assert min(launched.values()) > 0, launched

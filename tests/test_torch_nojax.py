@@ -17,6 +17,7 @@ REPO = Path(__file__).resolve().parents[1]
 MODULES = [
     "anime_recommendations_tpu_torch.serve.api",
     "anime_recommendations_tpu_torch.cli",
+    "anime_recommendations_tpu_torch.bench",
     "anime_recommendations_tpu_torch.pipeline.runner",
     "anime_recommendations_tpu_torch.recommend.batch",
     "anime_recommendations_tpu_torch.recommend.similar_anime",

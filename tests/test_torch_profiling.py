@@ -73,3 +73,21 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+
+
+@pytest.mark.parametrize("call", ["profiled", "start_profiler"])
+def test_profiler_helpers_need_a_card(call):
+    """profiled and start_profiler time kernels on a CUDA card; without one
+    they raise before touching torch.profiler."""
+    if profiling.torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    fn = {"profiled": lambda: profiling.profiled(lambda: None, reps=1),
+          "start_profiler": profiling.start_profiler}[call]
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        fn()
+
+
+def test_kernel_name_strips_namespaces_templates_and_parameters():
+    assert profiling.kernel_name("void (anonymous namespace)::fused_adam_kernel<float, 4>"
+                                 "(float*, int)") == "fused_adam_kernel"
+    assert profiling.kernel_name("scan::packed_topk_mma_kernel(int)") == "packed_topk_mma_kernel"

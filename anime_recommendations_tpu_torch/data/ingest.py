@@ -2,15 +2,19 @@
 
 Counterpart of anime_recommendations_tpu/data/ingest.py: local files take
 priority (parquet through pandas; CSV through the native numeric parser,
-data/fastcsv.py, which hands files with string columns to pandas), and when
-they are missing a schema-identical synthetic dataset is generated from the
-config's seed. Downloading is not ported: a config that allows it for a
-missing file raises.
+data/fastcsv.py, which hands files with string columns to pandas); a
+missing file is downloaded into the cache directory when the config allows
+it and names a URL; and when a file is neither local nor downloadable, a
+schema-identical synthetic dataset is generated from the config's seed.
+The download goes through the standard library's urllib, where JAX uses
+requests: an HTTP error status raises urllib.error.HTTPError (ROADMAP.md
+Queue 3), and nothing falls back to synthetic data after a failed download.
 """
 
 from __future__ import annotations
 
 import logging
+import urllib.request
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -27,7 +31,7 @@ class RawData:
     ratings: pd.DataFrame
     anime: pd.DataFrame
     synopses: pd.DataFrame
-    source: str  # "local" | "synthetic"
+    source: str  # "local" | "download" | "synthetic"
 
 
 def _read_any(path: Path) -> pd.DataFrame:
@@ -40,27 +44,41 @@ def _read_any(path: Path) -> pd.DataFrame:
     return pd.read_csv(path)
 
 
+def _download(url: str, dest: Path) -> Path:
+    """Stream ``url`` into ``dest`` in 1 MiB chunks, with a 60 s timeout; an
+    HTTP error status raises before ``dest`` is opened."""
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    with urllib.request.urlopen(url, timeout=60) as resp, open(dest, "wb") as f:
+        while chunk := resp.read(1 << 20):
+            f.write(chunk)
+    return dest
+
+
 def load_raw(cfg: DataConfig, cache_dir: str | Path = "data") -> RawData:
-    """Resolve the three raw inputs: local files, else synthetic.
-    ``cache_dir`` is where the JAX package downloads a missing file to."""
+    """Resolve the three raw inputs: local file > gated download into
+    ``cache_dir`` > synthetic. ``source`` is "download" once any file was
+    downloaded."""
+    cache = Path(cache_dir)
     paths = {
         "ratings": (Path(cfg.stats_path), cfg.stats_url),
         "anime": (Path(cfg.anime_path), cfg.anime_url),
         "synopses": (Path(cfg.synopses_path), cfg.synopses_url),
     }
     frames: dict[str, pd.DataFrame] = {}
+    source = "local"
     for key, (path, url) in paths.items():
         if path.exists():
             frames[key] = _read_any(path)
         elif cfg.allow_download and url:
-            raise NotImplementedError(
-                f"{path} is missing and downloading ({url} into {Path(cache_dir)}) is not "
-                "ported: place the file locally (ROADMAP.md Queue 1)")
+            dest = cache / path.name
+            logger.info("downloading %s -> %s", url, dest)
+            frames[key] = _read_any(_download(url, dest))
+            source = "download"
         else:
             break
     if len(frames) == 3:
         return RawData(ratings=frames["ratings"], anime=frames["anime"],
-                       synopses=frames["synopses"], source="local")
+                       synopses=frames["synopses"], source=source)
     logger.warning(
         "raw data not found (%s) - generating synthetic dataset "
         "(users=%d anime=%d interactions=%d)",

@@ -17,6 +17,7 @@ ranks that share its data index).
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -68,9 +69,23 @@ class World:
         return self.size, self.rank
 
 
-# (data_axis, model_axis) -> (default group, data groups, model groups): the
-# groups of a mesh shape are made once per default process group.
+# (data_axis, model_axis) -> weak references to (default group, data groups,
+# model groups): the groups of a mesh shape are made once per default process
+# group. torch holds every group until dist.destroy_process_group, so an
+# entry lives exactly as long as its default group, on every rank alike. The
+# references are weak so that the destroy frees the groups: a gloo group kept alive past it keeps its worker threads running
+# into interpreter finalisation, where a thread that still lets go of a
+# collective's tensors asks for the GIL, is ended, and aborts the process
+# ("terminate called without an active exception").
 _AXIS_GROUPS: dict = {}
+
+
+def _weak(group):
+    """A weak reference to ``group``; dist.new_group's non-member sentinel
+    is held as it is."""
+    if isinstance(group, dist.ProcessGroup):
+        return weakref.ref(group)
+    return lambda: group
 
 
 def _axis_groups(d: int, m: int) -> tuple[list, list]:
@@ -79,11 +94,15 @@ def _axis_groups(d: int, m: int) -> tuple[list, list]:
     every group, in this order."""
     default = dist.group.WORLD
     hit = _AXIS_GROUPS.get((d, m))
-    if hit is None or hit[0] is not default:
-        data = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)]
-        model = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
-        hit = _AXIS_GROUPS[(d, m)] = (default, data, model)
-    return hit[1], hit[2]
+    if hit is not None:
+        data, model = [r() for r in hit[1]], [r() for r in hit[2]]
+        if hit[0]() is default and None not in data + model:
+            return data, model
+    data = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)]
+    model = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
+    _AXIS_GROUPS[(d, m)] = (_weak(default), [_weak(g) for g in data],
+                            [_weak(g) for g in model])
+    return data, model
 
 
 def make_world(data_axis: int = -1, model_axis: int = 1, device=None) -> World:

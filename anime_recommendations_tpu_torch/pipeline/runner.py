@@ -365,7 +365,8 @@ class PipelineRunner:
     def _is_synthetic_run(self) -> bool:
         """True when ingest made the synthetic dataset (its artifact records
         source=synthetic): configured titles and user ids name the real
-        MyAnimeList data and do not resolve in a synthetic catalog."""
+        MyAnimeList data and do not resolve in a synthetic catalog. A local
+        or downloaded run ("local", "download") keeps them, as in JAX."""
         try:
             art = self.store.get("full_data_set.parquet:latest")
         except FileNotFoundError:

@@ -200,6 +200,21 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            least 0.68 (8 probes) and 0.91 (32); its ``[bench] launches`` line
            must show K1, both K2 branches, both K2q branches, K3 and K4. Its
            section times, keys and launches are printed.
+  phase 12 the downloaded dataset: phase 3's raw frames (3,000,000 synthetic
+           ratings of seed 7, the ratings as a numeric CSV) served by a
+           ThreadingHTTPServer on 127.0.0.1 in a thread of this script, and
+           PipelineRunner over ingest, preprocess, train and similar_anime
+           with phase 9's configuration (D = 128, fused_adam, one epoch),
+           downloading allowed, the three URLs set and every local path
+           missing, a random query title and no weight CSVs. The cache must
+           hold the served bytes, full_data_set.parquet be tagged
+           "download" and hold the served CSV as read locally, and each step
+           launch as in 9a (K1 and its first pass twice per training step,
+           K4 twice, K2 at least once). Then ``cli ingest`` in a subprocess
+           against the same server must write the same full_data_set.parquet.
+           The phase's seconds, ingest's and the download's MB/s (the
+           cached bytes over the time of the client's _download calls) are
+           printed.
 
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
@@ -212,6 +227,7 @@ which are listed on their own too), and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -754,20 +770,29 @@ def phase_new_kernels(card: str) -> dict[str, list[dict]]:
 # ---- phase 3 -------------------------------------------------------------------
 
 @functools.cache
+def _raw_frames():
+    """The synthetic raw ratings, catalog and synopses at reference scale
+    (made once, from SEED): what the pipeline's ingest makes of the default
+    config with phase 9's sizes."""
+    from anime_recommendations_tpu_torch.data import synthetic
+
+    raw = synthetic.synth_ratings(n_users=N_USERS, n_anime=N_ANIME,
+                                  n_interactions=N_RATINGS, seed=SEED)
+    catalog = synthetic.synth_anime_catalog(n_anime=N_ANIME, seed=SEED)
+    return raw, catalog, synthetic.synth_synopses(catalog, seed=SEED)
+
+
+@functools.cache
 def _dataset():
     """The synthetic ratings at reference scale, preprocessed, with vocab,
     catalog and synopses (made once, from SEED)."""
-    from anime_recommendations_tpu_torch.data import synthetic
     from anime_recommendations_tpu_torch.data.preprocess import preprocess_ratings
     from anime_recommendations_tpu_torch.data.vocab import build_vocab
 
     t0 = time.perf_counter()
-    raw = synthetic.synth_ratings(n_users=N_USERS, n_anime=N_ANIME,
-                                  n_interactions=N_RATINGS, seed=SEED)
+    raw, catalog, synopses = _raw_frames()
     clean, _ = preprocess_ratings(raw, num_reviews=1)
     vocab = build_vocab(clean)
-    catalog = synthetic.synth_anime_catalog(n_anime=N_ANIME, seed=SEED)
-    synopses = synthetic.synth_synopses(catalog, seed=SEED)
     print(f"[data] {len(raw)} ratings -> {len(clean)} rows, vocab {vocab.n_users} users "
           f"x {vocab.n_anime} anime, made in {time.perf_counter() - t0:.1f} s", flush=True)
     return clean, vocab, catalog, synopses
@@ -2954,6 +2979,161 @@ def phase_bench(card: str) -> None:
         raise AssertionError(f"cli bench: {faults}")
 
 
+# ---- phase 12 ------------------------------------------------------------------
+
+# The downloaded dataset: phase 3's raw frames served over HTTP on 127.0.0.1
+# under the config's file names (the ratings as a numeric CSV), and phase 9's
+# configuration over ingest, preprocess, train and similar_anime with every
+# raw file missing locally and downloading allowed. The configured query
+# title names a real MyAnimeList anime, which a downloaded synthetic catalog
+# lacks, and a downloaded run does not swap it for a random one (as in JAX),
+# so the query is random. The weight CSVs are left out (24 s of phase 9's
+# run, on no kernel's path).
+DOWNLOAD_NAMES = {"stats": "user_stats.csv", "anime": "all_anime.csv",
+                  "synopses": "synopses.csv"}
+DOWNLOAD_STEPS = ["ingest", "preprocess", "train", "similar_anime"]
+
+
+def _serve_dir(root: Path):
+    """A ThreadingHTTPServer on 127.0.0.1 (a free port) serving ``root`` from
+    a thread of this process."""
+    import http.server
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, directory=str(root), **kwargs)
+
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+@contextlib.contextmanager
+def _timed_downloads():
+    """Time each call of data.ingest._download in this process: the client's
+    request, its reads from the socket and its writes into the cache. Yields
+    the list that (bytes, seconds) is appended to for each file."""
+    from anime_recommendations_tpu_torch.data import ingest
+
+    plain, fetched = ingest._download, []
+
+    def timed(url, dest):
+        t0 = time.perf_counter()
+        path = plain(url, dest)
+        fetched.append((path.stat().st_size, time.perf_counter() - t0))
+        return path
+
+    ingest._download = timed
+    try:
+        yield fetched
+    finally:
+        ingest._download = plain
+
+
+def phase_download(card: str) -> dict:
+    """Phase 12: PipelineRunner over DOWNLOAD_STEPS with the raw files
+    downloaded from a local server; the cache bytes, the ingested ratings
+    and the source tag checked, K1, K4 and K2 counted per step as in 9a;
+    then ``cli ingest`` in a subprocess against the same server."""
+    import pandas as pd
+    import torch
+
+    from anime_recommendations_tpu_torch.config import Config
+    from anime_recommendations_tpu_torch.data.ingest import _read_any
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.pipeline.runner import PipelineRunner
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        served = Path(tmp) / "served"
+        served.mkdir()
+        raw, catalog, synopses = _raw_frames()
+        t0 = time.perf_counter()
+        for frame, key in ((raw, "stats"), (catalog, "anime"), (synopses, "synopses")):
+            frame.to_csv(served / DOWNLOAD_NAMES[key], index=False)
+        sizes = {n: (served / n).stat().st_size for n in DOWNLOAD_NAMES.values()}
+        print(f"[phase 12] served files written in {time.perf_counter() - t0:.1f} s: "
+              f"{len(raw):,} ratings, {len(catalog):,} anime; bytes {json.dumps(sizes)}",
+              flush=True)
+        server = _serve_dir(served)
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            sets = [*PIPELINE_SETS, "data.allow_download=true", "similarity.random_anime=true",
+                    "model.export_weight_csvs=false",
+                    *[f"data.{key}_path={tmp}/missing/{name}"
+                      for key, name in DOWNLOAD_NAMES.items()],
+                    *[f"data.{key}_url={base}/{name}" for key, name in DOWNLOAD_NAMES.items()]]
+            cfg = Config().with_overrides(sets)
+            run_dir = Path(tmp) / "run"
+            runner = PipelineRunner(cfg, run_dir, device="cuda")
+            per_step: dict[str, dict] = {}
+            _counting_steps(runner, per_step)
+            _kernels.launches.clear()
+            with _timed_downloads() as fetched:
+                timings = runner.run(DOWNLOAD_STEPS)
+            torch.cuda.synchronize()
+            print(f"[phase 12] launches by step: {json.dumps(per_step)}", flush=True)
+            store = runner.store
+            for name in DOWNLOAD_NAMES.values():
+                if (runner.run_dir / "cache" / name).read_bytes() != (served / name).read_bytes():
+                    raise AssertionError(f"cache/{name} is not the served file")
+            art = store.get("full_data_set.parquet:latest")
+            if art.metadata.get("source") != "download":
+                raise AssertionError(f"full_data_set.parquet metadata {art.metadata}")
+            ingested = pd.read_parquet(art.file())
+            pd.testing.assert_frame_equal(ingested, _read_any(served / DOWNLOAD_NAMES["stats"]))
+            rows = store.get("preprocessed_stats.parquet:latest").metadata["rows_out"]
+            n_train = rows - min(cfg.model.test_size, max(rows // 10, 1))
+            steps = -(-n_train // min(BATCH, n_train)) * PIPELINE_EPOCHS
+            k1 = {k: per_step["train"].get(k, 0) for k in ("fused_adam_tiles", "fused_adam")}
+            if k1 != dict.fromkeys(k1, 2 * steps):
+                raise AssertionError(f"train launched {per_step['train']} over {steps} steps")
+            if per_step["similar_anime"].get("l2_normalize") != 2:
+                raise AssertionError("the context build did not launch l2_normalize twice")
+            if sum(per_step["similar_anime"].get(c, 0) for c in K2_COUNTERS) < 1:
+                raise AssertionError(f"similar_anime launched no K2: {per_step['similar_anime']}")
+            if len(fetched) != len(DOWNLOAD_NAMES):
+                raise AssertionError(f"{len(fetched)} downloads, not {len(DOWNLOAD_NAMES)}")
+            n_bytes, seconds = sum(b for b, _ in fetched), sum(t for _, t in fetched)
+            out.update(timings=timings, launches=dict(_kernels.launches),
+                       launches_by_step=per_step, downloaded_bytes=n_bytes,
+                       download_s=seconds, download_mb_per_s=n_bytes / 1e6 / seconds)
+
+            # ``cli ingest`` in a fresh process against the same server.
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "anime_recommendations_tpu_torch.cli", "ingest",
+                 "--run-dir", str(Path(tmp) / "cli"), "--device", "cuda",
+                 *[a for o in sets for a in ("--set", o)]],
+                cwd=REPO, capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli ingest exited with {proc.returncode}:\n{proc.stderr}")
+            cli_s = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+            server.server_close()
+        cli_store = PipelineRunner(cfg, Path(tmp) / "cli", device="cpu").store
+        cli_art = cli_store.get("full_data_set.parquet:latest")
+        pd.testing.assert_frame_equal(pd.read_parquet(cli_art.file()), ingested)
+        if cli_art.metadata != art.metadata:
+            raise AssertionError(f"cli ingest metadata {cli_art.metadata} != {art.metadata}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[phase 12] the downloaded dataset ({card}): {len(ingested):,} ratings ingested, "
+          f"the cache equal to the served bytes, source 'download', `cli ingest` in "
+          f"{cli_s:.1f} s equal; wall s by step {json.dumps(timings)}; ingest "
+          f"{timings['ingest']:.2f} s; download {out['download_mb_per_s']:.1f} MB/s "
+          f"({n_bytes:,} bytes in {seconds:.4f} s of the client's _download calls); K1 "
+          f"{per_step['train'].get('fused_adam', 0)} and its first pass "
+          f"{per_step['train'].get('fused_adam_tiles', 0)} over {steps} steps; phase "
+          f"{out['wall_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     card = phase_device()
     import torch
@@ -2994,6 +3174,7 @@ def main() -> int:
     phase_pipeline(card)
     torch.cuda.empty_cache()   # the bench's process shares the card
     phase_bench(card)
+    phase_download(card)
     # K2's two kernels: the streaming one (one query; users f32 Q=1) and the
     # tensor-core one (more; users f32 Q=256, bound by TF32).
     kernels = []

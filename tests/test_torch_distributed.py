@@ -35,32 +35,48 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(m: int, extra: list[str], timeout: int = 120, fail: bool = False) -> list:
-    """m gloo ranks of the distributed worker; their JSON lines, or with
-    ``fail`` (every rank must fail) their standard errors."""
+WORKER = "anime_recommendations_tpu_torch.parallel.distributed"
+
+
+def failed_rank(rank: int, code: int, err: str) -> str:
+    return f"rank {rank} exited with {code}; its whole stderr:\n{err}"
+
+
+def run_ranks(m: int, cmd: list[str], timeout: int = 120, fail: bool = False) -> list[str]:
+    """Standard outputs of m gloo ranks of ``cmd``, each started with its
+    MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE; with ``fail`` (every rank
+    must fail) their standard errors. A rank that succeeds must not have
+    aborted on the way out."""
     port = _free_port()
     procs = []
     for rank in range(m):
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
                    WORLD_SIZE=str(m), LOCAL_RANK=str(rank), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "anime_recommendations_tpu_torch.parallel.distributed",
-             "--worker", "--device", "cpu", *extra],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
     outs = []
     try:
-        for p in procs:
+        for rank, p in enumerate(procs):
             out, err = p.communicate(timeout=timeout)
             if fail:
-                assert p.returncode != 0, f"worker did not fail:\n{out[-3000:]}"
+                assert p.returncode != 0, f"rank {rank} did not fail:\n{out}"
                 outs.append(err)
                 continue
-            assert p.returncode == 0, f"worker failed:\n{err[-3000:]}"
-            outs.append(json.loads(out.strip().splitlines()[-1]))
+            assert p.returncode == 0, failed_rank(rank, p.returncode, err)
+            assert "terminate called" not in err, failed_rank(rank, p.returncode, err)
+            outs.append(out)
     finally:
         for p in procs:
             p.kill()
     return outs
+
+
+def launch(m: int, extra: list[str], timeout: int = 120, fail: bool = False) -> list:
+    """m gloo ranks of the distributed worker; their JSON lines, or with
+    ``fail`` (every rank must fail) their standard errors."""
+    outs = run_ranks(m, [sys.executable, "-m", WORKER, "--worker", "--device", "cpu", *extra],
+                     timeout, fail)
+    return outs if fail else [json.loads(out.strip().splitlines()[-1]) for out in outs]
 
 
 FIT = ["--fit", "--epochs", "3", "--optimizer", "fused_adam"]
@@ -125,3 +141,74 @@ def test_measured_capacity_and_bf16_moments(two_rank_fit):
                   device="cpu", **FIT_KWARGS).fit(train, holdout, 512, 128)
     np.testing.assert_allclose(bf16[0]["loss"], one.history["loss"].to_numpy(), rtol=2e-2)
     np.testing.assert_allclose(bf16[0]["val_loss"], one.history["val_loss"].to_numpy(), rtol=2e-2)
+
+
+# Runs a module's main(argv) as ``python -m`` would, then prints how many of
+# gloo's worker threads ("pt_gloo_runloop") are still alive in the process.
+PROBE = """
+import importlib, json, os, sys
+importlib.import_module(sys.argv[1]).main(sys.argv[2:])
+comms = [open(f"/proc/self/task/{t}/comm").read().strip() for t in os.listdir("/proc/self/task")]
+print(json.dumps({"gloo_threads": comms.count("pt_gloo_runloop")}))
+"""
+PIPELINE_SETS = ["data.synthetic_users=300", "data.synthetic_anime=120",
+                 "data.synthetic_interactions=30000", "data.num_reviews=50",
+                 "model.embedding_size=8", "model.epochs=1", "model.batch_size=1024",
+                 "model.test_size=1000", "parallel.routing=psum", "parallel.model_axis=2",
+                 "parallel.shard_anime_table=true"]
+ENTRY_POINTS = {
+    "worker_step": (WORKER, ["--worker", "--device", "cpu", "--steps", "1"]),
+    "worker_fit": (WORKER, ["--worker", "--device", "cpu", "--fit", "--epochs", "1",
+                            "--optimizer", "fused_adam", "--checkpoint-dir", "{tmp}/ck"]),
+    "worker_fit_psum": (WORKER, ["--worker", "--device", "cpu", "--fit", "--epochs", "1",
+                                 "--routing", "psum", "--model-axis", "2", "--shard-anime"]),
+    "scaling_bench": ("anime_recommendations_tpu_torch.parallel.scaling_bench",
+                      ["--worker", "--device", "cpu", "--meshes", "2x1", "--steps", "2",
+                       "--batch", "256", "--users", "512", "--anime", "128", "--emb", "16"]),
+    "cli_train": ("anime_recommendations_tpu_torch.cli",
+                  ["pipeline", "--run-dir", "{tmp}/run", "--device", "cpu", "--steps", "ingest",
+                   "preprocess", "train", *[a for s in PIPELINE_SETS for a in ("--set", s)]]),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_join_their_gloo_threads(entry, tmp_path):
+    """Every multi-rank entry point of the port ends with
+    dist.destroy_process_group, which frees its process groups while the
+    interpreter runs: when main returns, no gloo worker thread is left
+    alive. One left alive (parallel.mesh's group cache held the groups
+    strongly, past destroy_process_group) met the interpreter's finalisation
+    still letting go of a collective's tensors now and then, and the rank
+    aborted with "terminate called without an active exception" after its
+    work was done."""
+    module, argv = ENTRY_POINTS[entry]
+    argv = [a.format(tmp=tmp_path) for a in argv]
+    outs = run_ranks(2, [sys.executable, "-c", PROBE, module, *argv])
+    assert [json.loads(out.strip().splitlines()[-1]) for out in outs] == \
+        [{"gloo_threads": 0}] * 2
+
+
+def gloo_threads() -> int:
+    tasks = Path("/proc/self/task")
+    return sum((t / "comm").read_text().strip() == "pt_gloo_runloop" for t in tasks.iterdir())
+
+
+def test_bench_one_rank_group_joins_its_gloo_threads():
+    """bench.one_rank_group's gloo group of one rank, made and destroyed in
+    this process, with a mesh's groups made from it: their worker threads
+    end with it."""
+    import torch
+    import torch.distributed as dist
+
+    from anime_recommendations_tpu_torch.bench import one_rank_group
+    from anime_recommendations_tpu_torch.parallel.mesh import make_world
+
+    before = gloo_threads()
+    with one_rank_group(torch.device("cpu")):
+        world = make_world(device="cpu")
+        x = torch.ones(4)
+        dist.all_reduce(x, group=world.data_group)
+        assert gloo_threads() > before
+        del world
+    assert gloo_threads() == before and not dist.is_initialized()
+    assert x.tolist() == [1.0] * 4

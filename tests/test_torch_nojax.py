@@ -82,6 +82,15 @@ def test_no_import_statement_names_jax_or_the_jax_package(path):
         assert not {"jax", "jaxlib", "anime_recommendations_tpu"} & imported_names(f), f
 
 
+@pytest.mark.parametrize("path", ["chip_smoke.py", "anime_recommendations_tpu_torch"])
+def test_no_import_statement_names_requests(path):
+    """The download goes through urllib: the card's machine is not known to
+    have requests."""
+    root = REPO / path
+    files = [root] if root.is_file() else sorted(root.rglob("*.py"))
+    assert all("requests" not in imported_names(f) for f in files)
+
+
 @pytest.mark.parametrize("module", ["anime_recommendations_tpu_torch.recommend.tables",
                                     "anime_recommendations_tpu_torch.train.model_io"])
 def test_device_half_imports_neither_jax_nor_pandas(module):

@@ -268,14 +268,20 @@ CLI_SETS = ["data.synthetic_users=300", "data.synthetic_anime=120",
             "model.test_size=1000"]
 
 
+def run_checked(cmd: list[str]) -> str:
+    """stdout of ``cmd`` run from the repo. A failure reports the exit code
+    and the whole stderr (every rank's, under torchrun)."""
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, f"exit code {proc.returncode}; whole stderr:\n{proc.stderr}"
+    return proc.stdout
+
+
 def cli_pipeline(run_dir, *launcher, sets=()):
     """stdout of ``cli pipeline`` on the CPU, started by ``launcher``."""
-    return subprocess.run(
+    return run_checked(
         [*launcher, "-m", "anime_recommendations_tpu_torch.cli", "pipeline",
          "--run-dir", str(run_dir), "--device", "cpu",
-         *[a for s in [*CLI_SETS, *sets] for a in ("--set", s)]],
-        cwd=REPO, capture_output=True, text=True, timeout=600, check=True,
-    ).stdout
+         *[a for s in [*CLI_SETS, *sets] for a in ("--set", s)]])
 
 
 def test_cli_pipeline_prints_the_timings(tmp_path):
@@ -313,10 +319,9 @@ def one_process_history(tmp_path_factory):
     """The history of ``cli pipeline`` over ingest, preprocess and train in
     one process (the one-device Trainer), 2 epochs."""
     run_dir = tmp_path_factory.mktemp("one")
-    subprocess.run([sys.executable, "-m", "anime_recommendations_tpu_torch.cli", "pipeline",
-                    "--run-dir", str(run_dir), "--device", "cpu", *TRAIN_STEPS,
-                    *[a for s in [*CLI_SETS, "model.epochs=2"] for a in ("--set", s)]],
-                   cwd=REPO, capture_output=True, text=True, timeout=600, check=True)
+    run_checked([sys.executable, "-m", "anime_recommendations_tpu_torch.cli", "pipeline",
+                 "--run-dir", str(run_dir), "--device", "cpu", *TRAIN_STEPS,
+                 *[a for s in [*CLI_SETS, "model.epochs=2"] for a in ("--set", s)]])
     return _history(run_dir)
 
 
@@ -333,7 +338,7 @@ def test_cli_train_psum_under_torchrun(tmp_path, sets, one_process_history):
            "--device", "cpu", *TRAIN_STEPS,
            *[a for s in [*CLI_SETS, "model.epochs=2", "parallel.routing=psum", *sets]
              for a in ("--set", s)]]
-    subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600, check=True)
+    run_checked(cmd)
     got, want = _history(tmp_path), one_process_history
     assert len(got) == 2 and np.isfinite(got.to_numpy()).all()
     np.testing.assert_allclose(got[["loss", "mse"]], want[["loss", "mse"]], rtol=1e-5)

@@ -118,8 +118,9 @@ constexpr int kPassThreads = 32 * kPassWarps;
 constexpr unsigned kAll = 0xffffffffu;
 static_assert(kTile == 32 && kRows == 32, "a warp holds a tile's ids, and a block's rows");
 
-struct Scalars {
-  float lr, bc1, bc2, eps, l2, b1, b2;
+// The scalars fixed for a run, passed by value.
+struct Consts {
+  float eps, l2, b1, b2;
 };
 
 // Stateless 32-bit mixer; both multipliers are odd and below 2^31, so the
@@ -173,15 +174,18 @@ __device__ __forceinline__ void store_moment(__nv_bfloat16* p, float4 v, bool sr
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+// step_row holds the step's lr, bc1 and bc2 in shared memory, read at each
+// use (volatile) so that they take no register across the element loop, as
+// the launch arguments they replace did not.
 __device__ __forceinline__ void adam(float dscat, float& w, float& m, float& v,
-                                     const Scalars& s, float two_l2, float omb1,
-                                     float omb2) {
+                                     const Consts& c, const volatile float* step_row,
+                                     float two_l2, float omb1, float omb2) {
   const float g = __fadd_rn(dscat, __fmul_rn(w, two_l2));
-  m = __fadd_rn(__fmul_rn(m, s.b1), __fmul_rn(g, omb1));
-  v = __fadd_rn(__fmul_rn(v, s.b2), __fmul_rn(__fmul_rn(g, g), omb2));
-  const float upd = __fdiv_rn(__fdiv_rn(m, s.bc1),
-                              __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.bc2)), s.eps));
-  w = __fsub_rn(w, __fmul_rn(upd, s.lr));
+  m = __fadd_rn(__fmul_rn(m, c.b1), __fmul_rn(g, omb1));
+  v = __fadd_rn(__fmul_rn(v, c.b2), __fmul_rn(__fmul_rn(g, g), omb2));
+  const float upd = __fdiv_rn(__fdiv_rn(m, step_row[1]),
+                              __fadd_rn(__fsqrt_rn(__fdiv_rn(v, step_row[2])), c.eps));
+  w = __fsub_rn(w, __fmul_rn(upd, step_row[0]));
 }
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -427,13 +431,15 @@ __device__ __forceinline__ void adam_block(float* __restrict__ w, M* __restrict_
                                            const int32_t* __restrict__ starts,
                                            float* __restrict__ tile_sums,
                                            float* __restrict__ partials, Gather gather, int n,
-                                           int d, const Scalars& s, int sr, uint32_t step) {
+                                           int d, const float* __restrict__ scalars,
+                                           Consts consts, int sr) {
   __shared__ int run_lo[kRows];
   __shared__ int run_hi[kRows];
   __shared__ int next_lo[kRows];
   __shared__ int next_hi[kRows];
   __shared__ unsigned long_runs;  // rows whose runs have more than kLongParts parts
   __shared__ float warp_sums[kWarps];
+  __shared__ float step_row[3];   // the step's lr, bc1, bc2 (adam)
 
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -458,6 +464,13 @@ __device__ __forceinline__ void adam_block(float* __restrict__ w, M* __restrict_
   };
   if (prefetch && t < total) load(t);
 
+  // The step's scalars come from device memory, a row {lr, bc1, bc2, step}
+  // (f32, the step's uint32 bits in the last slot): a CUDA graph replays a
+  // launch with the arguments it was captured with, so a value that changes
+  // from step to step cannot be one of them. The last warp, idle here,
+  // copies them for the block.
+  if (t == kThreads - 1)
+    for (int i = 0; i < 3; ++i) step_row[i] = __ldg(scalars + i);
   if (t < 32) {
     int lo, hi;
     find_runs(ids, starts[blockIdx.x], starts[blockIdx.x + 1], row0, lane, lo, hi);
@@ -482,9 +495,10 @@ __device__ __forceinline__ void adam_block(float* __restrict__ w, M* __restrict_
     __syncthreads();  // the chunk sums are read by the rows' own threads
   }
 
-  const float two_l2 = __fmul_rn(2.f, s.l2);
-  const float omb1 = __fsub_rn(1.f, s.b1);
-  const float omb2 = __fsub_rn(1.f, s.b2);
+  const uint32_t step = __ldg(reinterpret_cast<const uint32_t*>(scalars) + 3);
+  const float two_l2 = __fmul_rn(2.f, consts.l2);
+  const float omb1 = __fsub_rn(1.f, consts.b1);
+  const float omb2 = __fsub_rn(1.f, consts.b2);
   const bool use_sr = sr != 0;
   const uint32_t seed_mu = mix32(2u * step);
   const uint32_t seed_nu = mix32(2u * step + 1u);
@@ -506,10 +520,10 @@ __device__ __forceinline__ void adam_block(float* __restrict__ w, M* __restrict_
     sq = fmaf(w4.y, w4.y, sq);
     sq = fmaf(w4.z, w4.z, sq);
     sq = fmaf(w4.w, w4.w, sq);
-    adam(acc.x, w4.x, m.x, v.x, s, two_l2, omb1, omb2);
-    adam(acc.y, w4.y, m.y, v.y, s, two_l2, omb1, omb2);
-    adam(acc.z, w4.z, m.z, v.z, s, two_l2, omb1, omb2);
-    adam(acc.w, w4.w, m.w, v.w, s, two_l2, omb1, omb2);
+    adam(acc.x, w4.x, m.x, v.x, consts, step_row, two_l2, omb1, omb2);
+    adam(acc.y, w4.y, m.y, v.y, consts, step_row, two_l2, omb1, omb2);
+    adam(acc.z, w4.z, m.z, v.z, consts, step_row, two_l2, omb1, omb2);
+    adam(acc.w, w4.w, m.w, v.w, consts, step_row, two_l2, omb1, omb2);
     st4(w + off, w4);
     store_moment(mu + off, m, use_sr, mix32(seed_mu + (uint32_t)row) + (uint32_t)c);
     store_moment(nu + off, v, use_sr, mix32(seed_nu + (uint32_t)row) + (uint32_t)c);
@@ -548,10 +562,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_adam_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restrict__ nu,
                   const int32_t* __restrict__ ids, const float* __restrict__ grads,
                   const int32_t* __restrict__ starts, float* __restrict__ tile_sums,
-                  float* __restrict__ partials, int n, int d, Scalars s, int sr,
-                  uint32_t step) {
+                  float* __restrict__ partials, int n, int d,
+                  const float* __restrict__ row, Consts c, int sr) {
   adam_block<M, false, false>(w, mu, nu, ids, grads, nullptr, starts, tile_sums, partials,
-                              Gather{}, n, d, s, sr, step);
+                              Gather{}, n, d, row, c, sr);
 }
 
 // The same with a dense gradient: its own kernel, so a profile tells the two apart.
@@ -561,9 +575,9 @@ fused_adam_dense_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restrict
                         const int32_t* __restrict__ ids, const float* __restrict__ grads,
                         const float* __restrict__ dense, const int32_t* __restrict__ starts,
                         float* __restrict__ tile_sums, float* __restrict__ partials,
-                        int n, int d, Scalars s, int sr, uint32_t step) {
+                        int n, int d, const float* __restrict__ row, Consts c, int sr) {
   adam_block<M, true, false>(w, mu, nu, ids, grads, dense, starts, tile_sums, partials,
-                             Gather{}, n, d, s, sr, step);
+                             Gather{}, n, d, row, c, sr);
 }
 
 template <typename M>
@@ -572,9 +586,10 @@ fused_adam_gather_kernel(float* __restrict__ w, M* __restrict__ mu, M* __restric
                          const int32_t* __restrict__ ids, const float* __restrict__ grads,
                          const int32_t* __restrict__ starts,
                          float* __restrict__ tile_sums, float* __restrict__ partials,
-                         Gather gather, int n, int d, Scalars s, int sr, uint32_t step) {
+                         Gather gather, int n, int d, const float* __restrict__ row,
+                         Consts c, int sr) {
   adam_block<M, false, true>(w, mu, nu, ids, grads, nullptr, starts, tile_sums, partials,
-                             gather, n, d, s, sr, step);
+                             gather, n, d, row, c, sr);
 }
 
 // The gather's second pass, a warp per tile of the sorted next ids: the
@@ -660,7 +675,10 @@ extern "C" int fused_adam_tiles(const int32_t* ids, const float* grads, int b,
 // holds where each block's rows [b * block_rows, min((b + 1) * block_rows,
 // n)) begin in the sorted ids. dense (f32 [n, d], 16-byte aligned) is added
 // to every row's gradient sum, or null for none. partials (f32 [nb])
-// receives one sumsq partial per block. block_rows
+// receives one sumsq partial per block. row (f32 [4] in device memory:
+// lr, bc1 = 1 - b1^step, bc2 = 1 - b2^step and the step's uint32 bits) is
+// read when the kernel runs, not when it is launched: a CUDA graph that
+// captured the launch reads the row's values at each replay. block_rows
 // must be 32, tile 32 and d a multiple of 4; W, mu, nu and grads must be
 // 16-byte aligned (8-byte for bf16 moments). sr != 0 rounds bf16 moments
 // stochastically. Updates W, mu and nu in place. Returns a cudaError_t (0 on
@@ -668,11 +686,11 @@ extern "C" int fused_adam_tiles(const int32_t* ids, const float* grads, int b,
 extern "C" int fused_adam(float* w, void* mu, void* nu, int moment_dtype,
                           const int32_t* ids, const float* grads, const float* dense,
                           const int32_t* starts, float* tile_sums, float* partials,
-                          int n, int d, int block_rows, int tile, float lr, float bc1,
-                          float bc2, float eps, float l2, float b1, float b2, int sr,
-                          unsigned int step, void* stream) {
+                          int n, int d, int block_rows, int tile, const float* row,
+                          float eps, float l2, float b1, float b2, int sr, void* stream) {
   if (const int err = check_args(n, d, block_rows, tile, moment_dtype)) return err;
-  const Scalars s{lr, bc1, bc2, eps, l2, b1, b2};
+  if (!row) return (int)cudaErrorInvalidValue;
+  const Consts c{eps, l2, b1, b2};
   const dim3 grid((n + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (moment_dtype == 0) {
@@ -680,19 +698,19 @@ extern "C" int fused_adam(float* w, void* mu, void* nu, int moment_dtype,
     float* v = static_cast<float*>(nu);
     if (dense)
       fused_adam_dense_kernel<float><<<grid, kThreads, 0, st>>>(
-          w, m, v, ids, grads, dense, starts, tile_sums, partials, n, d, s, 0, step);
+          w, m, v, ids, grads, dense, starts, tile_sums, partials, n, d, row, c, 0);
     else
       fused_adam_kernel<float><<<grid, kThreads, 0, st>>>(
-          w, m, v, ids, grads, starts, tile_sums, partials, n, d, s, 0, step);
+          w, m, v, ids, grads, starts, tile_sums, partials, n, d, row, c, 0);
   } else {
     __nv_bfloat16* m = static_cast<__nv_bfloat16*>(mu);
     __nv_bfloat16* v = static_cast<__nv_bfloat16*>(nu);
     if (dense)
       fused_adam_dense_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          w, m, v, ids, grads, dense, starts, tile_sums, partials, n, d, s, sr, step);
+          w, m, v, ids, grads, dense, starts, tile_sums, partials, n, d, row, c, sr);
     else
       fused_adam_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          w, m, v, ids, grads, starts, tile_sums, partials, n, d, s, sr, step);
+          w, m, v, ids, grads, starts, tile_sums, partials, n, d, row, c, sr);
   }
   return (int)cudaGetLastError();
 }
@@ -703,29 +721,28 @@ extern "C" int fused_adam(float* w, void* mu, void* nu, int moment_dtype,
 // (int32 [n_next]) are the next ids sorted ascending, norder (int32
 // [n_next]) the original position of each (a stable argsort), gstarts
 // (int32 [nb + 1]) fused_adam_tiles' block starts of nids. nids and norder
-// may be null when n_next = 0.
+// may be null when n_next = 0 row as in fused_adam.
 extern "C" int fused_adam_gather(float* w, void* mu, void* nu, int moment_dtype,
                                  const int32_t* ids, const float* grads,
                                  const int32_t* starts, float* tile_sums,
                                  float* partials, const int32_t* nids, const int32_t* norder,
                                  const int32_t* gstarts, float* rows_out, int n_next, int n,
-                                 int d, int block_rows, int tile, float lr, float bc1,
-                                 float bc2, float eps, float l2, float b1, float b2, int sr,
-                                 unsigned int step, void* stream) {
+                                 int d, int block_rows, int tile, const float* row, float eps,
+                                 float l2, float b1, float b2, int sr, void* stream) {
   if (const int err = check_args(n, d, block_rows, tile, moment_dtype)) return err;
-  if (n_next < 0) return (int)cudaErrorInvalidValue;
-  const Scalars s{lr, bc1, bc2, eps, l2, b1, b2};
+  if (n_next < 0 || !row) return (int)cudaErrorInvalidValue;
+  const Consts c{eps, l2, b1, b2};
   const dim3 grid((n + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Gather gather{nids, norder, gstarts, rows_out};
   if (moment_dtype == 0)
     fused_adam_gather_kernel<float><<<grid, kThreads, 0, st>>>(
         w, static_cast<float*>(mu), static_cast<float*>(nu), ids, grads, starts, tile_sums,
-        partials, gather, n, d, s, 0, step);
+        partials, gather, n, d, row, c, 0);
   else
     fused_adam_gather_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         w, static_cast<__nv_bfloat16*>(mu), static_cast<__nv_bfloat16*>(nu), ids, grads,
-        starts, tile_sums, partials, gather, n, d, s, sr, step);
+        starts, tile_sums, partials, gather, n, d, row, c, sr);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,12 @@
-"""ctypes binding of the native numeric-CSV parser (native/fastcsv.cpp).
+"""ctypes binding of the port's numeric-CSV parser (csrc/fastcsv.cpp).
 
 Counterpart of anime_recommendations_tpu/data/fastcsv.py: a memory-mapped,
 multithreaded parse of an all-numeric CSV (the MyAnimeList rating dumps:
 user_id, anime_id, rating, watching_status, watched_episodes) into column
-arrays. The port keeps its own build of the shared source: at first use
-``g++ -O3 -shared -fPIC -pthread`` compiles native/fastcsv.cpp into
-``build/native/`` at the repository root, named with a hash of the source
-and the flags, and never writes under native/.
+arrays. The port keeps its own copy of the parser's C++ source, in its
+package: at first use ``g++ -O3 -shared -fPIC -pthread`` compiles
+csrc/fastcsv.cpp into ``build/native/`` at the repository root, named with
+a hash of the source and the flags.
 
 Where no C++ compiler is found, read_numeric_csv reads with pandas; where
 one is found and the build fails, it raises. A file with a non-numeric
@@ -29,7 +29,7 @@ import pandas as pd
 
 logger = logging.getLogger(__name__)
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "fastcsv.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fastcsv.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 

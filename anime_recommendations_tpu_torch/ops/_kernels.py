@@ -10,11 +10,16 @@ module on machines that have no nvcc.
 
 ``launches`` counts kernel launches by name. Each wrapper adds one where it
 launches its kernel, so a run can show that its main path went through the
-kernels (chip_smoke.py resets and reads it).
+kernels (chip_smoke.py resets and reads it). A CUDA graph runs the wrappers
+once, while it is captured, and launches their kernels at every replay:
+``recording`` takes the counts of a capture (or of a warm-up before one)
+aside, and ``count_replay`` adds a graph's counts to ``launches`` each time
+it is replayed (train/device_loop.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -32,7 +37,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: name -> argtypes (every function returns a cudaError_t int).
 SIGNATURES = {
     # table, dtype, queries, mask, exclude, head, out, n, d, nq, top_r, stream
@@ -53,14 +58,15 @@ SIGNATURES = {
     # block_rows, tile, stream
     "fused_adam_tiles": (_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     # w, mu, nu, moment_dtype, ids, grads, dense, starts, tile_sums, partials,
-    # n, d, block_rows, tile, lr, bc1, bc2, eps, l2, b1, b2, sr, step, stream
+    # n, d, block_rows, tile, row (device: lr, bc1, bc2, step), eps, l2, b1,
+    # b2, sr, stream
     "fused_adam": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                   _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
+                   _P, _F, _F, _F, _F, _I, _P),
     # w, mu, nu, moment_dtype, ids, grads, starts, tile_sums, partials, nids,
-    # norder, gstarts, rows_out, n_next, n, d, block_rows, tile, lr, bc1, bc2,
-    # eps, l2, b1, b2, sr, step, stream
+    # norder, gstarts, rows_out, n_next, n, d, block_rows, tile, row, eps, l2,
+    # b1, b2, sr, stream
     "fused_adam_gather": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _U, _P),
+                          _I, _I, _P, _F, _F, _F, _F, _I, _P),
     # w, nids, norder, rows_out, n_next, n, d, tile, stream
     "fused_adam_copies": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -72,12 +78,38 @@ ENTRY_SOURCE = {"fused_adam_tiles": "fused_adam", "fused_adam_gather": "fused_ad
 SOURCES = tuple(dict.fromkeys(ENTRY_SOURCE.get(name, name) for name in SIGNATURES))
 
 launches: Counter = Counter()
+# Launches of the warm-up steps that run, on a copy of the state, before a
+# graph is captured: real launches, but of no path's steps.
+warmup_launches: Counter = Counter()
 _launches_lock = threading.Lock()  # the HTTP server launches from many threads
+_recorder: Counter | None = None
 
 
 def count_launch(name: str) -> None:
     with _launches_lock:
-        launches[name] += 1
+        (launches if _recorder is None else _recorder)[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the launches made inside the context into a new Counter (the
+    one yielded) instead of ``launches``. Process-wide: a capture runs while
+    no other thread launches kernels."""
+    global _recorder
+    counts = Counter()
+    with _launches_lock:
+        outer, _recorder = _recorder, counts
+    try:
+        yield counts
+    finally:
+        with _launches_lock:
+            _recorder = outer
+
+
+def count_replay(counts: Counter) -> None:
+    """Add a captured graph's launches to ``launches``: one replay."""
+    with _launches_lock:
+        launches.update(counts)
 
 
 def nvcc_path() -> str:

@@ -32,6 +32,14 @@ tile's worth of them are stored by a second pass (below).
 trainer's overflow rounds (parallel/routing.route_grad_rows). It costs one
 more read of an [N, D] table. With ``next_ids`` it is an error, as in JAX.
 
+The step's scalars: eps, l2, b1 and b2 go to the kernel by value; lr, bc1 =
+1 - b1^step, bc2 = 1 - b2^step and the step (which stochastic rounding
+hashes) in a [4] f32 row in device memory (``scalar_rows``), which the
+kernel reads when it runs, so a CUDA graph that captured the launch feeds
+each replay new values (train/device_loop.py). A caller holding host
+numbers (``step``, ``lr``) gets its row uploaded per call (``scalar_row``:
+pinned memory, an asynchronous copy, no wait for the card).
+
 On a CUDA tensor this launches csrc/fused_adam.cu: ``fused_adam_tiles`` (a
 first pass over tiles of TILE sorted positions, counted as such), then
 ``fused_adam`` (counted as ``fused_adam_dense`` when it takes a dense
@@ -88,8 +96,10 @@ _U32 = 0xFFFFFFFF
 
 
 class AdamScalars(NamedTuple):
-    """The update's scalars, each an exact f32 value held as a Python float:
-    what the kernel receives by value and the plain version multiplies by."""
+    """The update's scalars, each an exact f32 value held as a Python float.
+    eps, l2, b1 and b2 go to the kernel by value; lr, bc1 and bc2, which
+    change from step to step, through a step row in device memory
+    (scalar_rows)."""
 
     lr: float
     bc1: float
@@ -111,6 +121,39 @@ def adam_scalars(step: int, lr: float, l2: float, b1: float, b2: float,
     )
 
 
+def scalar_rows(steps, lr: float, b1: float = 0.9, b2: float = 0.999) -> np.ndarray:
+    """Step rows [len(steps), 4] f32, one per Adam step (the count after its
+    update): lr, bc1 and bc2 as adam_scalars gives them, and the step's
+    uint32 bits in the last column (stochastic rounding hashes the step).
+    The kernel reads its step's row from device memory when it runs, so a
+    captured CUDA graph can replay it with new values."""
+    scal = [adam_scalars(step, lr, 0.0, b1, b2, 0.0) for step in steps]
+    return _rows(scal, steps)
+
+
+def _rows(scal, steps) -> np.ndarray:
+    """[k, 4] f32: each AdamScalars' lr, bc1, bc2 and its step's bits."""
+    rows = np.array([(s.lr, s.bc1, s.bc2, 0.0) for s in scal], np.float32).reshape(-1, 4)
+    rows.view(np.uint32)[:, 3] = np.asarray(steps, np.int64) & _U32
+    return rows
+
+
+def upload(host: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, bit for bit. To a card it goes through
+    pinned memory with an asynchronous copy, which does not wait for the
+    card (a pageable copy synchronizes with it)."""
+    t = torch.from_numpy(host)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def scalar_row(step: int, lr: float, device, b1: float = 0.9, b2: float = 0.999) -> torch.Tensor:
+    """Step ``step``'s row of scalar_rows, [4] f32 on ``device``: for callers
+    that hold the step and lr as host numbers (one upload a call)."""
+    return upload(scalar_rows([step], lr, b1, b2)[0], device)
+
+
 def _mix32(x):
     """Stateless 32-bit mixer of csrc/fused_adam.cu on Python ints or int64
     tensors holding uint32 values. Both multipliers are below 2^31, so the
@@ -122,10 +165,11 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def sr_random_bits(step: int, moment: int, n: int, d: int, device) -> torch.Tensor:
+def sr_random_bits(step, moment: int, n: int, d: int, device) -> torch.Tensor:
     """Random bits [n, d] (int64 holding uint32) for the stochastic rounding
-    of moment ``moment`` (0 = mu, 1 = nu) at Adam step ``step``:
-    mix32(mix32(mix32(2*step + moment) + row) + column), as in the kernel."""
+    of moment ``moment`` (0 = mu, 1 = nu) at Adam step ``step`` (an int, or
+    an int64 [1] tensor): mix32(mix32(mix32(2*step + moment) + row) +
+    column), as in the kernel."""
     seed = _mix32((2 * step + moment) & _U32)
     rows = torch.arange(n, dtype=torch.int64, device=device)
     row_key = _mix32((rows + seed) & _U32)
@@ -149,8 +193,8 @@ def sparse_adam_update(
     nu: torch.Tensor,           # [N, D] second moment, mu's dtype, in place
     ids: torch.Tensor,          # [B] int row id per batch example (unsorted)
     g_rows: torch.Tensor,       # [B, D] f32 gradient w.r.t. the gathered rows
-    step: int,                  # Adam step count AFTER this update (t >= 1)
-    lr: float,
+    step: int | None = None,    # Adam step count AFTER this update (t >= 1)
+    lr: float | None = None,
     l2: float = 0.0,
     b1: float = 0.9,
     b2: float = 0.999,
@@ -160,6 +204,7 @@ def sparse_adam_update(
     next_ids: torch.Tensor | None = None,
     dense_grad: torch.Tensor | None = None,
     order: torch.Tensor | None = None,
+    scalars: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """One fused sparse-Adam step (module docstring). Returns (w, mu, nu,
     sumsq of w before the update), the first three being the inputs, updated;
@@ -167,7 +212,10 @@ def sparse_adam_update(
 
     ``stochastic_rounding``: None rounds bf16 moments stochastically, False
     to nearest; f32 moments are stored as they are. ``step`` and ``lr`` are
-    host numbers: the scalars go to the kernel by value, with no device sync.
+    host numbers, uploaded as the step's row (scalar_row, no device sync);
+    or ``scalars``, a row of scalar_rows already on w's device (computed
+    with these b1 and b2), replaces both: the kernel reads it when it runs,
+    so the training epoch's CUDA graph feeds each step its row.
     ``dense_grad`` ([N, D] f32) is added to the scattered sums; ``order`` ([B]
     int) replaces the argsort of ``ids`` (module docstring).
     """
@@ -188,8 +236,16 @@ def sparse_adam_update(
                          f"{tuple(ids.shape)} and {tuple(g_rows.shape)}")
     if ids.is_floating_point() or ids.is_complex():
         raise TypeError(f"sparse_adam_update: ids must be integers, got {ids.dtype}")
-    if step < 1:
-        raise ValueError(f"sparse_adam_update: step must be >= 1, got {step}")
+    if scalars is None:
+        if step is None or lr is None:
+            raise ValueError("sparse_adam_update: give step and lr, or scalars")
+        if step < 1:
+            raise ValueError(f"sparse_adam_update: step must be >= 1, got {step}")
+    elif step is not None or lr is not None:
+        raise ValueError("sparse_adam_update: scalars replaces step and lr")
+    elif scalars.shape != (4,) or scalars.dtype != torch.float32:
+        raise ValueError(f"sparse_adam_update: scalars must be a [4] f32 row, got "
+                         f"{scalars.dtype} {tuple(scalars.shape)}")
     if next_ids is not None and (next_ids.dim() != 1 or next_ids.is_floating_point()
                                  or next_ids.is_complex()):
         raise TypeError(f"sparse_adam_update: next_ids must be [B2] integers, got "
@@ -203,7 +259,7 @@ def sparse_adam_update(
         raise ValueError(f"sparse_adam_update: order must be [B] integers, got "
                          f"{order.dtype} {tuple(order.shape)}")
     operands = (("mu", mu), ("nu", nu), ("ids", ids), ("g_rows", g_rows), ("next_ids", next_ids),
-                ("dense_grad", dense_grad), ("order", order))
+                ("dense_grad", dense_grad), ("order", order), ("scalars", scalars))
     for name, t in operands:
         if t is not None and t.device != w.device:
             raise ValueError(f"sparse_adam_update: {name} is on {t.device}, w on {w.device}")
@@ -212,28 +268,41 @@ def sparse_adam_update(
         order = torch.argsort(ids, stable=True)
     ids_s = ids[order].to(torch.int32)
     g_s = g_rows[order].float()
-    scal = adam_scalars(int(step), float(lr), float(l2), b1, b2, eps)
-    if w.device.type == "cpu":
-        out = _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal, int(step), sr, dense_grad)
-        return out if next_ids is None else out + (_gather_rows_plain(w, next_ids),)
-    if w.device.type != "cuda":
+    if w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sparse_adam_update: unsupported device {w.device}")
+    if scalars is None:
+        scal = adam_scalars(int(step), float(lr), float(l2), b1, b2, eps)
+        row = _step_row(scal, int(step), w.device)
+    else:
+        scal, row = adam_scalars(1, 0.0, float(l2), b1, b2, eps), scalars
+    if w.device.type == "cpu":
+        out = _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal, row, sr, dense_grad)
+        return out if next_ids is None else out + (_gather_rows_plain(w, next_ids),)
     gather = None
     if next_ids is not None:
         norder = torch.argsort(next_ids, stable=True)
         gather = (next_ids[norder].to(torch.int32), norder.to(torch.int32))
-    return _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal, int(step), sr, gather,
+    return _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal, row, sr, gather,
                                     dense=dense_grad)
 
 
-def _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int,
+def _step_row(scal: AdamScalars, step, device) -> torch.Tensor:
+    """``step`` as the internal functions take it: a row of scalar_rows on
+    ``device`` as it is, or an int, with scal's lr, bc1 and bc2, uploaded."""
+    return step if isinstance(step, torch.Tensor) else upload(_rows([scal], [step])[0], device)
+
+
+def _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal: AdamScalars, step,
                               sr: bool, dense=None):
     """The update in plain torch ops, in place, from the sorted ids and
     gradients (and ``dense``, an [N, D] gradient added to the scattered
     sums): the reference for the kernel (same operations, same order, same
-    stochastic-rounding bits)."""
+    stochastic-rounding bits). ``step``: an int, whose lr, bc1 and bc2 are
+    scal's, or a row of scalar_rows on w's device, which replaces them (the
+    kernel's interface); eps, l2, b1 and b2 are scal's either way."""
     n, d = w.shape
     dev = w.device
+    row = _step_row(scal, step, dev)
     keep = (ids_s >= 0) & (ids_s < n)
     dscat = torch.zeros_like(w).index_add_(0, ids_s[keep].long(), g_s[keep])
     if dense is not None:
@@ -242,15 +311,16 @@ def _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: in
     f = np.float32
     two_l2 = float(f(2) * f(scal.l2))
     omb1, omb2 = float(f(1) - f(scal.b1)), float(f(1) - f(scal.b2))
-    # Division by 0-dim tensors on the device, not Python floats: CUDA torch
-    # turns a scalar divisor into a reciprocal multiply, the kernel divides.
-    bc1 = torch.tensor(scal.bc1, dtype=torch.float32, device=dev)
-    bc2 = torch.tensor(scal.bc2, dtype=torch.float32, device=dev)
+    # lr, bc1 and bc2 are 0-dim tensors on the device, read from the row
+    # (also as divisors: CUDA torch turns a Python-number divisor into a
+    # reciprocal multiply, the kernel divides).
+    lr, bc1, bc2 = row[0], row[1], row[2]
+    step = row[3:].view(torch.int32).to(torch.int64) & _U32   # read on the device
     g = dscat + w * two_l2
     mu_new = mu.float() * scal.b1 + g * omb1
     nu_new = nu.float() * scal.b2 + (g * g) * omb2
     upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + scal.eps)
-    w.copy_(w - upd * scal.lr)
+    w.copy_(w - upd * lr)
     for moment, (dst, new) in enumerate(((mu, mu_new), (nu, nu_new))):
         if sr:
             new = stochastic_round_bf16(new, sr_random_bits(step, moment, n, d, dev))
@@ -440,7 +510,7 @@ def _copies_cuda(w, nids_s, norder, rows_out, lib=None) -> None:
     _kernels.count_launch("fused_adam_copies")
 
 
-def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int,
+def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step,
                              sr: bool, gather=None, dense=None, lib=None):
     """Launch csrc/fused_adam.cu (or ``lib``, a library of another version of
     it) on PyTorch's current stream: the first pass (which also finds each
@@ -448,7 +518,8 @@ def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int
     (with ``dense``, an [N, D] f32 gradient, its dense kernel), or with
     ``gather`` = (sorted next ids, their original positions), both int32,
     ``fused_adam_gather`` and its second pass, whose gathered rows come last
-    in the result."""
+    in the result. ``step`` as in _sparse_adam_update_plain: the kernel
+    gets a pointer to the row."""
     n, d = w.shape
     if d % 4:
         raise ValueError(f"fused_adam: needs D % 4 == 0, got D={d}")
@@ -465,6 +536,10 @@ def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int
         _check_cuda_operand("dense_grad", dense, 16)
     if gather is not None and gather[0].shape[0] >= 2**31 - TILE:
         raise ValueError("fused_adam_gather: the next batch must fit int32")
+    row = _step_row(scal, step, w.device)
+    if row.shape != (4,) or row.dtype != torch.float32 or row.device != w.device:
+        raise ValueError(f"fused_adam: the step row must be [4] f32 on {w.device}")
+    _check_cuda_operand("step row", row, 4)
     partials = torch.empty(-(-n // BLOCK_ROWS), dtype=torch.float32, device=w.device)
     lib = lib or _kernels.library("fused_adam")
     tile_sums, starts, gstarts = _first_pass_cuda(
@@ -473,7 +548,8 @@ def _sparse_adam_update_cuda(w, mu, nu, ids_s, g_s, scal: AdamScalars, step: int
             ids_s.data_ptr(), g_s.data_ptr())
     mid = (starts.data_ptr(), None if tile_sums is None else tile_sums.data_ptr(),
            partials.data_ptr())
-    tail = (n, d, BLOCK_ROWS, TILE, *scal, int(sr), step & 0xFFFFFFFF, _stream(w))
+    tail = (n, d, BLOCK_ROWS, TILE, row.data_ptr(), scal.eps, scal.l2, scal.b1, scal.b2,
+            int(sr), _stream(w))
     if gather is None:
         name, rows = ("fused_adam", ()) if dense is None else ("fused_adam_dense", ())
         err = lib.fused_adam(*head, None if dense is None else dense.data_ptr(), *mid, *tail)

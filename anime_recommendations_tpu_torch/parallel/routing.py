@@ -319,8 +319,7 @@ def route_grads_lazy_adam(
     nu: torch.Tensor,       # [R, D]
     ids: torch.Tensor,      # [B] global ids this rank looked up
     g_rows: torch.Tensor,   # [B, D] gradients w.r.t. the exchanged rows
-    t: int,                 # Adam step count AFTER this update
-    lr: float,
+    scal: torch.Tensor,     # [4] the step's row (train/trainer.step_row)
     l2: float,
     *,
     n_shards: int,
@@ -346,7 +345,7 @@ def route_grads_lazy_adam(
         recv_g = all_to_all(_send_grads(ugrad, slot_pos))
         keep = ok.reshape(-1)
         lazy_row_adam(w, mu, nu, lid.reshape(-1)[keep], recv_g.reshape(-1, d)[keep],
-                      t, lr, l2)
+                      scal, l2)
     return w, mu, nu
 
 

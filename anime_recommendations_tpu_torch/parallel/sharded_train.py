@@ -73,6 +73,7 @@ from anime_recommendations_tpu_torch.models.two_tower import (
 )
 from anime_recommendations_tpu_torch.parallel import routing as rt
 from anime_recommendations_tpu_torch.parallel.mesh import World
+from anime_recommendations_tpu_torch.train.lazy import _head_adam
 from anime_recommendations_tpu_torch.train.trainer import (
     B1,
     B2,
@@ -82,6 +83,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
     TrainState,
     _keep_bn,
     bias_corrections,
+    step_row,
 )
 
 OPTIMIZERS = ("adam", "lazy_adam", "fused_adam")
@@ -474,17 +476,6 @@ class ShardedTrainStep:
         return (loss.detach(), mse.detach(), stats, d_u, d_a, d_head,
                 (cap_u, plan_u), (cap_a, plan_a))
 
-    def _head_adam(self, state: TrainState, d_head, t: int, lr: float) -> None:
-        """Ordinary Adam on the four head scalars, in place."""
-        from anime_recommendations_tpu_torch.train.lazy import _scalar_adam
-
-        model, adam = state.model, state.adam
-        bc1, bc2 = bias_corrections(t)
-        for k, g in zip(HEAD_KEYS, d_head):
-            p, adam.mu[k], adam.nu[k] = _scalar_adam(
-                getattr(model, k), adam.mu[k], adam.nu[k], g, bc1, bc2, lr)
-            getattr(model, k).copy_(p)
-
     def _lazy_step(self, state: TrainState, users, anime, ratings, weights, lr, plans=None):
         """Row-sparse Adam on the routed path (train/lazy.py semantics): the
         owners update the rows each round delivers. The loss excludes L2."""
@@ -492,16 +483,16 @@ class ShardedTrainStep:
         m = self._n_shards
         loss, mse, (mean, var), d_u, d_a, d_head, (cap_u, plan_u), (cap_a, plan_a) = (
             self._routed_forward_grads(model, users, anime, ratings, weights, plans))
-        t = adam.count + 1
+        scal = step_row(state, lr)
         with torch.no_grad():
             for k, ids, grad, cap, plan in (("user_emb", users, d_u, cap_u, plan_u),
                                             ("anime_emb", anime, d_a, cap_a, plan_a)):
                 rt.route_grads_lazy_adam(
-                    getattr(model, k).detach(), adam.mu[k], adam.nu[k], ids, grad, t, lr,
+                    getattr(model, k).detach(), adam.mu[k], adam.nu[k], ids, grad, scal,
                     self.l2, n_shards=m, capacity=cap, plan=plan)
-            self._head_adam(state, d_head, t, lr)
+            _head_adam(state, d_head, scal)
             self._new_bn(model, mean, var)
-        adam.count = t
+        adam.count += 1
         return state, loss, mse
 
     def _fused_step(self, state: TrainState, users, anime, ratings, weights, lr,
@@ -516,7 +507,7 @@ class ShardedTrainStep:
         m = self._n_shards
         loss, mse, (mean, var), d_u, d_a, d_head, (cap_u, plan_u), (cap_a, plan_a) = (
             self._routed_forward_grads(model, users, anime, ratings, weights, plans))
-        t = adam.count + 1
+        scal = step_row(state, lr)
         orders = orders if orders is not None else (None, None)
         with torch.no_grad():
             sumsq = []
@@ -527,13 +518,13 @@ class ShardedTrainStep:
                 oid, og, dense = rt.route_grad_rows(
                     ids, grad, n_shards=m, capacity=cap, r_local=w.shape[0], plan=plan)
                 *_, s = sparse_adam_update(
-                    w, adam.mu[k], adam.nu[k], oid, og, t, lr, l2=self.l2, b1=B1, b2=B2,
-                    eps=KERAS_ADAM_EPS, dense_grad=dense, order=order)
+                    w, adam.mu[k], adam.nu[k], oid, og, l2=self.l2, b1=B1, b2=B2,
+                    eps=KERAS_ADAM_EPS, dense_grad=dense, order=order, scalars=scal)
                 sumsq.append(s)
             loss = loss + self.l2 * _all_reduce(sumsq[0] + sumsq[1])
-            self._head_adam(state, d_head, t, lr)
+            _head_adam(state, d_head, scal)
             self._new_bn(model, mean, var)
-        adam.count = t
+        adam.count += 1
         return state, loss, mse
 
 

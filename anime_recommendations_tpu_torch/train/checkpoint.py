@@ -85,8 +85,10 @@ class Checkpointer:
 
     def restore(self, state: TrainState, step: int | None = None) -> TrainState:
         """Load checkpoint ``step`` (default: the latest) into ``state``, in
-        place: parameters and buffers keep their device, the moments take
-        the saved dtype onto the state's device."""
+        place: every tensor keeps its storage (a captured epoch graph of
+        the state stays valid, train/device_loop.py) and its device; a
+        moment saved in another dtype than the state's replaces it in the
+        saved dtype."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -102,8 +104,13 @@ class Checkpointer:
         with torch.no_grad():
             for k, v in blob["tensors"].items():
                 getattr(model, k).copy_(v)
-        adam.mu = {k: v.to(dev) for k, v in blob["mu"].items()}
-        adam.nu = {k: v.to(dev) for k, v in blob["nu"].items()}
+            for moments, saved in ((adam.mu, blob["mu"]), (adam.nu, blob["nu"])):
+                for k, v in saved.items():
+                    cur = moments.get(k)
+                    if cur is not None and cur.shape == v.shape and cur.dtype == v.dtype:
+                        cur.copy_(v)
+                    else:
+                        moments[k] = v.to(dev)
         adam.count = int(blob["count"])
         return state
 

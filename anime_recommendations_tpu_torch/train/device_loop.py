@@ -7,32 +7,61 @@ BatchNorm statistics. Each epoch permutes SHUFFLE_BLOCK-row granules of it
 on the device and runs its batches, keeping the per-batch loss, mse and
 weight on the device: there is no host sync until the epoch ends.
 
-On the TPU an epoch is one launched program (lax.scan). Here it is a Python
-loop of steps with no sync in it; capturing it in a CUDA graph is later work
-(ROADMAP.md). The fused optimizers run the JAX scan's software pipeline
-(``_fused_epoch``): each step consumes rows gathered at the end of the one
-before and gathers the next batch's rows from the tables it just updated.
+On the TPU an epoch is one launched program (lax.scan). On a card it is one
+CUDA graph: ``train_epoch`` and ``eval_epoch`` capture the epoch's steps at
+their first call for a state, its staged data and the run's settings, and
+replay the graph once per epoch after that (EpochGraph), so the host
+launches the epoch's ~30,000 kernels (297 steps of ~100 at full width) as
+one. What changes between epochs goes into the graph's static buffers
+before each replay: the steps' scalars, one row (lr, bc1, bc2, step) per
+step (scalar_table, from the host's Adam count and the epoch's lr), and the
+permutation of the granules, drawn on the host from the caller's generator. The
+steps read their scalars from the rows as 0-dim device tensors and update
+every state tensor in place, so the graph's pointers stay valid; the host's
+Adam count advances by the epoch's steps after each replay. On the CPU, and
+on a card through ``eager_train_epoch`` and ``eager_eval_epoch``, the same
+body runs as a Python loop of steps (the plain version the graph is held
+against, bit for bit where the ops are deterministic). The fused optimizers
+run the JAX scan's software pipeline (``_fused_body``): each step consumes
+rows gathered at the end of the one before and gathers the next batch's
+rows from the tables it just updated.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
+import time
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
-from anime_recommendations_tpu_torch.models.two_tower import BNState, TwoTower
+from anime_recommendations_tpu_torch.models.two_tower import (
+    BUFFER_KEYS,
+    PARAM_KEYS,
+    BNState,
+    TwoTower,
+)
+from anime_recommendations_tpu_torch.ops import _kernels
+from anime_recommendations_tpu_torch.ops.fused_adam import scalar_rows, upload
+from anime_recommendations_tpu_torch.train.fused import pipelined_step
+from anime_recommendations_tpu_torch.train.lazy import lazy_step
 from anime_recommendations_tpu_torch.train.trainer import (
+    B1,
+    B2,
     FUSED_OPTIMIZERS,
     OPTIMIZERS,
+    AdamState,
     TrainState,
+    dense_step,
     eval_step,
-    train_step,
 )
 
 SHUFFLE_BLOCK = 512  # granule of the per-epoch shuffle (see stage())
+GRAPH_CACHE = 4      # epoch graphs kept, most recently used; each holds a memory pool
 
 
 class DeviceData(NamedTuple):
@@ -73,21 +102,48 @@ def stage(ds: RatingsDataset, batch_size: int, seed: int | None = None, *,
                         for x, dt in cols))
 
 
-def granule_shuffle(data: DeviceData, generator: torch.Generator) -> DeviceData:
-    """Permute the data's granules of g rows on its device, g =
-    min(SHUFFLE_BLOCK, n // 64) (at least 1), so small datasets still have
-    ~64 granules; the tail of fewer than g rows keeps its place. The
-    permutation is drawn from ``generator`` (a CPU generator)."""
-    n = data.n
-    g = int(max(1, min(SHUFFLE_BLOCK, n // 64)))
+def _granule(n: int) -> int:
+    return int(max(1, min(SHUFFLE_BLOCK, n // 64)))
+
+
+def granule_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
+    """An epoch's permutation of the n // g whole granules of n rows (g as
+    in granule_shuffle), drawn on the CPU from ``generator``."""
+    return torch.randperm(n // _granule(n), generator=generator)
+
+
+def permute_granules(data: DeviceData, perm: torch.Tensor) -> DeviceData:
+    """The data with its granules in the order ``perm`` (on its device)
+    gives; the tail of fewer than g rows keeps its place."""
+    n, g = data.n, _granule(data.n)
     n_head = (n // g) * g
-    perm = torch.randperm(n_head // g, generator=generator).to(data.users.device)
 
     def shuf(x):
         head = x[:n_head].view(n_head // g, g)[perm].reshape(n_head)
         return head if n_head == n else torch.cat([head, x[n_head:]])
 
     return DeviceData(*(shuf(x) for x in data))
+
+
+def granule_shuffle(data: DeviceData, generator: torch.Generator) -> DeviceData:
+    """Permute the data's granules of g rows on its device, g =
+    min(SHUFFLE_BLOCK, n // 64) (at least 1), so small datasets still have
+    ~64 granules; the tail of fewer than g rows keeps its place. The
+    permutation is drawn from ``generator`` (a CPU generator)."""
+    perm = granule_permutation(data.n, generator).to(data.users.device)
+    return permute_granules(data, perm)
+
+
+def scalar_table(count: int, steps: int, lr: float) -> np.ndarray:
+    """The scalars of Adam steps count + 1 .. count + steps at learning rate
+    ``lr``: [steps, 4] f32 rows (lr, bc1, bc2, step) of
+    ops/fused_adam.scalar_rows, the values the one-step entry points use."""
+    return scalar_rows(range(count + 1, count + steps + 1), lr, B1, B2)
+
+
+def _check_optimizer(optimizer: str) -> None:
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
 def train_epoch(
@@ -104,49 +160,87 @@ def train_epoch(
     """One epoch on the device. Returns (state, losses[nb], mses[nb],
     wsums[nb]), all on the device. ``optimizer="lazy_adam"`` takes the
     row-sparse step of train/lazy.py, whose losses exclude the L2 term.
-    ``sorted_scatter``: the adam step's gathers (two_tower.forward)."""
-    if optimizer not in OPTIMIZERS:
-        raise ValueError(f"unknown optimizer {optimizer!r}")
+    ``sorted_scatter``: the adam step's gathers (two_tower.forward). On a
+    card the epoch is a replay of its CUDA graph (module docstring; a
+    capture that fails raises); elsewhere eager_train_epoch."""
+    _check_optimizer(optimizer)
+    if data.users.device.type != "cuda":
+        return eager_train_epoch(state, data, generator, lr, batch_size, l2_reg_factor,
+                                 shuffle, sorted_scatter, optimizer)
+    nb = data.n // batch_size
+    graph = train_graph(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
+                        optimizer)
+    host = {"table": scalar_table(state.adam.count, nb, lr)}
+    if shuffle:
+        host["perm"] = granule_permutation(data.n, generator)
+    losses, mses, wsums = graph.replay(host)
+    state.adam.count += nb
+    return state, losses, mses, wsums
+
+
+def eager_train_epoch(
+    state: TrainState,
+    data: DeviceData,
+    generator: torch.Generator,
+    lr: float,
+    batch_size: int,
+    l2_reg_factor: float,
+    shuffle: bool = True,
+    sorted_scatter: bool | str = False,
+    optimizer: str = "adam",
+) -> tuple[TrainState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """train_epoch as a Python loop of steps, on any device: the plain
+    version of the captured epoch (same arguments, same result)."""
+    _check_optimizer(optimizer)
     nb = data.n // batch_size
     if shuffle:
         data = granule_shuffle(data, generator)
-    wsums = data.weights[:nb * batch_size].view(nb, batch_size).sum(dim=1)
-    if optimizer in FUSED_OPTIMIZERS:
-        # The bf16m variant is the same code: the state's moment dtype
-        # selects the storage.
-        state, losses, mses = _fused_epoch(state, data, lr, batch_size, l2_reg_factor)
-        return state, losses, mses, wsums
-    if optimizer == "lazy_adam":
-        from anime_recommendations_tpu_torch.train.lazy import lazy_train_step as step_fn
-    else:
-        step_fn = functools.partial(train_step, sorted_scatter=sorted_scatter)
-    losses, mses = [], []
-    for i in range(nb):
-        state, loss, mse = step_fn(
-            state, _batch(data.users, i, batch_size), _batch(data.anime, i, batch_size),
-            _batch(data.ratings, i, batch_size), _batch(data.weights, i, batch_size),
-            lr, l2_reg_factor)
-        losses.append(loss)
-        mses.append(mse)
-    return state, torch.stack(losses), torch.stack(mses), wsums
+    table = upload(scalar_table(state.adam.count, nb, lr), data.users.device)
+    losses, mses, wsums = _epoch_body(state, data, table, batch_size, l2_reg_factor,
+                                      optimizer, sorted_scatter)
+    state.adam.count += nb
+    return state, losses, mses, wsums
 
 
 def _batch(x: torch.Tensor, i: int, batch_size: int) -> torch.Tensor:
     return x[i * batch_size:(i + 1) * batch_size]
 
 
-def _fused_epoch(state: TrainState, data: DeviceData, lr: float, batch_size: int,
-                 l2_reg_factor: float, kernel_gather: bool = False,
-                 ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
-    """The fused optimizers' epoch over ``data`` as it is (no shuffle), the
-    JAX scan's software pipeline: a prologue gathers batch 0's rows, then
-    step i consumes the rows step i-1 gathered and gathers batch (i+1) % nb's
-    (the last step's wrap to batch 0 is discarded). ``kernel_gather``: the
-    gather runs inside the update kernel (K5) instead of after it; train_epoch
-    passes False, as the JAX device loop does. Returns (state, losses[nb],
-    mses[nb])."""
-    from anime_recommendations_tpu_torch.train.fused import fused_train_step_pipelined
+def _epoch_body(state: TrainState, data: DeviceData, table: torch.Tensor, batch_size: int,
+                l2_reg_factor: float, optimizer: str, sorted_scatter: bool | str = False,
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The steps over ``data`` as it is (no shuffle), step i reading its
+    scalars from ``table[i]``: no host number, no host sync, the Adam count
+    untouched. Returns (losses[nb], mses[nb], wsums[nb])."""
+    nb = data.n // batch_size
+    wsums = data.weights[:nb * batch_size].view(nb, batch_size).sum(dim=1)
+    if optimizer in FUSED_OPTIMIZERS:
+        # The bf16m variant is the same code: the state's moment dtype
+        # selects the storage.
+        losses, mses = _fused_body(state, data, table, batch_size, l2_reg_factor)
+        return losses, mses, wsums
+    losses, mses = [], []
+    for i in range(nb):
+        batch = [_batch(x, i, batch_size) for x in data]
+        if optimizer == "lazy_adam":
+            loss, mse = lazy_step(state, *batch, table[i], l2_reg_factor)
+        else:
+            loss, mse = dense_step(state, *batch, table[i], l2_reg_factor,
+                                   sorted_scatter=sorted_scatter)
+        losses.append(loss)
+        mses.append(mse)
+    return torch.stack(losses), torch.stack(mses), wsums
 
+
+def _fused_body(state: TrainState, data: DeviceData, table: torch.Tensor, batch_size: int,
+                l2_reg_factor: float, kernel_gather: bool = False,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused optimizers' steps over ``data`` as it is, the JAX scan's
+    software pipeline: a prologue gathers batch 0's rows, then step i
+    consumes the rows step i-1 gathered and gathers batch (i+1) % nb's (the
+    last step's wrap to batch 0 is discarded). ``kernel_gather``: the gather
+    runs inside the update kernel (K5) instead of after it; the epochs pass
+    False, as the JAX device loop does. Returns (losses[nb], mses[nb])."""
     nb = data.n // batch_size
     users = [_batch(data.users, i, batch_size) for i in range(nb)]
     anime = [_batch(data.anime, i, batch_size) for i in range(nb)]
@@ -155,13 +249,26 @@ def _fused_epoch(state: TrainState, data: DeviceData, lr: float, batch_size: int
     losses, mses = [], []
     for i in range(nb):
         nxt = (i + 1) % nb
-        state, loss, mse, u_rows, a_rows = fused_train_step_pipelined(
+        loss, mse, u_rows, a_rows = pipelined_step(
             state, u_rows, a_rows, users[i], anime[i], _batch(data.ratings, i, batch_size),
-            _batch(data.weights, i, batch_size), users[nxt], anime[nxt], lr, l2_reg_factor,
-            kernel_gather=kernel_gather)
+            _batch(data.weights, i, batch_size), users[nxt], anime[nxt], table[i],
+            l2_reg_factor, kernel_gather)
         losses.append(loss)
         mses.append(mse)
-    return state, torch.stack(losses), torch.stack(mses)
+    return torch.stack(losses), torch.stack(mses)
+
+
+def _fused_epoch(state: TrainState, data: DeviceData, lr: float, batch_size: int,
+                 l2_reg_factor: float, kernel_gather: bool = False,
+                 ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
+    """The fused optimizers' eager epoch over ``data`` as it is (no
+    shuffle): _fused_body with the epoch's scalar table, the Adam count
+    advanced. Returns (state, losses[nb], mses[nb])."""
+    nb = data.n // batch_size
+    table = upload(scalar_table(state.adam.count, nb, lr), data.users.device)
+    losses, mses = _fused_body(state, data, table, batch_size, l2_reg_factor, kernel_gather)
+    state.adam.count += nb
+    return state, losses, mses
 
 
 @torch.no_grad()
@@ -172,7 +279,22 @@ def eval_epoch(
     batch_size: int,
     l2_reg_factor: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Weighted-mean (loss, mse) over the staged holdout, on the device."""
+    """Weighted-mean (loss, mse) over the staged holdout, on the device. On
+    a card a replay of its CUDA graph, elsewhere eager_eval_epoch."""
+    if data.users.device.type != "cuda":
+        return eager_eval_epoch(model, bn_state, data, batch_size, l2_reg_factor)
+    return _eval_graph(model, bn_state, data, batch_size, l2_reg_factor).replay({})
+
+
+@torch.no_grad()
+def eager_eval_epoch(
+    model: TwoTower,
+    bn_state: BNState,
+    data: DeviceData,
+    batch_size: int,
+    l2_reg_factor: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """eval_epoch as a Python loop of batches, on any device."""
     nb = data.n // batch_size
     l_sum = m_sum = w_sum = torch.zeros((), device=data.weights.device)
     for i in range(nb):
@@ -182,3 +304,147 @@ def eval_epoch(
         l_sum, m_sum, w_sum = l_sum + ls, m_sum + ms, w_sum + w
     w = torch.clamp_min(w_sum, 1.0)
     return l_sum / w, m_sum / w
+
+
+# ---- the captured epochs -----------------------------------------------------------
+
+class EpochGraph:
+    """One captured epoch: the CUDA graph, the static buffers it reads
+    (written before each replay), the outputs it writes, and the kernel
+    launches of the port's wrappers it makes per replay.
+
+    Before the capture, ``warm_up`` runs a few steps eagerly on a side
+    stream, on a copy of the state (lazy initializations: the kernels'
+    libraries, the autograd threads, the allocator); their launches go to
+    _kernels.warmup_launches, not to _kernels.launches. Then ``fn`` is
+    captured on the same stream, with the wrappers' launch counts recorded
+    (_kernels.recording) and added to _kernels.launches at every replay. A
+    capture that fails raises; nothing falls back to the eager loop.
+    ``seconds`` holds the host time of the warm-up (to its end on the
+    card), of the capture (the body traced into the graph) and of the
+    instantiation, ``replays`` the replays so far."""
+
+    def __init__(self, fn, warm_up, buffers: dict[str, torch.Tensor], device: torch.device):
+        stream = _side_stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream), _kernels.recording() as warm:
+            warm_up()
+        torch.cuda.synchronize(device)
+        _kernels.warmup_launches.update(warm)
+        self.graph = torch.cuda.CUDAGraph()
+        t1 = time.perf_counter()
+        with _kernels.recording() as launched:
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                self.outputs = fn()
+                t2 = time.perf_counter()
+        self.seconds = {"warm_up": t1 - t0, "capture": t2 - t1,
+                        "instantiate": time.perf_counter() - t2}
+        self.launches = launched
+        self.buffers = buffers
+        self.replays = 0
+
+    def replay(self, host: dict) -> tuple[torch.Tensor, ...]:
+        """Copy each host array of ``host`` into its buffer (asynchronously,
+        through pinned memory), replay the graph on the current stream and
+        return copies of its outputs."""
+        for name, value in host.items():
+            src = torch.from_numpy(value) if isinstance(value, np.ndarray) else value
+            buf = self.buffers[name]
+            buf.copy_(src.pin_memory() if buf.is_cuda else src, non_blocking=buf.is_cuda)
+        self.graph.replay()
+        self.replays += 1
+        _kernels.count_replay(self.launches)
+        return tuple(t.clone() for t in self.outputs)
+
+
+_GRAPHS: OrderedDict[tuple, EpochGraph] = OrderedDict()
+
+
+def cached_graph(key: tuple, build) -> EpochGraph:
+    """The graph of ``key``, built by ``build()`` on a miss; the GRAPH_CACHE
+    most recently used are kept. A key holds every pointer the graph
+    captured outside its own buffers and pool (the state's and the data's
+    tensors, by address, shape, strides and dtype), so a hit replays on the
+    same memory: a state restored in place keeps its graph, a state whose
+    tensors moved gets a new one."""
+    graph = _GRAPHS.pop(key, None) or build()
+    _GRAPHS[key] = graph
+    while len(_GRAPHS) > GRAPH_CACHE:
+        _GRAPHS.popitem(last=False)
+    return graph
+
+
+def release_graphs() -> None:
+    """Drop every cached epoch graph and the memory pools they hold."""
+    _GRAPHS.clear()
+
+
+@functools.cache
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    return torch.cuda.Stream(device)
+
+
+def _layout(tensors) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.requires_grad)
+                 for t in tensors)
+
+
+def _model_tensors(model: TwoTower) -> list[torch.Tensor]:
+    return [getattr(model, k) for k in PARAM_KEYS + BUFFER_KEYS]
+
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    adam = state.adam
+    return (_model_tensors(state.model) + [adam.mu[k] for k in PARAM_KEYS]
+            + [adam.nu[k] for k in PARAM_KEYS])
+
+
+def _copy_state(state: TrainState) -> TrainState:
+    adam = state.adam
+    return TrainState(copy.deepcopy(state.model), AdamState(
+        adam.count, {k: v.clone() for k, v in adam.mu.items()},
+        {k: v.clone() for k, v in adam.nu.items()}))
+
+
+def train_graph(state: TrainState, data: DeviceData, batch_size: int, l2_reg_factor: float,
+                shuffle: bool = True, sorted_scatter: bool | str = False,
+                optimizer: str = "adam") -> EpochGraph:
+    """The training graph train_epoch replays for these arguments, from the
+    cache or captured now."""
+    key = ("train", optimizer, batch_size, float(l2_reg_factor), shuffle, sorted_scatter,
+           _layout(_state_tensors(state) + list(data)))
+
+    def build():
+        nb = data.n // batch_size
+        dev = data.users.device
+        # Valid scalars for the warm-up; every replay writes its own.
+        buffers = {"table": upload(scalar_table(0, nb, 0.0), dev)}
+        if shuffle:
+            buffers["perm"] = torch.arange(data.n // _granule(data.n), device=dev)
+
+        def body(st, steps):
+            d = permute_granules(data, buffers["perm"]) if shuffle else data
+            d = DeviceData(*(x[:steps * batch_size] for x in d))
+            return _epoch_body(st, d, buffers["table"][:steps], batch_size, l2_reg_factor,
+                               optimizer, sorted_scatter)
+
+        return EpochGraph(lambda: body(state, nb),
+                          lambda: body(_copy_state(state), min(nb, 2)), buffers, dev)
+
+    return cached_graph(key, build)
+
+
+def _eval_graph(model, bn_state, data, batch_size, l2_reg_factor) -> EpochGraph:
+    key = ("eval", batch_size, float(l2_reg_factor),
+           _layout(_model_tensors(model) + list(bn_state) + list(data)))
+
+    def build():
+        # Evaluation writes nothing: the warm-up runs one batch on the model.
+        one = DeviceData(*(x[:batch_size] for x in data))
+        return EpochGraph(
+            lambda: eager_eval_epoch(model, bn_state, data, batch_size, l2_reg_factor),
+            lambda: eager_eval_epoch(model, bn_state, one, batch_size, l2_reg_factor),
+            {}, data.users.device)
+
+    return cached_graph(key, build)

@@ -18,23 +18,24 @@ from __future__ import annotations
 
 import torch
 
-from anime_recommendations_tpu_torch.models.two_tower import HEAD_KEYS
 from anime_recommendations_tpu_torch.ops.fused_adam import sparse_adam_update
-from anime_recommendations_tpu_torch.train.lazy import _data_loss, _scalar_adam
+from anime_recommendations_tpu_torch.train.lazy import _data_loss, _head_adam
 from anime_recommendations_tpu_torch.train.trainer import (
     B1,
     B2,
     KERAS_ADAM_EPS,
     TrainState,
     _keep_bn,
-    bias_corrections,
+    step_row,
 )
 
 
-def _fused_step(state: TrainState, u_rows, a_rows, users, anime, ratings, weights,
-                lr: float, l2_reg_factor: float, next_users=None, next_anime=None):
-    """The step on gathered rows. With next ids, each table's update also
-    returns w'[next ids] (K5); the result then ends in those two rows."""
+def fused_step(state: TrainState, u_rows, a_rows, users, anime, ratings, weights,
+               scal: torch.Tensor, l2_reg_factor: float, next_users=None, next_anime=None):
+    """The step on gathered rows, with the step's scalars read from ``scal``
+    (trainer.dense_step's contract: no host sync; the caller advances the
+    count). With next ids, each table's update also returns w'[next ids]
+    (K5). Returns (loss, mse), then those two rows if asked for."""
     model, adam = state.model, state.adam
     u_rows = u_rows.detach().requires_grad_()
     a_rows = a_rows.detach().requires_grad_()
@@ -42,25 +43,20 @@ def _fused_step(state: TrainState, u_rows, a_rows, users, anime, ratings, weight
     data_loss, (mse, new_bn) = _data_loss(u_rows, a_rows, head_params,
                                           model.bn_state(), ratings, weights)
     d_u, d_a, *d_head = torch.autograd.grad(data_loss, (u_rows, a_rows, *head_params))
-    t = adam.count + 1
     with torch.no_grad():
         sumsq, next_rows = [], []
         for k, ids, grad, nxt in (("user_emb", users, d_u, next_users),
                                   ("anime_emb", anime, d_a, next_anime)):
             _, _, _, s, *rows = sparse_adam_update(
-                getattr(model, k).detach(), adam.mu[k], adam.nu[k], ids, grad, t, lr,
-                l2=l2_reg_factor, b1=B1, b2=B2, eps=KERAS_ADAM_EPS, next_ids=nxt)
+                getattr(model, k).detach(), adam.mu[k], adam.nu[k], ids, grad,
+                l2=l2_reg_factor, b1=B1, b2=B2, eps=KERAS_ADAM_EPS, next_ids=nxt,
+                scalars=scal)
             sumsq.append(s)
             next_rows += rows
         loss = data_loss.detach() + l2_reg_factor * (sumsq[0] + sumsq[1])
-        bc1, bc2 = bias_corrections(t)
-        for k, g in zip(HEAD_KEYS, d_head):
-            p, adam.mu[k], adam.nu[k] = _scalar_adam(
-                getattr(model, k), adam.mu[k], adam.nu[k], g, bc1, bc2, lr)
-            getattr(model, k).copy_(p)
+        _head_adam(state, d_head, scal)
         _keep_bn(model, new_bn)
-    adam.count = t
-    return (state, loss, mse.detach(), *next_rows)
+    return (loss, mse.detach(), *next_rows)
 
 
 def fused_train_step(
@@ -79,8 +75,10 @@ def fused_train_step(
     model = state.model
     u_rows = model.user_emb.detach()[users]
     a_rows = model.anime_emb.detach()[anime]
-    return _fused_step(state, u_rows, a_rows, users, anime, ratings, weights, lr,
-                       l2_reg_factor)
+    loss, mse = fused_step(state, u_rows, a_rows, users, anime, ratings, weights,
+                           step_row(state, lr), l2_reg_factor)
+    state.adam.count += 1
+    return state, loss, mse
 
 
 def fused_train_step_pipelined(
@@ -107,11 +105,22 @@ def fused_train_step_pipelined(
     just updated; False gathers them with torch indexing after the update.
     Both give copies, never views of the tables, and equal rows bit for bit.
     Returns (state, loss, mse, next_u_rows, next_a_rows)."""
+    out = pipelined_step(state, u_rows, a_rows, users, anime, ratings, weights, next_users,
+                         next_anime, step_row(state, lr), l2_reg_factor, kernel_gather)
+    state.adam.count += 1
+    return (state, *out)
+
+
+def pipelined_step(state: TrainState, u_rows, a_rows, users, anime, ratings, weights,
+                   next_users, next_anime, scal: torch.Tensor, l2_reg_factor: float,
+                   kernel_gather: bool = False):
+    """fused_train_step_pipelined's work with the step's scalars read from
+    ``scal`` (fused_step's contract). Returns (loss, mse, next_u_rows,
+    next_a_rows)."""
     if kernel_gather:
-        return _fused_step(state, u_rows, a_rows, users, anime, ratings, weights, lr,
-                           l2_reg_factor, next_users, next_anime)
-    state, loss, mse = _fused_step(state, u_rows, a_rows, users, anime, ratings,
-                                   weights, lr, l2_reg_factor)
+        return fused_step(state, u_rows, a_rows, users, anime, ratings, weights, scal,
+                          l2_reg_factor, next_users, next_anime)
+    loss, mse = fused_step(state, u_rows, a_rows, users, anime, ratings, weights, scal,
+                           l2_reg_factor)
     model = state.model
-    return (state, loss, mse, model.user_emb.detach()[next_users],
-            model.anime_emb.detach()[next_anime])
+    return loss, mse, model.user_emb.detach()[next_users], model.anime_emb.detach()[next_anime]

@@ -14,12 +14,20 @@ design:
     full-table pass); the history's ``loss`` then excludes it while its
     ``val_loss`` (the full eval path) includes it.
 
-Duplicate ids in a batch: the batch is sorted by id, each run of equal ids
-has its gradients summed, and one Adam update per unique row is written with
-``index_copy_`` on the unique ids (a write with duplicate indices has no
-defined winner on CUDA). The JAX package sorts unstably and segment-sums;
-this sorts stably and sums with ``index_add_`` (on the card, in atomics'
-order), so a duplicated row's sum may differ in its last f32 bits.
+Duplicate ids in a batch: the batch is sorted by id and each run of equal
+ids has its gradients summed into a [B, D] buffer, row r holding run r's
+sum, with ``index_add_`` over the run numbers. Every shape is fixed by the
+batch size, as in JAX, whose segment sums send the duplicates out of bounds
+(``mode="drop"``): each sorted position computes its run's update from the
+run's sum and the row's old values, so the positions of one run compute the
+same bits, and ``index_copy_`` writes them all (a write with duplicate
+indices has no defined winner on CUDA; here every writer agrees). No step
+needs the number of unique ids on the host, so a CUDA graph can capture it.
+The JAX package sorts unstably and segment-sums; this sorts stably and sums
+with ``index_add_`` (on the card, in atomics' order, which varies from run
+to run; ``index_put_(accumulate=True)`` would sum in a fixed order, but its
+serial chain over a hot row's run cost 0.24 ms more a step on an H100 at
+full width), so a duplicated row's sum may differ in its last f32 bits.
 
 These are plain torch ops, on the card as on the CPU: the JAX package has
 no Pallas kernel here. The step's first update from a fresh state with
@@ -39,14 +47,13 @@ from anime_recommendations_tpu_torch.models.two_tower import (
     cosine_merge,
     head,
 )
-from anime_recommendations_tpu_torch.ops.fused_adam import adam_scalars
 from anime_recommendations_tpu_torch.train.trainer import (
     B1,
     B2,
     KERAS_ADAM_EPS,
     TrainState,
     _keep_bn,
-    bias_corrections,
+    step_row,
 )
 
 
@@ -63,43 +70,52 @@ def lazy_row_adam(
     nu: torch.Tensor,       # [N, D], updated in place
     ids: torch.Tensor,      # [B] int touched row per example
     g_rows: torch.Tensor,   # [B, D] gradient w.r.t. the gathered rows
-    t: int,                 # Adam step count AFTER this update
-    lr: float,
+    scal: torch.Tensor,     # [4] step row on w's device (trainer.step_row)
     l2: float,
     b1: float = B1,
     b2: float = B2,
     eps: float = KERAS_ADAM_EPS,
 ) -> _RowUpdate:
     """One lazy-Adam table update, in place. Touches only rows in ``ids``;
-    returns the three (updated) tables."""
+    returns the three (updated) tables. ``scal`` holds the step's lr, bc1
+    and bc2 (ops/fused_adam.scalar_rows, made with these b1 and b2), read as
+    0-dim device tensors. Every shape is fixed by B (module docstring)."""
     order = torch.argsort(ids, stable=True)
     ids_s = ids[order].long()
     g_s = g_rows[order]
     is_start = torch.ones_like(ids_s, dtype=torch.bool)
     is_start[1:] = ids_s[1:] != ids_s[:-1]
-    seg = torch.cumsum(is_start, 0) - 1                  # [B] run index
-    heads = ids_s[is_start]                              # one id per run
-    g_tot = torch.zeros(heads.shape[0], w.shape[1], dtype=g_s.dtype,
-                        device=g_s.device).index_add_(0, seg, g_s)
-    w_rows, mu_rows, nu_rows = w[heads], mu[heads], nu[heads]
-    g_tot = g_tot + (2.0 * l2) * w_rows                  # decay once per run
-    scal = adam_scalars(t, lr, l2, b1, b2, eps)
-    bc1, bc2 = scal.bc1, scal.bc2
+    seg = torch.cumsum(is_start, 0) - 1                  # [B] run of each position
+    g_run = torch.zeros_like(g_s).index_add_(0, seg, g_s)  # row r: run r's sum
+    w_rows, mu_rows, nu_rows = w[ids_s], mu[ids_s], nu[ids_s]
+    g_tot = g_run[seg] + (2.0 * l2) * w_rows             # decay once per run
+    lr, bc1, bc2 = scal[0], scal[1], scal[2]
     mu_new = b1 * mu_rows + (1.0 - b1) * g_tot
     nu_new = b2 * nu_rows + (1.0 - b2) * (g_tot * g_tot)
     upd = -lr * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps)
-    w.index_copy_(0, heads, w_rows + upd)
-    mu.index_copy_(0, heads, mu_new)
-    nu.index_copy_(0, heads, nu_new)
+    # The positions of one run write the same bits.
+    w.index_copy_(0, ids_s, w_rows + upd)
+    mu.index_copy_(0, ids_s, mu_new)
+    nu.index_copy_(0, ids_s, nu_new)
     return _RowUpdate(w, mu, nu)
 
 
-def _scalar_adam(p, mu, nu, g, bc1, bc2, lr, eps=KERAS_ADAM_EPS):
-    """Adam on one head scalar. Returns (p', mu', nu') as new tensors."""
+def _scalar_adam(p, mu, nu, g, bc1, bc2, lr, eps=KERAS_ADAM_EPS) -> None:
+    """Adam on one head scalar, in place: p, mu and nu keep their storage
+    (a captured CUDA graph updates the same memory at every replay). The
+    step's scalars are 0-dim device tensors or host numbers."""
     mu_new = B1 * mu + (1.0 - B1) * g
     nu_new = B2 * nu + (1.0 - B2) * (g * g)
-    p_new = p - lr * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps)
-    return p_new, mu_new, nu_new
+    p.copy_(p - lr * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps))
+    mu.copy_(mu_new)
+    nu.copy_(nu_new)
+
+
+def _head_adam(state: TrainState, d_head, scal: torch.Tensor) -> None:
+    """_scalar_adam on the four head scalars with the step row's scalars."""
+    model, adam = state.model, state.adam
+    for k, g in zip(HEAD_KEYS, d_head):
+        _scalar_adam(getattr(model, k), adam.mu[k], adam.nu[k], g, scal[1], scal[2], scal[0])
 
 
 def _data_loss(u_rows: torch.Tensor, a_rows: torch.Tensor, head_params,
@@ -128,6 +144,17 @@ def lazy_train_step(
     Gradients are taken with respect to the GATHERED rows (no dense table
     gradient exists); the tables update through lazy_row_adam, the four head
     scalars through ordinary Adam with the shared step count."""
+    loss, mse = lazy_step(state, users, anime, ratings, weights, step_row(state, lr),
+                          l2_reg_factor)
+    state.adam.count += 1
+    return state, loss, mse
+
+
+def lazy_step(state: TrainState, users, anime, ratings, weights, scal: torch.Tensor,
+              l2_reg_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """lazy_train_step's work with the step's scalars read from ``scal``
+    (trainer.dense_step's contract: no host sync; the caller advances the
+    count). Returns (batch_data_loss, batch_mse)."""
     model, adam = state.model, state.adam
     u_rows = model.user_emb.detach()[users].requires_grad_()
     a_rows = model.anime_emb.detach()[anime].requires_grad_()
@@ -135,16 +162,10 @@ def lazy_train_step(
     loss, (mse, new_bn) = _data_loss(u_rows, a_rows, head_params, model.bn_state(),
                                      ratings, weights)
     d_u, d_a, *d_head = torch.autograd.grad(loss, (u_rows, a_rows, *head_params))
-    t = adam.count + 1
     with torch.no_grad():
         for k, ids, grad in (("user_emb", users, d_u), ("anime_emb", anime, d_a)):
             lazy_row_adam(getattr(model, k).detach(), adam.mu[k], adam.nu[k], ids, grad,
-                          t, lr, l2_reg_factor)
-        bc1, bc2 = bias_corrections(t)
-        for k, g in zip(HEAD_KEYS, d_head):
-            p, adam.mu[k], adam.nu[k] = _scalar_adam(
-                getattr(model, k), adam.mu[k], adam.nu[k], g, bc1, bc2, lr)
-            getattr(model, k).copy_(p)
+                          scal, l2_reg_factor)
+        _head_adam(state, d_head, scal)
         _keep_bn(model, new_bn)
-    adam.count = t
-    return state, loss.detach(), mse.detach()
+    return loss.detach(), mse.detach()

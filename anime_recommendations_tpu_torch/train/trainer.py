@@ -38,7 +38,7 @@ from anime_recommendations_tpu_torch.models.two_tower import (
     loss_and_metrics,
     params_from_numpy,
 )
-from anime_recommendations_tpu_torch.ops.fused_adam import adam_scalars
+from anime_recommendations_tpu_torch.ops.fused_adam import adam_scalars, scalar_row
 from anime_recommendations_tpu_torch.train.schedule import lr_for_epoch
 
 KERAS_ADAM_EPS = 1e-7
@@ -123,6 +123,13 @@ def bias_corrections(step: int) -> tuple[float, float]:
     return s.bc1, s.bc2
 
 
+def step_row(state: TrainState, lr: float) -> torch.Tensor:
+    """The next step's scalars (lr, bc1, bc2, step) as a [4] f32 row on the
+    state's device (ops/fused_adam.scalar_rows), for the one-step entry
+    points, which take lr as a host number."""
+    return scalar_row(state.adam.count + 1, lr, state.model.user_emb.device, B1, B2)
+
+
 def _keep_bn(model: TwoTower, new_bn: BNState) -> None:
     model.moving_mean.copy_(new_bn.moving_mean)
     model.moving_var.copy_(new_bn.moving_var)
@@ -142,14 +149,27 @@ def train_step(
     """One dense-Adam step. Returns (state, batch_loss, batch_mse), the last
     two 0-dim device tensors (no host sync). ``sorted_scatter``: the
     gathers' backward (two_tower.forward)."""
+    loss, mse = dense_step(state, users, anime, ratings, weights, step_row(state, lr),
+                           l2_reg_factor, merge, sorted_scatter)
+    state.adam.count += 1
+    return state, loss, mse
+
+
+def dense_step(state: TrainState, users, anime, ratings, weights, scal: torch.Tensor,
+               l2_reg_factor: float, merge: str = "cosine",
+               sorted_scatter: bool | str = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """train_step's work, in place, with the step's scalars read from
+    ``scal`` (step_row's [4] row on the device, as 0-dim views): no host
+    number changes from step to step and nothing syncs with the host, so a
+    CUDA graph can capture it (train/device_loop.py). The Adam count is the
+    caller's to advance. Returns (batch_loss, batch_mse)."""
     model, adam = state.model, state.adam
     params = [getattr(model, k) for k in PARAM_KEYS]
     loss, (mse, new_bn) = loss_and_metrics(
         model, model.bn_state(), users, anime, ratings, weights, l2_reg_factor,
         True, sorted_scatter=sorted_scatter, merge=merge)
     grads = torch.autograd.grad(loss, params)
-    t = adam.count + 1
-    bc1, bc2 = bias_corrections(t)
+    lr, bc1, bc2 = scal[0], scal[1], scal[2]
     with torch.no_grad():
         for k, p, g in zip(PARAM_KEYS, params, grads):
             mu, nu = adam.mu[k], adam.nu[k]
@@ -157,8 +177,7 @@ def train_step(
             nu.mul_(B2).add_(torch.square(g) * (1 - B2))
             p.sub_((mu / bc1) / (torch.sqrt(nu / bc2) + KERAS_ADAM_EPS) * lr)
         _keep_bn(model, new_bn)
-    adam.count = t
-    return state, loss.detach(), mse.detach()
+    return loss.detach(), mse.detach()
 
 
 @torch.no_grad()
@@ -207,7 +226,9 @@ class Trainer:
     checkpoint_dir: str | None = None
     log_fn: Any = field(default=print)
     # Each epoch through train/device_loop.py: data staged on the device
-    # once, a granule shuffle per epoch, no host sync until the epoch ends.
+    # once, a granule shuffle per epoch, no host sync until the epoch ends;
+    # on a card each epoch (and each holdout evaluation) is the replay of
+    # one CUDA graph, captured at the first epoch.
     device_loop: bool = False
     # The device loop's adam gathers through two_tower.take_rows (True =
     # both tables, "user" = the user table only, False = plain gathers).

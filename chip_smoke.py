@@ -81,11 +81,11 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            histories must track the dense one, lazy_adam's training loss must
            fall from epoch 1 to 2, the bf16m state must hold bf16 table
            moments, and the trained store must serve every endpoint through
-           the HTTP server in agreement with the dense oracle. Then one more
-           timed epoch per optimizer gives ms per step and examples per
-           second, and 10 steps under torch.profiler the device-busy time;
-           the idle share is given under the profiler and against the timed
-           epoch's ms/step.
+           the HTTP server in agreement with the dense oracle. On the card
+           each epoch is the replay of a CUDA graph (train/device_loop.py),
+           whose launches the counters add per replay. Its timing is phase
+           13's (the captured epoch's ms per step, device-busy time and idle
+           shares).
   phase 6  K5 on the training path at full width: one epoch (297 steps of
            10,000) of the pipelined fused loop with the gather inside the
            kernel (kernel_gather=True) and one with the gather after it, from
@@ -125,9 +125,10 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            must track phase 5's first epoch of the same optimizer within
            phase 5's tolerances. Then 20 steps, each from one state at both
            capacities, agree (loss 1e-6 relative, tables 1e-6 absolute +
-           1e-5 relative: tests/test_parallel.py's), and one timed routed
-           epoch per optimizer (and the capped fused one) gives ms per step
-           beside phase 5's, with 10 steps under torch.profiler.
+           1e-5 relative: tests/test_parallel.py's), and the first 99
+           batches of one timed routed epoch per optimizer (and the capped
+           fused one) give ms per step beside phase 5's, with 10 steps under
+           torch.profiler.
   phase 8  a table trained on skewed ids, served: bench.py:570-692's
            protocol at 91,641 users (6 fused_adam epochs at lr 3e-4 over 2M
            ratings of pareto-skewed ids, through K1; ms per step), then the
@@ -170,15 +171,16 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            PipelineRunner.step_train with parallel.routing=psum, then with
            parallel.shard_anime_table=true too: one adam epoch each, held to
            phase 5's first adam epoch at phase 5's tolerances; ShardedTrainer
-           with psum must refuse lazy_adam and fused_adam; a timed psum epoch
-           and 10 profiled steps. 10b: parallel/scaling_bench's measure_mesh
+           with psum must refuse lazy_adam and fused_adam; 99 timed psum
+           steps and 10 profiled ones. 10b: parallel/scaling_bench's measure_mesh
            at 1x1 with its defaults (91,641 x 17,560 x 128, batches of 8,192,
            30 steps after 3): alltoall adam, alltoall fused_adam (K1 and its
            first pass twice a step) and psum adam, then its launcher (one
            torch.distributed.run of one NCCL rank) at 1x1 psum. 10c: the
            device loop's adam with sorted_scatter True (two_tower.take_rows)
            and False: Trainer.fit histories within 1e-5 relative, a timed
-           epoch each with 10 profiled steps, and the two tables' embedding
+           epoch each (the second from a fresh state: a replay of its
+           graph) with 10 profiled steps, and the two tables' embedding
            backward alone on a batch's ids (through take_rows and the
            plain gather: autograd's index_put_ either way), within 1e-6 of
            the largest entry, profiled. 10d:
@@ -215,6 +217,25 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            The phase's seconds, ingest's and the download's MB/s (the
            cached bytes over the time of the client's _download calls) are
            printed.
+  phase 13 the captured epoch (right after phase 5): at phase 5's full width
+           (297 batches of 10,000), per optimizer, two epochs (lr 1e-5, then
+           2e-5) through the eager loop (dl.eager_train_epoch), two more
+           from the same state and shuffle generators, and two through the
+           CUDA graph (dl.train_epoch: the first captures it, each replays
+           it). The largest gap, captured against eager and eager against
+           the repeat, of the per-batch losses and mses, the tables, their
+           moments, the head scalars and their moments, the BatchNorm stats
+           and the Adam count: the fused optimizers' must be bit-equal, and
+           adam's and lazy_adam's too wherever the two eager runs are, else
+           within 1e-5 of each tensor's scale but for dense_b, its moments
+           and moving_mean, which walk on rounding noise (printed). ms per
+           step of each second epoch (host clock between synchronizes), 10 steps of each under
+           torch.profiler (device-busy ms per step, idle shares), the warm-up,
+           capture and instantiation seconds, the peak memory of each run,
+           the graph's replays per epoch and K1's and its first pass's
+           launches per replay (2 x steps for the fused optimizers, and the
+           counters' totals those of the eager loop), and the host's cost of
+           a step row and of an epoch's scalar table.
 
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
@@ -1442,31 +1463,6 @@ def _step_profile(window_fn, steps: int, ms_per_step: float) -> dict:
                 idle_share_timed=1 - per_step["device_ms"] / ms_per_step)
 
 
-def _timed_epoch(optimizer: str) -> dict:
-    """One more epoch of the device loop from a fresh state, timed with the
-    host clock between two synchronizes; then 10 steps (the first 10
-    batches, unshuffled) under torch.profiler."""
-    import torch
-
-    from anime_recommendations_tpu_torch.train import device_loop as dl
-
-    train, _ = _train_split()
-    state = _fresh_state(optimizer)
-    data = dl.stage(train, BATCH, seed=SEED, device=DEVICE)
-    steps = data.n // BATCH
-    (_, losses, _, _), seconds = _host_timed(lambda: dl.train_epoch(
-        state, data, torch.Generator().manual_seed(SEED), 1e-5, BATCH, 1e-4,
-        optimizer=optimizer))
-    if not bool(torch.isfinite(losses).all()):
-        raise AssertionError(f"{optimizer}: non-finite loss in the timed epoch")
-    window = dl.DeviceData(*(x[:10 * BATCH] for x in data))
-    ms_per_step = seconds * 1e3 / steps
-    return dict(steps=steps, ms_per_step=ms_per_step, examples_per_sec=len(train) / seconds,
-                **_step_profile(lambda: dl.train_epoch(state, window, None, 1e-5, BATCH, 1e-4,
-                                                       shuffle=False, optimizer=optimizer),
-                                10, ms_per_step))
-
-
 def _history_gap(hist, ref) -> dict:
     """Largest relative gap per history column."""
     return {c: float(np.max(np.abs(hist[c].to_numpy() - ref[c].to_numpy())
@@ -1548,11 +1544,6 @@ def phase_train(card: str) -> dict:
         print(f"[phase 5] trained store served every endpoint in agreement with the dense "
               f"oracle (overlap 1.0); latency ms ({card}): {json.dumps(out['serving_ms'])}",
               flush=True)
-    out["timed"] = {}
-    for optimizer in OPTIMIZERS:
-        out["timed"][optimizer] = _timed_epoch(optimizer)
-        print(f"[phase 5] {optimizer} timed epoch ({card}): "
-              f"{json.dumps(out['timed'][optimizer])}", flush=True)
     return out
 
 
@@ -1671,6 +1662,149 @@ def phase_convergence(card: str) -> dict:
         out[optimizer] = summary
         print(f"[phase 6] convergence at CI scale on the card, {optimizer} ({card}): "
               f"{json.dumps(summary)}", flush=True)
+    return out
+
+
+# ---- phase 13 ------------------------------------------------------------------
+
+GRAPH_LRS = (1e-5, 2e-5)   # phase 13's two epochs: a change of lr between them
+GRAPH_GROUPS = {
+    "tables": ("user_emb", "anime_emb"),
+    "moments": tuple(f"{m}.{k}" for m in ("mu", "nu") for k in ("user_emb", "anime_emb")),
+    "head_scalars": tuple(f"{m}{k}" for m in ("", "mu.", "nu.")
+                          for k in ("dense_w", "bn_gamma", "bn_beta")),
+    "bn_stats": ("moving_var",),
+    # dense_b's gradient is rounding noise (BatchNorm cancels the bias), so
+    # Adam walks it by up to lr a step and moving_mean follows it: held to
+    # bit equality where the eager runs are, else printed and not bounded
+    # (tests/test_torch_train.py does not compare dense_b either).
+    "noise_walk": tuple(f"{m}dense_b" for m in ("", "mu.", "nu.")) + ("moving_mean",),
+}
+
+
+def _graph_run(optimizer: str, epoch_fn, data) -> dict:
+    """Two epochs of ``epoch_fn`` (dl.train_epoch or dl.eager_train_epoch)
+    from phase 13's initial state and shuffle generators: the state, the
+    losses and mses, each epoch's seconds, the peak memory above the start,
+    and the launches of K1 and its first pass."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    state = _fresh_state(optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(_kernels.launches)
+    hist, seconds = {"losses": [], "mses": []}, []
+    for epoch, lr in enumerate(GRAPH_LRS):
+        (state, losses, mses, _), sec = _host_timed(lambda: epoch_fn(
+            state, data, torch.Generator().manual_seed(SEED + epoch), lr, BATCH, 1e-4,
+            optimizer=optimizer))
+        hist["losses"].append(losses.cpu().numpy())
+        hist["mses"].append(mses.cpu().numpy())
+        seconds.append(sec)
+        if not (np.isfinite(hist["losses"][-1]).all() and np.isfinite(hist["mses"][-1]).all()):
+            raise AssertionError(f"{optimizer} ({epoch_fn.__name__}): non-finite loss or mse")
+    return dict(state=state, arrays=tr.train_state_to_numpy(state), seconds=seconds,
+                hist={k: np.concatenate(v) for k, v in hist.items()},
+                peak_bytes=torch.cuda.max_memory_allocated() - base,
+                launches={k: _kernels.launches[k] - before.get(k, 0)
+                          for k in ("fused_adam_tiles", "fused_adam", "fused_adam_gather")})
+
+
+def _graph_gaps(a: dict, b: dict) -> dict:
+    """Largest absolute gap between two runs per group, and whether every
+    tensor of the group is bit-equal; the Adam counts' difference."""
+    out = {}
+    for group, keys in (("losses", ("losses",)), ("mses", ("mses",)), *GRAPH_GROUPS.items()):
+        pairs = [(a["hist"][k], b["hist"][k]) if k in a["hist"]
+                 else (a["arrays"][k], b["arrays"][k]) for k in keys]
+        out[group] = {"max_abs": max(float(np.max(np.abs(x - y))) for x, y in pairs),
+                      "rel": max(float(np.max(np.abs(x - y))) / max(float(np.max(np.abs(y))), 1e-30)
+                                 for x, y in pairs),
+                      "bit_equal": all(np.array_equal(x, y) for x, y in pairs)}
+    out["count"] = int(a["arrays"]["count"]) - int(b["arrays"]["count"])
+    return out
+
+
+def phase_graph(card: str) -> dict:
+    """The captured epoch at full width, per optimizer: two eager epochs,
+    two more from the same state and generators, and two captured ones
+    (the first captures the graph); their gaps, times, device profiles,
+    capture costs, memory and launches."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels, fused_adam
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+
+    train, _ = _train_split()
+    data = dl.stage(train, BATCH, seed=SEED, device=DEVICE)
+    steps = data.n // BATCH
+    window = dl.DeviceData(*(x[:10 * BATCH] for x in data))
+    out = {"card": card, "steps": steps, "lrs": list(GRAPH_LRS)}
+    # The host's cost of a step row for callers with host numbers (one
+    # upload a call) and of an epoch's scalar table.
+    row_s = _host_timed(lambda: [fused_adam.scalar_row(t, 1e-5, DEVICE) for t in range(1, 1001)])[1]
+    table_s = _host_timed(lambda: dl.scalar_table(0, steps, 1e-5))[1]
+    out["scalar_row_us"], out["scalar_table_ms"] = row_s * 1e3, table_s * 1e3
+    print(f"[phase 13] host cost: a step row uploaded per call {out['scalar_row_us']:.2f} us; "
+          f"an epoch's scalar table ({steps} rows) {out['scalar_table_ms']:.3f} ms ({card})",
+          flush=True)
+    for optimizer in OPTIMIZERS:
+        warm0 = sum(_kernels.warmup_launches.values())
+        eager = _graph_run(optimizer, dl.eager_train_epoch, data)
+        again = _graph_run(optimizer, dl.eager_train_epoch, data)
+        captured = _graph_run(optimizer, dl.train_epoch, data)
+        graph = dl.train_graph(captured["state"], data, BATCH, 1e-4, optimizer=optimizer)
+        row = {"optimizer": optimizer,
+               "captured_vs_eager": _graph_gaps(captured, eager),
+               "eager_vs_eager": _graph_gaps(again, eager)}
+        eager_equal = all(g["bit_equal"] for k, g in row["eager_vs_eager"].items()
+                          if k != "count")
+        for k, g in row["captured_vs_eager"].items():
+            if k == "count":
+                if g != 0 or row["eager_vs_eager"]["count"] != 0:
+                    raise AssertionError(f"{optimizer}: the Adam counts differ")
+                continue
+            if optimizer in FUSED or eager_equal:
+                if not g["bit_equal"]:
+                    raise AssertionError(f"{optimizer}: the captured epoch's {k} differ from the "
+                                         f"eager epoch's: {g}")
+            elif k != "noise_walk" and g["rel"] > 1e-5:
+                raise AssertionError(f"{optimizer}: the captured epoch's {k} differ from the "
+                                     f"eager epoch's by {g['rel']} of their scale")
+        if optimizer in FUSED and not eager_equal:
+            raise AssertionError(f"{optimizer}: two eager runs differ: {row['eager_vs_eager']}")
+        want = 2 * steps * len(GRAPH_LRS) if optimizer in FUSED else 0
+        for label, run in (("eager", eager), ("captured", captured)):
+            if run["launches"] != {"fused_adam_tiles": want, "fused_adam": want,
+                                   "fused_adam_gather": 0}:
+                raise AssertionError(f"{optimizer} {label}: launches {run['launches']}, "
+                                     f"expected {want} of K1 and its first pass")
+        if graph.replays != len(GRAPH_LRS) or graph.launches.get("fused_adam", 0) != want // 2:
+            raise AssertionError(f"{optimizer}: {graph.replays} replays, "
+                                 f"{dict(graph.launches)} launches each")
+        row["graph"] = {"replays_per_epoch": graph.replays / len(GRAPH_LRS),
+                        "k1_per_replay": graph.launches.get("fused_adam", 0),
+                        "first_pass_per_replay": graph.launches.get("fused_adam_tiles", 0),
+                        "warmup_launches": sum(_kernels.warmup_launches.values()) - warm0,
+                        **{f"{k}_s": v for k, v in graph.seconds.items()}}
+        for label, run, fn in (("eager", eager, dl.eager_train_epoch),
+                               ("captured", captured, dl.train_epoch)):
+            ms = run["seconds"][-1] * 1e3 / steps
+            state = run["state"]
+            row[label] = dict(ms_per_step=ms, examples_per_sec=len(train) / run["seconds"][-1],
+                              first_epoch_s=run["seconds"][0],
+                              peak_bytes=run["peak_bytes"], launches=run["launches"],
+                              **_step_profile(lambda: fn(state, window, None, 1e-5, BATCH, 1e-4,
+                                                         shuffle=False, optimizer=optimizer),
+                                              10, ms))
+            row[label]["profiled_step"].pop("by_kernel")
+        out[optimizer] = row
+        print(f"[phase 13] {optimizer} ({card}): {json.dumps(row)}", flush=True)
+    dl.release_graphs()
     return out
 
 
@@ -1866,9 +2000,13 @@ def _rounds(capacity: int) -> dict:
     return out
 
 
+ROUTED_TIMED_STEPS = 99   # a third of an epoch: the routed step's host clock
+
+
 def _timed_routed_epoch(optimizer: str, capacity=None, routing: str = "alltoall") -> dict:
-    """One sharded epoch (plans included) from a fresh state, host clock
-    between synchronizes; then 10 steps under torch.profiler."""
+    """The first ROUTED_TIMED_STEPS batches of a sharded epoch (plans
+    included) from a fresh state, host clock between synchronizes; then 10
+    steps under torch.profiler."""
     import torch
 
     from anime_recommendations_tpu_torch.train import device_loop as dl
@@ -1879,13 +2017,15 @@ def _timed_routed_epoch(optimizer: str, capacity=None, routing: str = "alltoall"
     state = trainer._init_state(torch.Generator().manual_seed(SEED), vocab.n_users, vocab.n_anime)
     data = dl.granule_shuffle(dl.stage(train, BATCH, seed=SEED, device=DEVICE),
                               torch.Generator().manual_seed(SEED))
-    steps = data.n // BATCH
-    (_, losses, _, _), seconds = _host_timed(lambda: trainer.train_epoch(state, data, BATCH, 1e-5))
+    steps = ROUTED_TIMED_STEPS
+    timed = dl.DeviceData(*(x[:steps * BATCH] for x in data))
+    (_, losses, _, _), seconds = _host_timed(lambda: trainer.train_epoch(state, timed, BATCH, 1e-5))
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"routed {optimizer}: non-finite loss in the timed epoch")
     window = dl.DeviceData(*(x[:10 * BATCH] for x in data))
     ms_per_step = seconds * 1e3 / steps
-    return dict(steps=steps, ms_per_step=ms_per_step, examples_per_sec=len(train) / seconds,
+    return dict(steps=steps, ms_per_step=ms_per_step,
+                examples_per_sec=float(timed.weights.sum()) / seconds,
                 **_step_profile(lambda: trainer.train_epoch(state, window, BATCH, 1e-5), 10,
                                 ms_per_step))
 
@@ -2116,9 +2256,11 @@ def _sorted_scatter_runs(card: str) -> dict:
             train, holdout, vocab.n_users, vocab.n_anime)
         out["history"][str(mode)] = fit.history
         state = _fresh_state("adam")
-        (_, losses, _, _), seconds = _host_timed(lambda: dl.train_epoch(
-            state, data, torch.Generator().manual_seed(SEED), 1e-5, BATCH, 1e-4,
-            sorted_scatter=mode, optimizer="adam"))
+        epoch = lambda seed: dl.train_epoch(state, data, torch.Generator().manual_seed(seed),
+                                            1e-5, BATCH, 1e-4, sorted_scatter=mode,
+                                            optimizer="adam")
+        epoch(SEED)   # captures the epoch's graph; the next one replays it
+        (_, losses, _, _), seconds = _host_timed(lambda: epoch(SEED + 1))
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"sorted_scatter={mode}: non-finite loss")
         ms_per_step = seconds * 1e3 / steps
@@ -3134,16 +3276,24 @@ def phase_download(card: str) -> dict:
     return out
 
 
+def _timed_phase(label: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its host seconds printed under the phase's label."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[chip_smoke] phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
-    card = phase_device()
+    card = _timed_phase("1", phase_device)
     import torch
 
     from anime_recommendations_tpu_torch.ops import _kernels
 
-    rows = phase_kernels(card)
-    new_rows = phase_new_kernels(card)
+    rows = _timed_phase("2", phase_kernels, card)
+    new_rows = _timed_phase("2 (K2q, K3, K4)", phase_new_kernels, card)
     _kernels.launches.clear()
-    phase_slice(card)
+    _timed_phase("3", phase_slice, card)
     serving_launches = dict(_kernels.launches)
     print(f"[phase 3] launches on the serving path: {json.dumps(serving_launches)}", flush=True)
     for name in (*K2_COUNTERS, *INT8_COUNTERS, "exact_topk"):
@@ -3151,30 +3301,37 @@ def main() -> int:
             raise AssertionError(f"the serving path never launched {name}")
     if serving_launches.get("l2_normalize", 0) != 2 * len(CONTEXTS):
         raise AssertionError("the context builds did not launch l2_normalize twice each")
-    adam_rows, gather_rows = phase_adam(card)
+    adam_rows, gather_rows = _timed_phase("4", phase_adam, card)
     # 7a's timed dense cases here, beside phase 4's: after phase 6, sessions
     # of torch.profiler lose a few records of every kernel in this process.
-    dense_rows = phase_dense(card, receipts=False)
+    dense_rows = _timed_phase("7a", phase_dense, card, receipts=False)
     _kernels.launches.clear()
-    trained = phase_train(card)
+    trained = _timed_phase("5", phase_train, card)
     if _kernels.launches["fused_adam"] < 1:
         raise AssertionError("the training path never launched fused_adam")
-    gathered = phase_gather(card)   # resets the counters before each epoch
-    phase_convergence(card)
+    graph = _timed_phase("13", phase_graph, card)
+    # The one-device epoch's timing, beside which phases 7 and 10 print theirs.
+    trained["timed"] = {opt: graph[opt]["captured"] for opt in OPTIMIZERS}
+    gathered = _timed_phase("6", phase_gather, card)   # resets the counters before each epoch
+    _timed_phase("6 (convergence)", phase_convergence, card)
     import torch.distributed as dist
 
     init_nccl()
     try:
-        dense_rows += phase_dense(card, receipts=True)
-        routed = phase_routed(card, trained)   # resets the counters before each run
-        phase_psum(card, trained)
+        dense_rows += _timed_phase("7a (receipts)", phase_dense, card, receipts=True)
+        # resets the counters before each run
+        routed = _timed_phase("7b", phase_routed, card, trained)
+        _timed_phase("10", phase_psum, card, trained)
     finally:
         dist.destroy_process_group()
-    phase_trained(card)
-    phase_pipeline(card)
+    _timed_phase("8", phase_trained, card)
+    _timed_phase("9", phase_pipeline, card)
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+
+    dl.release_graphs()        # their memory pools
     torch.cuda.empty_cache()   # the bench's process shares the card
-    phase_bench(card)
-    phase_download(card)
+    _timed_phase("11", phase_bench, card)
+    _timed_phase("12", phase_download, card)
     # K2's two kernels: the streaming one (one query; users f32 Q=1) and the
     # tensor-core one (more; users f32 Q=256, bound by TF32).
     kernels = []

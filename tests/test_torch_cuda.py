@@ -36,7 +36,11 @@ kernels' own summation order (fused_adam.run_sums_in_tile_order), and each
 pass alone equals its plain version. IVF retrieval (torch ops, no kernel of
 its own): an index built on the card holds every row once, and ivf_topk on
 it equals ivf_topk on its copy on the CPU, values within 1e-5, indices
-equal except where true scores tie within 1e-6.
+equal except where true scores tie within 1e-6. The captured epoch
+(train/device_loop.py's CUDA graph): bit for bit the eager epoch wherever
+two eager runs are bit-equal, else 1e-5 of each tensor's largest entry
+(dense_b, its moments and moving_mean, which walk on rounding noise, not
+compared then).
 """
 
 import numpy as np
@@ -909,3 +913,86 @@ def test_bench_suite_on_the_card(cuda):
         "fused_adam", "packed_topk", "packed_topk_mma", "packed_topk_int8",
         "packed_topk_int8_mma", "exact_topk", "l2_normalize")}
     assert min(launched.values()) > 0, launched
+
+
+def _graph_epoch_runs(cuda, optimizer, epoch_fn):
+    """Two epochs (lr 1e-3, then 5e-4) of ``epoch_fn`` from one state and one
+    shuffle: (final state, [(losses, mses, wsums)] per epoch)."""
+    from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    rng = np.random.default_rng(0)
+    rows = 20_000
+    ds = RatingsDataset(rng.integers(0, 3000, rows).astype(np.int32),
+                        np.minimum(rng.pareto(1.1, rows) * 20, 499).astype(np.int32),
+                        rng.uniform(0, 1, rows).astype(np.float32))
+    data = dl.stage(ds, 1024, seed=0, device=cuda)
+    state = tr.init_train_state(3000, 500, 32, generator=torch.Generator().manual_seed(0),
+                                device=cuda)
+    if optimizer == "fused_adam_bf16m":
+        state = tr.cast_table_moments(state, torch.bfloat16)
+    outs = []
+    for epoch, lr in enumerate((1e-3, 5e-4)):
+        state, *out = epoch_fn(state, data, torch.Generator().manual_seed(epoch), lr, 1024, 1e-4,
+                               optimizer=optimizer)
+        outs.append(out)
+    return state, outs, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adam", "lazy_adam", "fused_adam", "fused_adam_bf16m"])
+def test_captured_epoch_matches_the_eager_epoch(cuda, optimizer):
+    """train_epoch's CUDA graph against eager_train_epoch over two epochs
+    from one state: every state tensor, loss and mse bit for bit wherever two
+    eager runs are bit-equal to each other (every optimizer but lazy_adam,
+    whose index_add_ sums in atomics' order), else within 1e-5 of each
+    tensor's largest entry; the launches counted per replay equal the eager
+    loop's; the holdout evaluation's graph equals the eager evaluation."""
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    names = ("fused_adam_tiles", "fused_adam", "fused_adam_gather")
+    runs = {}
+    for label, fn in (("captured", dl.train_epoch), ("eager", dl.eager_train_epoch),
+                      ("again", dl.eager_train_epoch)):
+        _kernels.launches.clear()
+        state, outs, data = _graph_epoch_runs(cuda, optimizer, fn)
+        torch.cuda.synchronize()
+        runs[label] = (tr.train_state_to_numpy(state), outs,
+                       {k: _kernels.launches[k] for k in names}, state)
+    steps = data.n // 1024
+    want = 4 * steps if optimizer in ("fused_adam", "fused_adam_bf16m") else 0
+    for label in runs:
+        assert runs[label][2] == {"fused_adam_tiles": want, "fused_adam": want,
+                                  "fused_adam_gather": 0}, label
+    # dense_b's gradient is rounding noise (BatchNorm cancels the bias), so
+    # Adam walks it by up to lr a step and moving_mean follows: like
+    # tests/test_torch_train.py, no bound there unless the runs are bit-equal.
+    noise = ("dense_b", "mu.dense_b", "nu.dense_b", "moving_mean")
+    tensors = lambda r, skip=(): [*(v for k, v in r[0].items() if k not in skip),
+                                  *(t.cpu().numpy() for o in r[1] for t in o)]
+    eager_equal = all(np.array_equal(a, b) for a, b in
+                      zip(tensors(runs["eager"]), tensors(runs["again"])))
+    if optimizer != "lazy_adam":
+        assert eager_equal
+    if eager_equal:
+        for a, b in zip(tensors(runs["captured"]), tensors(runs["eager"])):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(tensors(runs["captured"], noise), tensors(runs["eager"], noise)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(np.abs(b).max(), 1e-30))
+    model = runs["captured"][3].model
+    holdout = dl.DeviceData(*(x[:4096] for x in data))
+    got = dl.eval_epoch(model, model.bn_state(), holdout, 1024, 1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, dl.eager_eval_epoch(model, model.bn_state(), holdout, 1024, 1e-4)))
+
+
+@pytest.mark.cuda
+def test_a_capture_that_syncs_raises(cuda):
+    """No fallback: a body that reads a value on the host fails the capture."""
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        dl.EpochGraph(lambda: (x * 2).sum().item(), lambda: None, {}, cuda)

@@ -1,8 +1,11 @@
 """The port's native CSV parser (data/fastcsv.py) against pandas and the
 JAX package's read_numeric_csv: the cases of tests/test_fastcsv.py, on the
-same files. The port builds native/fastcsv.cpp into build/native/ (never
-into native/), reads with pandas only where no compiler is found, and
-raises where the build fails."""
+same files. The port builds its own copy of the parser's source
+(anime_recommendations_tpu_torch/csrc/fastcsv.cpp, the same bytes as the
+JAX package's native/fastcsv.cpp) into build/native/, reads with pandas
+only where no compiler is found, and raises where the build fails."""
+
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -11,6 +14,8 @@ import pytest
 from anime_recommendations_tpu.data import fastcsv as jfastcsv
 from anime_recommendations_tpu_torch.data import fastcsv
 from anime_recommendations_tpu_torch.data.ingest import _read_any
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def same_as_jax_and_pandas(path, **kw):
@@ -32,7 +37,12 @@ def test_native_builds_into_build_native():
     assert fastcsv.native_available(), "g++ is on PATH here: the build must work"
     lib = fastcsv.build()
     assert lib.parent == fastcsv.BUILD_DIR and lib.parent.parts[-2:] == ("build", "native")
-    assert lib.exists() and fastcsv.SOURCE.parent.name == "native"
+    assert lib.exists()
+    assert fastcsv.SOURCE.parent == REPO / "anime_recommendations_tpu_torch" / "csrc"
+    # The port's copy, not the JAX package's file: the same parser below
+    # the header comment.
+    code = lambda path: path.read_text().split("\n\n", 1)[1]
+    assert code(fastcsv.SOURCE) == code(REPO / "native" / "fastcsv.cpp")
 
 
 def test_parse_matches_pandas(csv_file):

@@ -17,6 +17,7 @@ import torch
 
 from anime_recommendations_tpu.train.lazy import lazy_row_adam as jlazy_row_adam
 from anime_recommendations_tpu.train.lazy import lazy_train_step as jlazy_step
+from anime_recommendations_tpu_torch.ops.fused_adam import scalar_row
 from anime_recommendations_tpu_torch.train import trainer as tr
 from anime_recommendations_tpu_torch.train.lazy import lazy_row_adam, lazy_train_step
 from tests.test_torch_train import (
@@ -78,7 +79,8 @@ def test_duplicate_ids_single_update_per_row():
     mu, nu = torch.zeros(n, d), torch.zeros(n, d)
     g = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
     w0 = w.clone()
-    out = lazy_row_adam(w, mu, nu, torch.zeros(b, dtype=torch.int32), g, 1, 1e-2, 0.0)
+    out = lazy_row_adam(w, mu, nu, torch.zeros(b, dtype=torch.int32), g,
+                        scalar_row(1, 1e-2, "cpu"), 0.0)
     assert out.w is w and out.mu is mu                    # in place
     np.testing.assert_allclose(mu[0].numpy(), 0.1 * g.numpy().sum(axis=0), rtol=1e-5)
     assert not mu[1:].any() and torch.equal(w[1:], w0[1:])
@@ -95,7 +97,8 @@ def test_lazy_row_adam_matches_jax():
     nu = (rng.standard_normal((n, d)).astype(np.float32) * 0.01) ** 2
     ids = rng.integers(0, 20, b).astype(np.int32)          # many duplicates
     g = rng.standard_normal((b, d)).astype(np.float32) * 0.1
-    got = lazy_row_adam(*(torch.from_numpy(x.copy()) for x in (w, mu, nu, ids, g)), t, 1e-3, l2)
+    got = lazy_row_adam(*(torch.from_numpy(x.copy()) for x in (w, mu, nu, ids, g)),
+                        scalar_row(t, 1e-3, "cpu"), l2)
     want = jlazy_row_adam(*map(jnp.asarray, (w, mu, nu, ids, g)), jnp.asarray(t),
                           jnp.float32(1e-3), l2)
     for name, a, c in zip(("w", "mu", "nu"), got, want):

@@ -384,31 +384,30 @@ def _train_350k(rng, s: BenchSizes, dev, details: dict) -> None:
         del state
 
 
-def _routed_epoch(sstep, state, cols, plans, evals, generator):
+def _routed_epoch(sstep, state, train, evals, generator):
     """bench.py's planned routed epoch (parallel/sharded_train.build_epoch_fn
-    with shuffle and precomputed plans): the batches in a random order, each
-    with its plans and receipt orders, then the eval batches' sums, all
-    enqueued before the caller's host fetch. Returns (state, losses)."""
-    losses = []
-    for i in torch.randperm(cols[0].shape[0], generator=generator).tolist():
-        (pu, ou), (pa, oa) = plans[0][i], plans[1][i]
-        state, loss, _ = sstep.train_step(state, *(c[i] for c in cols), LR,
-                                          plans=(pu, pa), orders=(ou, oa))
-        losses.append(loss)
-    for j in range(evals[0].shape[0]):
-        sstep.eval_sums(state.model, state.model.bn_state(), *(e[j] for e in evals))
-    return state, torch.stack(losses)
+    with shuffle and precomputed plans): the batches in an order drawn per
+    epoch, each with its plans and receipt orders, then the eval batches'
+    sums (sharded_train.run_epoch: on the card one replay of the epoch's CUDA
+    graph, the order copied into its static buffer). Returns (state,
+    losses)."""
+    from anime_recommendations_tpu_torch.parallel.sharded_train import run_epoch
+
+    order = torch.randperm(train.n, generator=generator)
+    losses, *_ = run_epoch(sstep, state, LR, train, evals, order)
+    return state, losses
 
 
 def _train_routed(rng, s: BenchSizes, dev, details: dict) -> None:
     """Sections 4-5 (bench.py:165-283) on a 1 x 1 mesh: the routed fused
-    step one at a time, then the planned routed epoch (plans computed once,
-    reused every epoch, 2 eval batches per epoch) with f32 and bf16 moments."""
+    step one at a time, then the planned routed epoch (plans computed once
+    with one host read of their round counts, reused every epoch, 2 eval
+    batches per epoch) with f32 and bf16 moments."""
     from anime_recommendations_tpu_torch.parallel.mesh import make_world
     from anime_recommendations_tpu_torch.parallel.sharded_train import (
         ShardedTrainStep,
-        build_plans,
         place_state,
+        plan_batches,
     )
 
     world = make_world(1, 1, device=dev)
@@ -432,15 +431,14 @@ def _train_routed(rng, s: BenchSizes, dev, details: dict) -> None:
         cols.append(torch.from_numpy(rng.integers(0, high, rows).astype(np.int32)))
     cols.append(torch.from_numpy(rng.uniform(0, 1, rows).astype(np.float32)))
     cols.append(torch.ones(rows, dtype=torch.float32))
-    cols = [c.to(dev).view(nb, s.batch) for c in cols]
-    evals = [c[:2] for c in cols]
-    plans = build_plans(sstep, cols[0], cols[1], table_rows=(s.n_users_full, s.n_anime))
+    train = plan_batches(sstep, (c.to(dev).view(nb, s.batch) for c in cols),
+                         table_rows=(s.n_users_full, s.n_anime))
+    evals = train.select(slice(0, 2))
     for opt, seed, reps, key in (
             ("fused_adam", 4, range(3), "train350k_sharded_fused_epoch"),
             ("fused_adam_bf16m", 5, range(20, 23), "train350k_sharded_bf16m_epoch")):
         state = place_state(_fresh_state(s.n_users_full, s, seed, opt, dev), world)
-        best = _best_secs(state, lambda st, g: _routed_epoch(sstep, st, cols, plans, evals, g),
-                          reps)
+        best = _best_secs(state, lambda st, g: _routed_epoch(sstep, st, train, evals, g), reps)
         details[f"{key}_step_ms"] = round(best / nb * 1e3, 3)
         if opt == "fused_adam":
             details[f"{key}_examples_per_sec"] = round(rows / best)

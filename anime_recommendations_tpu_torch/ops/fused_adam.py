@@ -303,8 +303,11 @@ def _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal: AdamScalars, step,
     n, d = w.shape
     dev = w.device
     row = _step_row(scal, step, dev)
+    # Ids outside the table add into a spare row past it: fixed shapes, no
+    # host read.
     keep = (ids_s >= 0) & (ids_s < n)
-    dscat = torch.zeros_like(w).index_add_(0, ids_s[keep].long(), g_s[keep])
+    dscat = torch.zeros(n + 1, d, dtype=w.dtype, device=dev).index_add_(
+        0, torch.where(keep, ids_s.long(), n), torch.where(keep[:, None], g_s, 0.0))[:n]
     if dense is not None:
         dscat = dscat + dense
     sumsq = torch.sum(torch.square(w))

@@ -15,8 +15,9 @@ slice of a global batch (host_batch_slice).
 ``--worker`` runs ``steps`` sharded train steps on random data (worker_step);
 ``--fit`` a full ShardedTrainer.fit with checkpoints and same-world resume
 (worker_fit); ``--replay IN.npz --out OUT.npz`` runs saved states and
-batches through ShardedTrainStep (worker_replay), to hold the steps to
-another implementation's on the same inputs. Each prints one JSON line.
+batches through ShardedTrainStep and the sharded epoch (worker_replay), to
+hold them to another implementation's on the same inputs. Each prints one
+JSON line.
 """
 
 from __future__ import annotations
@@ -197,7 +198,12 @@ def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> d
     the placed state: the gradients (``<name>/grads/<param>``, logical), the
     eval sums (``<name>/eval``), then ``steps`` train steps on the batch:
     ``<name>/loss``, ``<name>/mse`` per step, the state after the first and
-    the last (``<name>/step1/<key>``, ``<name>/final/<key>``, logical). Rank 0
+    the last (``<name>/step1/<key>``, ``<name>/final/<key>``, logical). A job
+    with ``epoch`` = {batches, evals, order} instead runs one sharded epoch
+    (sharded_train.run_epoch: planned exchanges) over the named stacked
+    batches (``<batches>/users`` ... [nb, B]) in the given order, then the
+    named eval batches: ``<name>/losses``, ``<name>/mses`` per step,
+    ``<name>/val`` (val_loss, val_mse) and ``<name>/final/<key>``. Rank 0
     writes them to ``out_path``. Returns {rank, world_size, jobs}."""
     from anime_recommendations_tpu_torch.parallel.mesh import make_world
     from anime_recommendations_tpu_torch.parallel.sharded_train import (
@@ -231,6 +237,9 @@ def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> d
         step = ShardedTrainStep(world, l2_reg_factor=job["l2"], shard_anime=shard_anime,
                                 routing=routing, optimizer=job["optimizer"],
                                 capacity=job.get("capacity"))
+        if "epoch" in job:
+            out.update(_replay_epoch(job, step, state, world, layout, group))
+            continue
         batch = group(job["batch"])
         sl = host_batch_slice(len(batch["users"]), world, routing)
         cols = [torch.from_numpy(np.asarray(batch[k])[sl]).to(world.device)
@@ -256,6 +265,32 @@ def worker_replay(in_path: str, out_path: str | None, device: str = "cuda") -> d
         np.savez(out_path, **out)
     return {"rank": dist.get_rank(), "world_size": dist.get_world_size(),
             "jobs": [j["name"] for j in jobs]}
+
+
+def _replay_epoch(job: dict, step, state, world, layout, group) -> dict:
+    """One epoch job of worker_replay."""
+    from anime_recommendations_tpu_torch.parallel import sharded_train as st
+    from anime_recommendations_tpu_torch.train.trainer import TABLE_KEYS, train_state_to_numpy
+
+    ep, routing = job["epoch"], layout[1]
+    table_rows = tuple(getattr(state.model, k).shape[0] * world.size for k in TABLE_KEYS)
+
+    def shards(prefix):
+        b = group(prefix)
+        sl = host_batch_slice(b["users"].shape[1], world, routing)
+        return [torch.from_numpy(np.ascontiguousarray(np.asarray(b[k])[:, sl])).to(world.device)
+                for k in ("users", "anime", "ratings", "weights")]
+
+    train = st.plan_batches(step, shards(ep["batches"]), table_rows)
+    evals = st.plan_batches(step, shards(ep["evals"]), orders=False)
+    order = torch.tensor(ep["order"], dtype=torch.long) if "order" in ep else None
+    losses, mses, vl, vm = st.run_epoch(step, state, job["lr"], train, evals, order)
+    name = job["name"]
+    out = {f"{name}/losses": losses.cpu().numpy(), f"{name}/mses": mses.cpu().numpy(),
+           f"{name}/val": torch.stack([vl, vm]).cpu().numpy()}
+    logical = train_state_to_numpy(st.unstripe_state(state, *layout))
+    out.update({f"{name}/final/{k}": v for k, v in logical.items()})
+    return out
 
 
 def main(argv=None) -> None:

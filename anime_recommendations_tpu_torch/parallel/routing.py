@@ -17,12 +17,18 @@ give zero rows and no gradient):
   2. bucket the unique ids by owner; per round, each (sender, owner) bucket
      sends up to ``capacity`` ids with one all-to-all, owners gather their
      rows and send them straight back with another;
-  3. rounds = max over the ranks of ceil(largest bucket / capacity). The
-     loop runs on the host, so the count comes back from the card: every
+  3. rounds = max over the ranks of ceil(largest bucket / capacity); every
      rank must run the same collectives in the same order, or NCCL hangs.
-     ``make_plan`` reads it with one all_reduce and one host sync (none at
-     one rank with a capacity of the whole batch, where it is 1);
-     ``make_plans`` reads every batch's of an epoch with one of each;
+     The loops run on the host, so a loop's trip count is a host number:
+     ``make_plan`` reads the batch's count with one all_reduce and one host
+     sync (none at one rank with a capacity of the whole batch, where it is
+     1). ``stack_plans`` plans many batches on the device with one
+     all_reduce and no host read, and ``round_maxima`` reads the largest
+     count of each table once: a planned epoch runs every exchange for that
+     static count, and the rounds past a batch's own count are exact no-ops
+     (request ids -1, drop-marker receipts with zero gradients, no lazy
+     update, the same receipt order), which is what lets a CUDA graph
+     capture the epoch;
   4. responses land in a per-unique-id buffer, and one gather by the plan's
      head ranks (seg_orig) fills duplicates and restores batch order.
 
@@ -34,10 +40,15 @@ first ``staged_rounds`` rounds come back as receipts (local id, gradient
 row) and later rounds as a dense [R, D] overflow gradient, which K1 adds in
 (ops/fused_adam.sparse_adam_update ``dense_grad``).
 
+Gradient sums over duplicate ids (``_unique_grad_sums``, the backward's and
+the overflow's scatter) add each row's terms in a fixed order on either
+device (``_scatter_sum``), so a routed step gives the same bits at every
+run.
+
 Departures from the JAX package: the plan's sort and ``receipt_sort_order``
 are stable argsorts, so K1 with a precomputed receipt order equals K1
-without it bit for bit; ``received_rows``, ``route_grads_lazy_adam`` and the
-exchange read the round count on the host (above).
+without it bit for bit; the round loops run a count fixed on the host, not
+a device loop's (above).
 """
 
 from __future__ import annotations
@@ -125,7 +136,22 @@ class _Plan(NamedTuple):
     uids: torch.Tensor      # [B] int64 unique id per head rank (tail: 0)
     hoff: torch.Tensor      # [m] int64 first head rank per owner
     hcnt: torch.Tensor      # [m] int64 unique ids per owner
-    rounds: int             # rounds of the exchange, the same on every rank
+    rounds: int             # rounds the loops run, the same on every rank: the
+                            # batch's own count or more (the extra ones no-ops)
+
+
+class Plans(NamedTuple):
+    """Every batch's plan of one table, stacked over the batches."""
+
+    seg_orig: torch.Tensor  # [nb, B]
+    uids: torch.Tensor      # [nb, B]
+    hoff: torch.Tensor      # [nb, m]
+    hcnt: torch.Tensor      # [nb, m]
+    rounds: torch.Tensor    # [nb] int64 on the device: each batch's own count
+
+    def select(self, idx) -> "Plans":
+        """The plans of batches ``idx`` (a slice, or a device index tensor)."""
+        return Plans(*(x[idx] for x in self))
 
 
 def _sort_key(ids: torch.Tensor, n_shards: int) -> torch.Tensor:
@@ -136,31 +162,34 @@ def _sort_key(ids: torch.Tensor, n_shards: int) -> torch.Tensor:
 
 
 def _plan_parts(ids: torch.Tensor, n_shards: int) -> tuple[torch.Tensor, ...]:
-    """(seg_orig, uids, hoff, hcnt) of a batch: local work, no collective."""
+    """(seg_orig, uids, hoff, hcnt) of each batch of ids [..., B] (over the
+    last dimension): local work, no collective, no host read."""
     m = n_shards
     ids = ids.long()
-    b = ids.shape[0]
-    order = torch.argsort(_sort_key(ids, m), stable=True)
-    ids_s = ids[order]
-    is_start = torch.ones(b, dtype=torch.bool, device=ids.device)
-    is_start[1:] = ids_s[1:] != ids_s[:-1]
-    seg = torch.cumsum(is_start, 0) - 1                   # [B] head rank per element
-    seg_orig = torch.empty_like(seg).index_copy_(0, order, seg)
-    uids = torch.zeros_like(ids).index_put_((seg,), ids_s)  # equal ids: equal values
+    order = torch.argsort(_sort_key(ids, m), dim=-1, stable=True)
+    ids_s = ids.gather(-1, order)
+    is_start = torch.ones_like(ids_s, dtype=torch.bool)
+    is_start[..., 1:] = ids_s[..., 1:] != ids_s[..., :-1]
+    seg = torch.cumsum(is_start, -1) - 1                  # [..., B] head rank per element
+    seg_orig = torch.empty_like(seg).scatter_(-1, order, seg)
+    uids = torch.zeros_like(ids).scatter_(-1, seg, ids_s)   # equal ids: equal values
     owner_s = torch.where(is_start, owner_of(ids_s, m), m)
-    hcnt = torch.bincount(owner_s, minlength=m + 1)[:m]
-    hoff = torch.cumsum(hcnt, 0) - hcnt
+    hcnt = torch.zeros(*ids.shape[:-1], m + 1, dtype=torch.long, device=ids.device)
+    hcnt = hcnt.scatter_add_(-1, owner_s, torch.ones_like(owner_s))[..., :m]
+    hoff = torch.cumsum(hcnt, -1) - hcnt
     return seg_orig, uids, hoff, hcnt
 
 
 def _need(hcnt: torch.Tensor, capacity: int) -> torch.Tensor:
-    return torch.div(hcnt.max() + capacity - 1, capacity, rounding_mode="floor")
+    """Rounds each batch's own buckets need (hcnt [..., m])."""
+    return torch.div(hcnt.amax(-1) + capacity - 1, capacity, rounding_mode="floor")
 
 
 def make_plan(ids: torch.Tensor, n_shards: int, capacity: int) -> _Plan:
     """The exchange plan of one batch shard, for sharing between
-    exchange_rows_planned, route_grad_rows and route_grads_lazy_adam.
-    Collective: every rank calls it with the same n_shards and capacity."""
+    exchange_rows, route_grad_rows and route_grads_lazy_adam. Collective:
+    every rank calls it with the same n_shards and capacity. Reads the round
+    count on the host."""
     parts = _plan_parts(ids, n_shards)
     b = ids.shape[0]
     if n_shards == 1 and capacity >= b:
@@ -170,23 +199,42 @@ def make_plan(ids: torch.Tensor, n_shards: int, capacity: int) -> _Plan:
     return _Plan(*parts, rounds)
 
 
-def make_plans(ids_batches, n_shards: int, capacities) -> list[list[_Plan]]:
-    """The plans of many batch shards of several tables at once, with ONE
-    all_reduce and ONE host sync for all their round counts: ``ids_batches``
-    holds one sequence of batch shards per table, ``capacities`` one slot
-    count per table. Returns one list of plans per table."""
-    parts = [[_plan_parts(ids, n_shards) for ids in table] for table in ids_batches]
-    needs = [_need(p[3], cap) for table, cap in zip(parts, capacities) for p in table]
-    if not needs:
-        return [[] for _ in parts]
-    rounds = iter(all_reduce_max(torch.stack(needs)).tolist())
-    return [[_Plan(*p, int(next(rounds))) for p in table] for table in parts]
+def stack_plans(ids_tables, n_shards: int, capacities) -> list[Plans]:
+    """The plans of many batch shards of several tables at once, on the
+    device: ``ids_tables`` holds one [nb, B] tensor of batch shards per table
+    (the same nb), ``capacities`` one slot count per table. One all_reduce
+    MAX for every round count; no host read. Collective."""
+    parts = [_plan_parts(ids, n_shards) for ids in ids_tables]
+    needs = torch.stack([_need(p[3], cap) for p, cap in zip(parts, capacities)])
+    return [Plans(*p, r) for p, r in zip(parts, all_reduce_max(needs).unbind())]
+
+
+def round_maxima(plans) -> tuple[int, ...]:
+    """The largest round count of each table's Plans: ONE host read."""
+    return tuple(int(r) for r in torch.stack([p.rounds.amax() for p in plans]).tolist())
+
+
+def plan_at(plans: Plans, i, rounds: int) -> _Plan:
+    """Batch i's plan, its loops run for ``rounds`` (>= its own count)."""
+    return _Plan(plans.seg_orig[i], plans.uids[i], plans.hoff[i], plans.hcnt[i], rounds)
+
+
+def _scatter_sum(out: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """out[idx[i]] += rows[i], each row's terms summed in index order on
+    either device (module docstring): on the CPU index_add_ (a serial loop
+    over the ids), on the card the accumulating index_put_ (it sorts the
+    ids, where index_add_ adds in atomics' order). The ids are in range by
+    construction, so the card takes index_put_'s unchecked form (autograd's
+    index backward), which reads no bound on the host."""
+    if out.is_cuda:
+        return torch.ops.aten._index_put_impl_(out, (idx,), rows, True, True)
+    return out.index_add_(0, idx, rows)
 
 
 def _unique_grad_sums(g_rows: torch.Tensor, plan: _Plan, b: int) -> torch.Tensor:
     """[B, D] per-unique-id gradient sums indexed by head rank."""
-    return torch.zeros(b, g_rows.shape[1], dtype=g_rows.dtype,
-                       device=g_rows.device).index_add_(0, plan.seg_orig, g_rows)
+    return _scatter_sum(torch.zeros(b, g_rows.shape[1], dtype=g_rows.dtype,
+                                    device=g_rows.device), plan.seg_orig, g_rows)
 
 
 def _send_slot_ids(plan: _Plan, r: int, capacity: int, m: int):
@@ -245,8 +293,11 @@ class _Exchange(torch.autograd.Function):
     """exchange_rows with its reverse routing as the backward pass."""
 
     @staticmethod
-    def forward(ctx, table_local, ids, m, cap):
-        plan = None if m == 1 else make_plan(ids, m, cap)
+    def forward(ctx, table_local, ids, m, cap, plan):
+        if m == 1:
+            plan = None
+        elif plan is None:
+            plan = make_plan(ids, m, cap)
         ctx.save_for_backward(ids)
         ctx.plan, ctx.m, ctx.cap, ctx.r_local = plan, m, cap, table_local.shape[0]
         return _planned_gather(table_local.detach(), ids, plan, m, cap)
@@ -260,30 +311,31 @@ class _Exchange(torch.autograd.Function):
         d_table = torch.zeros(r_local + 1, d, dtype=g.dtype, device=g.device)
         if m == 1:
             ok = (ids >= 0) & (ids < r_local)
-            d_table.index_add_(0, torch.where(ok, ids.long(), r_local), g)
-            return d_table[:r_local], None, None, None
+            _scatter_sum(d_table, torch.where(ok, ids.long(), r_local), g)
+            return d_table[:r_local], None, None, None, None
         ugrad = _unique_grad_sums(g, plan, b)
         for r in range(plan.rounds):
             send_ids, slot_pos = _send_slot_ids(plan, r, cap, m)
             lid, ok = _receive(all_to_all(send_ids), m, r_local)
             recv_g = all_to_all(_send_grads(ugrad, slot_pos))
-            d_table.index_add_(0, torch.where(ok, lid, r_local).reshape(-1),
-                               recv_g.reshape(-1, d))
-        return d_table[:r_local], None, None, None
+            _scatter_sum(d_table, torch.where(ok, lid, r_local).reshape(-1),
+                         recv_g.reshape(-1, d))
+        return d_table[:r_local], None, None, None, None
 
 
 def exchange_rows(table_local: torch.Tensor, ids: torch.Tensor, *, n_shards: int,
-                  capacity: int) -> torch.Tensor:
+                  capacity: int, plan: _Plan | None = None) -> torch.Tensor:
     """Rows [B, D] of a table striped over the ranks for any ids of this
     rank's batch shard (ids past the table give zero rows). Differentiable
     with respect to table_local: the backward pass routes the gradient sums
-    home. Collective: every rank calls it."""
-    return _Exchange.apply(table_local, ids, n_shards, capacity)
+    home. Collective: every rank calls it. Without ``plan`` it makes one
+    (make_plan: a host read of the round count)."""
+    return _Exchange.apply(table_local, ids, n_shards, capacity, plan)
 
 
 def exchange_rows_planned(table_local: torch.Tensor, ids: torch.Tensor, plan: _Plan, *,
                           n_shards: int, capacity: int) -> torch.Tensor:
-    """exchange_rows' forward pass with a plan from make_plan, not
+    """exchange_rows' forward pass with a given plan, not
     differentiable: for the steps that take gradients with respect to the
     returned rows and route them home themselves (route_grad_rows,
     route_grads_lazy_adam with the same plan)."""
@@ -330,7 +382,10 @@ def route_grads_lazy_adam(
     sums travel to the owner, which applies lazy Adam (train/lazy.py) to
     exactly the rows each round delivers. Exact lazy Adam in the one-round
     steady state; a row served in two rounds gets two smaller updates (as in
-    JAX). Each round filters its receipts on the host (one sync)."""
+    JAX). Every shape is fixed by the batch and the capacity: a round's
+    undelivered slots take row 0 with a zero gradient and are dropped in
+    lazy_row_adam (``keep``), which writes back the rows no delivered slot
+    touches, so no round reads a count on the host."""
     from anime_recommendations_tpu_torch.train.lazy import lazy_row_adam
 
     m, cap = n_shards, capacity
@@ -343,18 +398,24 @@ def route_grads_lazy_adam(
         send_ids, slot_pos = _send_slot_ids(plan, r, cap, m)
         lid, ok = _receive(all_to_all(send_ids), m, r_local)
         recv_g = all_to_all(_send_grads(ugrad, slot_pos))
-        keep = ok.reshape(-1)
-        lazy_row_adam(w, mu, nu, lid.reshape(-1)[keep], recv_g.reshape(-1, d)[keep],
-                      scal, l2)
+        lazy_row_adam(w, mu, nu, torch.where(ok, lid, 0).reshape(-1), recv_g.reshape(-1, d),
+                      scal, l2, keep=ok.reshape(-1))
     return w, mu, nu
+
+
+def staged_round_count(b: int, capacity: int, max_rounds: int | None = None,
+                       staged_rounds: int = 4) -> int:
+    """Rounds of route_grad_rows that land in its staged receipts for a [b]
+    batch (max_rounds defaults to ceil(b / capacity))."""
+    if max_rounds is None:
+        max_rounds = -(-b // capacity)
+    return min(max_rounds, staged_rounds)
 
 
 def receipt_slots(b: int, n_shards: int, capacity: int, max_rounds: int | None = None,
                   staged_rounds: int = 4) -> int:
     """Staged receipt-buffer size T of route_grad_rows for a [b] batch."""
-    if max_rounds is None:
-        max_rounds = -(-b // capacity)
-    return min(max_rounds, staged_rounds) * n_shards * capacity
+    return staged_round_count(b, capacity, max_rounds, staged_rounds) * n_shards * capacity
 
 
 def receipt_sort_order(
@@ -373,10 +434,7 @@ def receipt_sort_order(
     exchange (drop markers r_local sort last). Must be called with the
     capacity, max_rounds and staged_rounds the step will use."""
     m, cap = n_shards, capacity
-    b = ids.shape[0]
-    if max_rounds is None:
-        max_rounds = -(-b // cap)
-    staged = min(max_rounds, staged_rounds)
+    staged = staged_round_count(ids.shape[0], cap, max_rounds, staged_rounds)
     if plan is None:
         plan = make_plan(ids, m, cap)
     oid = torch.full((staged * m * cap,), r_local, dtype=torch.long, device=ids.device)
@@ -445,7 +503,7 @@ def route_grad_rows(
             oid[sl] = torch.where(ok, lid.reshape(-1), r_local)
             og[sl] = torch.where(ok[:, None], recv_g, 0.0)
         else:
-            dense.index_add_(0, torch.where(ok, lid.reshape(-1), r_local), recv_g)
+            _scatter_sum(dense, torch.where(ok, lid.reshape(-1), r_local), recv_g)
     return oid, og, (dense[:r_local] if has_overflow else None)
 
 

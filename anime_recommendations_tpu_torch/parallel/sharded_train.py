@@ -52,11 +52,29 @@ per sharded table lookup, the 3 data-group all-reduces of the forward and
 their 3 in the backward, 3 data-group all-reduces of the gradients (head,
 user, anime) and 1 model-group all-reduce for the L2 value. Host syncs: 1 per
 table per step for the plans of an unplanned step (none at one rank with the
-default capacity), 1 per epoch for a planned epoch (``build_plans``), and 1
-per round per table for ``lazy_adam``'s receipts.
+default capacity); none in a planned step.
+
+The sharded epoch (JAX's ``build_plans_fn`` and ``build_epoch_fn``).
+``build_plans`` plans every batch of an epoch on the device (and, for
+``fused_adam``, the receipt orders), one all_reduce for every round count;
+``routing.round_maxima`` reads each table's largest count once, and every
+exchange of the epoch runs that many rounds (the rounds past a batch's own
+count are exact no-ops). ``epoch_body`` then runs the steps over the batches
+in a given order, step i reading its scalars (lr, bc1, bc2, step) from row i
+of the epoch's table (train/device_loop.scalar_table), then the holdout's
+eval sums: no host number changes from step to step and nothing reads a
+value on the host, so ``run_epoch`` on a card replays it as one CUDA graph
+with its NCCL collectives captured (``epoch_graph``), its scalar table and
+batch order copied into static buffers before each replay. Elsewhere, and
+on a card through ``eager_run_epoch``, the same body runs as Python loops
+(the plain version the graph is held against).
 """
 
 from __future__ import annotations
+
+import itertools
+import weakref
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -71,8 +89,10 @@ from anime_recommendations_tpu_torch.models.two_tower import (
     bce,
     cosine_merge,
 )
+from anime_recommendations_tpu_torch.ops import fused_adam
 from anime_recommendations_tpu_torch.parallel import routing as rt
 from anime_recommendations_tpu_torch.parallel.mesh import World
+from anime_recommendations_tpu_torch.train import device_loop as dl
 from anime_recommendations_tpu_torch.train.lazy import _head_adam
 from anime_recommendations_tpu_torch.train.trainer import (
     B1,
@@ -82,7 +102,6 @@ from anime_recommendations_tpu_torch.train.trainer import (
     AdamState,
     TrainState,
     _keep_bn,
-    bias_corrections,
     step_row,
 )
 
@@ -295,22 +314,38 @@ class ShardedTrainStep:
 
     def train_step(self, state: TrainState, users, anime, ratings, weights, lr: float,
                    plans=None, orders=None):
-        """One step on this rank's batch shard, in place. Returns (state,
+        """One step on this rank's batch shard, in place, at learning rate
+        ``lr`` (a host number, uploaded as the step's row). Returns (state,
         loss, mse), the last two 0-dim device tensors of the global batch.
-        ``plans`` = (plan_u, plan_a) from build_plans (lazy_adam, fused_adam),
-        ``orders`` = (order_u, order_a) its receipt orders (fused_adam)."""
+        ``plans`` = (plan_u, plan_a) (routing.plan_at; alltoall),
+        ``orders`` = (order_u, order_a) their receipt orders (fused_adam)."""
+        loss, mse = self.step(state, users, anime, ratings, weights, step_row(state, lr),
+                              plans, orders)
+        state.adam.count += 1
+        return state, loss, mse
+
+    def step(self, state: TrainState, users, anime, ratings, weights, scal: torch.Tensor,
+             plans=None, orders=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """train_step's work with the step's scalars read from ``scal``, a [4]
+        row (lr, bc1, bc2, step) on the device: the Adam count is the
+        caller's to advance. With ``plans`` (alltoall) or under psum it reads
+        nothing on the host, so a CUDA graph can capture it. Returns (loss,
+        mse)."""
         if self.optimizer == "lazy_adam":
-            return self._lazy_step(state, users, anime, ratings, weights, lr, plans)
+            return self._lazy_step(state, users, anime, ratings, weights, scal, plans)
         if self.optimizer == "fused_adam":
-            return self._fused_step(state, users, anime, ratings, weights, lr, plans, orders)
-        return self._dense_step(state, users, anime, ratings, weights, lr)
+            return self._fused_step(state, users, anime, ratings, weights, scal, plans, orders)
+        return self._dense_step(state, users, anime, ratings, weights, scal, plans)
 
     @torch.no_grad()
-    def eval_sums(self, model: TwoTower, bn_state: BNState, users, anime, ratings, weights):
+    def eval_sums(self, model: TwoTower, bn_state: BNState, users, anime, ratings, weights,
+                  plans=None):
         """(loss_sum, mse_sum, weight_sum) over the global batch, with the
-        moving BatchNorm statistics; loss_sum includes the L2 value."""
-        u_rows = self._lookup_user(model.user_emb, users)
-        a_rows = self._lookup_anime(model.anime_emb, anime)
+        moving BatchNorm statistics; loss_sum includes the L2 value.
+        ``plans`` as for step."""
+        plan_u, plan_a = plans or (None, None)
+        u_rows = self._lookup_user(model.user_emb, users, plan_u)
+        a_rows = self._lookup_anime(model.anime_emb, anime, plan_a)
         pred, _ = self._head(model.head_params(), cosine_merge(u_rows, a_rows), weights,
                              (bn_state.moving_mean, bn_state.moving_var))
         local = [torch.sum(weights), torch.sum(bce(pred, ratings) * weights),
@@ -341,18 +376,18 @@ class ShardedTrainStep:
 
     # ---- forward / loss -----------------------------------------------------------
 
-    def _exchange(self, table_local, ids):
+    def _exchange(self, table_local, ids, plan=None):
         return rt.exchange_rows(table_local, ids, n_shards=self._n_shards,
-                                capacity=self.batch_capacity(ids.shape[0]))
+                                capacity=self.batch_capacity(ids.shape[0]), plan=plan)
 
-    def _lookup_user(self, table_local, ids):
+    def _lookup_user(self, table_local, ids, plan=None):
         if self.routing == "alltoall":
-            return self._exchange(table_local, ids)
+            return self._exchange(table_local, ids, plan)
         return _sharded_lookup(table_local, ids, self.world)
 
-    def _lookup_anime(self, table_local, ids):
+    def _lookup_anime(self, table_local, ids, plan=None):
         if self.routing == "alltoall":
-            return self._exchange(table_local, ids)
+            return self._exchange(table_local, ids, plan)
         if self.shard_anime:
             return _sharded_lookup(table_local, ids, self.world)
         return table_local[ids]
@@ -389,9 +424,10 @@ class ShardedTrainStep:
             torch.sum(torch.square(pred - ratings) * weights)]), self._batch_group)
         return s[0] / denom, s[1] / denom, (mean.detach(), var.detach())
 
-    def _data_loss(self, model, users, anime, ratings, weights):
-        u_rows = self._lookup_user(model.user_emb, users)
-        a_rows = self._lookup_anime(model.anime_emb, anime)
+    def _data_loss(self, model, users, anime, ratings, weights, plans=None):
+        plan_u, plan_a = plans or (None, None)
+        u_rows = self._lookup_user(model.user_emb, users, plan_u)
+        a_rows = self._lookup_anime(model.anime_emb, anime, plan_a)
         return self._loss_from_rows(u_rows, a_rows, model.head_params(), ratings, weights)
 
     @staticmethod
@@ -431,16 +467,15 @@ class ShardedTrainStep:
 
     # ---- steps --------------------------------------------------------------------
 
-    def _dense_step(self, state: TrainState, users, anime, ratings, weights, lr):
-        """Dense Adam (the one-device train_step) on the local parts."""
+    def _dense_step(self, state: TrainState, users, anime, ratings, weights, scal, plans=None):
+        """Dense Adam (the one-device dense_step) on the local parts."""
         model, adam = state.model, state.adam
         params = [getattr(model, k) for k in PARAM_KEYS]
-        loss, mse, (mean, var) = self._data_loss(model, users, anime, ratings, weights)
+        loss, mse, (mean, var) = self._data_loss(model, users, anime, ratings, weights, plans)
         grads = dict(zip(PARAM_KEYS, torch.autograd.grad(loss / self._n_batch, params)))
         reg = self._reg_sum(model)
         grads = self._finish_grads(grads, model)
-        t = adam.count + 1
-        bc1, bc2 = bias_corrections(t)
+        lr, bc1, bc2 = scal[0], scal[1], scal[2]
         with torch.no_grad():
             for k, p in zip(PARAM_KEYS, params):
                 g = grads[k]
@@ -449,8 +484,7 @@ class ShardedTrainStep:
                 nu.mul_(B2).add_(torch.square(g) * (1 - B2))
                 p.sub_((mu / bc1) / (torch.sqrt(nu / bc2) + KERAS_ADAM_EPS) * lr)
             self._new_bn(model, mean, var)
-        adam.count = t
-        return state, loss.detach() + reg, mse.detach()
+        return loss.detach() + reg, mse.detach()
 
     def _routed_forward_grads(self, model, users, anime, ratings, weights, plans=None):
         """Forward and backward of the owner-side steps: exchange both
@@ -476,14 +510,13 @@ class ShardedTrainStep:
         return (loss.detach(), mse.detach(), stats, d_u, d_a, d_head,
                 (cap_u, plan_u), (cap_a, plan_a))
 
-    def _lazy_step(self, state: TrainState, users, anime, ratings, weights, lr, plans=None):
+    def _lazy_step(self, state: TrainState, users, anime, ratings, weights, scal, plans=None):
         """Row-sparse Adam on the routed path (train/lazy.py semantics): the
         owners update the rows each round delivers. The loss excludes L2."""
         model, adam = state.model, state.adam
         m = self._n_shards
         loss, mse, (mean, var), d_u, d_a, d_head, (cap_u, plan_u), (cap_a, plan_a) = (
             self._routed_forward_grads(model, users, anime, ratings, weights, plans))
-        scal = step_row(state, lr)
         with torch.no_grad():
             for k, ids, grad, cap, plan in (("user_emb", users, d_u, cap_u, plan_u),
                                             ("anime_emb", anime, d_a, cap_a, plan_a)):
@@ -492,10 +525,9 @@ class ShardedTrainStep:
                     self.l2, n_shards=m, capacity=cap, plan=plan)
             _head_adam(state, d_head, scal)
             self._new_bn(model, mean, var)
-        adam.count += 1
-        return state, loss, mse
+        return loss, mse
 
-    def _fused_step(self, state: TrainState, users, anime, ratings, weights, lr,
+    def _fused_step(self, state: TrainState, users, anime, ratings, weights, scal,
                     plans=None, orders=None):
         """Owner-side fused dense Adam: the gradient sums are routed home
         (route_grad_rows) and land in one K1 call per local stripe, the
@@ -507,7 +539,6 @@ class ShardedTrainStep:
         m = self._n_shards
         loss, mse, (mean, var), d_u, d_a, d_head, (cap_u, plan_u), (cap_a, plan_a) = (
             self._routed_forward_grads(model, users, anime, ratings, weights, plans))
-        scal = step_row(state, lr)
         orders = orders if orders is not None else (None, None)
         with torch.no_grad():
             sumsq = []
@@ -524,36 +555,269 @@ class ShardedTrainStep:
             loss = loss + self.l2 * _all_reduce(sumsq[0] + sumsq[1])
             _head_adam(state, d_head, scal)
             self._new_bn(model, mean, var)
-        adam.count += 1
-        return state, loss, mse
+        return loss, mse
 
 
-def build_plans(step: ShardedTrainStep, users_batches, anime_batches, table_rows=None):
-    """Every batch's exchange plans, computed before an epoch's steps: one
-    all_reduce and one host sync for all their round counts. ``*_batches``:
-    this rank's shard of each batch, [nb, B/m]. Returns (plans_u, plans_a),
-    lists of plans; for ``fused_adam`` (pass ``table_rows`` = the PADDED
-    (n_users, n_anime)) each entry is (plan, receipt order)."""
-    if step.routing != "alltoall" or step.optimizer not in ("lazy_adam", "fused_adam"):
-        raise ValueError("planned epoch requires routing='alltoall' with a routed "
-                         "owner-side optimizer (lazy_adam / fused_adam)")
+# ---- the sharded epoch ------------------------------------------------------------
+
+
+class EpochPlans(NamedTuple):
+    """build_plans' result: each table's plans, stacked over the batches,
+    and for fused_adam each table's receipt orders [nb, T]."""
+
+    users: rt.Plans
+    anime: rt.Plans
+    orders: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def select(self, idx) -> "EpochPlans":
+        """The plans of batches ``idx`` (a slice, or a device index tensor)."""
+        orders = None if self.orders is None else tuple(o[idx] for o in self.orders)
+        return EpochPlans(self.users.select(idx), self.anime.select(idx), orders)
+
+    def maxima(self) -> tuple[int, int]:
+        """Each table's largest round count: ONE host read."""
+        return rt.round_maxima((self.users, self.anime))
+
+
+def build_plans(step: ShardedTrainStep, users_batches, anime_batches, table_rows=None, *,
+                orders: bool = True) -> EpochPlans:
+    """Every batch's exchange plans, on the device, before an epoch's steps
+    (JAX's build_plans_fn): one all_reduce for every round count and no host
+    read. ``*_batches``: this rank's shard of each batch, [nb, B/m]. For
+    ``fused_adam`` (with ``orders``; pass ``table_rows`` = the PADDED
+    (n_users, n_anime)) also each batch's receipt orders, computed over the
+    staged rounds (receipt_sort_order). Collective."""
+    if step.routing != "alltoall":
+        raise ValueError("planned epoch requires routing='alltoall' (the psum routing "
+                         "has no exchange to plan)")
     m = step._n_shards
-    fused = step.optimizer == "fused_adam"
+    fused = orders and step.optimizer == "fused_adam"
     if fused and table_rows is None:
         raise ValueError("build_plans needs table_rows=(n_users_padded, n_anime_padded) "
                          "for fused_adam (receipt-order precompute)")
     caps = [step.batch_capacity(b.shape[1]) for b in (users_batches, anime_batches)]
-    tables = rt.make_plans((users_batches, anime_batches), m, caps)
+    plans = rt.stack_plans((users_batches, anime_batches), m, caps)
     if not fused:
-        return tuple(tables)
+        return EpochPlans(*plans)
     for label, rows in zip(("n_users", "n_anime"), table_rows):
         if rows % m:
             raise ValueError(f"table_rows {label}={rows} not divisible by the world size {m}: "
                              "pass the PADDED row counts")
     out = []
-    for batches, plans, cap, rows in zip((users_batches, anime_batches), tables, caps,
-                                         table_rows):
-        out.append([(plan, rt.receipt_sort_order(ids, n_shards=m, capacity=cap,
-                                                 r_local=rows // m, plan=plan))
-                    for ids, plan in zip(batches, plans)])
+    for batches, plan, cap, rows in zip((users_batches, anime_batches), plans, caps,
+                                        table_rows):
+        # The staged rounds, static: those past a batch's own count are no-ops.
+        staged = rt.staged_round_count(batches.shape[1], cap)
+        out.append(torch.stack([
+            rt.receipt_sort_order(ids, n_shards=m, capacity=cap, r_local=rows // m,
+                                  plan=rt.plan_at(plan, i, staged))
+            for i, ids in enumerate(batches)]))
+    return EpochPlans(*plans, tuple(out))
+
+
+class Batches(NamedTuple):
+    """An epoch's batches as this rank feeds them to the sharded steps: the
+    columns (users, anime, ratings, weights), each [nb, B/m]; under alltoall
+    their plans and the rounds every exchange runs, (users, anime), at least
+    each table's largest count (EpochPlans.maxima)."""
+
+    cols: tuple[torch.Tensor, ...]
+    plans: EpochPlans | None = None
+    rounds: tuple[int, int] | None = None
+
+    @property
+    def n(self) -> int:
+        return self.cols[0].shape[0]
+
+    def select(self, idx) -> "Batches":
+        """Batches ``idx`` (a slice, or a device index tensor)."""
+        return Batches(tuple(c[idx] for c in self.cols),
+                       None if self.plans is None else self.plans.select(idx), self.rounds)
+
+    def plans_at(self, i: int):
+        """(plan_u, plan_a) of batch i for ShardedTrainStep, or None."""
+        if self.plans is None:
+            return None
+        return (rt.plan_at(self.plans.users, i, self.rounds[0]),
+                rt.plan_at(self.plans.anime, i, self.rounds[1]))
+
+    def orders_at(self, i: int):
+        """(order_u, order_a), batch i's receipt orders, or None."""
+        orders = None if self.plans is None else self.plans.orders
+        return None if orders is None else (orders[0][i], orders[1][i])
+
+
+def plan_batches(step: ShardedTrainStep, cols, table_rows=None, *,
+                 orders: bool = True) -> Batches:
+    """Batches of these columns ([nb, B/m] each): under alltoall with their
+    plans (build_plans) and each table's largest round count as the rounds
+    (one host read). Collective."""
+    cols = tuple(cols)
+    if step.routing != "alltoall":
+        return Batches(cols)
+    plans = build_plans(step, cols[0], cols[1], table_rows, orders=orders)
+    return Batches(cols, plans, plans.maxima())
+
+
+def train_body(step: ShardedTrainStep, state: TrainState, batches: Batches,
+               table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The steps over ``batches`` in order, step i reading its scalars from
+    ``table[i]``: no host number, no host read, the Adam count untouched.
+    Returns (losses[nb], mses[nb])."""
+    losses, mses = [], []
+    for i in range(batches.n):
+        loss, mse = step.step(state, *(c[i] for c in batches.cols), table[i],
+                              batches.plans_at(i), batches.orders_at(i))
+        losses.append(loss)
+        mses.append(mse)
+    return torch.stack(losses), torch.stack(mses)
+
+
+@torch.no_grad()
+def eval_body(step: ShardedTrainStep, model: TwoTower,
+              batches: Batches) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted-mean (loss, mse) of the eval sums over ``batches``, 0-dim
+    device tensors, with no host read."""
+    bn_state = model.bn_state()
+    l_sum = m_sum = w_sum = torch.zeros((), device=batches.cols[0].device)
+    for i in range(batches.n):
+        ls, ms, w = step.eval_sums(model, bn_state, *(c[i] for c in batches.cols),
+                                   batches.plans_at(i))
+        l_sum, m_sum, w_sum = l_sum + ls, m_sum + ms, w_sum + w
+    w = torch.clamp_min(w_sum, 1.0)
+    return l_sum / w, m_sum / w
+
+
+def epoch_body(step: ShardedTrainStep, state: TrainState, train: Batches | None,
+               table: torch.Tensor | None, evals: Batches | None = None,
+               order: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """JAX's build_epoch_fn body: the steps over the train batches
+    ``order[0]``, ``order[1]``, ... (all of them in turn without ``order``),
+    step i reading ``table[i]``, then the eval sums over ``evals`` with the
+    state they leave. Returns (losses[nb], mses[nb]) with a train part, then
+    (val_loss, val_mse) with an eval part. No host read: a CUDA graph
+    captures it whole."""
+    out = ()
+    if train is not None:
+        out = train_body(step, state, train if order is None else train.select(order), table)
+    if evals is not None:
+        out += eval_body(step, state.model, evals)
+    return out
+
+
+def run_epoch(step: ShardedTrainStep, state: TrainState, lr: float, train: Batches | None,
+              evals: Batches | None = None,
+              order: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """epoch_body at learning rate ``lr`` (every step's scalars from the
+    state's Adam count on), the count advanced by the train steps; ``order``
+    a [nb] permutation of the train batches (on the CPU). On a card the
+    replay of the epoch's CUDA graph (epoch_graph; a capture that fails
+    raises), elsewhere eager_run_epoch."""
+    device = (train or evals).cols[0].device
+    if device.type != "cuda":
+        return eager_run_epoch(step, state, lr, train, evals, order)
+    graph = epoch_graph(step, state, train, evals, shuffle=order is not None)
+    host = {}
+    if train is not None:
+        host["table"] = dl.scalar_table(state.adam.count, train.n, lr)
+        state.adam.count += train.n
+    if order is not None:
+        host["order"] = order
+    return graph.replay(host)
+
+
+def eager_run_epoch(step: ShardedTrainStep, state: TrainState, lr: float,
+                    train: Batches | None, evals: Batches | None = None,
+                    order: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """run_epoch as Python loops, on any device: the plain version of the
+    captured epoch (same arguments, same result)."""
+    table = None
+    if train is not None:
+        device = train.cols[0].device
+        table = fused_adam.upload(dl.scalar_table(state.adam.count, train.n, lr), device)
+        order = None if order is None else order.to(device)
+    out = epoch_body(step, state, train, table, evals, order)
+    if train is not None:
+        state.adam.count += train.n
+    return out
+
+
+# Serial numbers of the live process groups: a graph keeps the
+# communicators it captured, so its cache key names the groups, by a number
+# no later group reuses (a key holding the group itself would keep it alive
+# past dist.destroy_process_group).
+_GROUP_SERIALS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_SERIAL = itertools.count()
+
+
+def _group_key(step: ShardedTrainStep) -> tuple:
+    out = []
+    for group in (dist.group.WORLD, step.world.data_group, step.world.model_group):
+        if group is None or not isinstance(group, dist.ProcessGroup):
+            out.append(None)
+            continue
+        if group not in _GROUP_SERIALS:
+            _GROUP_SERIALS[group] = next(_SERIAL)
+        out.append(_GROUP_SERIALS[group])
     return tuple(out)
+
+
+def _read_state(state: TrainState, train: Batches | None) -> list[torch.Tensor]:
+    """The state's tensors an epoch reads: the model's, and with steps the
+    Adam moments too (an evaluation's state may have no Adam state)."""
+    return dl._state_tensors(state) if train is not None else dl._model_tensors(state.model)
+
+
+def _batches_tensors(b: Batches | None) -> list[torch.Tensor]:
+    if b is None:
+        return []
+    out = list(b.cols)
+    if b.plans is not None:
+        out += [*b.plans.users, *b.plans.anime, *(b.plans.orders or ())]
+    return out
+
+
+def epoch_graph(step: ShardedTrainStep, state: TrainState, train: Batches | None,
+                evals: Batches | None = None, shuffle: bool = False) -> dl.EpochGraph:
+    """The CUDA graph of epoch_body on these tensors, from the cache
+    (train/device_loop.cached_graph) or captured now. Its static buffers:
+    "table" [nb, 4], the steps' scalars, and with ``shuffle`` "order" [nb],
+    the batch order. The warm-up runs 2 steps and 1 eval batch on a copy of
+    the state (it makes every NCCL communicator before the capture). The
+    key holds the process groups, the step's settings, the padded rounds
+    and every tensor the graph reads, by address."""
+    key = ("sharded_epoch" if train is not None else "sharded_eval", _group_key(step),
+           step.routing, step.optimizer, step.shard_anime,
+           step.l2, step.capacity, shuffle,
+           None if train is None else train.rounds, None if evals is None else evals.rounds,
+           dl._layout(_read_state(state, train) + _batches_tensors(train)
+                      + _batches_tensors(evals)))
+
+    def build():
+        dev = (train or evals).cols[0].device
+        buffers = {}
+        if train is not None:
+            # Valid scalars for the warm-up; every replay writes its own.
+            buffers["table"] = fused_adam.upload(dl.scalar_table(0, train.n, 0.0), dev)
+        if shuffle:
+            buffers["order"] = torch.arange(train.n, device=dev)
+
+        def body(st, n_train, n_eval):
+            tr = ev = order = None
+            if train is not None:
+                tr = train if shuffle else train.select(slice(0, n_train))
+                order = buffers["order"][:n_train] if shuffle else None
+            if evals is not None:
+                ev = evals.select(slice(0, n_eval))
+            table = buffers["table"][:n_train] if train is not None else None
+            return epoch_body(step, st, tr, table, ev, order)
+
+        n_train = 0 if train is None else train.n
+        n_eval = 0 if evals is None else evals.n
+        # Evaluation writes nothing: without steps it warms up on the model.
+        warm = state if train is None else dl._copy_state(state)
+        return dl.EpochGraph(lambda: body(state, n_train, n_eval),
+                             lambda: body(warm, min(n_train, 2), min(n_eval, 1)),
+                             buffers, dev)
+
+    return dl.cached_graph(key, build)

@@ -25,11 +25,18 @@ The device loop (``device_loop=True``) stages the data on every rank's
 device and shuffles it as the one-device loop does (train/device_loop.py:
 the same host shuffle and per-epoch granule shuffle, so at any world size
 the steps see the one-device trainer's batches); each rank takes its shard
-of every batch. Before an epoch's steps, the routed optimizers compute every
-batch's exchange plans (and fused_adam its receipt orders) with one
-all_reduce and one host sync (sharded_train.build_plans). This departs from
-the JAX package, which fixes batch composition per fit and permutes batch
-order per epoch.
+of every batch. Each epoch first makes its batches (``_prepare``: the
+granule permutation, the shards and, under alltoall, every batch's exchange
+plans with one all_reduce, sharded_train.build_plans), reads each table's
+largest round count on the host once, then runs its steps and the holdout's
+eval sums (sharded_train.run_epoch, JAX's build_epoch_fn), and reads the
+epoch's losses and validation metrics once. On a card both passes are CUDA
+graph replays, the NCCL collectives captured in them: two replays and two
+host reads an epoch, no per-batch dispatch. Every exchange of an epoch runs
+the rounds of the fit's largest count so far (the rounds past a batch's own
+are exact no-ops), so one epoch graph serves every epoch unless a larger
+count comes. Recomputing the plans each epoch departs from the JAX package,
+which fixes batch composition per fit and permutes batch order per epoch.
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ import torch
 from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
 from anime_recommendations_tpu_torch.models.two_tower import BNState, TwoTower
 from anime_recommendations_tpu_torch.parallel import routing as rt
+from anime_recommendations_tpu_torch.parallel import sharded_train as st
 from anime_recommendations_tpu_torch.parallel.mesh import make_world, pad_table
 from anime_recommendations_tpu_torch.parallel.sharded_train import (
+    Batches,
     ShardedTrainStep,
     build_plans,
     place_state,
@@ -62,9 +71,6 @@ from anime_recommendations_tpu_torch.train.trainer import (
     train_state_from_numpy,
     train_state_to_numpy,
 )
-
-ROUTED = ("lazy_adam", "fused_adam")
-
 
 def init_placed_state(world, n_users: int, n_anime: int, embedding_size: int,
                       generator: torch.Generator, bf16_moments: bool = False,
@@ -123,6 +129,9 @@ class ShardedTrainer(Trainer):
             self.checkpoint_dir = str(
                 Path(self.checkpoint_dir) / f"rank{self.world.rank}-of-{self.world.size}")
         self._step = self._make_step()
+        # The rounds every exchange of a device-loop epoch runs: the largest
+        # count of each table so far.
+        self._rounds = (0, 0)
         if self.verbose:
             self._log_comm_budget()
 
@@ -251,68 +260,127 @@ class ShardedTrainer(Trainer):
     def _stage_device(self, train: RatingsDataset, holdout: RatingsDataset):
         """The whole data staged on this rank's device, as the one-device
         loop stages it (batch size rounded down to a multiple of the batch
-        shards)."""
+        shards), and the holdout's batches with their plans (eval_batches)."""
         m = self._n_batch_shards
         bs = min(self.batch_size, max(len(train), 1))
         bs = max(bs - bs % m, m)
         eval_bs = self._eval_batch_size(len(holdout))
         stage_seed = self.seed if self.shuffle_each_epoch else None
-        return (
-            dl.stage(train, bs, seed=stage_seed, device=self.device),
-            dl.stage(holdout, eval_bs, device=self.device),
-            bs, eval_bs,
-        )
+        holdout_data = dl.stage(holdout, eval_bs, device=self.device)
+        return (dl.stage(train, bs, seed=stage_seed, device=self.device), bs,
+                self.eval_batches(holdout_data, eval_bs))
 
     def _device_epoch(self, staged, state, epoch: int, lr: float):
-        train_data, holdout_data, bs, eval_bs = staged
+        train_data, bs, evals = staged
+        perm = None
         if self.shuffle_each_epoch:
-            generator = torch.Generator().manual_seed(self.seed * 1000 + epoch)
-            train_data = dl.granule_shuffle(train_data, generator)
-        state, losses, mses, wsums = self.train_epoch(state, train_data, bs, lr)
-        bw = wsums.cpu().numpy().astype(np.float64)
-        vl, vm = self.eval_epoch(state.model, holdout_data, eval_bs)
-        return (state, float(losses.cpu().numpy() @ bw), float(mses.cpu().numpy() @ bw),
-                float(bw.sum()), vl, vm)
+            perm = dl.granule_permutation(
+                train_data.n, torch.Generator().manual_seed(self.seed * 1000 + epoch))
+        train, wsums = self._prepare(state, train_data, bs, perm)
+        losses, mses, vl, vm = st.run_epoch(self._step, state, lr, train, evals)
+        nb = train.n
+        # The epoch's one read of its results.
+        host = torch.cat([losses, mses, wsums, torch.stack([vl, vm])]).cpu().numpy()
+        bw = host[2 * nb:3 * nb].astype(np.float64)
+        return (state, float(host[:nb] @ bw), float(host[nb:2 * nb] @ bw), float(bw.sum()),
+                float(host[-2]), float(host[-1]))
 
     def _local(self, x: torch.Tensor, nb: int, bs: int) -> torch.Tensor:
         """This rank's shard of every batch of staged column x: [nb, bs / m]."""
         return x[:nb * bs].view(nb, bs)[:, self._shard(bs)]
 
-    def train_epoch(self, state: TrainState, data: dl.DeviceData, batch_size: int, lr: float):
-        """The batches of ``data`` in order (no shuffle), each rank on its
-        shard. Returns (state, losses[nb], mses[nb], wsums[nb]) on the
-        device, the last the global batches' weights. The routed optimizers
-        compute every batch's plans first (build_plans)."""
-        nb = data.n // batch_size
-        users, anime, ratings, weights = (self._local(x, nb, batch_size) for x in data)
-        wsums = data.weights[:nb * batch_size].view(nb, batch_size).sum(dim=1)
+    def _prep_body(self, data: dl.DeviceData, batch_size: int, table_rows: tuple,
+                   perm: torch.Tensor | None):
+        """(this rank's columns [nb, b], wsums [nb], plans or None) of the
+        data with its granules permuted by ``perm``: no host read."""
+        d = data if perm is None else dl.permute_granules(data, perm)
+        nb = d.n // batch_size
+        wsums = d.weights[:nb * batch_size].view(nb, batch_size).sum(dim=1)
+        cols = tuple(self._local(x, nb, batch_size) for x in d)
         plans = None
-        if self.optimizer in ROUTED:
-            table_rows = tuple(getattr(state.model, k).shape[0] * self.world.size
-                               for k in TABLE_KEYS)
-            plans = build_plans(self._step, users, anime, table_rows)
-        losses, mses = [], []
-        for i in range(nb):
-            kw = {}
-            if plans is not None and self.optimizer == "fused_adam":
-                (pu, ou), (pa, oa) = plans[0][i], plans[1][i]
-                kw = dict(plans=(pu, pa), orders=(ou, oa))
-            elif plans is not None:
-                kw = dict(plans=(plans[0][i], plans[1][i]))
-            state, loss, mse = self._step.train_step(
-                state, users[i], anime[i], ratings[i], weights[i], lr, **kw)
-            losses.append(loss)
-            mses.append(mse)
-        return state, torch.stack(losses), torch.stack(mses), wsums
+        if self.routing == "alltoall":
+            plans = build_plans(self._step, cols[0], cols[1], table_rows)
+        return cols, wsums, plans
+
+    def _prep_graph(self, data: dl.DeviceData, batch_size: int, table_rows: tuple,
+                    shuffle: bool) -> dl.EpochGraph:
+        """The CUDA graph of _prep_body on ``data``, its "perm" buffer the
+        granule permutation (with ``shuffle``)."""
+        step = self._step
+        key = ("sharded_prep", st._group_key(step), step.routing, step.optimizer,
+               step.capacity, batch_size, table_rows, shuffle, dl._layout(list(data)))
+
+        def build():
+            buffers = {}
+            if shuffle:
+                buffers["perm"] = torch.arange(data.n // dl._granule(data.n), device=self.device)
+
+            def prep():
+                return self._prep_body(data, batch_size, table_rows, buffers.get("perm"))
+
+            return dl.EpochGraph(prep, prep, buffers, self.device)
+
+        return dl.cached_graph(key, build)
+
+    def _prepare(self, state: TrainState, data: dl.DeviceData, batch_size: int,
+                 perm: torch.Tensor | None = None, eager: bool = False):
+        """An epoch's batches as this rank feeds them (_prep_body; on a card
+        the replay of its graph, whose outputs the epoch's graph reads) and
+        the global batches' weights. Under alltoall, the one host read of
+        each table's largest round count, which raises the fit's rounds."""
+        table_rows = tuple(getattr(state.model, k).shape[0] * self.world.size
+                           for k in TABLE_KEYS)
+        if self.device.type == "cuda" and not eager:
+            graph = self._prep_graph(data, batch_size, table_rows, perm is not None)
+            cols, wsums, plans = graph.replay({} if perm is None else {"perm": perm},
+                                              clone=False)
+        else:
+            cols, wsums, plans = self._prep_body(
+                data, batch_size, table_rows, None if perm is None else perm.to(self.device))
+        if plans is None:
+            return Batches(cols), wsums
+        self._rounds = tuple(max(a, b) for a, b in zip(self._rounds, plans.maxima()))
+        return Batches(cols, plans, self._rounds), wsums
+
+    def train_epoch(self, state: TrainState, data: dl.DeviceData, batch_size: int, lr: float,
+                    perm: torch.Tensor | None = None):
+        """The batches of ``data`` (its granules in the order ``perm`` gives,
+        when given), each rank on its shard. Returns (state, losses[nb],
+        mses[nb], wsums[nb]) on the device, the last the global batches'
+        weights. On a card the replays of two CUDA graphs, the batches' and
+        the steps' (a capture that fails raises), with the host read of the
+        round maxima between them; elsewhere eager_train_epoch."""
+        if self.device.type != "cuda":
+            return self.eager_train_epoch(state, data, batch_size, lr, perm)
+        train, wsums = self._prepare(state, data, batch_size, perm)
+        losses, mses = st.run_epoch(self._step, state, lr, train)
+        return state, losses, mses, wsums.clone()
+
+    def eager_train_epoch(self, state: TrainState, data: dl.DeviceData, batch_size: int,
+                          lr: float, perm: torch.Tensor | None = None):
+        """train_epoch as Python loops, on any device: the plain version of
+        the captured epoch (same arguments, same result)."""
+        train, wsums = self._prepare(state, data, batch_size, perm, eager=True)
+        losses, mses = st.eager_run_epoch(self._step, state, lr, train)
+        return state, losses, mses, wsums
+
+    def eval_batches(self, data: dl.DeviceData, batch_size: int) -> Batches:
+        """The staged holdout as this rank feeds it: its shard of every batch
+        and, under alltoall, their plans (one host read of the round
+        maxima)."""
+        nb = data.n // batch_size
+        return st.plan_batches(self._step, (self._local(x, nb, batch_size) for x in data),
+                               orders=False)
 
     @torch.no_grad()
     def eval_epoch(self, model: TwoTower, data: dl.DeviceData, batch_size: int):
-        """Weighted-mean (loss, mse) over the staged holdout, on the world."""
-        nb = data.n // batch_size
-        cols = [self._local(x, nb, batch_size) for x in data]
-        l_sum = m_sum = w_sum = torch.zeros((), device=self.device)
-        for i in range(nb):
-            ls, ms, w = self._step.eval_sums(model, model.bn_state(), *(c[i] for c in cols))
-            l_sum, m_sum, w_sum = l_sum + ls, m_sum + ms, w_sum + w
-        w = torch.clamp_min(w_sum, 1.0)
-        return float(l_sum / w), float(m_sum / w)
+        """Weighted-mean (loss, mse) over the staged holdout, on the world:
+        0-dim device tensors. On a card the replay of its CUDA graph."""
+        return st.run_epoch(self._step, TrainState(model, None), 0.0, None,
+                            self.eval_batches(data, batch_size))
+
+    @torch.no_grad()
+    def eager_eval_epoch(self, model: TwoTower, data: dl.DeviceData, batch_size: int):
+        """eval_epoch as a Python loop, on any device."""
+        return st.eager_run_epoch(self._step, TrainState(model, None), 0.0, None,
+                                  self.eval_batches(data, batch_size))

@@ -344,10 +344,12 @@ class EpochGraph:
         self.buffers = buffers
         self.replays = 0
 
-    def replay(self, host: dict) -> tuple[torch.Tensor, ...]:
+    def replay(self, host: dict, clone: bool = True):
         """Copy each host array of ``host`` into its buffer (asynchronously,
         through pinned memory), replay the graph on the current stream and
-        return copies of its outputs."""
+        return copies of its outputs (with ``clone=False`` the outputs
+        themselves, which the next replay overwrites: for a graph whose
+        outputs another graph reads)."""
         for name, value in host.items():
             src = torch.from_numpy(value) if isinstance(value, np.ndarray) else value
             buf = self.buffers[name]
@@ -355,7 +357,7 @@ class EpochGraph:
         self.graph.replay()
         self.replays += 1
         _kernels.count_replay(self.launches)
-        return tuple(t.clone() for t in self.outputs)
+        return tuple(t.clone() for t in self.outputs) if clone else self.outputs
 
 
 _GRAPHS: OrderedDict[tuple, EpochGraph] = OrderedDict()

@@ -75,14 +75,21 @@ def lazy_row_adam(
     b1: float = B1,
     b2: float = B2,
     eps: float = KERAS_ADAM_EPS,
+    keep: torch.Tensor | None = None,
 ) -> _RowUpdate:
     """One lazy-Adam table update, in place. Touches only rows in ``ids``;
     returns the three (updated) tables. ``scal`` holds the step's lr, bc1
     and bc2 (ops/fused_adam.scalar_rows, made with these b1 and b2), read as
-    0-dim device tensors. Every shape is fixed by B (module docstring)."""
+    0-dim device tensors. Every shape is fixed by B (module docstring).
+    ``keep`` ([B] bool): positions marked False add nothing to their run's
+    sum, and a run none of whose positions is kept writes its row back
+    unchanged, so they drop out as if absent (JAX's ``mode="drop"``)."""
     order = torch.argsort(ids, stable=True)
     ids_s = ids[order].long()
     g_s = g_rows[order]
+    if keep is not None:
+        keep_s = keep[order]
+        g_s = torch.where(keep_s[:, None], g_s, 0.0)
     is_start = torch.ones_like(ids_s, dtype=torch.bool)
     is_start[1:] = ids_s[1:] != ids_s[:-1]
     seg = torch.cumsum(is_start, 0) - 1                  # [B] run of each position
@@ -93,8 +100,14 @@ def lazy_row_adam(
     mu_new = b1 * mu_rows + (1.0 - b1) * g_tot
     nu_new = b2 * nu_rows + (1.0 - b2) * (g_tot * g_tot)
     upd = -lr * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps)
+    w_new = w_rows + upd
+    if keep is not None:
+        live = torch.zeros_like(ids_s).index_add_(0, seg, keep_s.long())[seg] > 0
+        w_new = torch.where(live[:, None], w_new, w_rows)
+        mu_new = torch.where(live[:, None], mu_new, mu_rows)
+        nu_new = torch.where(live[:, None], nu_new, nu_rows)
     # The positions of one run write the same bits.
-    w.index_copy_(0, ids_s, w_rows + upd)
+    w.index_copy_(0, ids_s, w_new)
     mu.index_copy_(0, ids_s, mu_new)
     nu.index_copy_(0, ids_s, nu_new)
     return _RowUpdate(w, mu, nu)

@@ -123,12 +123,24 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            before each; the default fused runs must launch K1 twice a step and
            its dense kernel never, the capped ones the reverse; every history
            must track phase 5's first epoch of the same optimizer within
-           phase 5's tolerances. Then 20 steps, each from one state at both
-           capacities, agree (loss 1e-6 relative, tables 1e-6 absolute +
-           1e-5 relative: tests/test_parallel.py's), and the first 99
-           batches of one timed routed epoch per optimizer (and the capped
-           fused one) give ms per step beside phase 5's, with 10 steps under
-           torch.profiler.
+           phase 5's tolerances (on the card each of these epochs is the
+           replay of a CUDA graph with its NCCL collectives, after the
+           replay of its batches' graph). Then 20 steps, each from one state
+           at both capacities, agree (loss 1e-6 relative, tables 1e-6
+           absolute + 1e-5 relative: tests/test_parallel.py's). Then, per
+           optimizer and for fused_adam at 512 slots, two epochs of the
+           first 60 batches (lr 1e-5, then 2e-5) through the eager loops and
+           two through the graphs (the first captures them), from one state
+           and one shuffle, and an evaluation of the holdout after them: the
+           captured epochs must be bit-equal to the eager ones (every state
+           tensor, loss, mse and the validation pair; lazy_adam within 1e-5
+           of each tensor's scale, its atomics, but for dense_b's noise
+           walk), replay the epoch's graph once per epoch, and launch K1 (or
+           its dense branch) and its first pass as often as the eager loop;
+           each one's ms per step (the second epoch), 10 steps under
+           torch.profiler (device-busy ms, idle shares), peak memory, host
+           reads per epoch and the graphs' capture seconds and pool sizes,
+           beside phase 13's one-device step.
   phase 8  a table trained on skewed ids, served: bench.py:570-692's
            protocol at 91,641 users (6 fused_adam epochs at lr 3e-4 over 2M
            ratings of pareto-skewed ids, through K1; ms per step), then the
@@ -171,8 +183,9 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            PipelineRunner.step_train with parallel.routing=psum, then with
            parallel.shard_anime_table=true too: one adam epoch each, held to
            phase 5's first adam epoch at phase 5's tolerances; ShardedTrainer
-           with psum must refuse lazy_adam and fused_adam; 99 timed psum
-           steps and 10 profiled ones. 10b: parallel/scaling_bench's measure_mesh
+           with psum must refuse lazy_adam and fused_adam; then psum adam,
+           eager against captured as in 7b (bit-equal, one replay per
+           epoch, the same numbers). 10b: parallel/scaling_bench's measure_mesh
            at 1x1 with its defaults (91,641 x 17,560 x 128, batches of 8,192,
            30 steps after 3): alltoall adam, alltoall fused_adam (K1 and its
            first pass twice a step) and psum adam, then its launcher (one
@@ -201,7 +214,8 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            overlaps of phase 8's records at least 0.99961, IVF recall@10 at
            least 0.68 (8 probes) and 0.91 (32); its ``[bench] launches`` line
            must show K1, both K2 branches, both K2q branches, K3 and K4. Its
-           section times, keys and launches are printed.
+           section times, keys and launches are printed. Section 5's routed
+           epochs are graph replays (parallel/sharded_train.run_epoch).
   phase 12 the downloaded dataset: phase 3's raw frames (3,000,000 synthetic
            ratings of seed 7, the ratings as a numeric CSV) served by a
            ThreadingHTTPServer on 127.0.0.1 in a thread of this script, and
@@ -1979,11 +1993,13 @@ def phase_dense(card: str, receipts: bool) -> list[dict]:
             for i, (name, n, ids, dtype) in enumerate(cases)]
 
 
-def _routed_trainer(optimizer: str, capacity=None, routing: str = "alltoall"):
+def _routed_trainer(optimizer: str, capacity=None, routing: str = "alltoall",
+                    shard_anime: bool = False):
     from anime_recommendations_tpu_torch.parallel.trainer import ShardedTrainer
 
     return ShardedTrainer(batch_size=BATCH, optimizer=optimizer, capacity=capacity, seed=SEED,
-                          verbose=False, device=DEVICE, device_loop=True, routing=routing)
+                          verbose=False, device=DEVICE, device_loop=True, routing=routing,
+                          shard_anime=shard_anime)
 
 
 def _rounds(capacity: int) -> dict:
@@ -2000,34 +2016,164 @@ def _rounds(capacity: int) -> dict:
     return out
 
 
-ROUTED_TIMED_STEPS = 99   # a third of an epoch: the routed step's host clock
+ROUTED_TIMED_STEPS = 60   # the depth of 7b's and 10a's epochs: a fifth of an epoch
+ROUTED_LRS = (1e-5, 2e-5)  # their two epochs: a change of lr between them
+HOST_READS = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__", "__float__")
 
 
-def _timed_routed_epoch(optimizer: str, capacity=None, routing: str = "alltoall") -> dict:
-    """The first ROUTED_TIMED_STEPS batches of a sharded epoch (plans
-    included) from a fresh state, host clock between synchronizes; then 10
-    steps under torch.profiler."""
+@contextlib.contextmanager
+def _host_reads():
+    """Counts the reads of a tensor on the host (the Tensor methods of
+    HOST_READS) made while it is open; yields the counter."""
+    import torch
+
+    counter = {"reads": 0}
+    saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
+
+    def counted(fn):
+        def wrapped(*args, **kwargs):
+            counter["reads"] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(torch.Tensor, name, counted(fn))
+    try:
+        yield counter
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def _routed_run(case: tuple, captured: bool, data, holdout) -> dict:
+    """Two epochs (ROUTED_LRS, each with its granule permutation from SEED +
+    epoch) of a ShardedTrainer on ``data`` through its graphs
+    (``captured``) or its eager loops, then an evaluation of ``holdout``:
+    the state, the losses, mses and validation pair, each epoch's seconds
+    and host reads, the peak memory above the start, K1's launches, and the
+    graphs' replays, capture seconds and memory pools."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    _, vocab, _, _ = _dataset()
+    trainer = _routed_trainer(*case)
+    state = trainer._init_state(torch.Generator().manual_seed(SEED), vocab.n_users, vocab.n_anime)
+    epoch_fn = trainer.train_epoch if captured else trainer.eager_train_epoch
+    eval_fn = trainer.eval_epoch if captured else trainer.eager_eval_epoch
+    dl.release_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(_kernels.launches)
+    hist, seconds, reads = {"losses": [], "mses": []}, [], []
+    for epoch, lr in enumerate(ROUTED_LRS):
+        perm = dl.granule_permutation(data.n, torch.Generator().manual_seed(SEED + epoch))
+        with _host_reads() as counter:
+            (state, losses, mses, _), sec = _host_timed(
+                lambda: epoch_fn(state, data, BATCH, lr, perm))
+        reads.append(counter["reads"])
+        hist["losses"].append(losses.cpu().numpy())
+        hist["mses"].append(mses.cpu().numpy())
+        seconds.append(sec)
+        if not (np.isfinite(hist["losses"][-1]).all() and np.isfinite(hist["mses"][-1]).all()):
+            raise AssertionError(f"routed {case}: non-finite loss or mse")
+    val = torch.stack(eval_fn(state.model, holdout, BATCH)).cpu().numpy()
+    # A graph's private pool keeps its segments while the graph lives: their
+    # size is the pool's footprint, its peak rounded up to segments.
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg["segment_pool_id"])
+        pools[pool] = pools.get(pool, 0) + seg["total_size"]
+    graphs = {}
+    for key, graph in dl._GRAPHS.items():
+        g = graphs.setdefault(key[0], {"graphs": 0, "replays": 0, "capture_s": 0.0,
+                                       "instantiate_s": 0.0, "warm_up_s": 0.0, "pool_mb": 0.0})
+        g["graphs"] += 1
+        g["replays"] += graph.replays
+        g["pool_mb"] += pools.get(tuple(graph.graph.pool()), 0) / 1e6
+        for k, v in graph.seconds.items():
+            g[f"{k}_s"] += v
+    return dict(state=state, trainer=trainer, arrays=tr.train_state_to_numpy(state),
+                hist={**{k: np.concatenate(v) for k, v in hist.items()}, "val": val},
+                seconds=seconds, host_reads=reads, graphs=graphs,
+                peak_bytes=torch.cuda.max_memory_allocated() - base,
+                launches={k: _kernels.launches[k] - before.get(k, 0)
+                          for k in ("fused_adam_tiles", "fused_adam", "fused_adam_dense")})
+
+
+def _routed_graph_case(card: str, label: str, case: tuple) -> dict:
+    """The routed or psum epoch, eager and captured, from one state and one
+    shuffle (_routed_run, ROUTED_TIMED_STEPS batches an epoch): the captured
+    epochs bit-equal to the eager ones (lazy_adam within 1e-5 of each
+    tensor's scale, but for the noise walk of dense_b), one replay of the
+    epoch's graph per epoch, K1's launches equal; each one's ms per step
+    (the second epoch), 10 profiled steps (device-busy ms, idle shares),
+    peak memory, host reads per epoch, and the graphs' capture seconds."""
     import torch
 
     from anime_recommendations_tpu_torch.train import device_loop as dl
 
-    train, _ = _train_split()
-    _, vocab, _, _ = _dataset()
-    trainer = _routed_trainer(optimizer, capacity, routing)
-    state = trainer._init_state(torch.Generator().manual_seed(SEED), vocab.n_users, vocab.n_anime)
+    optimizer, capacity = case[0], case[1]
+    train, holdout = _train_split()
     data = dl.granule_shuffle(dl.stage(train, BATCH, seed=SEED, device=DEVICE),
                               torch.Generator().manual_seed(SEED))
     steps = ROUTED_TIMED_STEPS
-    timed = dl.DeviceData(*(x[:steps * BATCH] for x in data))
-    (_, losses, _, _), seconds = _host_timed(lambda: trainer.train_epoch(state, timed, BATCH, 1e-5))
-    if not bool(torch.isfinite(losses).all()):
-        raise AssertionError(f"routed {optimizer}: non-finite loss in the timed epoch")
+    data = dl.DeviceData(*(x[:steps * BATCH] for x in data))
     window = dl.DeviceData(*(x[:10 * BATCH] for x in data))
-    ms_per_step = seconds * 1e3 / steps
-    return dict(steps=steps, ms_per_step=ms_per_step,
-                examples_per_sec=float(timed.weights.sum()) / seconds,
-                **_step_profile(lambda: trainer.train_epoch(state, window, BATCH, 1e-5), 10,
-                                ms_per_step))
+    held = dl.stage(holdout, BATCH, device=DEVICE)
+    eager = _routed_run(case, False, data, held)
+    captured = _routed_run(case, True, data, held)
+    row = {"case": label, "card": card, "steps_per_epoch": steps,
+           "captured_vs_eager": _graph_gaps(captured, eager)}
+    val_equal = np.array_equal(captured["hist"]["val"], eager["hist"]["val"])
+    val_rel = float(np.max(np.abs(captured["hist"]["val"] - eager["hist"]["val"])
+                           / np.abs(eager["hist"]["val"])))
+    row["captured_vs_eager"]["val"] = {"rel": val_rel, "bit_equal": val_equal}
+    for k, g in row["captured_vs_eager"].items():
+        if k == "count":
+            if g != 0:
+                raise AssertionError(f"{label}: the Adam counts differ")
+        elif optimizer != "lazy_adam":
+            if not g["bit_equal"]:
+                raise AssertionError(f"{label}: the captured epoch's {k} differ from the eager "
+                                     f"epoch's: {g}")
+        elif k != "noise_walk" and g["rel"] > 1e-5:
+            raise AssertionError(f"{label}: the captured epoch's {k} differ from the eager "
+                                 f"epoch's by {g['rel']} of their scale")
+    want = {"fused_adam_tiles": 0, "fused_adam": 0, "fused_adam_dense": 0}
+    if optimizer in FUSED:
+        want["fused_adam" if capacity is None else "fused_adam_dense"] = 2 * steps * len(ROUTED_LRS)
+        want["fused_adam_tiles"] = 2 * steps * len(ROUTED_LRS)
+    for name, run in (("eager", eager), ("captured", captured)):
+        if run["launches"] != want:
+            raise AssertionError(f"{label} {name}: launches {run['launches']}, expected {want}")
+    epochs = len(ROUTED_LRS)
+    graphs = captured["graphs"]
+    if graphs.get("sharded_epoch", {}).get("replays") != epochs or eager["graphs"]:
+        raise AssertionError(f"{label}: graphs {graphs} over {epochs} epochs (eager: "
+                             f"{eager['graphs']}); expected one epoch replay per epoch")
+    row["graphs"] = graphs
+    row["replays_per_epoch"] = {k: v["replays"] / epochs for k, v in graphs.items()
+                                if k != "sharded_eval"}
+    row["rounds"] = captured["trainer"]._rounds
+    for name, run in (("eager", eager), ("captured", captured)):
+        trainer, state = run["trainer"], run["state"]
+        fn = trainer.train_epoch if name == "captured" else trainer.eager_train_epoch
+        ms = run["seconds"][-1] * 1e3 / steps
+        row[name] = dict(ms_per_step=ms, examples_per_sec=float(data.weights.sum()) / run["seconds"][-1],
+                         first_epoch_s=run["seconds"][0], host_reads_per_epoch=run["host_reads"],
+                         peak_bytes=run["peak_bytes"], launches=run["launches"],
+                         **_step_profile(lambda: fn(state, window, BATCH, 1e-5), 10, ms))
+        by_kernel = row[name]["profiled_step"].pop("by_kernel")
+        row[name]["top_kernels_ms"] = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+    dl.release_graphs()
+    phase = "10a" if case[2:3] == ("psum",) else "7b"
+    print(f"[phase {phase}] {label} eager vs captured ({card}): "
+          f"{json.dumps(row)}", flush=True)
+    return row
 
 
 def _agree_steps() -> dict:
@@ -2131,10 +2277,12 @@ def phase_routed(card: str, trained: dict) -> dict:
           f"{CAPPED}: {json.dumps(out['agree'])}", flush=True)
     for optimizer, capacity in [(opt, None) for opt in OPTIMIZERS] + [("fused_adam", CAPPED)]:
         label = optimizer if capacity is None else f"{optimizer}@{capacity}"
-        out["timed"][label] = _timed_routed_epoch(optimizer, capacity)
+        out["timed"][label] = _routed_graph_case(card, label, (optimizer, capacity))
         base = trained["timed"][optimizer]["ms_per_step"]
-        print(f"[phase 7] routed {label} timed epoch ({card}): {json.dumps(out['timed'][label])}; "
-              f"one-device (phase 5) {base:.3f} ms/step", flush=True)
+        print(f"[phase 7] routed {label}: ms/step eager "
+              f"{out['timed'][label]['eager']['ms_per_step']:.3f}, captured "
+              f"{out['timed'][label]['captured']['ms_per_step']:.3f}; one-device (phase 13) "
+              f"{base:.3f} ({card})", flush=True)
     return out
 
 
@@ -2189,9 +2337,10 @@ def _psum_runs(card: str, trained: dict) -> dict:
         else:
             raise AssertionError(f"routing=psum accepted {optimizer}")
     print(f"[phase 10] routing=psum refuses: {json.dumps(out['refused'])}", flush=True)
-    out["timed"] = _timed_routed_epoch("adam", routing="psum")
-    print(f"[phase 10] psum adam timed epoch ({card}): {json.dumps(out['timed'])}; one-device "
-          f"(phase 5) {trained['timed']['adam']['ms_per_step']:.3f} ms/step", flush=True)
+    row = out["timed"] = _routed_graph_case(card, "psum", ("adam", None, "psum"))
+    print(f"[phase 10] psum adam: ms/step eager {row['eager']['ms_per_step']:.3f}, captured "
+          f"{row['captured']['ms_per_step']:.3f}; one-device (phase 13) "
+          f"{trained['timed']['adam']['ms_per_step']:.3f} ({card})", flush=True)
     return out
 
 

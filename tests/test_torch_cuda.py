@@ -40,7 +40,11 @@ equal except where true scores tie within 1e-6. The captured epoch
 (train/device_loop.py's CUDA graph): bit for bit the eager epoch wherever
 two eager runs are bit-equal, else 1e-5 of each tensor's largest entry
 (dense_b, its moments and moving_mean, which walk on rounding noise, not
-compared then).
+compared then). The captured sharded epoch (parallel/trainer.py at world
+size 1 on NCCL, its collectives in the graph): bit for bit the eager one
+for psum adam and alltoall adam, fused_adam and fused_adam_bf16m (the fused
+ones also at a capacity that takes more than 4 rounds), lazy_adam within
+1e-5 of each tensor's largest entry (index_add_'s atomics).
 """
 
 import numpy as np
@@ -996,3 +1000,87 @@ def test_a_capture_that_syncs_raises(cuda):
     x = torch.ones(4, device=cuda)
     with pytest.raises(RuntimeError):
         dl.EpochGraph(lambda: (x * 2).sum().item(), lambda: None, {}, cuda)
+
+
+# ---- the captured sharded epoch (parallel/trainer.py) --------------------------------
+
+SHARDED_CASES = [("adam", None, "alltoall"), ("lazy_adam", None, "alltoall"),
+                 ("fused_adam", None, "alltoall"), ("fused_adam_bf16m", None, "alltoall"),
+                 ("fused_adam", 32, "alltoall"), ("fused_adam_bf16m", 32, "alltoall"),
+                 ("adam", None, "psum")]
+
+
+def _sharded_epoch_runs(cuda, optimizer, capacity, routing, captured):
+    """Two epochs (lr 1e-3, then 5e-4, each with its granule permutation)
+    and an evaluation of a ShardedTrainer at world size 1, through the
+    graphs (``captured``) or the eager loops: (state arrays, [losses, mses,
+    wsums per epoch, (val_loss, val_mse)], K1's launches, graph replays)."""
+    from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
+    from anime_recommendations_tpu_torch.parallel.trainer import ShardedTrainer
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    rng = np.random.default_rng(0)
+    rows = 20_000
+    ds = RatingsDataset(rng.integers(0, 3000, rows).astype(np.int32),
+                        np.minimum(rng.pareto(1.1, rows) * 20, 499).astype(np.int32),
+                        rng.uniform(0, 1, rows).astype(np.float32))
+    data = dl.stage(ds, 1024, seed=0, device=cuda)
+    holdout = dl.DeviceData(*(x[:4096] for x in data))
+    trainer = ShardedTrainer(batch_size=1024, embedding_size=32, optimizer=optimizer,
+                             capacity=capacity, routing=routing, verbose=False, device=cuda,
+                             device_loop=True)
+    state = trainer._init_state(torch.Generator().manual_seed(0), 3000, 500)
+    epoch = trainer.train_epoch if captured else trainer.eager_train_epoch
+    evaluate = trainer.eval_epoch if captured else trainer.eager_eval_epoch
+    _kernels.launches.clear()
+    dl.release_graphs()
+    outs = []
+    for i, lr in enumerate((1e-3, 5e-4)):
+        perm = dl.granule_permutation(data.n, torch.Generator().manual_seed(i))
+        state, *out = epoch(state, data, 1024, lr, perm)
+        outs += out
+    outs += evaluate(state.model, holdout, 1024)
+    torch.cuda.synchronize()
+    replays = {}
+    for k, g in dl._GRAPHS.items():
+        replays[k[0]] = replays.get(k[0], 0) + g.replays
+    dl.release_graphs()
+    names = ("fused_adam_tiles", "fused_adam", "fused_adam_dense")
+    return (tr.train_state_to_numpy(state), [o.cpu().numpy() for o in outs],
+            {k: _kernels.launches[k] for k in names}, replays, data.n // 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer,capacity,routing", SHARDED_CASES)
+def test_captured_sharded_epoch_matches_the_eager_epoch(cuda, nccl_world, optimizer, capacity,
+                                                        routing):
+    """The sharded trainer's epochs and evaluation through their CUDA graphs
+    (NCCL collectives captured) against its eager loops: every state tensor,
+    loss, mse and the validation pair bit for bit (lazy_adam within 1e-5 of
+    each tensor's largest entry, but for dense_b, its moments and
+    moving_mean); one replay of the epoch's graph per epoch; K1's launches
+    per replay add up to the eager loop's (the batches' graph and the
+    evaluation's are replayed once per epoch and per evaluation too)."""
+    got, got_out, got_launches, replays, steps = _sharded_epoch_runs(
+        cuda, optimizer, capacity, routing, True)
+    want, want_out, want_launches, eager_replays, _ = _sharded_epoch_runs(
+        cuda, optimizer, capacity, routing, False)
+    assert replays == {"sharded_prep": 2, "sharded_epoch": 2, "sharded_eval": 1}, replays
+    assert not eager_replays
+    assert got_launches == want_launches
+    fused = optimizer.startswith("fused")
+    k1 = "fused_adam" if capacity is None else "fused_adam_dense"
+    assert got_launches[k1] == (4 * steps if fused else 0), got_launches
+    noise = ("dense_b", "mu.dense_b", "nu.dense_b", "moving_mean")
+    for k in want:
+        if optimizer != "lazy_adam":
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        elif k not in noise:
+            np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                       atol=1e-5 * max(np.abs(want[k]).max(), 1e-30), err_msg=k)
+    for a, b in zip(got_out, want_out):
+        if optimizer != "lazy_adam":
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(np.abs(b).max(), 1e-30))

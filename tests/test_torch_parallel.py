@@ -24,6 +24,22 @@ the two sum orders left them 4e-8 apart. Within the
 port, forced multi-round overflow against the default capacity and two
 paddings of one ragged batch: tests/test_parallel.py's, loss 1e-6
 relative, tables 1e-6 absolute (+ 1e-5 relative).
+
+The sharded epoch (EPOCH_JOBS): the port's sharded_train.run_epoch (plans
+made on the device, every exchange run for each table's largest round
+count) over 3 batches in the order EPOCH_ORDER, then 2 eval batches, against
+JAX's build_epoch_fn(shuffle=False, planned=...) fed the same batches
+already in that order (planned for lazy_adam and fused_adam, as JAX's
+trainer runs them; adam and psum plan inside the JAX step). Tolerances:
+the step jobs' above, per-step losses and mses 1e-5 relative; the eval's
+(val_loss, val_mse) 2e-3 relative against JAX's epoch (tests/test_torch_train.py's
+validation columns: eval-mode BatchNorm shows dense_b's rounding walk) and
+1e-5 against JAX's eval sums on the port's own final state. The ranks run under a guard
+(GUARD_SCRIPT) that records every host read inside the epoch body (the
+steps and the eval sums): Tensor.item, tolist, __bool__, __int__,
+__float__, __index__, cpu and numpy, torch.nonzero, unique, masked_select
+and bincount, and indexing by a bool tensor; it must record none there,
+and must record the reads of a probe run under it first.
 """
 
 import json
@@ -44,7 +60,10 @@ from anime_recommendations_tpu.parallel import routing as jrt
 from anime_recommendations_tpu.parallel.mesh import make_mesh
 from anime_recommendations_tpu.parallel.sharded_train import (
     ShardedTrainStep,
+    build_epoch_fn,
+    build_plans_fn,
     place_state,
+    put_global,
     unstripe_state,
 )
 from anime_recommendations_tpu.train import trainer as jtr
@@ -75,6 +94,17 @@ PSUM_JOBS = {
     4: {"psum_2x2": ((2, 2), False), "psum_1x4": ((1, 4), False),
         "psum_anime_2x2": ((2, 2), True)},
 }
+# name -> (optimizer, capacity, routing, mesh by world size, shard_anime): the
+# sharded epoch against JAX's build_epoch_fn.
+EPOCH_JOBS = {
+    "epoch_adam": ("adam", None, "alltoall", None, False),
+    "epoch_lazy_adam": ("lazy_adam", None, "alltoall", None, False),
+    "epoch_fused_adam": ("fused_adam", None, "alltoall", None, False),
+    "epoch_fused_overflow": ("fused_adam", 1, "alltoall", None, False),
+    "epoch_psum": ("adam", None, "psum", {2: (2, 1), 4: (2, 2)}, False),
+    "epoch_psum_anime": ("adam", None, "psum", {2: (1, 2), 4: (1, 4)}, True),
+}
+EPOCH_ORDER = [2, 0, 1]
 
 
 def _free_port() -> int:
@@ -83,16 +113,91 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_workers(m: int, args: list[str], timeout: int = 120) -> list[dict]:
-    """m gloo ranks of the port's distributed worker; their JSON lines."""
+# Runs the port's distributed worker (argv[3:]) with a guard on host reads
+# inside sharded_train.epoch_body; writes what it saw to argv[2]_<rank>.json.
+GUARD_SCRIPT = r'''
+import functools, json, os, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from anime_recommendations_tpu_torch.parallel import distributed, sharded_train
+
+active, seen, calls = [False], [], [0]
+
+
+def watch(owner, name):
+    fn = getattr(owner, name)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if active[0]:
+            seen.append(name)
+        return fn(*args, **kwargs)
+
+    setattr(owner, name, wrapped)
+
+
+for name in ("item", "tolist", "__bool__", "__int__", "__float__", "__index__", "cpu", "numpy"):
+    watch(torch.Tensor, name)
+for name in ("nonzero", "unique", "masked_select", "bincount"):
+    watch(torch, name)
+
+
+def bool_index(idx):
+    return any(isinstance(x, torch.Tensor) and x.dtype == torch.bool
+               for x in (idx if isinstance(idx, tuple) else (idx,)))
+
+
+def watch_index(name):
+    fn = getattr(torch.Tensor, name)
+
+    def wrapped(self, idx, *rest):
+        if active[0] and bool_index(idx):
+            seen.append("bool index")
+        return fn(self, idx, *rest)
+
+    setattr(torch.Tensor, name, wrapped)
+
+
+watch_index("__getitem__")
+watch_index("__setitem__")
+body = sharded_train.epoch_body
+
+
+def guarded(*args, **kwargs):
+    calls[0] += 1
+    active[0] = True
+    try:
+        return body(*args, **kwargs)
+    finally:
+        active[0] = False
+
+
+sharded_train.epoch_body = guarded
+active[0] = True           # the probe: a bool index and a host read
+x = torch.arange(3.0)
+x[x > 0].sum().item()
+active[0] = False
+probe, seen[:] = list(seen), []
+distributed.main(sys.argv[3:])
+with open(f"{sys.argv[2]}_{os.environ['RANK']}.json", "w") as f:
+    json.dump({"probe": probe, "epoch_body": seen, "calls": calls[0]}, f)
+'''
+
+
+def launch_workers(m: int, args: list[str], timeout: int = 120,
+                   guard: Path | None = None) -> list[dict]:
+    """m gloo ranks of the port's distributed worker; their JSON lines.
+    With ``guard`` they run under GUARD_SCRIPT, which writes what it saw to
+    ``<guard>_<rank>.json``."""
     port = _free_port()
     procs = []
     for rank in range(m):
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
                    WORLD_SIZE=str(m), LOCAL_RANK=str(rank), OMP_NUM_THREADS="1")
+        head = (["-m", "anime_recommendations_tpu_torch.parallel.distributed"] if guard is None
+                else ["-c", GUARD_SCRIPT, str(REPO), str(guard)])
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "anime_recommendations_tpu_torch.parallel.distributed",
-             "--worker", "--device", "cpu", *args],
+            [sys.executable, *head, "--worker", "--device", "cpu", *args],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
     try:
@@ -142,6 +247,57 @@ def batches() -> dict:
     return {"batch": full, "padded_a": pa, "padded_b": pb}
 
 
+def epoch_batches() -> dict:
+    """The epoch's 3 train batches and 2 eval batches, each column [nb, B]."""
+    rng = np.random.default_rng(11)
+
+    def stacked(nb):
+        return (rng.integers(0, N_USERS, (nb, B)).astype(np.int32),
+                rng.integers(0, N_ANIME, (nb, B)).astype(np.int32),
+                rng.uniform(0, 1, (nb, B)).astype(np.float32),
+                (rng.random((nb, B)) > 0.1).astype(np.float32))
+
+    return {"epoch_train": stacked(3), "epoch_eval": stacked(2)}
+
+
+def jax_eval(m: int, state_np: dict, routing: str, shape, shard_anime: bool) -> np.ndarray:
+    """(val_loss, val_mse) of JAX's eval sums over the eval batches."""
+    mesh = make_mesh(*(shape or {2: (2, 1), 4: (2, 2)}[m]), devices=jax.devices()[:m])
+    step = ShardedTrainStep(mesh, l2_reg_factor=L2, shard_anime=shard_anime, routing=routing)
+    st = place_state(numpy_to_jax(state_np), mesh, shard_anime, routing)
+    sums = np.zeros(3)
+    for cols in zip(*epoch_batches()["epoch_eval"]):
+        sums += [float(x) for x in step.eval_sums(st.params, st.bn_state,
+                                                   *(jnp.asarray(c) for c in cols))]
+    return sums[:2] / max(sums[2], 1.0)
+
+
+def jax_epoch(m: int, state_np: dict, optimizer: str, capacity, routing: str, shape,
+              shard_anime: bool) -> dict:
+    """JAX's build_epoch_fn(shuffle=False) over the train batches in
+    EPOCH_ORDER, then the eval batches: losses, mses, (val_loss, val_mse)
+    and the final state (logical)."""
+    shape = shape or {2: (2, 1), 4: (2, 2)}[m]
+    mesh = make_mesh(*shape, devices=jax.devices()[:m])
+    step = ShardedTrainStep(mesh, l2_reg_factor=L2, shard_anime=shard_anime, routing=routing,
+                            optimizer=optimizer, capacity=capacity)
+    sh = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(None, step._baxes))
+    data = epoch_batches()
+    train = [put_global(x[EPOCH_ORDER], sh) for x in data["epoch_train"]]
+    evals = tuple(put_global(x, sh) for x in data["epoch_eval"])
+    planned = optimizer in ("lazy_adam", "fused_adam")
+    extra = {}
+    if planned:
+        rows = (N_USERS, N_ANIME) if optimizer == "fused_adam" else None
+        extra = dict(zip(("plans_u", "plans_a"), build_plans_fn(step, rows)(train[0], train[1])))
+    st = place_state(numpy_to_jax(state_np), mesh, shard_anime, routing)
+    st, losses, mses, _, vl, vm = build_epoch_fn(step, shuffle=False, planned=planned)(
+        st, *train, evals, jax.random.PRNGKey(0), jnp.float32(LR), **extra)
+    return {"losses": np.asarray(losses), "mses": np.asarray(mses),
+            "val": np.array([float(vl), float(vm)]),
+            "final": jax_to_numpy(unstripe_state(st, mesh, routing))}
+
+
 def jax_run(m: int, state_np: dict, batch, optimizer: str, capacity, steps: int,
             routing: str = "alltoall", shape=None, shard_anime: bool = False) -> dict:
     """JAX's grads, eval sums, per-step loss/mse and states (logical)."""
@@ -173,7 +329,7 @@ def runs(tmp_path_factory):
     """world size -> (port results by job, JAX results by job)."""
     tmp = tmp_path_factory.mktemp("parallel")
     state_np = jax_to_numpy(jtr.init_train_state(jax.random.PRNGKey(0), N_USERS, N_ANIME, D))
-    data = batches()
+    data = batches() | epoch_batches()
     arrays = {f"init/{k}": v for k, v in state_np.items()}
     for name, cols in data.items():
         arrays.update({f"{name}/{k}": v for k, v in
@@ -187,17 +343,27 @@ def runs(tmp_path_factory):
                  "batch": "batch", "lr": LR, "l2": L2, "routing": "psum", "mesh": shape,
                  "shard_anime": shard_anime}
                 for name, (shape, shard_anime) in PSUM_JOBS[m].items()]
-        np.savez(tmp / f"in{m}.npz", jobs=json.dumps(jobs + psum), **arrays)
+        epochs = [{"name": name, "optimizer": opt, "capacity": cap, "state": "init", "lr": LR,
+                   "l2": L2, "routing": routing, "shard_anime": shard_anime,
+                   **({"mesh": meshes[m]} if meshes else {}),
+                   "epoch": {"batches": "epoch_train", "evals": "epoch_eval",
+                             "order": EPOCH_ORDER}}
+                  for name, (opt, cap, routing, meshes, shard_anime) in EPOCH_JOBS.items()]
+        np.savez(tmp / f"in{m}.npz", jobs=json.dumps(jobs + psum + epochs), **arrays)
         res = launch_workers(m, ["--replay", str(tmp / f"in{m}.npz"),
-                                 "--out", str(tmp / f"out{m}.npz")])
+                                 "--out", str(tmp / f"out{m}.npz")], guard=tmp / f"guard{m}")
         assert [r["world_size"] for r in res] == [m] * m
         with np.load(tmp / f"out{m}.npz") as z:
             port = {k: z[k] for k in z.files}
+        port["guard"] = [json.loads((tmp / f"guard{m}_{r}.json").read_text()) for r in range(m)]
         jax_res = {name: jax_run(m, state_np, data[batch], opt, cap, steps)
                    for name, (opt, cap, batch, steps) in JOBS.items() if batch == "batch"}
         jax_res.update({name: jax_run(m, state_np, data["batch"], "adam", None, STEPS, "psum",
                                       shape, shard_anime)
                         for name, (shape, shard_anime) in PSUM_JOBS[m].items()})
+        jax_res.update({name: jax_epoch(m, state_np, opt, cap, routing,
+                                        meshes and meshes[m], shard_anime)
+                        for name, (opt, cap, routing, meshes, shard_anime) in EPOCH_JOBS.items()})
         out[m] = (port, jax_res)
     return out
 
@@ -266,10 +432,38 @@ def test_psum_refuses_the_routed_optimizers_as_jax_does(optimizer):
         build_plans(PortStep(world, routing="psum"), None, None)
 
 
+@pytest.mark.parametrize("job", list(EPOCH_JOBS))
+@pytest.mark.parametrize("m", WORLDS)
+def test_sharded_epoch_matches_jax_build_epoch_fn(runs, m, job):
+    """The port's epoch body over the batches in EPOCH_ORDER, then the eval
+    batches, against JAX's build_epoch_fn fed them pre-permuted: per-step
+    losses and mses, the eval's (val_loss, val_mse) and the final state."""
+    port, jax_res = runs[m]
+    want = jax_res[job]
+    np.testing.assert_allclose(port[f"{job}/losses"], want["losses"], rtol=1e-5)
+    np.testing.assert_allclose(port[f"{job}/mses"], want["mses"], rtol=1e-5)
+    np.testing.assert_allclose(port[f"{job}/val"], want["val"], rtol=2e-3)
+    assert_states_match(sub(port, f"{job}/final"), want["final"], job)
+    _, _, routing, meshes, shard_anime = EPOCH_JOBS[job]
+    np.testing.assert_allclose(port[f"{job}/val"], jax_eval(
+        m, sub(port, f"{job}/final"), routing, meshes and meshes[m], shard_anime), rtol=1e-5)
+
+
+@pytest.mark.parametrize("m", WORLDS)
+def test_sharded_epoch_body_reads_nothing_on_the_host(runs, m):
+    """Every rank ran every epoch job's steps and eval sums under the guard
+    and it saw no host read there; its probe shows it sees them."""
+    port, _ = runs[m]
+    for rank, seen in enumerate(port["guard"]):
+        assert "bool index" in seen["probe"] and "item" in seen["probe"], seen
+        assert seen["calls"] == len(EPOCH_JOBS), seen
+        assert seen["epoch_body"] == [], f"rank {rank} read on the host: {seen['epoch_body']}"
+
+
 @pytest.mark.parametrize("m", WORLDS)
 def test_eval_sums_match_jax(runs, m):
     port, jax_res = runs[m]
-    for job in jax_res:
+    for job in (j for j in jax_res if j not in EPOCH_JOBS):
         np.testing.assert_allclose(port[f"{job}/eval"], jax_res[job]["eval"], rtol=1e-5,
                                    err_msg=job)
 

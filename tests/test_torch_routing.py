@@ -9,6 +9,14 @@ past the table), at m = 1, 2 and 4. Gathered rows are equal; table
 gradients, staged receipts and dense overflow within 1e-6 (the two sum
 duplicates in another order); receipt ids, round counts, served rows and
 plan statistics equal.
+
+Padded rounds, at m = 2 and 4 (the port alone): a sharded epoch runs every
+exchange for the largest round count of its batches. Each rank steps
+PADDED_BATCHES with every optimizer (adam, lazy_adam, fused_adam,
+fused_adam_bf16m) at capacity 1, where the batches take from 1 to more
+than 4 rounds, once with each batch's plans at its own round count and once
+at the epoch's largest count plus one: losses, mses, eval sums and every
+state tensor must be bit-equal.
 """
 
 import json
@@ -50,7 +58,8 @@ z = np.load(sys.argv[1])
 out = {}
 for case in json.loads(str(z["spec"])):
     name, cap = case["name"], case["capacity"]
-    ids = torch.from_numpy(z[name + "/ids"]).view(m, -1)[r]
+    if name + "/ids" in z.files:
+        ids = torch.from_numpy(z[name + "/ids"]).view(m, -1)[r]
     if case["kind"] == "exchange":
         table = torch.from_numpy(z[name + "/table"])[r::m].clone().requires_grad_()
         rows = rt.exchange_rows(table, ids, n_shards=m, capacity=cap)
@@ -67,10 +76,41 @@ for case in json.loads(str(z["spec"])):
         if dense is not None:
             out[name + "/dense"] = dense.numpy()
         out[name + "/order"] = rt.receipt_sort_order(ids, **kw).numpy()
-    else:  # received
+    elif case["kind"] == "received":
         table = torch.from_numpy(z[name + "/table"])[r::m]
         out[name + "/buf"] = rt.received_rows(
             table, ids, n_shards=m, capacity=cap, owner_capacity=case["owner_capacity"]).numpy()
+    else:  # padded: one epoch's steps at each batch's own rounds and padded
+        from anime_recommendations_tpu_torch.ops.fused_adam import upload
+        from anime_recommendations_tpu_torch.parallel import sharded_train as st
+        from anime_recommendations_tpu_torch.parallel.mesh import make_world
+        from anime_recommendations_tpu_torch.parallel.trainer import init_placed_state
+        from anime_recommendations_tpu_torch.train import device_loop as dl
+        from anime_recommendations_tpu_torch.train.trainer import train_state_to_numpy
+
+        world = make_world(device="cpu")
+        opt, (nu, na, d) = case["optimizer"], case["shape"]
+        step = st.ShardedTrainStep(world, l2_reg_factor=1e-3, capacity=cap,
+                                   optimizer="fused_adam" if opt == "fused_adam_bf16m" else opt)
+        cols = [torch.from_numpy(z[name + "/" + k]).view(case["nb"], m, -1)[:, r]
+                for k in ("users", "anime", "ratings", "weights")]
+        plans = st.build_plans(step, cols[0], cols[1], (nu, na))
+        own = torch.stack([plans.users.rounds, plans.anime.rounds], 1).tolist()
+        padded = tuple(x + 1 for x in plans.maxima())
+        out[name + "/own_rounds"] = np.array(own)
+        table = upload(dl.scalar_table(0, case["nb"], 1e-2), "cpu")
+        for label in ("own", "padded"):
+            state = init_placed_state(world, nu, na, d, torch.Generator().manual_seed(5),
+                                      opt == "fused_adam_bf16m")
+            got = []
+            for i in range(case["nb"]):
+                b = st.Batches(tuple(cols), plans, tuple(own[i]) if label == "own" else padded)
+                got += step.step(state, *(c[i] for c in cols), table[i], b.plans_at(i),
+                                 b.orders_at(i))
+                got += step.eval_sums(state.model, state.model.bn_state(),
+                                      *(c[i] for c in cols), b.plans_at(i))
+            out[name + f"/{label}/metrics"] = torch.stack(got).numpy()
+            out.update({f"{name}/{label}/{k}": v for k, v in train_state_to_numpy(state).items()})
 np.savez(sys.argv[2] + f"_{r}.npz", **out)
 dist.destroy_process_group()
 '''
@@ -136,7 +176,31 @@ def cases(m: int) -> dict:
     out["received"] = ({"name": "received", "kind": "received", "capacity": 3,
                         "owner_capacity": 2 * m * 3 + 5},
                        {"table": _table(64, 4, 2), "ids": rng.integers(0, 70, 64).astype(np.int64)})
+    if m > 1:
+        for opt in PADDED_OPTIMIZERS:
+            name = f"padded_{opt}"
+            out[name] = ({"name": name, "kind": "padded", "capacity": 1, "optimizer": opt,
+                          "nb": PADDED_BATCHES, "shape": PADDED_SHAPE},
+                         padded_batches(m))
     return out
+
+
+PADDED_OPTIMIZERS = ("adam", "lazy_adam", "fused_adam", "fused_adam_bf16m")
+PADDED_BATCHES, PADDED_SHAPE = 3, (256, 64, 8)   # batches; users, anime, D
+
+
+def padded_batches(m: int) -> dict:
+    """3 global batches of 32 rows a rank: distinct ids (many rounds at
+    capacity 1), 4 ids (one or two), random ids; some weight-0 rows."""
+    rng = np.random.default_rng(21)
+    b = 32 * m
+    nu, na, _ = PADDED_SHAPE
+    users = np.stack([rng.permutation(nu)[:b], rng.integers(0, 4, b), rng.integers(0, nu, b)])
+    anime = np.stack([rng.permutation(na)[:b] if b <= na else rng.integers(0, na, b),
+                      rng.integers(0, 4, b), rng.integers(0, na, b)])
+    return {"users": users.astype(np.int32), "anime": anime.astype(np.int32),
+            "ratings": rng.uniform(0, 1, (3, b)).astype(np.float32),
+            "weights": (rng.random((3, b)) > 0.1).astype(np.float32)}
 
 
 @pytest.fixture(scope="module")
@@ -265,6 +329,26 @@ def test_route_grad_rows_matches_jax(port_results, m, name):
     keep = a["ids"] < spec["rows"]
     np.add.at(oracle, a["ids"][keep], a["g"][keep])
     np.testing.assert_allclose(assemble_stripes(acc_parts), oracle, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("optimizer", PADDED_OPTIMIZERS)
+@pytest.mark.parametrize("m", (2, 4))
+def test_padded_rounds_step_is_bit_equal_to_unpadded(port_results, m, optimizer):
+    """Each batch's step and eval sums with its plans padded to the epoch's
+    largest round count plus one equal, bit for bit, the ones at its own
+    count, on every rank; the batches' counts differ and exceed 4 (K1's
+    dense branch for the fused ones)."""
+    cs, ranks = port_results[m]
+    name = f"padded_{optimizer}"
+    own = ranks[0][name + "/own_rounds"]
+    assert own.max() > 4 and len(set(own[:, 0].tolist())) > 1, own
+    for rk in ranks:
+        np.testing.assert_array_equal(rk[name + "/own_rounds"], own)
+        keys = [k[len(name) + 5:] for k in rk if k.startswith(name + "/own/")]
+        assert "user_emb" in keys and "nu.anime_emb" in keys
+        for k in keys:
+            a, b = rk[f"{name}/own/{k}"], rk[f"{name}/padded/{k}"]
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
 
 
 @pytest.mark.parametrize("m", WORLDS)

@@ -224,12 +224,14 @@ def one_rank_group(dev: torch.device):
                              f"{dist.get_world_size()} ranks")
         yield
         return
+    from anime_recommendations_tpu_torch.parallel.distributed import shutdown
+
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             store=dist.HashStore(), rank=0, world_size=1)
     try:
         yield
     finally:
-        dist.destroy_process_group()
+        shutdown()
 
 
 # ---- data builders (bench.py's draws) ----------------------------------------------

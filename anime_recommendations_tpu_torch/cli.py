@@ -105,6 +105,7 @@ def main(argv=None) -> int:
     if args.cmd in ("pipeline", "ingest", "preprocess", "train"):
         import torch.distributed as dist
 
+        from anime_recommendations_tpu_torch.parallel.distributed import shutdown
         from anime_recommendations_tpu_torch.pipeline.runner import PipelineRunner
 
         runner = PipelineRunner(cfg, args.run_dir, device=args.device)
@@ -115,8 +116,7 @@ def main(argv=None) -> int:
             else:
                 result = getattr(runner, f"step_{args.cmd}")()
         finally:
-            if dist.is_initialized():   # torchrun: train went through parallel/
-                dist.destroy_process_group()
+            shutdown()   # torchrun: train went through parallel/
         if args.cmd == "pipeline":
             if rank0:   # rank 0 wrote timings.json
                 print(json.dumps(json.loads((runner.run_dir / "timings.json").read_text()),

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from anime_recommendations_tpu_torch.ops.quantized import quantize_rows
+from anime_recommendations_tpu_torch.ops.topk import request_inputs
 
 # Bytes of gathered candidate rows (and their f32 copy) per query chunk of
 # ivf_topk; a single query above it runs alone.
@@ -269,33 +270,50 @@ def ivf_topk(
     cosine axis. Slots past the live candidates hold -inf with id -1.
     ``query_chunk`` (default: query_chunk_for's budget) changes memory, not
     results. Recall is a function of ``probes``; probing every cluster is
-    exact for float storage, not for int8 storage (module docstring)."""
+    exact for float storage, not for int8 storage (module docstring).
+
+    The host half (ivf_plan, ops/topk.request_inputs) and the device half
+    (ivf_body) are what ops/topk._dispatch_topk stages and captures for an
+    IVFIndex."""
     squeeze = queries.dim() == 1
     if squeeze:
         queries = queries[None, :]
-    _check_no_tf32(index.table, "ivf_topk")
     dev = index.table.device
     qn, d = queries.shape
+    probes, qc = ivf_plan(index, qn, d, probes, query_chunk)
+    mask, exclude, head = (None if t is None else t.to(dev) for t in request_inputs(
+        index.table.shape[0], qn, mask, exclude, head, shared_exclude=True))
+    vals, ids = ivf_body(index, queries, k, probes, qc, mask, exclude, head)
+    return (vals[0], ids[0]) if squeeze else (vals, ids)
+
+
+def ivf_plan(index: IVFIndex, qn: int, d: int, probes: int,
+             query_chunk: int | None = None) -> tuple[int, int]:
+    """(clusters probed, queries per chunk) of a request of ``qn`` queries:
+    the static choices of ivf_body."""
     probes = min(probes, index.n_clusters)
-    if exclude is None:
-        excl = torch.full((qn,), -1, dtype=torch.int64, device=dev)
-    else:
-        excl = torch.as_tensor(exclude, device=dev).long().reshape(-1).expand(qn)
-    if mask is not None:
-        mask = torch.as_tensor(mask, device=dev)
-        mask = mask if mask.dtype == torch.bool else mask > 0
+    n_candidates = probes * index.bucket_cap + index.spill.shape[0]
+    return probes, max(1, min(query_chunk or query_chunk_for(n_candidates, d), qn))
+
+
+def ivf_body(index: IVFIndex, queries: torch.Tensor, k: int, probes: int, query_chunk: int,
+             mask: torch.Tensor | None, exclude: torch.Tensor | None,
+             head: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """ivf_topk's device half, on [Q, D] queries and its inputs on the
+    index's device: no host read, and shapes set by Q, k, probes and the
+    chunk alone (ops/scan_graph.py captures it)."""
+    _check_no_tf32(index.table, "ivf_topk")
+    dev = index.table.device
+    qn = queries.shape[0]
+    excl = torch.full((qn,), -1, dtype=torch.int64, device=dev) if exclude is None else exclude
     sgn = torch.ones((), device=dev)
     if head is not None:
-        head = torch.as_tensor(head, dtype=torch.float32, device=dev).reshape(2)
         sgn = torch.where(head[0] >= 0, 1.0, -1.0)
-    n_candidates = probes * index.bucket_cap + index.spill.shape[0]
-    qc = max(1, min(query_chunk or query_chunk_for(n_candidates, d), qn))
+    qc = query_chunk
     parts = [_probe_and_rescore(index, queries[s:s + qc].float(), excl[s:s + qc], k, probes,
                                 mask, head, sgn)
              for s in range(0, qn, qc)]
-    vals = torch.cat([v for v, _ in parts])
-    ids = torch.cat([i for _, i in parts])
-    return (vals[0], ids[0]) if squeeze else (vals, ids)
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
 
 
 def _probe_and_rescore(index, q, excl, k, probes, mask, head, sgn):

@@ -72,6 +72,12 @@ def quantized_topk(
     return quantized_two_stage(packed_candidates, qt, queries, k, m, mask, exclude, head, top_r)
 
 
+def quantized_pool(k: int, n: int, m: int | None = None) -> int:
+    """The candidate pool stage 2 rescores: ``m`` (default max(4k, k + 8)
+    rows, at most n), at least k."""
+    return max(min(max(4 * k, k + 8), n) if m is None else m, k)
+
+
 def quantized_two_stage(stage1, qt, queries, k, m=None, mask=None, exclude=None, head=None,
                         top_r=None):
     """quantized_topk with the given stage 1 (packed_candidates, or
@@ -79,9 +85,7 @@ def quantized_two_stage(stage1, qt, queries, k, m=None, mask=None, exclude=None,
     if queries.dim() == 1:
         queries = queries[None, :]
     n = qt.q.shape[0]
-    if m is None:
-        m = min(max(4 * k, k + 8), n)
-    m = max(m, k)
+    m = quantized_pool(k, n, m)
     top_r = top_r_policy(k, n, top_r)
     q_int, q_scale = _quantize(queries.float())
     keys = stage1(qt.q, q_int.contiguous(), top_r, mask=mask, exclude=exclude, head=head,

@@ -1,0 +1,132 @@
+"""One retrieval request as one CUDA graph replay.
+
+Counterpart of the JAX package's jitted ``_dispatch_topk`` (and of its
+jitted ``quantized_topk`` and ``ivf_topk``): there a request's shuffle
+translation, scan, rescore and unpermute compile into one program, traced
+once per signature. Here a request on a CUDA table is split
+(ops/topk.stage_request) into a host half (checks, the policy's depths and
+pools, masks and exclusions from numpy) and a body that reads only device
+tensors (ops/topk.scan_body). A ScanGraphs cache captures the body once per
+signature (ScanRequest.key: the table's tensors by address, its flavour, Q,
+k, which of mask, exclude and head are given, exact_scan, top_r, m,
+probes) and then serves the signature as one replay: the request's inputs
+are copied into the graph's static buffers, the graph replays, and the
+caller gets its own copies of the outputs.
+
+Policy, per cache: a signature's first call runs the body eagerly (the same
+kernels), its second captures it (utils/graphs.CapturedGraph: a warm-up on
+a side stream, then the capture), every later call replays it. So a
+signature seen once pays no capture (model_recs_batch asks for k = n_recs +
+the most any of its users watched, which varies per request). At most
+``capacity`` graphs are kept, least recently used first out, and with each
+its memory pool; ``capacity=0`` keeps none and runs every call eagerly (the
+plain version the card compares against: EAGER). A RecContext owns one
+cache for its tables (RecContext.scan_graphs, freed with it or by
+release_graphs()); callers that pass no cache share DEFAULT.
+
+Threads (the HTTP server answers on many): every scan on a card runs under
+one process-wide lock, from the first copy into a graph's buffers to the
+copies of its outputs, so two requests never interleave on one graph's
+buffers; the eager body and the capture run under it too, so a capture's
+recorded launch counts (ops/_kernels.recording, process-wide) hold its own
+launches only, and two captures never share the side stream. Requests are
+served on the caller's current stream (PyTorch's default stream, the same
+for every thread), so a replay's copies are ordered after the previous
+request's. The host staging before the lock and the caller's reads after it
+run concurrently. A capture or replay that fails raises: no path drops to
+the eager body on the card to hide it.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+
+import torch
+
+from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, lru_get
+
+SCAN_GRAPH_CACHE = 32   # graphs a cache keeps, most recently used; each holds a memory pool
+_SEEN_PER_GRAPH = 4     # signatures seen once that a cache remembers, per graph it keeps
+
+_LOCK = threading.RLock()
+
+
+class ScanGraphs:
+    """The captured scans of one owner, by signature (module docstring).
+
+    ``hits`` counts the calls served by a replay, ``misses`` the others
+    (first calls, run eagerly, and captures), ``captures`` the graphs
+    captured, ``seconds`` their warm-up, capture and instantiation seconds
+    summed."""
+
+    def __init__(self, capacity: int = SCAN_GRAPH_CACHE):
+        self.capacity = capacity
+        self._graphs: OrderedDict[tuple, CapturedGraph] = OrderedDict()
+        self._seen: OrderedDict[tuple, None] = OrderedDict()
+        self.hits = self.misses = self.captures = 0
+        self.seconds = {"warm_up": 0.0, "capture": 0.0, "instantiate": 0.0}
+
+    def run(self, key: tuple, body, inputs: dict, device: torch.device) -> tuple:
+        """``body(**tensors)`` for the request ``inputs`` (name -> tensor or
+        None; host tensors are copied to ``device``): a replay of the
+        graph of ``key``, a capture of it, or the eager body (module
+        docstring). Returns tensors the caller owns."""
+        host = {name: v for name, v in inputs.items() if v is not None}
+        with _LOCK:
+            graph = self._graphs.get(key)
+            if graph is not None:
+                self._graphs.move_to_end(key)
+                self.hits += 1
+                return graph.replay(host)
+            self.misses += 1
+            if key in self._seen:   # the second call: capture
+                del self._seen[key]
+                graph = lru_get(self._graphs, key,
+                                lambda: self._capture(body, inputs, device), self.capacity)
+                return graph.replay(host)
+            if self.capacity:
+                self._seen[key] = None
+                while len(self._seen) > _SEEN_PER_GRAPH * self.capacity:
+                    self._seen.popitem(last=False)
+            return body(**{name: None if v is None else v.to(device)
+                           for name, v in inputs.items()})
+
+    def _capture(self, body, inputs: dict, device: torch.device) -> CapturedGraph:
+        """A graph of ``body`` on static buffers shaped as ``inputs``
+        (filled with them, so the warm-up reads valid rows)."""
+        buffers = {name: torch.empty_like(v, device=device).copy_(v)
+                   for name, v in inputs.items() if v is not None}
+        args = {name: buffers.get(name) for name in inputs}
+        graph = CapturedGraph(lambda: body(**args), lambda: body(**args), buffers, device)
+        self.captures += 1
+        for name, s in graph.seconds.items():
+            self.seconds[name] += s
+        return graph
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def report(self) -> dict:
+        """Graphs held, hits, misses, captures, their seconds, and the MB of
+        each held graph's memory pool."""
+        return {"graphs": len(self._graphs), "hits": self.hits, "misses": self.misses,
+                "captures": self.captures, **{f"{k}_s": v for k, v in self.seconds.items()},
+                "pool_mb": [g.pool_bytes / 2**20 for g in self._graphs.values()]}
+
+    def release(self) -> None:
+        """Drop every graph (and its memory pool) and every signature seen."""
+        with _LOCK:
+            self._graphs.clear()
+            self._seen.clear()
+
+
+# Callers that pass no cache (ops/topk.cosine_topk, ops/scoring.score_topk)
+# share DEFAULT; EAGER keeps no graph (the eager body on every call).
+DEFAULT = ScanGraphs()
+EAGER = ScanGraphs(0)
+
+
+def release_graphs() -> None:
+    """Drop DEFAULT's graphs and their memory pools."""
+    DEFAULT.release()

@@ -50,11 +50,14 @@ def score_topk(
     top_r: int | None = None,
     m: int | None = None,
     probes: int | None = None,
+    graphs=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused predict-all + mask + top-k: (ratings [Qn, k], anime rows). The
-    keywords are ops/topk._dispatch_topk's."""
+    keywords are ops/topk._dispatch_topk's: on a CUDA table one request is
+    one replay of its scan graph, the head a device tensor among its
+    inputs."""
     if user_rows_normalized.dim() == 1:
         user_rows_normalized = user_rows_normalized[None, :]
     return _dispatch_topk(anime_table_normalized, user_rows_normalized, mask,
                           exclude, head, k=k, exact_scan=exact_scan, top_r=top_r, m=m,
-                          probes=probes)
+                          probes=probes, graphs=graphs)

@@ -476,8 +476,175 @@ def shuffle_rows(table: torch.Tensor, seed: int = 0) -> ShuffledTable:
     return ShuffledTable(table=table[perm].contiguous(), perm=perm, inv=inv)
 
 
+class ScanRequest(NamedTuple):
+    """The static half of one retrieval request, what JAX's jit of
+    _dispatch_topk keys on: the table (its flavour and its tensors) and the
+    depths and pools the policy chose on the host (stage_request). With
+    the request's shapes it fixes every shape scan_body makes."""
+
+    table: object             # tensor | QuantizedTable | ShuffledTable of either | IVFIndex
+    k: int
+    exact_scan: bool
+    top_r: int | None         # stage-1 depth (two-stage scans)
+    m: int | None             # the int8 candidate pool (QuantizedTable)
+    probes: int | None        # clusters probed (IVFIndex)
+    query_chunk: int | None   # IVF queries per chunk
+
+    @property
+    def device(self) -> torch.device:
+        return _table_tensors(self.table)[0].device
+
+    def key(self, inputs: dict) -> tuple:
+        """The scan-graph key of this request with ``inputs``
+        (ops/scan_graph.py): the table's flavour and its tensors by address,
+        shape, strides and dtype, the static numbers, and each input's
+        shape and dtype (None where absent)."""
+        from anime_recommendations_tpu_torch.utils.graphs import layout
+
+        return (_flavour(self.table), layout(_table_tensors(self.table)),
+                self[1:], tuple((name, None if v is None else (tuple(v.shape), v.dtype))
+                                for name, v in inputs.items()))
+
+
+def _flavour(table) -> tuple:
+    inner = table.table if isinstance(table, ShuffledTable) else table
+    return type(table).__name__, type(inner).__name__
+
+
+def _table_tensors(table) -> list[torch.Tensor]:
+    """Every tensor a scan of ``table`` reads in place."""
+    from anime_recommendations_tpu_torch.ops.ivf import IVFIndex
+    from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable
+
+    if isinstance(table, ShuffledTable):
+        return _table_tensors(table.table) + [table.perm, table.inv]
+    if isinstance(table, QuantizedTable):
+        return [table.q, table.scale, table.f32]
+    if isinstance(table, IVFIndex):
+        return [t for t in table if t is not None]
+    if isinstance(table, torch.Tensor):
+        return [table]
+    raise TypeError(f"unsupported retrieval table {type(table).__name__}")
+
+
+def stage_request(
+    table,                       # tensor | QuantizedTable | ShuffledTable of either | IVFIndex
+    queries: torch.Tensor,       # [Qn, D] float, on the table's device
+    mask,                        # [N] bool (nonzero keeps; array or tensor) or None
+    exclude,                     # [Qn] int (array or tensor) or None
+    head,                        # [2] (alpha, beta) or None
+    *,
+    k: int,
+    exact_scan: bool = False,
+    top_r: int | None = None,
+    m: int | None = None,
+    probes: int | None = None,
+) -> tuple[ScanRequest, dict]:
+    """The host half of _dispatch_topk: check the inputs, choose the
+    depths and pools, and convert mask, exclude and head to tensors (host
+    arrays become host tensors; tensors keep their device). Returns the
+    request and its inputs {"queries", "mask", "exclude", "head"} for
+    scan_body, None where absent."""
+    from anime_recommendations_tpu_torch.ops.ivf import IVFIndex, ivf_plan
+    from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable, quantized_pool
+
+    inner = table.table if isinstance(table, ShuffledTable) else table
+    rows = table.table if isinstance(table, IVFIndex) else _table_tensors(table)[0]
+    n, dev = rows.shape[0], rows.device
+    if queries.dim() != 2 or queries.device != dev:
+        raise ValueError(f"queries must be [Q, D] on the table's device {dev}, "
+                         f"got {tuple(queries.shape)} on {queries.device}")
+    qn = queries.shape[0]
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if isinstance(inner, QuantizedTable) and exact_scan:
+        raise ValueError("exact_scan is a float-table mode; quantized retrieval "
+                         "always exact-rescores its candidate pool instead")
+    mask, exclude, head = request_inputs(n, qn, mask, exclude, head,
+                                         shared_exclude=isinstance(table, IVFIndex))
+    if isinstance(table, IVFIndex):
+        if exact_scan:
+            request = ScanRequest(table, k, True, None, None, None, None)
+        else:
+            probes, chunk = ivf_plan(table, qn, queries.shape[1],
+                                     table.n_clusters if probes is None else probes)
+            request = ScanRequest(table, k, False, None, None, probes, chunk)
+    elif isinstance(inner, QuantizedTable):
+        request = ScanRequest(table, k, False, top_r_policy(k, n, top_r),
+                              quantized_pool(k, n, m), None, None)
+    else:
+        request = ScanRequest(table, k, exact_scan,
+                              None if exact_scan else top_r_policy(k, n, top_r),
+                              None, None, None)
+    return request, {"queries": queries, "mask": mask, "exclude": exclude, "head": head}
+
+
+def request_inputs(n: int, qn: int, mask, exclude, head, *,
+                   shared_exclude: bool = False) -> tuple:
+    """A request's mask ([N] bool; nonzero keeps), exclude ([Q] int64) and
+    head ([2] f32, alpha and beta) as tensors, None where absent: host
+    arrays become host tensors, tensors keep their device.
+    ``shared_exclude``: one id may stand for every query's (ivf_topk's
+    contract)."""
+    if mask is not None:
+        mask = torch.as_tensor(mask)
+        mask = mask if mask.dtype == torch.bool else mask > 0
+        if mask.shape != (n,):
+            raise ValueError(f"mask must be [N] = [{n}], got {tuple(mask.shape)}")
+    if exclude is not None:
+        exclude = torch.as_tensor(exclude).long()
+        if shared_exclude:
+            exclude = exclude.reshape(-1).expand(qn).contiguous()
+        if exclude.shape != (qn,):
+            raise ValueError(f"exclude must be [Q] = [{qn}], got {tuple(exclude.shape)}")
+    if head is not None:
+        head = torch.as_tensor(head, dtype=torch.float32)
+        if head.numel() != 2:
+            raise ValueError("head must hold 2 values (alpha, beta)")
+        head = head.reshape(2)
+    return mask, exclude, head
+
+
+def scan_body(request: ScanRequest, queries: torch.Tensor, mask: torch.Tensor | None,
+              exclude: torch.Tensor | None, head: torch.Tensor | None,
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device half of _dispatch_topk: the ShuffledTable translation,
+    the scan (stage 1 and the pool's rescore, the exact scan, or IVF's
+    probes and rescore) and the unpermute, on inputs on the table's
+    device. It reads nothing on the host and makes no shape that depends
+    on the data, so a CUDA graph can hold it (ops/scan_graph.py)."""
+    from anime_recommendations_tpu_torch.ops.ivf import IVFIndex, ivf_body
+    from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable, quantized_two_stage
+
+    table, k = request.table, request.k
+    if isinstance(table, IVFIndex):
+        if request.exact_scan:
+            return _exact_scan_topk(table.table, queries.to(table.table.dtype).contiguous(), k,
+                                    mask=mask, exclude=exclude, head=head)
+        return ivf_body(table, queries, k, request.probes, request.query_chunk, mask, exclude,
+                        head)
+
+    def scan(t, mask, exclude):
+        if isinstance(t, QuantizedTable):
+            return quantized_two_stage(packed_candidates, t, queries, k, request.m, mask,
+                                       exclude, head, request.top_r)
+        return masked_topk(t, queries, k, mask=mask, exclude=exclude, head=head,
+                           top_r=request.top_r, exact_scan=request.exact_scan)
+
+    if not isinstance(table, ShuffledTable):
+        return scan(table, mask, exclude)
+    n = table.perm.shape[0]
+    mask_p = None if mask is None else mask[table.perm]
+    excl_p = None
+    if exclude is not None:
+        excl_p = torch.where(exclude >= 0, table.inv[exclude.clamp(0, n - 1)], -1)
+    vals, idx_p = scan(table.table, mask_p, excl_p)
+    idx = torch.where(idx_p >= 0, table.perm[idx_p.clamp(0, n - 1)], idx_p)
+    return vals, idx
+
+
 def _dispatch_topk(
-    table,                       # tensor | QuantizedTable | ShuffledTable of either
+    table,                       # tensor | QuantizedTable | ShuffledTable of either | IVFIndex
     queries: torch.Tensor,       # [Qn, D] float
     mask,                        # [N] bool (array or tensor) or None
     exclude,                     # [Qn] int (array or tensor) or None
@@ -488,6 +655,7 @@ def _dispatch_topk(
     top_r: int | None = None,
     m: int | None = None,
     probes: int | None = None,
+    graphs=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One entry for every retrieval flavour: a float table, an int8
     QuantizedTable (ops/quantized.quantized_topk; ``m`` is its pool), a
@@ -495,51 +663,23 @@ def _dispatch_topk(
     translated across its permutation, or an IVFIndex (ops/ivf.ivf_topk
     over its top ``probes`` clusters, None: every cluster; with
     ``exact_scan`` the exact scan of its table). Masks and exclusions may be
-    numpy arrays. ``exact_scan`` is a float-table mode."""
-    from anime_recommendations_tpu_torch.ops.ivf import IVFIndex, ivf_topk
-    from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable, quantized_topk
+    numpy arrays. ``exact_scan`` is a float-table mode.
 
-    inner = table.table if isinstance(table, ShuffledTable) else table
-    if isinstance(inner, QuantizedTable):
-        if exact_scan:
-            raise ValueError("exact_scan is a float-table mode; quantized retrieval "
-                             "always exact-rescores its candidate pool instead")
-        dev = inner.q.device
-    elif isinstance(inner, IVFIndex):
-        dev = inner.table.device
-    elif isinstance(inner, torch.Tensor):
-        dev = inner.device
-    else:
-        raise TypeError(f"unsupported retrieval table {type(table).__name__}")
-    if mask is not None:
-        mask = torch.as_tensor(mask, device=dev)
-        mask = mask if mask.dtype == torch.bool else mask > 0
-    if exclude is not None:
-        exclude = torch.as_tensor(exclude, device=dev).long()
-    if isinstance(table, IVFIndex):
-        if exact_scan:
-            return masked_topk(table.table, queries, k, mask=mask, exclude=exclude, head=head,
-                               exact_scan=True)
-        return ivf_topk(table, queries, k, probes=table.n_clusters if probes is None else probes,
-                        mask=mask, exclude=exclude, head=head)
+    stage_request does the host half; scan_body the device half. On a CUDA
+    table the body runs through ``graphs`` (an ops/scan_graph.ScanGraphs;
+    None: scan_graph.DEFAULT, scan_graph.EAGER: the eager body), one graph
+    replay per request once its signature is captured; elsewhere it runs
+    eagerly."""
+    from anime_recommendations_tpu_torch.ops import scan_graph
 
-    def scan(t, mask, exclude):
-        if isinstance(t, QuantizedTable):
-            return quantized_topk(t, queries, k, m=m, mask=mask, exclude=exclude,
-                                  head=head, top_r=top_r)
-        return masked_topk(t, queries, k, mask=mask, exclude=exclude, head=head,
-                           top_r=top_r, exact_scan=exact_scan)
-
-    if not isinstance(table, ShuffledTable):
-        return scan(inner, mask, exclude)
-    n = table.perm.shape[0]
-    mask_p = None if mask is None else mask[table.perm]
-    excl_p = None
-    if exclude is not None:
-        excl_p = torch.where(exclude >= 0, table.inv[exclude.clamp(0, n - 1)], -1)
-    vals, idx_p = scan(inner, mask_p, excl_p)
-    idx = torch.where(idx_p >= 0, table.perm[idx_p.clamp(0, n - 1)], idx_p)
-    return vals, idx
+    request, inputs = stage_request(table, queries, mask, exclude, head, k=k,
+                                    exact_scan=exact_scan, top_r=top_r, m=m, probes=probes)
+    dev = request.device
+    if dev.type != "cuda":
+        return scan_body(request, **{name: None if v is None else v.to(dev)
+                                     for name, v in inputs.items()})
+    graphs = scan_graph.DEFAULT if graphs is None else graphs
+    return graphs.run(request.key(inputs), functools.partial(scan_body, request), inputs, dev)
 
 
 def cosine_topk(
@@ -553,6 +693,7 @@ def cosine_topk(
     top_r: int | None = None,
     m: int | None = None,
     probes: int | None = None,
+    graphs=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k cosine similarity of query rows against a row-normalized table
     (a tensor, a QuantizedTable, a ShuffledTable of either, or an IVFIndex);
@@ -560,4 +701,5 @@ def cosine_topk(
     if query_rows.dim() == 1:
         query_rows = query_rows[None, :]
     return _dispatch_topk(table_normalized, query_rows, mask, exclude, None, k=k,
-                          exact_scan=exact_scan, top_r=top_r, m=m, probes=probes)
+                          exact_scan=exact_scan, top_r=top_r, m=m, probes=probes,
+                          graphs=graphs)

@@ -22,6 +22,7 @@ JSON line.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
@@ -56,6 +57,25 @@ def initialize(device: str = "cuda", init_method: str | None = None,
     logger.info("torch.distributed initialized: rank %d/%d, backend %s", rank, world_size,
                 dist.get_backend())
     return True
+
+
+def shutdown() -> None:
+    """Destroy the default process group (if one is initialized), and with
+    it every group, then collect garbage.
+
+    The destroy drops torch's references to the groups; a group ends, and
+    gloo joins its worker threads, when the port's last reference to it
+    goes. A reference that only garbage in a reference cycle holds waits
+    for the collector: a frame object that outlives its call (one in a
+    caught exception's traceback, as importing matplotlib leaves behind)
+    holds its callers' frames, so a cycle made anywhere under a training
+    step keeps the step's trainer and its groups. Left to the collector's
+    timing, the groups' threads may still run when the interpreter
+    finalizes (parallel.mesh says how that aborts a rank); the collection
+    here ends them while it runs."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
 
 
 def host_batch_slice(global_batch: int, world=None, routing: str = "alltoall") -> slice:
@@ -335,8 +355,7 @@ def main(argv=None) -> None:
             out = worker_step(args.data_axis, args.model_axis, batch=args.batch,
                               steps=args.steps, optimizer=args.optimizer, device=args.device)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()
     print(json.dumps(out), flush=True)
 
 

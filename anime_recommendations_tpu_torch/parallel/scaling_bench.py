@@ -119,7 +119,7 @@ def _worker(args) -> None:
     """One rank of a launch: measure its mesh, rank 0 prints the result."""
     import torch.distributed as dist
 
-    from anime_recommendations_tpu_torch.parallel.distributed import initialize
+    from anime_recommendations_tpu_torch.parallel.distributed import initialize, shutdown
 
     initialize(args.device)
     try:
@@ -128,7 +128,7 @@ def _worker(args) -> None:
                            routing=args.routing, optimizer=args.optimizer, device=args.device)
         rank = dist.get_rank()
     finally:
-        dist.destroy_process_group()
+        shutdown()
     if rank == 0:
         print(json.dumps(res), flush=True)
 

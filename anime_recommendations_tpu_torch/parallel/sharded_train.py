@@ -104,6 +104,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
     _keep_bn,
     step_row,
 )
+from anime_recommendations_tpu_torch.utils import graphs
 
 OPTIMIZERS = ("adam", "lazy_adam", "fused_adam")
 
@@ -778,7 +779,7 @@ def _batches_tensors(b: Batches | None) -> list[torch.Tensor]:
 
 
 def epoch_graph(step: ShardedTrainStep, state: TrainState, train: Batches | None,
-                evals: Batches | None = None, shuffle: bool = False) -> dl.EpochGraph:
+                evals: Batches | None = None, shuffle: bool = False) -> graphs.CapturedGraph:
     """The CUDA graph of epoch_body on these tensors, from the cache
     (train/device_loop.cached_graph) or captured now. Its static buffers:
     "table" [nb, 4], the steps' scalars, and with ``shuffle`` "order" [nb],
@@ -790,7 +791,7 @@ def epoch_graph(step: ShardedTrainStep, state: TrainState, train: Batches | None
            step.routing, step.optimizer, step.shard_anime,
            step.l2, step.capacity, shuffle,
            None if train is None else train.rounds, None if evals is None else evals.rounds,
-           dl._layout(_read_state(state, train) + _batches_tensors(train)
+           graphs.layout(_read_state(state, train) + _batches_tensors(train)
                       + _batches_tensors(evals)))
 
     def build():
@@ -816,7 +817,7 @@ def epoch_graph(step: ShardedTrainStep, state: TrainState, train: Batches | None
         n_eval = 0 if evals is None else evals.n
         # Evaluation writes nothing: without steps it warms up on the model.
         warm = state if train is None else dl._copy_state(state)
-        return dl.EpochGraph(lambda: body(state, n_train, n_eval),
+        return graphs.CapturedGraph(lambda: body(state, n_train, n_eval),
                              lambda: body(warm, min(n_train, 2), min(n_eval, 1)),
                              buffers, dev)
 

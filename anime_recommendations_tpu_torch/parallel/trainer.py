@@ -71,6 +71,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
     train_state_from_numpy,
     train_state_to_numpy,
 )
+from anime_recommendations_tpu_torch.utils import graphs
 
 def init_placed_state(world, n_users: int, n_anime: int, embedding_size: int,
                       generator: torch.Generator, bf16_moments: bool = False,
@@ -303,12 +304,12 @@ class ShardedTrainer(Trainer):
         return cols, wsums, plans
 
     def _prep_graph(self, data: dl.DeviceData, batch_size: int, table_rows: tuple,
-                    shuffle: bool) -> dl.EpochGraph:
+                    shuffle: bool) -> graphs.CapturedGraph:
         """The CUDA graph of _prep_body on ``data``, its "perm" buffer the
         granule permutation (with ``shuffle``)."""
         step = self._step
         key = ("sharded_prep", st._group_key(step), step.routing, step.optimizer,
-               step.capacity, batch_size, table_rows, shuffle, dl._layout(list(data)))
+               step.capacity, batch_size, table_rows, shuffle, graphs.layout(list(data)))
 
         def build():
             buffers = {}
@@ -318,7 +319,7 @@ class ShardedTrainer(Trainer):
             def prep():
                 return self._prep_body(data, batch_size, table_rows, buffers.get("perm"))
 
-            return dl.EpochGraph(prep, prep, buffers, self.device)
+            return graphs.CapturedGraph(prep, prep, buffers, self.device)
 
         return dl.cached_graph(key, build)
 

@@ -45,6 +45,7 @@ def similar_anime_batch(
         k=min(count, ctx.vocab.n_anime),
         mask=mask,
         exclude=q_idx,
+        graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()
@@ -93,6 +94,7 @@ def model_recs_batch(
         ctx.head,
         k=k,
         mask=shared,
+        graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()
@@ -137,6 +139,7 @@ def similar_users_batch(
         _rows(ctx.user_norm, q_idx),
         k=min(n_users, ctx.vocab.n_users),
         exclude=q_idx,
+        graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()

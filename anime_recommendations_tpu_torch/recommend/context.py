@@ -21,6 +21,7 @@ from anime_recommendations_tpu_torch.data.vocab import Vocab
 from anime_recommendations_tpu_torch.models.two_tower import TwoTower
 from anime_recommendations_tpu_torch.ops.ivf import IVFIndex
 from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable
+from anime_recommendations_tpu_torch.ops.scan_graph import ScanGraphs
 from anime_recommendations_tpu_torch.ops.topk import ShuffledTable
 from anime_recommendations_tpu_torch.recommend.tables import build_tables
 
@@ -42,6 +43,11 @@ class RecContext:
     # Keywords merged into every cosine_topk/score_topk call the recommenders
     # make, e.g. {"exact_scan": True}, or an IVF context's {"probes": 16}.
     topk_kwargs: dict = field(default_factory=dict)
+    # The captured scans of this context's tables (ops/scan_graph.py): on a
+    # card each recommender's scan is one graph replay once its signature
+    # is captured. They go with the context, or with release_graphs().
+    # ScanGraphs(0) scans eagerly.
+    scan_graphs: ScanGraphs = field(default_factory=ScanGraphs, repr=False)
     _vocab_anime_meta: pd.DataFrame = field(default=None, repr=False)
 
     def __post_init__(self):
@@ -94,6 +100,11 @@ class RecContext:
     @property
     def device(self) -> torch.device:
         return self.anime_norm.device
+
+    def release_graphs(self) -> None:
+        """Drop the captured scans of this context's tables and their
+        memory pools (the next scans capture them anew)."""
+        self.scan_graphs.release()
 
     # ---- retrieval-table accessors --------------------------------------------
 

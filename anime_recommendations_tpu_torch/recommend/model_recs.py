@@ -60,6 +60,7 @@ def model_recs(
         ctx.head,
         k=min(n_recs, ctx.vocab.n_anime),
         mask=mask,
+        graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()[0]

@@ -54,6 +54,7 @@ def similar_anime(
         k=min(count, ctx.vocab.n_anime),
         mask=mask,
         exclude=np.asarray([query_index]),
+        graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()[0]

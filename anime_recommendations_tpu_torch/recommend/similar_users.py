@@ -38,6 +38,7 @@ def similar_users(
         ctx.user_norm[query_index],
         k=min(n_users, ctx.vocab.n_users),
         exclude=np.asarray([query_index]),
+        graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
     vals = vals.cpu().numpy()[0]

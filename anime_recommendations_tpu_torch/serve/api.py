@@ -48,6 +48,13 @@ class Engine:
     results are LRU-cached per (user_id, k). The tables are immutable for
     the Engine's lifetime, so entries never go stale; ``cache_size=0``
     disables caching.
+
+    On a card each scan is a replay of one of the context's scan graphs
+    (ops/scan_graph.py), shared by the server's threads: its lock keeps one
+    request's copies into a graph's buffers, the replay and the copies of
+    its outputs apart from every other request's, and a capture apart from
+    every other scan. Each request gets its own outputs and reads them to
+    the host itself.
     """
 
     def __init__(self, ctx: RecContext, config: Config | None = None,

@@ -10,9 +10,9 @@ weight on the device: there is no host sync until the epoch ends.
 On the TPU an epoch is one launched program (lax.scan). On a card it is one
 CUDA graph: ``train_epoch`` and ``eval_epoch`` capture the epoch's steps at
 their first call for a state, its staged data and the run's settings, and
-replay the graph once per epoch after that (EpochGraph), so the host
-launches the epoch's ~30,000 kernels (297 steps of ~100 at full width) as
-one. What changes between epochs goes into the graph's static buffers
+replay the graph once per epoch after that (utils/graphs.CapturedGraph), so
+the host launches the epoch's ~30,000 kernels (297 steps of ~100 at full
+width) as one. What changes between epochs goes into the graph's static buffers
 before each replay: the steps' scalars, one row (lr, bc1, bc2, step) per
 step (scalar_table, from the host's Adam count and the epoch's lr), and the
 permutation of the granules, drawn on the host from the caller's generator. The
@@ -30,8 +30,6 @@ rows from the tables it just updated.
 from __future__ import annotations
 
 import copy
-import functools
-import time
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -59,6 +57,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
     dense_step,
     eval_step,
 )
+from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, layout, lru_get
 
 SHUFFLE_BLOCK = 512  # granule of the per-epoch shuffle (see stage())
 GRAPH_CACHE = 4      # epoch graphs kept, most recently used; each holds a memory pool
@@ -308,88 +307,22 @@ def eager_eval_epoch(
 
 # ---- the captured epochs -----------------------------------------------------------
 
-class EpochGraph:
-    """One captured epoch: the CUDA graph, the static buffers it reads
-    (written before each replay), the outputs it writes, and the kernel
-    launches of the port's wrappers it makes per replay.
-
-    Before the capture, ``warm_up`` runs a few steps eagerly on a side
-    stream, on a copy of the state (lazy initializations: the kernels'
-    libraries, the autograd threads, the allocator); their launches go to
-    _kernels.warmup_launches, not to _kernels.launches. Then ``fn`` is
-    captured on the same stream, with the wrappers' launch counts recorded
-    (_kernels.recording) and added to _kernels.launches at every replay. A
-    capture that fails raises; nothing falls back to the eager loop.
-    ``seconds`` holds the host time of the warm-up (to its end on the
-    card), of the capture (the body traced into the graph) and of the
-    instantiation, ``replays`` the replays so far."""
-
-    def __init__(self, fn, warm_up, buffers: dict[str, torch.Tensor], device: torch.device):
-        stream = _side_stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream), _kernels.recording() as warm:
-            warm_up()
-        torch.cuda.synchronize(device)
-        _kernels.warmup_launches.update(warm)
-        self.graph = torch.cuda.CUDAGraph()
-        t1 = time.perf_counter()
-        with _kernels.recording() as launched:
-            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
-                self.outputs = fn()
-                t2 = time.perf_counter()
-        self.seconds = {"warm_up": t1 - t0, "capture": t2 - t1,
-                        "instantiate": time.perf_counter() - t2}
-        self.launches = launched
-        self.buffers = buffers
-        self.replays = 0
-
-    def replay(self, host: dict, clone: bool = True):
-        """Copy each host array of ``host`` into its buffer (asynchronously,
-        through pinned memory), replay the graph on the current stream and
-        return copies of its outputs (with ``clone=False`` the outputs
-        themselves, which the next replay overwrites: for a graph whose
-        outputs another graph reads)."""
-        for name, value in host.items():
-            src = torch.from_numpy(value) if isinstance(value, np.ndarray) else value
-            buf = self.buffers[name]
-            buf.copy_(src.pin_memory() if buf.is_cuda else src, non_blocking=buf.is_cuda)
-        self.graph.replay()
-        self.replays += 1
-        _kernels.count_replay(self.launches)
-        return tuple(t.clone() for t in self.outputs) if clone else self.outputs
+_GRAPHS: OrderedDict[tuple, CapturedGraph] = OrderedDict()
 
 
-_GRAPHS: OrderedDict[tuple, EpochGraph] = OrderedDict()
-
-
-def cached_graph(key: tuple, build) -> EpochGraph:
+def cached_graph(key: tuple, build) -> CapturedGraph:
     """The graph of ``key``, built by ``build()`` on a miss; the GRAPH_CACHE
     most recently used are kept. A key holds every pointer the graph
     captured outside its own buffers and pool (the state's and the data's
-    tensors, by address, shape, strides and dtype), so a hit replays on the
-    same memory: a state restored in place keeps its graph, a state whose
-    tensors moved gets a new one."""
-    graph = _GRAPHS.pop(key, None) or build()
-    _GRAPHS[key] = graph
-    while len(_GRAPHS) > GRAPH_CACHE:
-        _GRAPHS.popitem(last=False)
-    return graph
+    tensors, by address, shape, strides and dtype: utils/graphs.layout), so
+    a hit replays on the same memory: a state restored in place keeps its
+    graph, a state whose tensors moved gets a new one."""
+    return lru_get(_GRAPHS, key, build, GRAPH_CACHE)
 
 
 def release_graphs() -> None:
     """Drop every cached epoch graph and the memory pools they hold."""
     _GRAPHS.clear()
-
-
-@functools.cache
-def _side_stream(device: torch.device) -> torch.cuda.Stream:
-    return torch.cuda.Stream(device)
-
-
-def _layout(tensors) -> tuple:
-    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.requires_grad)
-                 for t in tensors)
 
 
 def _model_tensors(model: TwoTower) -> list[torch.Tensor]:
@@ -411,11 +344,11 @@ def _copy_state(state: TrainState) -> TrainState:
 
 def train_graph(state: TrainState, data: DeviceData, batch_size: int, l2_reg_factor: float,
                 shuffle: bool = True, sorted_scatter: bool | str = False,
-                optimizer: str = "adam") -> EpochGraph:
+                optimizer: str = "adam") -> CapturedGraph:
     """The training graph train_epoch replays for these arguments, from the
     cache or captured now."""
     key = ("train", optimizer, batch_size, float(l2_reg_factor), shuffle, sorted_scatter,
-           _layout(_state_tensors(state) + list(data)))
+           layout(_state_tensors(state) + list(data)))
 
     def build():
         nb = data.n // batch_size
@@ -431,20 +364,20 @@ def train_graph(state: TrainState, data: DeviceData, batch_size: int, l2_reg_fac
             return _epoch_body(st, d, buffers["table"][:steps], batch_size, l2_reg_factor,
                                optimizer, sorted_scatter)
 
-        return EpochGraph(lambda: body(state, nb),
+        return CapturedGraph(lambda: body(state, nb),
                           lambda: body(_copy_state(state), min(nb, 2)), buffers, dev)
 
     return cached_graph(key, build)
 
 
-def _eval_graph(model, bn_state, data, batch_size, l2_reg_factor) -> EpochGraph:
+def _eval_graph(model, bn_state, data, batch_size, l2_reg_factor) -> CapturedGraph:
     key = ("eval", batch_size, float(l2_reg_factor),
-           _layout(_model_tensors(model) + list(bn_state) + list(data)))
+           layout(_model_tensors(model) + list(bn_state) + list(data)))
 
     def build():
         # Evaluation writes nothing: the warm-up runs one batch on the model.
         one = DeviceData(*(x[:batch_size] for x in data))
-        return EpochGraph(
+        return CapturedGraph(
             lambda: eager_eval_epoch(model, bn_state, data, batch_size, l2_reg_factor),
             lambda: eager_eval_epoch(model, bn_state, one, batch_size, l2_reg_factor),
             {}, data.users.device)

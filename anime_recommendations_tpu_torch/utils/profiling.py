@@ -94,6 +94,10 @@ def device_memory_stats() -> list[dict]:
 # opens and closes every profiler session: see profiled.
 FRAME_CYCLES = 20_000_000
 PROFILER_SESSIONS = 5
+# The CUDA API calls (cuda* and cu*) that put work on a stream: profiled
+# counts them per call (host_launches; a graph replay is one).
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def _require_cuda(what: str) -> None:
@@ -126,7 +130,9 @@ def profiled(fn, reps: int = 20, match=None) -> dict:
     """torch.profiler over ``reps`` calls of fn after 3 warm-up calls: wall ms
     per call (host clock to a synchronize), device-busy ms per call, the idle
     share, device ms per call by kernel, the sessions it took and the launch
-    records they lost, and (``match``, a name or a tuple of names) the device
+    records they lost, the host's calls per call that put work on a stream
+    (host_launches: LAUNCH_CALLS) and the kernels and copies the device ran
+    per call (device_ops), and (``match``, a name or a tuple of names) the device
     ms per call of the kernels whose names hold one of them (fn launches each
     once a call), their sum and their records. Needs a CUDA card.
 
@@ -157,7 +163,8 @@ def profiled(fn, reps: int = 20, match=None) -> dict:
             wall = (time.perf_counter() - t0) * 1e3 / reps
             torch.cuda._sleep(FRAME_CYCLES)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
+        averages = prof.key_averages()
+        events = [e for e in averages
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
         hits = [e for e in events if any(m in e.key for m in names)]
@@ -180,9 +187,12 @@ def profiled(fn, reps: int = 20, match=None) -> dict:
               f"{ {e.key[:60]: e.count for e in events} }", flush=True)
     busy = sum(per_call.values())
     top = sorted(per_call.items(), key=lambda kv: kv[1], reverse=True)
+    # The two framing busy-waits are two of the launches.
+    calls = sum(e.count for e in averages if e.key in LAUNCH_CALLS) - 2
     out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
            "by_kernel": {k[:70]: v for k, v in top[:8]}, "sessions": session,
-           "records_lost": lost}
+           "records_lost": lost, "host_launches": calls / reps,
+           "device_ops": sum(round(e.count / reps) for e in events)}
     if names:
         out["match_ms"] = sum(per_call[e.key] for e in hits)
         out["match_launches"] = sum(e.count for e in hits)

@@ -43,11 +43,16 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            f32 context whose scans are exact), and every endpoint of the
            HTTP server answered by each and checked against a dense oracle
            on the card. Launch counters are reset before this phase: every
-           scanning endpoint must launch its context's scan kernel
+           scanning request must launch its context's scan kernel once
            (packed_topk or packed_topk_mma, packed_topk_int8 or
-           packed_topk_int8_mma, exact_topk; each of them at least once),
-           and every context
-           build l2_normalize twice (the anime and the user table).
+           packed_topk_int8_mma, exact_topk; each of them at least once in
+           the phase), counted per replay, and every scanning endpoint must
+           be served by a replay of its context's scan graph
+           (ops/scan_graph.py; a batch request is sent three times: eager,
+           captured, replayed); every context build launches l2_normalize
+           twice (the anime and the user table). Each context's graphs
+           held, hits, misses, captures, their seconds and pool MB are
+           printed, and the graphs released with the context.
   phase 4  the fused sparse-Adam kernel (K1: its first pass over tiles of
            sorted positions, fused_adam_tiles_kernel, then the update) and its
            variant that also gathers the next batch's rows (K5: the first
@@ -250,6 +255,28 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            launches per replay (2 x steps for the fused optimizers, and the
            counters' totals those of the eager loop), and the host's cost of
            a step row and of an epoch's scalar table.
+  phase 14 captured scans (right after phase 3): one retrieval request as
+           one CUDA graph replay (ops/scan_graph.py), at full width (91,641
+           x 128 users, 17,560 x 128 anime: phase 3's model, seed 7),
+           every flavour a context serves: f32 and bf16 (both K2 branches),
+           int8 (both K2q branches), the exact scan (K3), IVF with f32 and
+           int8 storage at 8 probes and probing every cluster; four
+           requests (a bare user scan; similar users, with exclude; similar
+           anime, with mask and exclude; model recs, with head and mask) at
+           Q = 1, 2, 64, 256 and k = 10, 50. Each request: the eager body
+           (scan_graph.EAGER), then a cache's first call (eager), its capture
+           and a replay, each bit for bit the eager body's. For the similar
+           users and model recs requests at k = 10, per flavour and Q, eager
+           against replayed: host ms per scan (a synchronize on both sides,
+           median of 10 taken in turns), the host's launches and the
+           device's kernels per scan and device-busy ms and idle share
+           (utils/profiling.profiled); per request kind, the captures'
+           seconds and pool MB. Then a fresh f32 context's HTTP server
+           answers 8 threads of mixed requests to every endpoint while its
+           first captures happen, each answer equal to an eager context's
+           (RecContext.scan_graphs = ScanGraphs(0)) on the same store, and
+           each endpoint's median and p90 latency over 100 requests through
+           both servers, taken in turns, with the share a replay served.
 
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
@@ -847,18 +874,25 @@ def _train_split():
                                shuffle_seed=mc.vocab_shuffle_seed)
 
 
-def _write_store(root: Path) -> None:
-    """A run directory in the JAX pipeline's artifact-store layout, holding
-    what its ingest, preprocess and train steps write."""
-    clean, vocab, catalog, synopses = _dataset()
+def _model_arrays() -> dict:
+    """The served model's parameters, from SEED, at _dataset()'s vocab sizes
+    (the JAX package's .npz keys)."""
+    _, vocab, _, _ = _dataset()
     rng = np.random.default_rng(SEED)
-    arrays = {
+    return {
         "user_emb": rng.uniform(-0.05, 0.05, (vocab.n_users, D)).astype(np.float32),
         "anime_emb": rng.uniform(-0.05, 0.05, (vocab.n_anime, D)).astype(np.float32),
         "dense_w": np.float32(1.7), "dense_b": np.float32(-0.3),
         "bn_gamma": np.float32(0.9), "bn_beta": np.float32(0.2),
         "moving_mean": np.float32(0.1), "moving_var": np.float32(1.4),
     }
+
+
+def _write_store(root: Path) -> None:
+    """A run directory in the JAX pipeline's artifact-store layout, holding
+    what its ingest, preprocess and train steps write."""
+    clean, vocab, catalog, synopses = _dataset()
+    arrays = _model_arrays()
 
     def version_dir(name):
         d = root / name / "v0"
@@ -897,11 +931,18 @@ def _close(name, got, want, ids_got, ids_want):
         raise AssertionError(f"{name}: result set differs from the oracle")
 
 
+SCANNING = ("similar_anime", "similar_users", "user_recs", "model_recs", "similar_anime_batch",
+            "model_recs_batch", "similar_users_batch")
+BATCH_REPEATS = 3   # a batch request's first call scans eagerly, its second captures
+
+
 def _drive_endpoints(ctx, cfg, label, kernels=K2_COUNTERS) -> dict:
     """Every endpoint through the HTTP server, checked against the oracle;
-    each scanning endpoint must launch one of ``kernels`` (launch counter
-    names). Returns per-endpoint median latency (ms, host clock around the
-    request)."""
+    each scanning request must launch exactly one of ``kernels`` (launch
+    counter names) once, and each scanning endpoint must be served by a
+    replay of its scan graph (ctx.scan_graphs) at least once: a batch
+    request is sent BATCH_REPEATS times, each answer the first's. Returns
+    per-endpoint median latency (ms, host clock around the request)."""
     from anime_recommendations_tpu_torch.ops import _kernels
     from anime_recommendations_tpu_torch.recommend.user_recs import user_recs
     from anime_recommendations_tpu_torch.serve.api import make_server
@@ -911,19 +952,32 @@ def _drive_endpoints(ctx, cfg, label, kernels=K2_COUNTERS) -> dict:
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     latency: dict[str, list[float]] = {}
+    replayed: dict[str, int] = {}
 
     def get(endpoint, scans=True, **params):
         url = f"{base}/{endpoint}?{urllib.parse.urlencode(params)}"
         before = sum(_kernels.launches[c] for c in kernels)
+        hits = ctx.scan_graphs.hits
         t0 = time.perf_counter()
         with urllib.request.urlopen(url, timeout=120) as resp:
             body = json.loads(resp.read())
         latency.setdefault(endpoint, []).append((time.perf_counter() - t0) * 1e3)
-        if scans and sum(_kernels.launches[c] for c in kernels) <= before:
-            raise AssertionError(f"{label} /{endpoint}: none of {kernels} was launched")
+        launched = sum(_kernels.launches[c] for c in kernels) - before
+        if scans and launched != 1:
+            raise AssertionError(f"{label} /{endpoint}: {kernels} launched {launched} times, "
+                                 "not once")
+        replayed[endpoint] = replayed.get(endpoint, 0) + (ctx.scan_graphs.hits - hits)
         if not body:
             raise AssertionError(f"{label} /{endpoint}: empty answer")
         return body
+
+    def get_batch(endpoint, **params):
+        first = get(endpoint, **params)
+        for _ in range(BATCH_REPEATS - 1):
+            if get(endpoint, **params) != first:
+                raise AssertionError(f"{label} /{endpoint}: a repeated request answered "
+                                     "otherwise")
+        return first
 
     try:
         rng = np.random.default_rng(SEED + 1)
@@ -967,20 +1021,20 @@ def _drive_endpoints(ctx, cfg, label, kernels=K2_COUNTERS) -> dict:
                            exclude_self=False, head=ctx.head)
             _close(f"{label} model_recs", [r["Prediction"] for r in recs], v[0],
                    [r["anime_id"] for r in recs], vocab.anime_ids[i[0]])
-        batch = get("similar_anime_batch", names="|".join(names[5:8]), k=10)
+        batch = get_batch("similar_anime_batch", names="|".join(names[5:8]), k=10)
         for rec, name in zip(batch, names[5:8]):
             qi = ctx.anime_index(catalog.resolve_query(name))
             v, i = _oracle(anime, anime, qi, 10, ctx.in_catalog_mask())
             _close(f"{label} similar_anime_batch", rec["similarities"], v[0],
                    rec["anime_ids"], vocab.anime_ids[i[0]])
-        batch = get("model_recs_batch", user_ids=",".join(map(str, users[16:20])), k=10)
+        batch = get_batch("model_recs_batch", user_ids=",".join(map(str, users[16:20])), k=10)
         for rec, uid in zip(batch, users[16:20]):
             mask = ctx.in_catalog_mask() & ~ctx.watched_mask(uid)
             v, i = _oracle(anime, users_t, ctx.user_index(uid), 10, mask,
                            exclude_self=False, head=ctx.head)
             _close(f"{label} model_recs_batch", rec["predictions"], v[0],
                    rec["anime_ids"], vocab.anime_ids[i[0]])
-        batch = get("similar_users_batch", user_ids=",".join(map(str, users[20:24])), k=10)
+        batch = get_batch("similar_users_batch", user_ids=",".join(map(str, users[20:24])), k=10)
         for rec, uid in zip(batch, users[20:24]):
             v, i = _oracle(users_t, users_t, ctx.user_index(uid), 10)
             _close(f"{label} similar_users_batch", rec["similarities"], v[0],
@@ -989,6 +1043,9 @@ def _drive_endpoints(ctx, cfg, label, kernels=K2_COUNTERS) -> dict:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+    missed = [e for e in SCANNING if not replayed.get(e)]
+    if ctx.device.type == "cuda" and missed:
+        raise AssertionError(f"{label}: no request to {missed} was a replay of its scan graph")
     return {e: statistics.median(t) for e, t in latency.items()}
 
 
@@ -1009,7 +1066,7 @@ def phase_slice(card: str, device: str = "cuda") -> dict:
     from anime_recommendations_tpu_torch.ops import _kernels
     from anime_recommendations_tpu_torch.pipeline.runner import context_from_store, store_root
 
-    latencies = {}
+    latencies, graphs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         _write_store(store_root(Config(), tmp))
         for label, (dtype, topk_kwargs, kernels) in CONTEXTS.items():
@@ -1029,8 +1086,308 @@ def phase_slice(card: str, device: str = "cuda") -> dict:
             latencies[label] = _drive_endpoints(ctx, cfg, label, kernels)
             print(f"[phase 3] {label} endpoint latency ms (median, host clock; {card}): "
                   + json.dumps(latencies[label]), flush=True)
+            graphs[label] = ctx.scan_graphs.report()
+            print(f"[phase 3] {label} scan graphs ({card}): {json.dumps(graphs[label])}",
+                  flush=True)
+            ctx.release_graphs()
             del ctx
-    return latencies
+    from anime_recommendations_tpu_torch.ops import scan_graph
+
+    print(f"[phase 3] scan graphs held after the phase: {len(scan_graph.DEFAULT)} "
+          "(the contexts' went with them)", flush=True)
+    return {"latency_ms": latencies, "graphs": graphs}
+
+
+# ---- phase 14 ------------------------------------------------------------------
+
+# label -> (retrieval dtype, ann, _dispatch_topk keywords): every scan flavour
+# a RecContext serves (probes None: every cluster).
+SCAN_GRAPH_FLAVOURS = {
+    "f32": ("f32", "off", {}),
+    "exact": ("f32", "off", {"exact_scan": True}),
+    "bf16": ("bf16", "off", {}),
+    "int8": ("int8", "off", {}),
+    "ivf_f32_p8": ("f32", "ivf", {"probes": 8}),
+    "ivf_f32_all": ("f32", "ivf", {"probes": None}),
+    "ivf_int8_p8": ("int8", "ivf", {"probes": 8}),
+    "ivf_int8_all": ("int8", "ivf", {"probes": None}),
+}
+SCAN_GRAPH_Q = (1, 2, 64, 256)
+SCAN_GRAPH_K = (10, 50)
+# side -> (scanned table, the queries' table, mask, exclude, head): the
+# recommenders' requests (numpy masks and exclusions, as they pass them).
+SCAN_GRAPH_SIDES = {
+    "users": ("user", "user", False, False, False),
+    "similar_users": ("user", "user", False, True, False),
+    "similar_anime": ("anime", "anime", True, True, False),
+    "model_recs": ("anime", "user", True, False, True),
+}
+SCAN_TIMED_SIDES = ("similar_users", "model_recs")   # timed per flavour and Q, at k = 10
+SCAN_TIMED_RUNS = 10   # calls per mode in a timing (probing every cluster, Q = 256: ~0.1 s each)
+# Profiled calls of a scan slower than SCAN_HEAVY_MS (IVF probing every
+# cluster, ~1,500-5,700 launches eager): the profiler's records of ten would
+# take tens of seconds to sum.
+SCAN_HEAVY_MS, SCAN_HEAVY_REPS = 10.0, 3
+HTTP_SAMPLES = 100    # requests per endpoint and mode: p90 has 10 samples above it
+HTTP_THREADS = 8
+
+
+def _scan_tables(dtype: str, ann: str):
+    """recommend/tables.build_tables of phase 3's model on the card."""
+    from anime_recommendations_tpu_torch.models.two_tower import params_from_numpy
+    from anime_recommendations_tpu_torch.recommend.tables import build_tables
+
+    return build_tables(params_from_numpy(_model_arrays(), "cuda"), device="cuda",
+                        retrieval_dtype=dtype, ann=ann)
+
+
+def _scan_args(t, side: str, q: int, rng) -> tuple:
+    """_dispatch_topk's (table, queries, mask, exclude, head) of one request."""
+    import torch
+
+    scanned, asking, has_mask, has_exclude, has_head = SCAN_GRAPH_SIDES[side]
+    table = t.user_scan if scanned == "user" else t.anime_scan
+    rows_of = t.user_norm if asking == "user" else t.anime_norm
+    rows = rng.choice(rows_of.shape[0], size=q, replace=False)
+    n = (t.user_norm if scanned == "user" else t.anime_norm).shape[0]
+    return (table, rows_of[torch.from_numpy(rows).to(rows_of.device)],
+            rng.uniform(size=n) > 0.2 if has_mask else None,
+            rows if has_exclude else None, t.head if has_head else None)
+
+
+def _host_ms(fns: dict, runs: int = TIMED_RUNS) -> dict:
+    """Median host ms of each fn with a synchronize on both sides, the fns
+    taken in turn (so drift touches each alike), after 3 calls of each."""
+    import torch
+
+    times = {name: [] for name in fns}
+    for r in range(runs + 3):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if r >= 3:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _scan_flavour(card: str, label: str, t, kw: dict, rng) -> dict:
+    """Every side, Q and k of one flavour: the eager body (scan_graph.EAGER)
+    against a cache's first call, its capture and a replay, bit for bit;
+    then, for SCAN_TIMED_SIDES at k = 10, host ms per scan (a synchronize
+    on both sides), the host's launches and the device's kernels per scan,
+    device-busy ms and idle share (utils/profiling.profiled), eager and
+    replayed."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import scan_graph
+    from anime_recommendations_tpu_torch.ops.topk import _dispatch_topk
+
+    out = {"cases": 0, "timed": {}, "graphs": {}}
+    t0 = time.perf_counter()
+    for side in SCAN_GRAPH_SIDES:
+        graphs = scan_graph.ScanGraphs()
+        for q in SCAN_GRAPH_Q:
+            for k in SCAN_GRAPH_K:
+                args = _scan_args(t, side, q, rng)
+                want = _dispatch_topk(*args, k=k, graphs=scan_graph.EAGER, **kw)
+                for call in range(3):    # eager in the cache, the capture, a replay
+                    got = _dispatch_topk(*args, k=k, graphs=graphs, **kw)
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"[phase 14] {label} {side} q{q} k{k}: call "
+                                             f"{call} differs from the eager body")
+                if got[0].shape != (q, k) or not bool((got[1] >= -1).all()):
+                    raise AssertionError(f"[phase 14] {label} {side} q{q} k{k}: bad result")
+                out["cases"] += 1
+                if side in SCAN_TIMED_SIDES and k == 10:
+                    eager = functools.partial(_dispatch_topk, *args, k=k,
+                                              graphs=scan_graph.EAGER, **kw)
+                    replay = functools.partial(_dispatch_topk, *args, k=k, graphs=graphs, **kw)
+                    row = {f"host_ms_{m}": v for m, v in
+                           _host_ms({"eager": eager, "replay": replay}, SCAN_TIMED_RUNS).items()}
+                    reps = (SCAN_HEAVY_REPS if row["host_ms_eager"] > SCAN_HEAVY_MS
+                            else SCAN_TIMED_RUNS)
+                    for mode, fn in (("eager", eager), ("replay", replay)):
+                        p = _profiled(fn, reps=reps)
+                        row[mode] = {key: p[key] for key in (
+                            "wall_ms", "device_ms", "idle_share", "host_launches",
+                            "device_ops", "records_lost")}
+                    out["timed"][f"{side}_q{q}"] = row
+        expected = len(SCAN_GRAPH_Q) * len(SCAN_GRAPH_K)
+        report = graphs.report()
+        if (report["captures"], report["graphs"]) != (expected, expected) or \
+                report["hits"] < expected:
+            raise AssertionError(f"[phase 14] {label} {side}: {report}")
+        out["graphs"][side] = {key: v for key, v in report.items() if key != "pool_mb"}
+        out["graphs"][side]["pool_mb_max"] = max(report["pool_mb"])
+        out["graphs"][side]["pool_mb_sum"] = sum(report["pool_mb"])
+        graphs.release()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[phase 14] {label} ({card}): {json.dumps(out)}", flush=True)
+    return out
+
+
+def _http_requests(ctx, rng) -> list:
+    """Mixed requests to every endpoint (distinct users, so the Engine's
+    similar-users cache does not answer them), ~3 per endpoint."""
+    vocab, catalog = ctx.vocab, ctx.catalog
+    name_of = dict(zip(catalog.anime["anime_id"], catalog.anime["Name"]))
+    users = [int(u) for u in rng.choice(vocab.user_ids, size=40, replace=False)]
+    names = [str(name_of[int(a)]) for a in rng.choice(vocab.anime_ids, size=12, replace=False)]
+    def ids(i):
+        return ",".join(map(str, users[11 + 4 * i:15 + 4 * i]))
+
+    return ([("similar_anime", dict(name=n, k=10)) for n in names[:3]]
+            + [("similar_users", dict(user_id=u, k=10)) for u in users[:3]]
+            + [("user_prefs", dict(user_id=u)) for u in users[3:5]]
+            + [("user_recs", dict(user_id=u, k=10)) for u in users[5:8]]
+            + [("model_recs", dict(user_id=u, k=10)) for u in users[8:11]]
+            + [("similar_anime_batch", dict(names="|".join(names[3 + 3 * i:6 + 3 * i]), k=10))
+               for i in range(3)]
+            + [("model_recs_batch", dict(user_ids=ids(i), k=10)) for i in range(3)]
+            + [("similar_users_batch", dict(user_ids=ids(3 + i), k=10)) for i in range(3)])
+
+
+def _fetch(server, endpoint, params):
+    url = (f"http://127.0.0.1:{server.server_address[1]}/{endpoint}?"
+           f"{urllib.parse.urlencode(params)}")
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def _latency_requests(ctx, endpoint: str, rng, n: int) -> list:
+    """n requests to one endpoint, each for other users or titles."""
+    vocab, catalog = ctx.vocab, ctx.catalog
+    users = [int(u) for u in rng.choice(vocab.user_ids, size=8 * n, replace=False)]
+    titles = catalog.anime["Name"].astype(str).unique()
+    names = [str(x) for x in rng.choice(titles, size=8 * n)]
+    one = {"similar_anime": lambda i: dict(name=names[i], k=10),
+           "similar_users": lambda i: dict(user_id=users[i], k=10),
+           "user_prefs": lambda i: dict(user_id=users[i]),
+           "user_recs": lambda i: dict(user_id=users[i], k=10),
+           "model_recs": lambda i: dict(user_id=users[i], k=10),
+           "similar_anime_batch": lambda i: dict(names="|".join(names[8 * i:8 * i + 8]), k=10),
+           "model_recs_batch": lambda i: dict(
+               user_ids=",".join(map(str, users[8 * i:8 * i + 8])), k=10),
+           "similar_users_batch": lambda i: dict(
+               user_ids=",".join(map(str, users[8 * i:8 * i + 8])), k=10)}[endpoint]
+    return [one(i) for i in range(n)]
+
+
+def _scan_graph_http(card: str) -> dict:
+    """A fresh f32 context's HTTP server answering 8 threads of mixed
+    requests while its first captures happen, against an eager context's
+    answers (RecContext.scan_graphs = ScanGraphs(0)) on the same store; then
+    each endpoint's latency through both servers, HTTP_SAMPLES requests
+    each, taken in turns."""
+    import torch
+
+    from anime_recommendations_tpu_torch.config import Config
+    from anime_recommendations_tpu_torch.ops import scan_graph
+    from anime_recommendations_tpu_torch.pipeline.runner import context_from_store, store_root
+    from anime_recommendations_tpu_torch.serve.api import make_server
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config()
+        _write_store(store_root(cfg, tmp))
+        eager_ctx = context_from_store(cfg, tmp, device="cuda")
+        eager_ctx.scan_graphs = scan_graph.ScanGraphs(0)
+        ctx = context_from_store(cfg, tmp, device="cuda")
+        servers = {"eager": make_server(eager_ctx, cfg, host="127.0.0.1", port=0),
+                   "captured": make_server(ctx, cfg, host="127.0.0.1", port=0)}
+        threads = [threading.Thread(target=s.serve_forever, daemon=True)
+                   for s in servers.values()]
+        for th in threads:
+            th.start()
+        try:
+            requests = _http_requests(ctx, np.random.default_rng(SEED + 14))
+            want = [_fetch(servers["eager"], e, p) for e, p in requests]
+            errors = []
+
+            def client(c):
+                for j in range(3 * len(requests)):
+                    i = (5 * c + j) % len(requests)
+                    try:
+                        got = _fetch(servers["captured"], *requests[i])
+                    except Exception as e:  # reported below with its request
+                        errors.append((requests[i], repr(e)))
+                        continue
+                    if got != want[i]:
+                        errors.append((requests[i], "differs from the eager answer"))
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(HTTP_THREADS) as pool:
+                list(pool.map(client, range(HTTP_THREADS)))
+            out["concurrent"] = {"requests": 3 * len(requests) * HTTP_THREADS,
+                                 "seconds": time.perf_counter() - t0,
+                                 "graphs": ctx.scan_graphs.report()}
+            out["concurrent"]["graphs"].pop("pool_mb")
+            if errors:
+                raise AssertionError(f"[phase 14] concurrent requests: {errors[:5]}")
+            if not ctx.scan_graphs.captures or not ctx.scan_graphs.hits:
+                raise AssertionError(f"[phase 14] the concurrent requests captured nothing: "
+                                     f"{ctx.scan_graphs.report()}")
+            print(f"[phase 14] {HTTP_THREADS} threads x {3 * len(requests)} mixed requests "
+                  f"during the first captures equal the eager answers ({card}): "
+                  f"{json.dumps(out['concurrent'])}", flush=True)
+            rng = np.random.default_rng(SEED + 15)
+            latency = {}
+            for endpoint in ("similar_anime", "similar_users", "user_prefs", "user_recs",
+                             "model_recs", "similar_anime_batch", "model_recs_batch",
+                             "similar_users_batch"):
+                params = _latency_requests(ctx, endpoint, rng, HTTP_SAMPLES)
+                times = {"eager": [], "captured": []}
+                hits = ctx.scan_graphs.hits
+                for i, p in enumerate(params):
+                    order = ("eager", "captured") if i % 2 else ("captured", "eager")
+                    for mode in order:
+                        t0 = time.perf_counter()
+                        _fetch(servers[mode], endpoint, p)
+                        times[mode].append((time.perf_counter() - t0) * 1e3)
+                latency[endpoint] = {mode: {"median_ms": float(np.median(ts)),
+                                            "p90_ms": float(np.percentile(ts, 90))}
+                                     for mode, ts in times.items()}
+                latency[endpoint]["replayed_share"] = (ctx.scan_graphs.hits - hits) / HTTP_SAMPLES
+                print(f"[phase 14] HTTP {endpoint} ({card}): {json.dumps(latency[endpoint])}",
+                      flush=True)
+            out["latency"] = latency
+            out["graphs_held"] = len(ctx.scan_graphs)
+        finally:
+            for s, th in zip(servers.values(), threads):
+                s.shutdown()
+                s.server_close()
+                th.join(timeout=30)
+            ctx.release_graphs()
+        del ctx, eager_ctx
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_scan_graph(card: str) -> dict:
+    """Phase 14: one retrieval request as one CUDA graph replay, at full
+    width, every flavour (module docstring)."""
+    import torch
+
+    out = {"card": card, "flavours": {}}
+    rng = np.random.default_rng(SEED)
+    built = {}
+    for label, (dtype, ann, kw) in SCAN_GRAPH_FLAVOURS.items():
+        if (dtype, ann) not in built:
+            built.clear()    # one set of tables on the card at a time
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            built[(dtype, ann)] = _scan_tables(dtype, ann)
+            print(f"[phase 14] tables {dtype} ann={ann} built in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["flavours"][label] = _scan_flavour(card, label, built[(dtype, ann)], kw, rng)
+    built.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["http"] = _scan_graph_http(card)
+    print(f"[phase 14] HTTP part: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 # ---- phase 4 -------------------------------------------------------------------
@@ -3450,6 +3807,7 @@ def main() -> int:
             raise AssertionError(f"the serving path never launched {name}")
     if serving_launches.get("l2_normalize", 0) != 2 * len(CONTEXTS):
         raise AssertionError("the context builds did not launch l2_normalize twice each")
+    _timed_phase("14", phase_scan_graph, card)
     adam_rows, gather_rows = _timed_phase("4", phase_adam, card)
     # 7a's timed dense cases here, beside phase 4's: after phase 6, sessions
     # of torch.profiler lose a few records of every kernel in this process.
@@ -3475,9 +3833,11 @@ def main() -> int:
         dist.destroy_process_group()
     _timed_phase("8", phase_trained, card)
     _timed_phase("9", phase_pipeline, card)
+    from anime_recommendations_tpu_torch.ops import scan_graph
     from anime_recommendations_tpu_torch.train import device_loop as dl
 
     dl.release_graphs()        # their memory pools
+    scan_graph.release_graphs()
     torch.cuda.empty_cache()   # the bench's process shares the card
     _timed_phase("11", phase_bench, card)
     _timed_phase("12", phase_download, card)

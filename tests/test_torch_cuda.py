@@ -995,11 +995,11 @@ def test_captured_epoch_matches_the_eager_epoch(cuda, optimizer):
 @pytest.mark.cuda
 def test_a_capture_that_syncs_raises(cuda):
     """No fallback: a body that reads a value on the host fails the capture."""
-    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph
 
     x = torch.ones(4, device=cuda)
     with pytest.raises(RuntimeError):
-        dl.EpochGraph(lambda: (x * 2).sum().item(), lambda: None, {}, cuda)
+        CapturedGraph(lambda: (x * 2).sum().item(), lambda: None, {}, cuda)
 
 
 # ---- the captured sharded epoch (parallel/trainer.py) --------------------------------
@@ -1084,3 +1084,108 @@ def test_captured_sharded_epoch_matches_the_eager_epoch(cuda, nccl_world, optimi
             np.testing.assert_array_equal(a, b)
         else:
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(np.abs(b).max(), 1e-30))
+
+
+# ---- one retrieval request as one graph replay (ops/scan_graph.py) -----------------
+
+SCAN_FLAVOURS = ("f32", "bf16", "int8", "exact", "ivf_f32", "ivf_int8")
+# The launch counters of a flavour's scan kernel at q queries (IVF's probe
+# path is torch ops: none).
+SCAN_COUNTERS = {"f32": k2_counter, "bf16": k2_counter, "int8": int8_counter,
+                 "exact": lambda q: "exact_topk", "ivf_f32": lambda q: None,
+                 "ivf_int8": lambda q: None}
+
+
+def scan_flavour(dev, flavour):
+    """(table, _dispatch_topk keywords, mask) of a flavour over inputs(dev)'s rows."""
+    w, keep = inputs(dev)
+    if flavour.startswith("ivf"):
+        return ivf.build_ivf(w, n_clusters=64, iters=4, seed=3,
+                             storage=flavour.split("_")[1]), {"probes": 8}, keep
+    st = topk.shuffle_rows(w.to(torch.bfloat16) if flavour == "bf16" else w, seed=5)
+    if flavour == "int8":
+        return st._replace(table=quantized.quantize_rows(st.table)), {}, keep
+    return st, {"exact_scan": True} if flavour == "exact" else {}, keep
+
+
+def scan_request(dev, flavour, q, side, k=10):
+    """A request's arguments for _dispatch_topk: (table, queries, mask,
+    exclude, head, keywords); ``side`` "none" or "all" (mask, exclude, head)."""
+    table, kw, keep = scan_flavour(dev, flavour)
+    w, _ = inputs(dev)
+    rows = torch.arange(q, device=dev) * 37 % w.shape[0]
+    queries = w[rows].to(torch.bfloat16) if flavour == "bf16" else w[rows]
+    if side == "none":
+        return table, queries, None, None, None, dict(kw, k=k)
+    return (table, queries, keep.cpu().numpy(), rows.cpu().numpy(),
+            torch.tensor([3.0, -0.5], device=dev), dict(kw, k=k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["none", "all"])
+@pytest.mark.parametrize("q", [1, 2, 64])
+@pytest.mark.parametrize("flavour", SCAN_FLAVOURS)
+def test_scan_graph_replay_is_bit_equal_to_the_eager_body(cuda, flavour, q, side):
+    """Per flavour, on both sides of each kernel's query threshold: the
+    eager body (EAGER), then a cache's first call (eager), its capture and
+    two replays; every result bit for bit the eager one, one replay per
+    request after the capture, the scan kernel once per replay."""
+    from anime_recommendations_tpu_torch.ops import scan_graph
+
+    table, queries, mask, exclude, head, kw = scan_request(cuda, flavour, q, side)
+    want = topk._dispatch_topk(table, queries, mask, exclude, head, graphs=scan_graph.EAGER,
+                               **kw)
+    graphs = scan_graph.ScanGraphs()
+    counter = SCAN_COUNTERS[flavour](q)
+    for call in range(4):
+        before = _kernels.launches[counter] if counter else 0
+        got = topk._dispatch_topk(table, queries, mask, exclude, head, graphs=graphs, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), call
+        if counter:
+            assert _kernels.launches[counter] == before + 1, (call, counter)
+        assert (graphs.misses, graphs.captures, graphs.hits) == \
+            ((1, 0, 0), (2, 1, 0), (2, 1, 1), (2, 1, 2))[call]
+    (graph,) = graphs._graphs.values()
+    assert graph.replays == 3
+    assert graph.launches == ({counter: 1} if counter else {})
+    graphs.release()
+
+
+@pytest.mark.cuda
+def test_scan_graph_concurrent_requests_during_capture_match_eager(cuda):
+    """8 threads send mixed requests (flavours, query counts, sides) to one
+    fresh cache, so their first captures happen while other threads scan
+    and read results: every answer equals the eager body's."""
+    import threading
+
+    from anime_recommendations_tpu_torch.ops import scan_graph
+
+    cases = [(f, q, s) for f in ("f32", "int8", "exact", "ivf_f32") for q in (1, 2, 64)
+             for s in ("none", "all")]
+    requests = [scan_request(cuda, *case) for case in cases]
+    want = [topk._dispatch_topk(*r[:5], graphs=scan_graph.EAGER, **r[5]) for r in requests]
+    want = [(v.cpu(), i.cpu()) for v, i in want]
+    graphs = scan_graph.ScanGraphs()
+    errors = []
+
+    def worker(t):
+        try:
+            for j in range(3 * len(requests)):
+                i = (7 * t + j) % len(requests)
+                r = requests[i]
+                v, idx = topk._dispatch_topk(*r[:5], graphs=graphs, **r[5])
+                if not (torch.equal(v.cpu(), want[i][0]) and torch.equal(idx.cpu(), want[i][1])):
+                    errors.append((t, cases[i]))
+        except Exception as e:  # reported below, with the thread that raised it
+            errors.append((t, repr(e)))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[:5]
+    assert graphs.captures == len(cases) == len(graphs)
+    graphs.release()

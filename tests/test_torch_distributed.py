@@ -143,13 +143,27 @@ def test_measured_capacity_and_bf16_moments(two_rank_fit):
     np.testing.assert_allclose(bf16[0]["val_loss"], one.history["val_loss"].to_numpy(), rtol=2e-2)
 
 
-# Runs a module's main(argv) as ``python -m`` would, then prints how many of
-# gloo's worker threads ("pt_gloo_runloop") are still alive in the process.
+# Runs a module's main(argv) as ``python -m`` would, with the automatic
+# garbage collector off (the entry point must free its groups itself, not
+# when a collection happens to run), then prints how many of gloo's worker
+# threads ("pt_gloo_runloop") are still alive in the process. A thread
+# joined just before is not: the kernel wakes its joiner before it takes the
+# thread's /proc entry away, so an entry may vanish while the task list is
+# read, or still show the thread exiting (PF_EXITING, 0x4, in its flags).
 PROBE = """
-import importlib, json, os, sys
+import gc, importlib, json, os, sys
+gc.disable()
 importlib.import_module(sys.argv[1]).main(sys.argv[2:])
-comms = [open(f"/proc/self/task/{t}/comm").read().strip() for t in os.listdir("/proc/self/task")]
-print(json.dumps({"gloo_threads": comms.count("pt_gloo_runloop")}))
+alive = []
+for t in os.listdir("/proc/self/task"):
+    try:
+        stat = open(f"/proc/self/task/{t}/stat").read()
+    except FileNotFoundError:
+        continue
+    comm, fields = stat[stat.index("(") + 1:stat.rindex(")")], stat[stat.rindex(")") + 2:].split()
+    if not int(fields[6]) & 0x4:
+        alive.append(comm)
+print(json.dumps({"gloo_threads": alive.count("pt_gloo_runloop")}))
 """
 PIPELINE_SETS = ["data.synthetic_users=300", "data.synthetic_anime=120",
                  "data.synthetic_interactions=30000", "data.num_reviews=50",

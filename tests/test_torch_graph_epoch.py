@@ -52,6 +52,7 @@ from anime_recommendations_tpu_torch.train import device_loop as dl
 from anime_recommendations_tpu_torch.train import trainer as tr
 from anime_recommendations_tpu_torch.train.checkpoint import Checkpointer
 from anime_recommendations_tpu_torch.train.lazy import _data_loss, lazy_row_adam
+from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph
 from tests.test_torch_train import close_to_scale, initial_arrays, numpy_to_jax, ratings
 
 torch.set_num_threads(2)
@@ -382,7 +383,7 @@ def test_a_replay_adds_the_captured_launches(monkeypatch):
             _kernels.count_launch("fused_adam_tiles")
     assert captured == {"fused_adam": 3, "fused_adam_tiles": 3}
     assert _kernels.launches == {"fused_adam": 5}
-    graph = object.__new__(dl.EpochGraph)
+    graph = object.__new__(CapturedGraph)
     graph.graph, graph.launches, graph.replays = _FakeGraph(), captured, 0
     graph.buffers = {"table": torch.zeros(3, 4)}
     graph.outputs = (graph.buffers["table"].sum(dim=1),)

@@ -11,11 +11,14 @@ Prints JSON lines:
             back to back, the table in L2. "cold": each launch after a 256 MB
             write that evicts L2. CUDA events, median of 20 after 3 warm-up.
   [serve]   per endpoint of the in-process Engine (cache off, f32 context at
-            reference scale, data and parameters as chip_smoke.py phase 3):
-            10 requests after 3 warm-up, under torch.profiler. wall_ms_per_req
-            is the host clock around the 10; scan_ms_per_req the host clock
-            around each _dispatch_topk call with a sync on both sides (the
-            endpoints that call score_topk do not pass there: null);
+            reference scale, data and parameters as chip_smoke.py phase 3),
+            its scans eager (RecContext.scan_graphs = ScanGraphs(0)) and
+            replayed (the context's own cache; the 3 warm-up requests
+            capture), side by side: 10 requests after 3 warm-up, under
+            torch.profiler. wall_ms_per_req is the host clock around the
+            10; scan_ms_per_req the host clock around each _dispatch_topk
+            call (cosine_topk's and score_topk's) with a sync on both sides;
+            replayed_share the share of those scans a replay served;
             device_busy_ms_per_req the sum of the CUDA kernels' self time;
             device_idle_share = 1 - busy / wall.
   [http]    similar_users through the Engine in process and through the HTTP
@@ -84,7 +87,7 @@ def serving(card: str) -> None:
     import torch
 
     from anime_recommendations_tpu_torch.config import Config
-    from anime_recommendations_tpu_torch.ops import topk
+    from anime_recommendations_tpu_torch.ops import scan_graph, scoring, topk
     from anime_recommendations_tpu_torch.pipeline.runner import context_from_store, store_root
     from anime_recommendations_tpu_torch.serve.api import Engine, make_server
 
@@ -100,7 +103,7 @@ def serving(card: str) -> None:
         scan["calls"] += 1
         return out
 
-    topk._dispatch_topk = timed_dispatch
+    topk._dispatch_topk = scoring._dispatch_topk = timed_dispatch
     with tempfile.TemporaryDirectory() as tmp:
         cfg = Config()
         cs._write_store(store_root(cfg, tmp))
@@ -125,29 +128,38 @@ def serving(card: str) -> None:
         }
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         n = 10
+        graphs = ctx.scan_graphs
         for endpoint, fn in calls.items():
-            for i in range(3):
-                fn(i)
-            torch.cuda.synchronize()
-            scan.update(ms=0.0, calls=0)
-            with torch.profiler.profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                for i in range(3, 3 + n):
+            row = {"card": card, "endpoint": endpoint}
+            for mode, cache in (("eager", scan_graph.ScanGraphs(0)), ("replayed", graphs)):
+                ctx.scan_graphs = cache
+                for i in range(3):
                     fn(i)
                 torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(e.self_device_time_total for e in events) / 1e3
-            top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
-            print("[serve] " + json.dumps({
-                "card": card, "endpoint": endpoint, "wall_ms_per_req": wall / n,
-                "scan_ms_per_req": scan["ms"] / n if scan["calls"] else None,
-                "device_busy_ms_per_req": busy / n, "device_idle_share": 1 - busy / wall,
-                "top_device_ms_per_req": [(e.key[:60], e.self_device_time_total / 1e3 / n)
-                                          for e in top],
-            }), flush=True)
-        topk._dispatch_topk = inner
+                scan.update(ms=0.0, calls=0)
+                hits = cache.hits
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    for i in range(3, 3 + n):
+                        fn(i)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                events = [e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+                busy = sum(e.self_device_time_total for e in events) / 1e3
+                top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+                row[mode] = {
+                    "wall_ms_per_req": wall / n,
+                    "scan_ms_per_req": scan["ms"] / n if scan["calls"] else None,
+                    "replayed_share": (cache.hits - hits) / scan["calls"] if scan["calls"]
+                    else None,
+                    "device_busy_ms_per_req": busy / n, "device_idle_share": 1 - busy / wall,
+                    "top_device_ms_per_req": [(e.key[:60], e.self_device_time_total / 1e3 / n)
+                                              for e in top],
+                }
+            print("[serve] " + json.dumps(row), flush=True)
+        topk._dispatch_topk = scoring._dispatch_topk = inner
+        ctx.scan_graphs = graphs
 
         server = make_server(ctx, cfg, host="127.0.0.1", port=0)
         thread = threading.Thread(target=server.serve_forever, daemon=True)

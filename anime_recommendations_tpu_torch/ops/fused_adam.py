@@ -333,11 +333,10 @@ def _sparse_adam_update_plain(w, mu, nu, ids_s, g_s, scal: AdamScalars, step,
 
 def _gather_rows_plain(w: torch.Tensor, next_ids: torch.Tensor) -> torch.Tensor:
     """K5's gather in plain torch ops: w[next_ids] as a new [B2, D] tensor,
-    with zero rows for ids outside [0, n)."""
+    with zero rows for ids outside [0, n); fixed shapes, no host read."""
     keep = (next_ids >= 0) & (next_ids < w.shape[0])
-    rows = torch.zeros(next_ids.shape[0], w.shape[1], dtype=w.dtype, device=w.device)
-    rows[keep] = w[next_ids[keep].long()]
-    return rows
+    rows = w[next_ids.long().clamp(0, w.shape[0] - 1)]
+    return torch.where(keep[:, None], rows, torch.zeros((), dtype=w.dtype, device=w.device))
 
 
 def _tile_runs(ids_s: torch.Tensor):

@@ -34,7 +34,9 @@ served on the caller's current stream (PyTorch's default stream, the same
 for every thread), so a replay's copies are ordered after the previous
 request's. The host staging before the lock and the caller's reads after it
 run concurrently. A capture or replay that fails raises: no path drops to
-the eager body on the card to hide it.
+the eager body on the card to hide it. The training and evaluation steps'
+cache (train/step_graph.StepGraphs) is a ScanGraphs with its own capacity,
+under the same lock.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from collections import OrderedDict
 
 import torch
 
-from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, lru_get
+from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, device_tensor, lru_get
 
 SCAN_GRAPH_CACHE = 32   # graphs a cache keeps, most recently used; each holds a memory pool
 _SEEN_PER_GRAPH = 4     # signatures seen once that a cache remembers, per graph it keeps
@@ -67,11 +69,14 @@ class ScanGraphs:
         self.hits = self.misses = self.captures = 0
         self.seconds = {"warm_up": 0.0, "capture": 0.0, "instantiate": 0.0}
 
-    def run(self, key: tuple, body, inputs: dict, device: torch.device) -> tuple:
-        """``body(**tensors)`` for the request ``inputs`` (name -> tensor or
-        None; host tensors are copied to ``device``): a replay of the
-        graph of ``key``, a capture of it, or the eager body (module
-        docstring). Returns tensors the caller owns."""
+    def run(self, key: tuple, body, inputs: dict, device: torch.device,
+            warm_up=None) -> tuple:
+        """``body(**tensors)`` for the request ``inputs`` (name -> tensor,
+        numpy array or None; host arrays are copied to ``device``): a
+        replay of the graph of ``key``, a capture of it, or the eager body
+        (module docstring). ``warm_up`` (default ``body``) takes the same
+        tensors and runs before a capture: a body that writes what it reads
+        warms up on a copy. Returns tensors the caller owns."""
         host = {name: v for name, v in inputs.items() if v is not None}
         with _LOCK:
             graph = self._graphs.get(key)
@@ -83,22 +88,23 @@ class ScanGraphs:
             if key in self._seen:   # the second call: capture
                 del self._seen[key]
                 graph = lru_get(self._graphs, key,
-                                lambda: self._capture(body, inputs, device), self.capacity)
+                                lambda: self._capture(body, inputs, device, warm_up or body),
+                                self.capacity)
                 return graph.replay(host)
             if self.capacity:
                 self._seen[key] = None
                 while len(self._seen) > _SEEN_PER_GRAPH * self.capacity:
                     self._seen.popitem(last=False)
-            return body(**{name: None if v is None else v.to(device)
+            return body(**{name: None if v is None else device_tensor(v, device)
                            for name, v in inputs.items()})
 
-    def _capture(self, body, inputs: dict, device: torch.device) -> CapturedGraph:
+    def _capture(self, body, inputs: dict, device: torch.device, warm_up) -> CapturedGraph:
         """A graph of ``body`` on static buffers shaped as ``inputs``
         (filled with them, so the warm-up reads valid rows)."""
-        buffers = {name: torch.empty_like(v, device=device).copy_(v)
+        buffers = {name: device_tensor(v, device).clone(memory_format=torch.contiguous_format)
                    for name, v in inputs.items() if v is not None}
         args = {name: buffers.get(name) for name in inputs}
-        graph = CapturedGraph(lambda: body(**args), lambda: body(**args), buffers, device)
+        graph = CapturedGraph(lambda: body(**args), lambda: warm_up(**args), buffers, device)
         self.captures += 1
         for name, s in graph.seconds.items():
             self.seconds[name] += s

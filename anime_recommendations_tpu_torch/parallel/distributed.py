@@ -74,6 +74,11 @@ def shutdown() -> None:
     finalizes (parallel.mesh says how that aborts a rank); the collection
     here ends them while it runs."""
     if dist.is_initialized():
+        # The cached graphs that captured the groups' collectives go first.
+        from anime_recommendations_tpu_torch.train import device_loop, step_graph
+
+        device_loop.release_graphs()
+        step_graph.release_graphs()
         dist.destroy_process_group()
     gc.collect()
 

@@ -51,8 +51,15 @@ for the L2 value (``adam``, ``fused_adam``). psum: 1 model-group all-reduce
 per sharded table lookup, the 3 data-group all-reduces of the forward and
 their 3 in the backward, 3 data-group all-reduces of the gradients (head,
 user, anime) and 1 model-group all-reduce for the L2 value. Host syncs: 1 per
-table per step for the plans of an unplanned step (none at one rank with the
-default capacity); none in a planned step.
+step for both tables' round counts of an unplanned routed step, read before
+it runs (ShardedTrainStep.make_plans; none at one rank with a capacity of
+the whole batch, which takes one round); none in a planned step. On a card
+``train_step``, ``eval_sums`` and ``grads`` (JAX's jitted _build_train,
+_build_eval and _build_grads) are each one CUDA graph replay per call from a
+signature's third call on (train/step_graph.py), the plans in the graph's
+buffers and the rounds they run in its key: each table's largest count so
+far, the rounds past a batch's own exact no-ops, so a new graph comes only
+with a larger count.
 
 The sharded epoch (JAX's ``build_plans_fn`` and ``build_epoch_fn``).
 ``build_plans`` plans every batch of an epoch on the device (and, for
@@ -93,6 +100,7 @@ from anime_recommendations_tpu_torch.ops import fused_adam
 from anime_recommendations_tpu_torch.parallel import routing as rt
 from anime_recommendations_tpu_torch.parallel.mesh import World
 from anime_recommendations_tpu_torch.train import device_loop as dl
+from anime_recommendations_tpu_torch.train import step_graph
 from anime_recommendations_tpu_torch.train.lazy import _head_adam
 from anime_recommendations_tpu_torch.train.trainer import (
     B1,
@@ -107,6 +115,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
 from anime_recommendations_tpu_torch.utils import graphs
 
 OPTIMIZERS = ("adam", "lazy_adam", "fused_adam")
+_PLAN_TENSORS = rt._Plan._fields[:4]   # a plan's tensors; its rounds go in a graph's key
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -310,18 +319,32 @@ class ShardedTrainStep:
         # replicated over the batch shards reduce over it.
         self._batch_group = world.data_group if routing == "psum" else None
         self._n_batch = world.batch_shard(routing)[0]
+        # The rounds (users, anime) the plans of make_plans run: the largest
+        # count of each table so far.
+        self.rounds = (0, 0)
 
     # ---- public API -------------------------------------------------------------
+    #
+    # train_step, eval_sums and grads (JAX's _build_train, _build_eval and
+    # _build_grads) run their bodies (step, eval_body, grads_body) through
+    # _run: on a card one replay of the step's graph per call from a
+    # signature's third call on (train/step_graph.py).
 
     def train_step(self, state: TrainState, users, anime, ratings, weights, lr: float,
                    plans=None, orders=None):
-        """One step on this rank's batch shard, in place, at learning rate
-        ``lr`` (a host number, uploaded as the step's row). Returns (state,
-        loss, mse), the last two 0-dim device tensors of the global batch.
-        ``plans`` = (plan_u, plan_a) (routing.plan_at; alltoall),
-        ``orders`` = (order_u, order_a) their receipt orders (fused_adam)."""
-        loss, mse = self.step(state, users, anime, ratings, weights, step_row(state, lr),
-                              plans, orders)
+        """One step on this rank's batch shard (tensors or numpy arrays), in
+        place, at learning rate ``lr`` (a host number, the step's row copied
+        in). Returns (state, loss, mse), the last two 0-dim device tensors of
+        the global batch. ``plans`` = (plan_u, plan_a) (routing.plan_at;
+        alltoall; made before the step where not given, _run), ``orders`` =
+        (order_u, order_a) their receipt orders (fused_adam)."""
+
+        def body(st, cols, plans, orders, scal):
+            return self.step(st, *cols, scal, plans, orders)
+
+        loss, mse = self._run("train", body, state, step_graph.state_tensors(state),
+                              (users, anime, ratings, weights), plans, orders,
+                              scal=step_row(state, lr))
         state.adam.count += 1
         return state, loss, mse
 
@@ -329,21 +352,33 @@ class ShardedTrainStep:
              plans=None, orders=None) -> tuple[torch.Tensor, torch.Tensor]:
         """train_step's work with the step's scalars read from ``scal``, a [4]
         row (lr, bc1, bc2, step) on the device: the Adam count is the
-        caller's to advance. With ``plans`` (alltoall) or under psum it reads
-        nothing on the host, so a CUDA graph can capture it. Returns (loss,
-        mse)."""
+        caller's to advance. With ``plans`` (alltoall), under psum, or at one
+        rank with a capacity of the whole batch it reads nothing on the
+        host, so a CUDA graph can capture it. Returns (loss, mse)."""
         if self.optimizer == "lazy_adam":
             return self._lazy_step(state, users, anime, ratings, weights, scal, plans)
         if self.optimizer == "fused_adam":
             return self._fused_step(state, users, anime, ratings, weights, scal, plans, orders)
         return self._dense_step(state, users, anime, ratings, weights, scal, plans)
 
-    @torch.no_grad()
     def eval_sums(self, model: TwoTower, bn_state: BNState, users, anime, ratings, weights,
                   plans=None):
-        """(loss_sum, mse_sum, weight_sum) over the global batch, with the
-        moving BatchNorm statistics; loss_sum includes the L2 value.
-        ``plans`` as for step."""
+        """(loss_sum, mse_sum, weight_sum) over the global batch (eval_body;
+        the columns tensors or numpy arrays); ``plans`` as for train_step."""
+
+        def body(target, cols, plans, orders):
+            return self.eval_body(*target, *cols, plans)
+
+        return self._run("eval", body, (model, bn_state),
+                         step_graph.model_tensors(model) + list(bn_state),
+                         (users, anime, ratings, weights), plans, writes=False)
+
+    @torch.no_grad()
+    def eval_body(self, model: TwoTower, bn_state: BNState, users, anime, ratings, weights,
+                  plans=None):
+        """eval_sums' work: (loss_sum, mse_sum, weight_sum) over the global
+        batch, with the moving BatchNorm statistics; loss_sum includes the L2
+        value. ``plans`` as for step."""
         plan_u, plan_a = plans or (None, None)
         u_rows = self._lookup_user(model.user_emb, users, plan_u)
         a_rows = self._lookup_anime(model.anime_emb, anime, plan_a)
@@ -359,15 +394,92 @@ class ShardedTrainStep:
         reg = self.l2 * sums[3] if self.routing == "alltoall" else self._reg_sum(model)
         return loss_sum + reg * w_sum, mse_sum, w_sum
 
-    def grads(self, state: TrainState, users, anime, ratings, weights) -> dict[str, torch.Tensor]:
-        """The exact global gradient of every parameter (replicated leaves
-        summed over the batch shards, analytic L2 added), before any
-        optimizer transform. The table gradients are this rank's parts."""
+    def grads(self, state: TrainState, users, anime, ratings, weights,
+              plans=None) -> dict[str, torch.Tensor]:
+        """The exact global gradient of every parameter (grads_body; the
+        columns tensors or numpy arrays); ``plans`` as for train_step."""
+
+        def body(st, cols, plans, orders):
+            grads = self.grads_body(st, *cols, plans)
+            return tuple(grads[k] for k in PARAM_KEYS)
+
+        out = self._run("grads", body, state, step_graph.model_tensors(state.model),
+                        (users, anime, ratings, weights), plans, writes=False)
+        return dict(zip(PARAM_KEYS, out))
+
+    def grads_body(self, state: TrainState, users, anime, ratings, weights,
+                   plans=None) -> dict[str, torch.Tensor]:
+        """grads' work: the exact global gradient of every parameter
+        (replicated leaves summed over the batch shards, analytic L2 added),
+        before any optimizer transform. The table gradients are this rank's
+        parts. ``plans`` as for step."""
         model = state.model
         params = [getattr(model, k) for k in PARAM_KEYS]
-        loss, _, _ = self._data_loss(model, users, anime, ratings, weights)
+        loss, _, _ = self._data_loss(model, users, anime, ratings, weights, plans)
         grads = dict(zip(PARAM_KEYS, torch.autograd.grad(loss / self._n_batch, params)))
         return self._finish_grads(grads, model)
+
+    def make_plans(self, users: torch.Tensor, anime: torch.Tensor) -> tuple[rt._Plan, rt._Plan]:
+        """Both tables' exchange plans of a batch shard (ids on the device),
+        made before a step runs (JAX's build_plans_fn for one batch):
+        routing.stack_plans on [1, B] with one all_reduce for both round
+        counts (on a card one replay of its own step graph), then ONE host
+        read of them. Each table's plan runs the largest count this step
+        has made so far (``rounds``): the rounds past a batch's own are
+        exact no-ops (routing.py), so a step's graph changes only when a
+        larger count comes, as a ShardedTrainer's epochs run the fit's
+        largest. Collective."""
+        caps = tuple(self.batch_capacity(x.shape[0]) for x in (users, anime))
+
+        def body(_, users, anime):
+            stacked = rt.stack_plans((users[None], anime[None]), self._n_shards, caps)
+            return (*(t[0] for p in stacked for t in p[:4]),
+                    torch.cat([p.rounds for p in stacked]))
+
+        *parts, own = step_graph.run(("sharded_plans", _group_key(self), caps), body, None,
+                                     {"users": users, "anime": anime}, [], self.world.device,
+                                     writes=False)
+        self.rounds = tuple(max(a, b) for a, b in zip(own.tolist(), self.rounds))
+        return tuple(rt._Plan(*parts[4 * i:4 * i + 4], r) for i, r in enumerate(self.rounds))
+
+    def _reads_round_counts(self, b: int) -> bool:
+        """Whether the plans of a [b] batch shard need a host read of their
+        round counts: under alltoall, but at one rank with a capacity of the
+        whole batch (one round, routing.make_plan)."""
+        return self.routing == "alltoall" and not (
+            self._n_shards == 1 and self.batch_capacity(b) >= b)
+
+    def _run(self, kind: str, body, target, reads, cols, plans=None, orders=None,
+             writes: bool = True, **more) -> tuple:
+        """``body(target, cols, plans, orders, **more)`` through the step
+        graphs (step_graph.run). Where the step needs plans and has none,
+        they are made first (make_plans: the one host read of the round
+        counts), and go into the graph's static buffers with the columns
+        and ``more``; the rounds are in the key, with the process groups
+        (by serial number), the routing, the optimizer, shard_anime, l2 and
+        the capacity. Returns tensors the caller owns."""
+        device = self.world.device
+        users, anime = cols[:2]
+        if plans is None and self._reads_round_counts(users.shape[0]):
+            users, anime = (graphs.device_tensor(x, device) for x in (users, anime))
+            plans = self.make_plans(users, anime)
+        inputs = dict(users=users, anime=anime, ratings=cols[2], weights=cols[3], **more)
+        rounds = None if plans is None else tuple(p.rounds for p in plans)
+        for tag, plan in zip("ua", plans or ()):
+            inputs.update({f"plan_{tag}_{f}": getattr(plan, f) for f in _PLAN_TENSORS})
+        if orders is not None:
+            inputs.update(order_u=orders[0], order_a=orders[1])
+
+        def run_body(target, users, anime, ratings, weights, **t):
+            given = None if rounds is None else tuple(
+                rt._Plan(*(t.pop(f"plan_{tag}_{f}") for f in _PLAN_TENSORS), r)
+                for tag, r in zip("ua", rounds))
+            order = None if orders is None else (t.pop("order_u"), t.pop("order_a"))
+            return body(target, (users, anime, ratings, weights), given, order, **t)
+
+        tag = (f"sharded_{kind}", _group_key(self), self.routing, self.optimizer,
+               self.shard_anime, self.l2, self.capacity, rounds)
+        return step_graph.run(tag, run_body, target, inputs, reads, device, writes)
 
     def batch_capacity(self, batch_per_device: int) -> int:
         """The slot count of a batch shard of this size."""
@@ -682,7 +794,7 @@ def eval_body(step: ShardedTrainStep, model: TwoTower,
     bn_state = model.bn_state()
     l_sum = m_sum = w_sum = torch.zeros((), device=batches.cols[0].device)
     for i in range(batches.n):
-        ls, ms, w = step.eval_sums(model, bn_state, *(c[i] for c in batches.cols),
+        ls, ms, w = step.eval_body(model, bn_state, *(c[i] for c in batches.cols),
                                    batches.plans_at(i))
         l_sum, m_sum, w_sum = l_sum + ls, m_sum + ms, w_sum + w
     w = torch.clamp_min(w_sum, 1.0)
@@ -766,7 +878,8 @@ def _group_key(step: ShardedTrainStep) -> tuple:
 def _read_state(state: TrainState, train: Batches | None) -> list[torch.Tensor]:
     """The state's tensors an epoch reads: the model's, and with steps the
     Adam moments too (an evaluation's state may have no Adam state)."""
-    return dl._state_tensors(state) if train is not None else dl._model_tensors(state.model)
+    return (step_graph.state_tensors(state) if train is not None
+            else step_graph.model_tensors(state.model))
 
 
 def _batches_tensors(b: Batches | None) -> list[torch.Tensor]:
@@ -816,7 +929,7 @@ def epoch_graph(step: ShardedTrainStep, state: TrainState, train: Batches | None
         n_train = 0 if train is None else train.n
         n_eval = 0 if evals is None else evals.n
         # Evaluation writes nothing: without steps it warms up on the model.
-        warm = state if train is None else dl._copy_state(state)
+        warm = state if train is None else step_graph.copy_state(state)
         return graphs.CapturedGraph(lambda: body(state, n_train, n_eval),
                              lambda: body(warm, min(n_train, 2), min(n_eval, 1)),
                              buffers, dev)

@@ -37,6 +37,9 @@ the rounds of the fit's largest count so far (the rounds past a batch's own
 are exact no-ops), so one epoch graph serves every epoch unless a larger
 count comes. Recomputing the plans each epoch departs from the JAX package,
 which fixes batch composition per fit and permutes batch order per epoch.
+Without the device loop each step and each evaluation batch is, on a card,
+the replay of its step graph (ShardedTrainStep.train_step and eval_sums,
+train/step_graph.py), the batch's numpy shard copied in.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
     Trainer,
     TrainResult,
     TrainState,
-    batch_to_device,
+    batch_columns,
     init_train_state,
     train_state_from_numpy,
     train_state_to_numpy,
@@ -244,7 +247,7 @@ class ShardedTrainer(Trainer):
                  ds: RatingsDataset) -> tuple[float, float]:
         loss_sum = mse_sum = w_sum = 0.0
         for batch in ds.iter_batches(self._eval_batch_size(len(ds)), shuffle=False):
-            cols = batch_to_device(batch, self.device)
+            cols = batch_columns(batch)
             sl = self._shard(cols[0].shape[0])
             ls, ms, w = self._step.eval_sums(model, bn_state, *(x[sl] for x in cols))
             loss_sum, mse_sum, w_sum = loss_sum + ls, mse_sum + ms, w_sum + w

@@ -29,7 +29,6 @@ rows from the tables it just updated.
 
 from __future__ import annotations
 
-import copy
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -37,25 +36,20 @@ import numpy as np
 import torch
 
 from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
-from anime_recommendations_tpu_torch.models.two_tower import (
-    BUFFER_KEYS,
-    PARAM_KEYS,
-    BNState,
-    TwoTower,
-)
+from anime_recommendations_tpu_torch.models.two_tower import BNState, TwoTower
 from anime_recommendations_tpu_torch.ops import _kernels
 from anime_recommendations_tpu_torch.ops.fused_adam import scalar_rows, upload
 from anime_recommendations_tpu_torch.train.fused import pipelined_step
 from anime_recommendations_tpu_torch.train.lazy import lazy_step
+from anime_recommendations_tpu_torch.train.step_graph import copy_state, model_tensors, state_tensors
 from anime_recommendations_tpu_torch.train.trainer import (
     B1,
     B2,
     FUSED_OPTIMIZERS,
     OPTIMIZERS,
-    AdamState,
     TrainState,
     dense_step,
-    eval_step,
+    eval_body,
 )
 from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, layout, lru_get
 
@@ -298,7 +292,7 @@ def eager_eval_epoch(
     l_sum = m_sum = w_sum = torch.zeros((), device=data.weights.device)
     for i in range(nb):
         sl = slice(i * batch_size, (i + 1) * batch_size)
-        ls, ms, w = eval_step(model, bn_state, data.users[sl], data.anime[sl],
+        ls, ms, w = eval_body(model, bn_state, data.users[sl], data.anime[sl],
                               data.ratings[sl], data.weights[sl], l2_reg_factor)
         l_sum, m_sum, w_sum = l_sum + ls, m_sum + ms, w_sum + w
     w = torch.clamp_min(w_sum, 1.0)
@@ -325,30 +319,13 @@ def release_graphs() -> None:
     _GRAPHS.clear()
 
 
-def _model_tensors(model: TwoTower) -> list[torch.Tensor]:
-    return [getattr(model, k) for k in PARAM_KEYS + BUFFER_KEYS]
-
-
-def _state_tensors(state: TrainState) -> list[torch.Tensor]:
-    adam = state.adam
-    return (_model_tensors(state.model) + [adam.mu[k] for k in PARAM_KEYS]
-            + [adam.nu[k] for k in PARAM_KEYS])
-
-
-def _copy_state(state: TrainState) -> TrainState:
-    adam = state.adam
-    return TrainState(copy.deepcopy(state.model), AdamState(
-        adam.count, {k: v.clone() for k, v in adam.mu.items()},
-        {k: v.clone() for k, v in adam.nu.items()}))
-
-
 def train_graph(state: TrainState, data: DeviceData, batch_size: int, l2_reg_factor: float,
                 shuffle: bool = True, sorted_scatter: bool | str = False,
                 optimizer: str = "adam") -> CapturedGraph:
     """The training graph train_epoch replays for these arguments, from the
     cache or captured now."""
     key = ("train", optimizer, batch_size, float(l2_reg_factor), shuffle, sorted_scatter,
-           layout(_state_tensors(state) + list(data)))
+           layout(state_tensors(state) + list(data)))
 
     def build():
         nb = data.n // batch_size
@@ -365,14 +342,14 @@ def train_graph(state: TrainState, data: DeviceData, batch_size: int, l2_reg_fac
                                optimizer, sorted_scatter)
 
         return CapturedGraph(lambda: body(state, nb),
-                          lambda: body(_copy_state(state), min(nb, 2)), buffers, dev)
+                          lambda: body(copy_state(state), min(nb, 2)), buffers, dev)
 
     return cached_graph(key, build)
 
 
 def _eval_graph(model, bn_state, data, batch_size, l2_reg_factor) -> CapturedGraph:
     key = ("eval", batch_size, float(l2_reg_factor),
-           layout(_model_tensors(model) + list(bn_state) + list(data)))
+           layout(model_tensors(model) + list(bn_state) + list(data)))
 
     def build():
         # Evaluation writes nothing: the warm-up runs one batch on the model.

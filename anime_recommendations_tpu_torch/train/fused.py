@@ -11,7 +11,11 @@ squares, in one read and write of (W, mu, nu). The four head scalars take
 ordinary Adam with the shared step count.
 
 The moments' dtype in the state selects f32 or bf16 storage
-(``fused_adam_bf16m``, train/trainer.cast_table_moments).
+(``fused_adam_bf16m``, train/trainer.cast_table_moments). On a card
+``fused_train_step`` and ``fused_train_step_pipelined`` are each one CUDA
+graph replay per call from a signature's third call on
+(train/step_graph.py); ``fused_step`` and ``pipelined_step`` are their
+eager bodies.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
     KERAS_ADAM_EPS,
     TrainState,
     _keep_bn,
-    step_row,
+    run_step,
 )
 
 
@@ -61,23 +65,28 @@ def fused_step(state: TrainState, u_rows, a_rows, users, anime, ratings, weights
 
 def fused_train_step(
     state: TrainState,
-    users: torch.Tensor,
-    anime: torch.Tensor,
-    ratings: torch.Tensor,
-    weights: torch.Tensor,
+    users,
+    anime,
+    ratings,
+    weights,
     lr: float,
     l2_reg_factor: float,
 ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
-    """One fused dense-Adam step. Returns (state, batch_loss, batch_mse).
+    """One fused dense-Adam step (the batch columns tensors or numpy
+    arrays). Returns (state, batch_loss, batch_mse).
 
     ``batch_loss`` includes the full-table L2 regularizer's value at the
-    pre-update parameters, as the dense path's history ``loss`` does."""
-    model = state.model
-    u_rows = model.user_emb.detach()[users]
-    a_rows = model.anime_emb.detach()[anime]
-    loss, mse = fused_step(state, u_rows, a_rows, users, anime, ratings, weights,
-                           step_row(state, lr), l2_reg_factor)
-    state.adam.count += 1
+    pre-update parameters, as the dense path's history ``loss`` does. On a
+    card a replay of the step's graph (train/step_graph.py)."""
+
+    def body(st, users, anime, ratings, weights, scal):
+        u_rows = st.model.user_emb.detach()[users]
+        a_rows = st.model.anime_emb.detach()[anime]
+        return fused_step(st, u_rows, a_rows, users, anime, ratings, weights, scal,
+                          l2_reg_factor)
+
+    loss, mse = run_step(("fused", float(l2_reg_factor)), body, state, lr, users=users,
+                         anime=anime, ratings=ratings, weights=weights)
     return state, loss, mse
 
 
@@ -85,12 +94,12 @@ def fused_train_step_pipelined(
     state: TrainState,
     u_rows: torch.Tensor,       # [B, D] user rows of THIS batch, gathered last step
     a_rows: torch.Tensor,       # [B, D] anime rows of THIS batch
-    users: torch.Tensor,
-    anime: torch.Tensor,
-    ratings: torch.Tensor,
-    weights: torch.Tensor,
-    next_users: torch.Tensor,   # [B] ids of the NEXT batch
-    next_anime: torch.Tensor,
+    users,
+    anime,
+    ratings,
+    weights,
+    next_users,                 # [B] ids of the NEXT batch
+    next_anime,
     lr: float,
     l2_reg_factor: float,
     kernel_gather: bool = False,
@@ -104,10 +113,19 @@ def fused_train_step_pipelined(
     ``sparse_adam_update(next_ids=...)``), out of each table block it has
     just updated; False gathers them with torch indexing after the update.
     Both give copies, never views of the tables, and equal rows bit for bit.
-    Returns (state, loss, mse, next_u_rows, next_a_rows)."""
-    out = pipelined_step(state, u_rows, a_rows, users, anime, ratings, weights, next_users,
-                         next_anime, step_row(state, lr), l2_reg_factor, kernel_gather)
-    state.adam.count += 1
+    On a card a replay of the step's graph (train/step_graph.py): the rows
+    given, which may be the previous call's, are copied into its buffers,
+    and the rows returned are copies of its outputs. Returns (state, loss,
+    mse, next_u_rows, next_a_rows)."""
+
+    def body(st, u_rows, a_rows, users, anime, ratings, weights, next_users, next_anime,
+             scal):
+        return pipelined_step(st, u_rows, a_rows, users, anime, ratings, weights,
+                              next_users, next_anime, scal, l2_reg_factor, kernel_gather)
+
+    out = run_step(("pipelined", float(l2_reg_factor), kernel_gather), body, state, lr,
+                   u_rows=u_rows, a_rows=a_rows, users=users, anime=anime, ratings=ratings,
+                   weights=weights, next_users=next_users, next_anime=next_anime)
     return (state, *out)
 
 

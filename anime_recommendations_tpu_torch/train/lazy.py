@@ -30,8 +30,11 @@ serial chain over a hot row's run cost 0.24 ms more a step on an H100 at
 full width), so a duplicated row's sum may differ in its last f32 bits.
 
 These are plain torch ops, on the card as on the CPU: the JAX package has
-no Pallas kernel here. The step's first update from a fresh state with
-l2 = 0 equals dense Adam's on the touched rows (tests/test_torch_lazy.py).
+no Pallas kernel here. On a card ``lazy_train_step`` is one CUDA graph
+replay per call from a signature's third call on (train/step_graph.py);
+``lazy_step`` is its eager body. The step's first update from a fresh
+state with l2 = 0 equals dense Adam's on the touched rows
+(tests/test_torch_lazy.py).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
     KERAS_ADAM_EPS,
     TrainState,
     _keep_bn,
-    step_row,
+    run_step,
 )
 
 
@@ -145,21 +148,26 @@ def _data_loss(u_rows: torch.Tensor, a_rows: torch.Tensor, head_params,
 
 def lazy_train_step(
     state: TrainState,
-    users: torch.Tensor,
-    anime: torch.Tensor,
-    ratings: torch.Tensor,
-    weights: torch.Tensor,
+    users,
+    anime,
+    ratings,
+    weights,
     lr: float,
     l2_reg_factor: float,
 ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
-    """One lazy-Adam step. Returns (state, batch_data_loss, batch_mse).
+    """One lazy-Adam step (the batch columns tensors or numpy arrays).
+    Returns (state, batch_data_loss, batch_mse).
 
     Gradients are taken with respect to the GATHERED rows (no dense table
     gradient exists); the tables update through lazy_row_adam, the four head
-    scalars through ordinary Adam with the shared step count."""
-    loss, mse = lazy_step(state, users, anime, ratings, weights, step_row(state, lr),
-                          l2_reg_factor)
-    state.adam.count += 1
+    scalars through ordinary Adam with the shared step count. On a card a
+    replay of the step's graph (train/step_graph.py)."""
+
+    def body(st, users, anime, ratings, weights, scal):
+        return lazy_step(st, users, anime, ratings, weights, scal, l2_reg_factor)
+
+    loss, mse = run_step(("lazy", float(l2_reg_factor)), body, state, lr, users=users,
+                         anime=anime, ratings=ratings, weights=weights)
     return state, loss, mse
 
 

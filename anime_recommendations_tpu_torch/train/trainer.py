@@ -13,7 +13,11 @@ buffers and the Adam moments in place and returns the same TrainState. The
 Adam state is explicit (count, and mu/nu per parameter name), so the dense
 and the fused paths share it. ``train_step`` is optax.scale_by_adam(b1=0.9,
 b2=0.999, eps=1e-7) with -lr applied outside, written as tensor ops; the
-gradients come from autograd over ``loss_and_metrics``.
+gradients come from autograd over ``loss_and_metrics``. On a card
+``train_step`` and ``eval_step`` are each one CUDA graph replay per call
+from a signature's third call on (train/step_graph.py), the counterpart of
+JAX's jitted steps; ``dense_step`` and ``eval_body`` are their eager
+bodies, which the CPU runs.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from anime_recommendations_tpu_torch.models.two_tower import (
     loss_and_metrics,
     params_from_numpy,
 )
-from anime_recommendations_tpu_torch.ops.fused_adam import adam_scalars, scalar_row
+from anime_recommendations_tpu_torch.ops.fused_adam import adam_scalars, scalar_rows
+from anime_recommendations_tpu_torch.train import step_graph
 from anime_recommendations_tpu_torch.train.schedule import lr_for_epoch
 
 KERAS_ADAM_EPS = 1e-7
@@ -123,11 +128,23 @@ def bias_corrections(step: int) -> tuple[float, float]:
     return s.bc1, s.bc2
 
 
-def step_row(state: TrainState, lr: float) -> torch.Tensor:
-    """The next step's scalars (lr, bc1, bc2, step) as a [4] f32 row on the
-    state's device (ops/fused_adam.scalar_rows), for the one-step entry
-    points, which take lr as a host number."""
-    return scalar_row(state.adam.count + 1, lr, state.model.user_emb.device, B1, B2)
+def step_row(state: TrainState, lr: float) -> np.ndarray:
+    """The next step's scalars (lr, bc1, bc2, step) as a [4] f32 host row
+    (ops/fused_adam.scalar_rows), for the one-step entry points, which take
+    lr as a host number: copied into a step graph's buffer before a replay,
+    uploaded for an eager call."""
+    return scalar_rows([state.adam.count + 1], lr, B1, B2)[0]
+
+
+def run_step(tag: tuple, body, state: TrainState, lr: float, **inputs) -> tuple:
+    """One training step: ``body(state, **tensors)``, the inputs (tensors or
+    numpy arrays) and the step row at ``lr`` as ``scal``, through the step
+    graphs (train/step_graph.run, keyed by ``tag``); the Adam count
+    advanced. Returns the body's outputs, the caller's own."""
+    out = step_graph.run(tag, body, state, dict(inputs, scal=step_row(state, lr)),
+                         step_graph.state_tensors(state), state.model.user_emb.device)
+    state.adam.count += 1
+    return out
 
 
 def _keep_bn(model: TwoTower, new_bn: BNState) -> None:
@@ -137,21 +154,27 @@ def _keep_bn(model: TwoTower, new_bn: BNState) -> None:
 
 def train_step(
     state: TrainState,
-    users: torch.Tensor,
-    anime: torch.Tensor,
-    ratings: torch.Tensor,
-    weights: torch.Tensor,
+    users,
+    anime,
+    ratings,
+    weights,
     lr: float,
     l2_reg_factor: float,
     merge: str = "cosine",
     sorted_scatter: bool | str = False,
 ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
-    """One dense-Adam step. Returns (state, batch_loss, batch_mse), the last
-    two 0-dim device tensors (no host sync). ``sorted_scatter``: the
-    gathers' backward (two_tower.forward)."""
-    loss, mse = dense_step(state, users, anime, ratings, weights, step_row(state, lr),
-                           l2_reg_factor, merge, sorted_scatter)
-    state.adam.count += 1
+    """One dense-Adam step (the batch columns tensors or numpy arrays).
+    Returns (state, batch_loss, batch_mse), the last two 0-dim device
+    tensors (no host sync). ``sorted_scatter``: the gathers' backward
+    (two_tower.forward). On a card a replay of the step's graph
+    (train/step_graph.py), elsewhere dense_step."""
+
+    def body(st, users, anime, ratings, weights, scal):
+        return dense_step(st, users, anime, ratings, weights, scal, l2_reg_factor, merge,
+                          sorted_scatter)
+
+    loss, mse = run_step(("dense", float(l2_reg_factor), merge, sorted_scatter), body, state,
+                         lr, users=users, anime=anime, ratings=ratings, weights=weights)
     return state, loss, mse
 
 
@@ -181,26 +204,44 @@ def dense_step(state: TrainState, users, anime, ratings, weights, scal: torch.Te
 
 
 @torch.no_grad()
-def eval_step(
-    model: TwoTower,
-    bn_state: BNState,
-    users: torch.Tensor,
-    anime: torch.Tensor,
-    ratings: torch.Tensor,
-    weights: torch.Tensor,
-    l2_reg_factor: float,
-    merge: str = "cosine",
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Weighted sums for exact epoch-level validation aggregates."""
+def eval_body(model: TwoTower, bn_state: BNState, users, anime, ratings, weights,
+              l2_reg_factor: float, merge: str = "cosine",
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """eval_step's work: weighted sums for exact epoch-level validation
+    aggregates, (loss * w, mse * w, w), with no host read."""
     loss, (mse, _) = loss_and_metrics(model, bn_state, users, anime, ratings,
                                       weights, l2_reg_factor, False, merge=merge)
     w = torch.sum(weights)
     return loss * w, mse * w, w
 
 
-def batch_to_device(batch: Batch, device) -> tuple[torch.Tensor, ...]:
-    return tuple(torch.from_numpy(np.asarray(x)).to(device)
-                 for x in (batch.users, batch.anime, batch.ratings, batch.weights))
+def eval_step(
+    model: TwoTower,
+    bn_state: BNState,
+    users,
+    anime,
+    ratings,
+    weights,
+    l2_reg_factor: float,
+    merge: str = "cosine",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weighted sums for exact epoch-level validation aggregates (eval_body;
+    the batch columns tensors or numpy arrays). On a card a replay of the
+    evaluation's graph (train/step_graph.py)."""
+
+    def body(target, users, anime, ratings, weights):
+        return eval_body(*target, users, anime, ratings, weights, l2_reg_factor, merge)
+
+    return step_graph.run(
+        ("eval", float(l2_reg_factor), merge), body, (model, bn_state),
+        dict(users=users, anime=anime, ratings=ratings, weights=weights),
+        step_graph.model_tensors(model) + list(bn_state), model.user_emb.device, writes=False)
+
+
+def batch_columns(batch: Batch) -> tuple[np.ndarray, ...]:
+    """A batch's (users, anime, ratings, weights) numpy columns: the step
+    entry points copy them to the card (through a graph's pinned copies)."""
+    return batch.users, batch.anime, batch.ratings, batch.weights
 
 
 def _snapshot(model: TwoTower) -> dict[str, torch.Tensor]:
@@ -228,7 +269,9 @@ class Trainer:
     # Each epoch through train/device_loop.py: data staged on the device
     # once, a granule shuffle per epoch, no host sync until the epoch ends;
     # on a card each epoch (and each holdout evaluation) is the replay of
-    # one CUDA graph, captured at the first epoch.
+    # one CUDA graph, captured at the first epoch. Without it each step and
+    # each evaluation batch on a card is the replay of its step graph
+    # (train/step_graph.py), the batch copied in from the host.
     device_loop: bool = False
     # The device loop's adam gathers through two_tower.take_rows (True =
     # both tables, "user" = the user table only, False = plain gathers).
@@ -347,8 +390,7 @@ class Trainer:
                     shuffle=self.shuffle_each_epoch,
                     seed=self.seed * 1000 + epoch,
                 ):
-                    state, loss, mse = self._train_step(
-                        state, batch_to_device(batch, self.device), lr)
+                    state, loss, mse = self._train_step(state, batch_columns(batch), lr)
                     losses.append(loss)
                     mses.append(mse)
                     bws.append(batch.weights.sum())
@@ -443,7 +485,7 @@ class Trainer:
                  ds: RatingsDataset) -> tuple[float, float]:
         loss_sum = mse_sum = w_sum = 0.0
         for batch in ds.iter_batches(self._eval_batch_size(len(ds)), shuffle=False):
-            ls, ms, w = eval_step(model, bn_state, *batch_to_device(batch, self.device),
+            ls, ms, w = eval_step(model, bn_state, *batch_columns(batch),
                                   self.l2_reg_factor, self.merge)
             loss_sum, mse_sum, w_sum = loss_sum + ls, mse_sum + ms, w_sum + w
         w = max(float(w_sum), 1.0)

@@ -1,11 +1,12 @@
 """CUDA graphs: one captured body, replayed as one launch.
 
-The counterpart of a jitted JAX program on the card. Two paths capture
+The counterpart of a jitted JAX program on the card. Three paths capture
 through it: the device-resident epochs (train/device_loop.py,
-parallel/sharded_train.py), one graph per epoch, and the retrieval scans
-(ops/scan_graph.py), one graph per request signature. Each keeps its own
-cache of graphs, least recently used first out (``lru_get``), keyed by
-everything the graph reads outside its own buffers and memory pool
+parallel/sharded_train.py), one graph per epoch, the retrieval scans
+(ops/scan_graph.py), one graph per request signature, and the training and
+evaluation steps (train/step_graph.py), one graph per step signature. Each
+keeps its own cache of graphs, least recently used first out (``lru_get``),
+keyed by everything the graph reads outside its own buffers and memory pool
 (``layout``): a hit replays on the same memory.
 """
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from anime_recommendations_tpu_torch.ops import _kernels
+from anime_recommendations_tpu_torch.ops.fused_adam import upload
 
 
 class CapturedGraph:
@@ -108,3 +110,11 @@ def layout(tensors) -> tuple:
     address, shape, strides, dtype and whether they require grad."""
     return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.requires_grad)
                  for t in tensors)
+
+
+def device_tensor(x, device: torch.device) -> torch.Tensor:
+    """``x``, a tensor or a numpy array, on ``device``: a host array goes to
+    a card through pinned memory, without waiting for the card."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return upload(np.ascontiguousarray(x), device)

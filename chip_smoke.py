@@ -278,6 +278,31 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            each endpoint's median and p90 latency over 100 requests through
            both servers, taken in turns, with the share a replay served.
 
+  phase 15 each training and evaluation step as one CUDA graph replay
+           (train/step_graph.py; right after phase 13), at phase 13's full
+           width and initial state (91,641 x 17,560 x 128, batches of
+           10,000 of phase 5's training split, seed 7): per entry point
+           (train_step with adam, lazy_train_step, fused_train_step with
+           f32 and bf16 moments, fused_train_step_pipelined without and
+           with K5's gather) 20 calls eagerly (step_graph.EAGER) and 20
+           through a step-graph cache from one state on the same numpy
+           batches, lr 1e-5 and 2e-5 in turn, the launch counters set to 0
+           before each run and read after: every state tensor, loss and
+           mse bit-equal (lazy_adam within 1e-5 of each tensor's scale, the
+           head scalars of the largest of them, but for dense_b's noise
+           walk), K1 and its first pass (K5 and its
+           passes with the gather) launched twice a call, counted per
+           replay, one capture and a replay per call from the second on;
+           ms per step over calls 3-20 (host clock between synchronizes),
+           10 more calls of each under torch.profiler (device-busy ms, idle
+           share, host launches a step), capture and instantiation
+           seconds, pool MB. 15b (on phase 7's NCCL group, after 7b): the
+           same for ShardedTrainStep.train_step at world size 1, routed
+           fused_adam at the default capacity and at 512 slots (each call
+           reads its round counts before its replay) and psum adam, then
+           eval_sums and grads three calls each through the cache, bit for
+           bit the eager calls.
+
 The last lines are the card line, a JSON line of kernel results (each
 kernel's launches on its path, largest error against its plain version, its
 time, the plain version's, the least time the card could take for the work
@@ -292,6 +317,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -2643,6 +2669,317 @@ def phase_routed(card: str, trained: dict) -> dict:
     return out
 
 
+# ---- phase 15 ------------------------------------------------------------------
+
+STEP_GRAPH_STEPS = 20        # calls per run: the first eager, the second captured
+STEP_PROFILED = 10           # calls under torch.profiler after them (and 3 warm-up)
+# label -> the optimizer of its state (phase 13's initial state), by entry point:
+# train_step, lazy_train_step, fused_train_step with f32 and bf16 moments,
+# fused_train_step_pipelined without and with K5's gather.
+STEP_GRAPH_CASES = {"adam": "adam", "lazy_adam": "lazy_adam", "fused_adam": "fused_adam",
+                    "fused_adam_bf16m": "fused_adam_bf16m", "pipelined": "fused_adam",
+                    "pipelined_kernel_gather": "fused_adam"}
+# The routed and psum steps at world size 1: (optimizer, capacity, routing).
+SHARDED_STEP_CASES = {"fused_adam": ("fused_adam", None, "alltoall"),
+                      f"fused_adam@{CAPPED}": ("fused_adam", CAPPED, "alltoall"),
+                      "psum_adam": ("adam", None, "psum")}
+STEP_CALLS = STEP_GRAPH_STEPS + 3 + STEP_PROFILED   # a run's calls of its train step
+STEP_KERNELS = ("fused_adam_tiles", "fused_adam", "fused_adam_dense", "fused_adam_gather",
+                "fused_adam_copies")
+
+
+@functools.cache
+def _step_batches() -> list:
+    """STEP_GRAPH_STEPS + 1 numpy batches of BATCH rows of phase 5's training
+    split in stage(seed=SEED)'s host order: (users, anime, ratings, weights)."""
+    train, _ = _train_split()
+    n = (STEP_GRAPH_STEPS + 1) * BATCH
+    order = np.random.default_rng(SEED).permutation(len(train))[:n]
+    cols = (train.users[order].astype(np.int32), train.anime[order].astype(np.int32),
+            train.ratings[order].astype(np.float32), np.ones(n, np.float32))
+    return [tuple(c[i * BATCH:(i + 1) * BATCH] for c in cols)
+            for i in range(STEP_GRAPH_STEPS + 1)]
+
+
+@contextlib.contextmanager
+def _step_cache(graphs):
+    """Every step entry point takes ``graphs`` (a StepGraphs) while it is open."""
+    from anime_recommendations_tpu_torch.train import step_graph
+
+    saved = step_graph.graphs_for
+    step_graph.graphs_for = lambda device: graphs
+    try:
+        yield
+    finally:
+        step_graph.graphs_for = saved
+
+
+def _entry_call(label: str):
+    """call(state, rows, cols, next_cols, lr) -> (state, rows, (loss, mse)):
+    one call of the label's entry point; ``rows`` the pipelined steps'
+    gathered rows, carried from call to call."""
+    from anime_recommendations_tpu_torch.train import trainer as tr
+    from anime_recommendations_tpu_torch.train.fused import (
+        fused_train_step,
+        fused_train_step_pipelined,
+    )
+    from anime_recommendations_tpu_torch.train.lazy import lazy_train_step
+
+    def call(state, rows, cols, nxt, lr):
+        if label == "adam":
+            state, *out = tr.train_step(state, *cols, lr, 1e-4)
+        elif label == "lazy_adam":
+            state, *out = lazy_train_step(state, *cols, lr, 1e-4)
+        elif label in FUSED:
+            state, *out = fused_train_step(state, *cols, lr, 1e-4)
+        else:
+            state, *out = fused_train_step_pipelined(
+                state, *rows, *cols, *nxt[:2], lr, 1e-4,
+                kernel_gather=label == "pipelined_kernel_gather")
+            rows = tuple(out[2:])
+        return state, rows, tuple(out[:2])
+
+    return call
+
+
+def _timed_steps(call, state, rows, batches, graphs) -> dict:
+    """STEP_GRAPH_STEPS calls through ``graphs`` (lr GRAPH_LRS in turn), the
+    launch counters set to 0 before them and read after: the state, the
+    losses and mses, ms per step over the calls from the third on (host
+    clock between synchronizes), the launches, the host reads a step
+    (_host_reads: the round counts at 512 slots), then STEP_PROFILED calls
+    under torch.profiler (device-busy ms, idle share, host launches per
+    step)."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import _kernels
+
+    hist = {"losses": [], "mses": []}
+    with _step_cache(graphs):
+        _kernels.launches.clear()
+        with _host_reads() as reads:
+            for i in range(STEP_GRAPH_STEPS):
+                if i == 2:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                state, rows, (loss, mse) = call(state, rows, batches[i], batches[i + 1],
+                                                GRAPH_LRS[i % 2])
+                hist["losses"].append(loss)
+                hist["mses"].append(mse)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (STEP_GRAPH_STEPS - 2)
+        launches = {k: _kernels.launches[k] for k in STEP_KERNELS}
+        hist = {k: torch.stack(v).cpu().numpy() for k, v in hist.items()}
+        box = [state, rows]
+
+        def one():
+            box[0], box[1], _ = call(box[0], box[1], batches[0], batches[1], GRAPH_LRS[0])
+
+        prof = _profiled(one, reps=STEP_PROFILED)
+    if not (np.isfinite(hist["losses"]).all() and np.isfinite(hist["mses"]).all()):
+        raise AssertionError("non-finite loss or mse")
+    return dict(state=state, hist=hist, ms_per_step=ms, launches=launches,
+                host_reads_per_step=reads["reads"] / STEP_GRAPH_STEPS,
+                profile={k: prof[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                              "host_launches", "device_ops", "records_lost")})
+
+
+def _check_replayed(label: str, eager: dict, captured: dict, graphs, lazy: bool,
+                    captures: int, hits: int) -> tuple:
+    """captured's losses, mses and state against eager's (_graph_gaps):
+    bit-equal, or within 1e-5 of each tensor's scale (lazy: index_add_'s
+    atomics), the head scalars of the largest of them, but for dense_b's
+    noise walk; the launches equal; the cache's
+    ``captures`` and ``hits`` (a replay per call of a signature from its
+    second on). Returns the gaps and the cache's report."""
+    gaps = _graph_gaps(captured, eager)
+    # The head scalars (one value each) against the largest of them: bn_beta's
+    # value is a sum of steps of either sign, so its own scale is no measure.
+    heads = [[(captured["arrays"][f"{m}{k}"], eager["arrays"][f"{m}{k}"])
+              for k in ("dense_w", "bn_gamma", "bn_beta")] for m in ("", "mu.", "nu.")]
+    gaps["head_scalars"]["group_rel"] = max(
+        max(float(np.abs(x - y).max()) for x, y in pairs)
+        / max(max(float(np.abs(y).max()) for _, y in pairs), 1e-30) for pairs in heads)
+    for k, g in gaps.items():
+        if k == "count":
+            if g != 0:
+                raise AssertionError(f"[phase 15] {label}: the Adam counts differ")
+        elif not lazy:
+            if not g["bit_equal"]:
+                raise AssertionError(f"[phase 15] {label}: the replayed {k} differ from the "
+                                     f"eager steps': {g}")
+        elif k != "noise_walk" and g.get("group_rel", g["rel"]) > 1e-5:
+            raise AssertionError(f"[phase 15] {label}: the replayed {k} differ from the eager "
+                                 f"steps' by {g['rel']} of their scale")
+    if captured["launches"] != eager["launches"]:
+        raise AssertionError(f"[phase 15] {label}: launches {captured['launches']}, eager "
+                             f"{eager['launches']}")
+    report = graphs.report()
+    if (report["captures"], report["hits"]) != (captures, hits):
+        raise AssertionError(f"[phase 15] {label}: {report}, expected {captures} captures and "
+                             f"{hits} hits")
+    return gaps, report
+
+
+def _padded_round_keys(capacity, batches) -> list:
+    """The rounds (users, anime) each of a run's train_step calls runs at
+    one rank (ShardedTrainStep.make_plans: the largest counts so far; the
+    profiled calls take batches[0]), or None where no plan is read."""
+    from anime_recommendations_tpu_torch.parallel import routing as rt
+
+    if capacity is None:
+        return [None] * STEP_CALLS
+    keys, most = [], (0, 0)
+    for i in [*range(STEP_GRAPH_STEPS), *[0] * (STEP_CALLS - STEP_GRAPH_STEPS)]:
+        own = tuple(rt.plan_stats(ids, 1, capacity)[2] for ids in batches[i][:2])
+        most = tuple(max(a, b) for a, b in zip(most, own))
+        keys.append(most)
+    return keys
+
+
+def _expected_cache(keys) -> tuple[int, int]:
+    """(captures, hits) of a run whose calls take these signatures in turn
+    (each one's calls contiguous): a signature's first call runs eagerly,
+    its second captures, later ones replay."""
+    counts = [len(list(g)) for _, g in itertools.groupby(keys)]
+    return sum(c >= 2 for c in counts), sum(max(c - 2, 0) for c in counts)
+
+
+def _state_arrays(state) -> dict:
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    return tr.train_state_to_numpy(state)
+
+
+def _step_row(label: str, card: str, eager: dict, captured: dict, gaps: dict,
+              report: dict) -> dict:
+    """A case's printed row; idle_share_timed is 1 - device-busy ms over
+    the unprofiled ms per step (the profiler slows the host, so its own
+    idle share overstates it)."""
+    return {"case": label, "card": card, "steps": STEP_GRAPH_STEPS,
+            "replayed_vs_eager": gaps, "launches": captured["launches"],
+            "ms_per_step": {"eager": eager["ms_per_step"], "replayed": captured["ms_per_step"]},
+            "idle_share_timed": {
+                mode: 1 - run["profile"]["device_ms"] / run["ms_per_step"]
+                for mode, run in (("eager", eager), ("replayed", captured))},
+            "host_reads_per_step": {"eager": eager["host_reads_per_step"],
+                                    "replayed": captured["host_reads_per_step"]},
+            "profiled": {"eager": eager["profile"], "replayed": captured["profile"]},
+            "graphs": {k: v for k, v in report.items() if k != "pool_mb"},
+            "pool_mb": report["pool_mb"]}
+
+
+def phase_step_graph(card: str) -> dict:
+    """Phase 15: each one-device entry point, STEP_GRAPH_STEPS calls eagerly
+    (step_graph.EAGER) and through a step-graph cache from phase 13's
+    initial state on the same batches: bit-equal (lazy_adam within 1e-5 of
+    scale), the path's kernels launched (K1 and its first pass, K5 with its
+    passes), ms per step, device-busy ms, idle share, host launches a step,
+    capture and instantiation seconds, pool MB."""
+    import torch
+
+    from anime_recommendations_tpu_torch.train import step_graph
+
+    batches = _step_batches()
+    out = {}
+    for label, optimizer in STEP_GRAPH_CASES.items():
+        call = _entry_call(label)
+        runs = {}
+        for mode in ("eager", "captured"):
+            graphs = step_graph.StepGraphs() if mode == "captured" else step_graph.EAGER
+            state = _fresh_state(optimizer)
+            rows = tuple(t.detach()[torch.from_numpy(ids).to(DEVICE)] for t, ids in (
+                (state.model.user_emb, batches[0][0]), (state.model.anime_emb, batches[0][1])))
+            run = _timed_steps(call, state, rows, batches, graphs)
+            run["arrays"] = _state_arrays(run.pop("state"))
+            runs[mode] = (run, graphs)
+        (eager, _), (captured, graphs) = runs["eager"], runs["captured"]
+        gaps, report = _check_replayed(label, eager, captured, graphs, label == "lazy_adam",
+                                       1, STEP_CALLS - 2)
+        k1 = "fused_adam_gather" if label == "pipelined_kernel_gather" else "fused_adam"
+        if optimizer in FUSED and (captured["launches"][k1] != 2 * STEP_GRAPH_STEPS
+                                   or captured["launches"]["fused_adam_tiles"]
+                                   != 2 * STEP_GRAPH_STEPS):
+            raise AssertionError(f"[phase 15] {label}: launches {captured['launches']}, "
+                                 f"expected {2 * STEP_GRAPH_STEPS} of {k1} and its first pass")
+        graphs.release()
+        out[label] = _step_row(label, card, eager, captured, gaps, report)
+        print(f"[phase 15] {label} ({card}): {json.dumps(out[label])}", flush=True)
+    return out
+
+
+def _sharded_call(step):
+    """call(state, rows, cols, next_cols, lr) of ShardedTrainStep.train_step."""
+
+    def call(state, rows, cols, nxt, lr):
+        state, loss, mse = step.train_step(state, *cols, lr)
+        return state, rows, (loss, mse)
+
+    return call
+
+
+def phase_step_graph_sharded(card: str) -> dict:
+    """Phase 15b (on phase 7's NCCL group of world size 1): ShardedTrainStep
+    at SHARDED_STEP_CASES, STEP_GRAPH_STEPS train_step calls eagerly and
+    through a step-graph cache from one state on the same batches (at 512
+    slots each call reads its round counts before its replay), then
+    eval_sums and grads three times each through the cache: everything
+    bit-equal to the eager calls; the timings of phase_step_graph."""
+    import torch
+
+    from anime_recommendations_tpu_torch.parallel.mesh import make_world
+    from anime_recommendations_tpu_torch.parallel.sharded_train import ShardedTrainStep
+    from anime_recommendations_tpu_torch.parallel.trainer import init_placed_state
+    from anime_recommendations_tpu_torch.train import step_graph
+
+    _, vocab, _, _ = _dataset()
+    batches = _step_batches()
+    world = make_world(1, 1, DEVICE)
+    out = {}
+    for label, (optimizer, capacity, routing) in SHARDED_STEP_CASES.items():
+        runs = {}
+        for mode in ("eager", "captured"):
+            # A step each: the rounds its plans run grow from its first call.
+            step = ShardedTrainStep(world, l2_reg_factor=1e-4, routing=routing,
+                                    optimizer=optimizer, capacity=capacity)
+            graphs = step_graph.StepGraphs() if mode == "captured" else step_graph.EAGER
+            state = init_placed_state(world, vocab.n_users, vocab.n_anime, D,
+                                      torch.Generator().manual_seed(SEED), routing=routing)
+            run = _timed_steps(_sharded_call(step), state, (), batches, graphs)
+            state = run.pop("state")
+            with _step_cache(graphs):    # three calls each: eager, captured, replayed
+                run["evals"] = [step.eval_sums(state.model, state.model.bn_state(), *batches[i])
+                                for i in range(3)]
+                run["grads"] = [step.grads(state, *batches[i]) for i in range(3)]
+            run["arrays"] = _state_arrays(state)
+            runs[mode] = (run, graphs)
+        (eager, _), (captured, graphs) = runs["eager"], runs["captured"]
+        for i in range(3):
+            if not all(torch.equal(a, b) for a, b in zip(captured["evals"][i], eager["evals"][i])):
+                raise AssertionError(f"[phase 15b] {label}: replayed eval sums {i} differ")
+            if not all(torch.equal(captured["grads"][i][k], g)
+                       for k, g in eager["grads"][i].items()):
+                raise AssertionError(f"[phase 15b] {label}: replayed gradients {i} differ")
+        # The train steps' graphs, then eval_sums' and grads' (one each, at
+        # the final rounds), and where the plans read their round counts
+        # (512 slots) the plans' graph, replayed before each call from its
+        # second.
+        captures, hits = _expected_cache(_padded_round_keys(capacity, batches))
+        if capacity is not None:
+            captures, hits = captures + 1, hits + STEP_CALLS + 6 - 2
+        gaps, report = _check_replayed(label, eager, captured, graphs, False,
+                                       captures + 2, hits + 2)
+        k1 = "fused_adam" if capacity is None else "fused_adam_dense"
+        if optimizer == "fused_adam" and captured["launches"][k1] != 2 * STEP_GRAPH_STEPS:
+            raise AssertionError(f"[phase 15b] {label}: launches {captured['launches']}")
+        graphs.release()
+        out[label] = _step_row(label, card, eager, captured, gaps, report)
+        del runs, eager, captured
+        print(f"[phase 15b] {label}, world size 1 on NCCL ({card}): {json.dumps(out[label])}",
+              flush=True)
+    return out
+
+
 # ---- phase 10 ------------------------------------------------------------------
 
 # scaling_bench's defaults (the JAX harness's): global batch and timed steps,
@@ -3819,6 +4156,7 @@ def main() -> int:
     graph = _timed_phase("13", phase_graph, card)
     # The one-device epoch's timing, beside which phases 7 and 10 print theirs.
     trained["timed"] = {opt: graph[opt]["captured"] for opt in OPTIMIZERS}
+    _timed_phase("15", phase_step_graph, card)   # resets the counters before each run
     gathered = _timed_phase("6", phase_gather, card)   # resets the counters before each epoch
     _timed_phase("6 (convergence)", phase_convergence, card)
     import torch.distributed as dist
@@ -3828,6 +4166,7 @@ def main() -> int:
         dense_rows += _timed_phase("7a (receipts)", phase_dense, card, receipts=True)
         # resets the counters before each run
         routed = _timed_phase("7b", phase_routed, card, trained)
+        _timed_phase("15b", phase_step_graph_sharded, card)   # resets them too
         _timed_phase("10", phase_psum, card, trained)
     finally:
         dist.destroy_process_group()
@@ -3835,9 +4174,11 @@ def main() -> int:
     _timed_phase("9", phase_pipeline, card)
     from anime_recommendations_tpu_torch.ops import scan_graph
     from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train import step_graph
 
     dl.release_graphs()        # their memory pools
     scan_graph.release_graphs()
+    step_graph.release_graphs()
     torch.cuda.empty_cache()   # the bench's process shares the card
     _timed_phase("11", phase_bench, card)
     _timed_phase("12", phase_download, card)

@@ -44,7 +44,12 @@ compared then). The captured sharded epoch (parallel/trainer.py at world
 size 1 on NCCL, its collectives in the graph): bit for bit the eager one
 for psum adam and alltoall adam, fused_adam and fused_adam_bf16m (the fused
 ones also at a capacity that takes more than 4 rounds), lazy_adam within
-1e-5 of each tensor's largest entry (index_add_'s atomics).
+1e-5 of each tensor's largest entry (index_add_'s atomics). The step
+graphs (train/step_graph.py): each one-device entry point and the sharded
+step's train_step, eval_sums and grads at world size 1 on NCCL, 10 calls
+through a cache against 10 through StepGraphs(0) from one state, bit for
+bit (lazy_adam within 1e-5 of each tensor's largest entry unless two eager
+runs are bit-equal), one capture and a replay per call from the second on.
 """
 
 import numpy as np
@@ -827,6 +832,9 @@ def nccl_world(cuda):
     try:
         yield
     finally:
+        from anime_recommendations_tpu_torch.train import step_graph
+
+        step_graph.release_graphs()   # the graphs that captured the group's collectives
         dist.destroy_process_group()
 
 
@@ -1189,3 +1197,209 @@ def test_scan_graph_concurrent_requests_during_capture_match_eager(cuda):
     assert not errors, errors[:5]
     assert graphs.captures == len(cases) == len(graphs)
     graphs.release()
+
+
+# ---- each step as one graph replay (train/step_graph.py) ---------------------------
+
+STEP_ENTRIES = ("train_cosine", "train_dot", "eval", "fused_f32", "fused_bf16", "pipelined",
+                "pipelined_kernel_gather", "lazy")
+STEP_CALLS = 10
+STEP_NAMES = ("fused_adam_tiles", "fused_adam", "fused_adam_gather", "fused_adam_copies",
+              "fused_adam_dense")
+
+
+def _step_batches(rows=1024, calls=STEP_CALLS + 1, seed=0):
+    """Numpy batches: uniform users of 3000, skewed anime of 500 (duplicate
+    ids), a quarter of the second batch's rows at weight 0."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(calls):
+        w = np.ones(rows, np.float32)
+        if i == 1:
+            w[-rows // 4:] = 0.0
+        out.append((rng.integers(0, 3000, rows).astype(np.int32),
+                    np.minimum(rng.pareto(1.1, rows) * 20, 499).astype(np.int32),
+                    rng.uniform(0, 1, rows).astype(np.float32), w))
+    return out
+
+
+def _entry_runs(cuda, entry, graphs, monkeypatch):
+    """STEP_CALLS calls of a one-device entry point from one state through
+    ``graphs``, lr changing every call, the batch as numpy (device tensors
+    every third call): (outputs, state arrays, launches)."""
+    from anime_recommendations_tpu_torch.train import step_graph
+    from anime_recommendations_tpu_torch.train import trainer as tr
+    from anime_recommendations_tpu_torch.train.fused import (
+        fused_train_step,
+        fused_train_step_pipelined,
+    )
+    from anime_recommendations_tpu_torch.train.lazy import lazy_train_step
+
+    monkeypatch.setattr(step_graph, "graphs_for", lambda device: graphs)
+    state = tr.init_train_state(3000, 500, 32, generator=torch.Generator().manual_seed(0),
+                                device=cuda)
+    if entry == "fused_bf16":
+        state = tr.cast_table_moments(state, torch.bfloat16)
+    data = _step_batches()
+    rows = tuple(t.detach()[torch.from_numpy(ids).to(cuda)]
+                 for t, ids in ((state.model.user_emb, data[0][0]),
+                                (state.model.anime_emb, data[0][1])))
+    _kernels.launches.clear()
+    outs = []
+    for i in range(STEP_CALLS):
+        lr = 1e-3 * (1 + i % 3) / 2
+        cols = data[i] if i % 3 else tuple(torch.from_numpy(c).to(cuda) for c in data[i])
+        if entry == "eval":
+            out = tr.eval_step(state.model, state.model.bn_state(), *cols, 1e-4)
+        elif entry.startswith("train"):
+            state, *out = tr.train_step(state, *cols, lr, 1e-4, merge=entry[6:])
+        elif entry.startswith("fused"):
+            state, *out = fused_train_step(state, *cols, lr, 1e-4)
+        elif entry == "lazy":
+            state, *out = lazy_train_step(state, *cols, lr, 1e-4)
+        else:
+            state, *out = fused_train_step_pipelined(
+                state, *rows, *cols, *data[i + 1][:2], lr, 1e-4,
+                kernel_gather=entry == "pipelined_kernel_gather")
+            rows = tuple(out[2:])
+        outs.append([t.cpu().numpy() for t in out])
+    torch.cuda.synchronize()
+    return outs, tr.train_state_to_numpy(state), {k: _kernels.launches[k] for k in STEP_NAMES}
+
+
+def _assert_runs_equal(got, want, again, lazy):
+    """got bit-equal to want where two eager runs (want, again) are, else
+    (lazy_adam's atomics) within 1e-5 of each tensor's largest entry but
+    for dense_b's noise walk, the head scalars (one value each: dense_w,
+    bn_gamma, bn_beta) within 1e-5 of the largest of them, and so their
+    moments: bn_beta's value is a sum of steps of either sign, so its own
+    scale is no measure of its error."""
+    flat = lambda r: [*(v for o in r[0] for v in o), *r[1].values()]
+    eager_equal = all(np.array_equal(a, b) for a, b in zip(flat(want), flat(again)))
+    if not lazy:
+        assert eager_equal
+    if eager_equal:
+        for a, b in zip(flat(got), flat(want)):
+            np.testing.assert_array_equal(a, b)
+        return
+    noise = ("dense_b", "mu.dense_b", "nu.dense_b", "moving_mean")
+    head = {f"{m}{k}": tuple(f"{m}{h}" for h in ("dense_w", "bn_gamma", "bn_beta"))
+            for m in ("", "mu.", "nu.") for k in ("dense_w", "bn_gamma", "bn_beta")}
+    for k in want[1]:
+        if k not in noise:
+            scale = max(np.abs(want[1][j]).max() for j in head.get(k, (k,)))
+            np.testing.assert_allclose(got[1][k], want[1][k], rtol=0,
+                                       atol=1e-5 * max(scale, 1e-30), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", STEP_ENTRIES)
+def test_step_graph_replays_match_the_eager_steps(cuda, entry, monkeypatch):
+    """Each one-device entry point through a step-graph cache against
+    StepGraphs(0) (the eager body) over STEP_CALLS calls from one state:
+    every output and state tensor bit for bit (lazy_adam: _assert_runs_equal),
+    K1's and K5's launches counted per replay equal the eager calls', one
+    capture at the second call and a replay per call from it on."""
+    from anime_recommendations_tpu_torch.train import step_graph
+
+    graphs = step_graph.StepGraphs()
+    got = _entry_runs(cuda, entry, graphs, monkeypatch)
+    want = _entry_runs(cuda, entry, step_graph.EAGER, monkeypatch)
+    again = _entry_runs(cuda, entry, step_graph.EAGER, monkeypatch)
+    assert (graphs.captures, graphs.misses, graphs.hits) == (1, 2, STEP_CALLS - 2)
+    (graph,) = graphs._graphs.values()
+    assert graph.replays == STEP_CALLS - 1
+    assert got[2] == want[2], (got[2], want[2])
+    fused = entry.startswith(("fused", "pipelined"))
+    k5 = entry == "pipelined_kernel_gather"
+    assert got[2]["fused_adam_tiles"] == (2 * STEP_CALLS if fused else 0)
+    assert got[2]["fused_adam_gather" if k5 else "fused_adam"] == (2 * STEP_CALLS if fused else 0)
+    _assert_runs_equal(got, want, again, entry == "lazy")
+    graphs.release()
+
+
+SHARDED_STEP_CASES = [("fused_adam", None, "alltoall"), ("fused_adam", 512, "alltoall"),
+                      ("adam", None, "psum")]
+
+
+def _sharded_step_runs(cuda, optimizer, capacity, routing, graphs, monkeypatch):
+    """STEP_CALLS rounds of ShardedTrainStep grads, eval_sums and
+    train_step at world size 1 through ``graphs``, on 4096-row batches:
+    (outputs, state arrays, launches)."""
+    from anime_recommendations_tpu_torch.parallel.mesh import make_world
+    from anime_recommendations_tpu_torch.parallel.sharded_train import ShardedTrainStep
+    from anime_recommendations_tpu_torch.parallel.trainer import init_placed_state
+    from anime_recommendations_tpu_torch.train import step_graph
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    monkeypatch.setattr(step_graph, "graphs_for", lambda device: graphs)
+    world = make_world(1, 1, cuda)
+    step = ShardedTrainStep(world, l2_reg_factor=1e-4, routing=routing, optimizer=optimizer,
+                            capacity=capacity)
+    state = init_placed_state(world, 3000, 500, 32, torch.Generator().manual_seed(0),
+                              routing=routing)
+    _kernels.launches.clear()
+    outs = []
+    for i, cols in enumerate(_step_batches(rows=4096, calls=STEP_CALLS)):
+        grads = step.grads(state, *cols)
+        sums = step.eval_sums(state.model, state.model.bn_state(), *cols)
+        state, loss, mse = step.train_step(state, *cols, 1e-3 * (1 + i % 3) / 2)
+        outs.append([t.cpu().numpy() for t in (*grads.values(), *sums, loss, mse)])
+    torch.cuda.synchronize()
+    return outs, tr.train_state_to_numpy(state), {k: _kernels.launches[k] for k in STEP_NAMES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer,capacity,routing", SHARDED_STEP_CASES)
+def test_sharded_step_graph_replays_match_the_eager_steps(cuda, nccl_world, monkeypatch,
+                                                          optimizer, capacity, routing):
+    """ShardedTrainStep's grads, eval_sums and train_step at world size 1 on
+    NCCL through a step-graph cache against StepGraphs(0): every output and
+    state tensor bit for bit; at 512 slots (more than 4 rounds: the plans
+    made before each call by a graph of their own, their rounds in the key;
+    K1's dense branch) as at the default capacity; a capture per kind of
+    call, a replay per call from the second on."""
+    from anime_recommendations_tpu_torch.parallel import routing as rt
+    from anime_recommendations_tpu_torch.train import step_graph
+
+    if capacity is not None:
+        for b in _step_batches(rows=4096, calls=STEP_CALLS):
+            assert rt.plan_stats(b[0], 1, capacity)[2] == 5
+    graphs = step_graph.StepGraphs()
+    got = _sharded_step_runs(cuda, optimizer, capacity, routing, graphs, monkeypatch)
+    want = _sharded_step_runs(cuda, optimizer, capacity, routing, step_graph.EAGER, monkeypatch)
+    assert got[2] == want[2], (got[2], want[2])
+    k1 = "fused_adam" if capacity is None else "fused_adam_dense"
+    assert got[2][k1] == (2 * STEP_CALLS if optimizer == "fused_adam" else 0)
+    for a, b in zip([*(v for o in got[0] for v in o), *got[1].values()],
+                    [*(v for o in want[0] for v in o), *want[1].values()]):
+        np.testing.assert_array_equal(a, b)
+    # Every batch takes the same rounds (5 and 1 at 512 slots): one graph per
+    # kind, and at 512 slots one for the plans made before each call.
+    kinds = 3 if capacity is None else 4
+    plans = [] if capacity is None else [3 * STEP_CALLS - 1]
+    assert (graphs.captures, graphs.hits) == (kinds, 3 * (STEP_CALLS - 2) + sum(plans) - len(plans))
+    assert sorted(g.replays for g in graphs._graphs.values()) == [STEP_CALLS - 1] * 3 + plans
+    graphs.release()
+
+
+@pytest.mark.cuda
+def test_a_step_capture_that_syncs_raises(cuda, monkeypatch):
+    """No fallback: a step body that reads a value on the host runs eagerly
+    at its first call and fails its capture at the second."""
+    from anime_recommendations_tpu_torch.train import step_graph
+
+    graphs = step_graph.StepGraphs()
+    monkeypatch.setattr(step_graph, "graphs_for", lambda device: graphs)
+    x = torch.ones(4, device=cuda)
+
+    def body(st, v):
+        return ((v * 2).sum() * float((v * 2).sum().item()),)
+
+    def call():
+        return step_graph.run(("sync",), body, None, {"v": x}, [x], cuda, writes=False)
+
+    assert float(call()[0]) == 64.0
+    with pytest.raises(RuntimeError):
+        call()
+    assert len(graphs) == 0

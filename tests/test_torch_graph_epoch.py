@@ -52,6 +52,7 @@ from anime_recommendations_tpu_torch.train import device_loop as dl
 from anime_recommendations_tpu_torch.train import trainer as tr
 from anime_recommendations_tpu_torch.train.checkpoint import Checkpointer
 from anime_recommendations_tpu_torch.train.lazy import _data_loss, lazy_row_adam
+from anime_recommendations_tpu_torch.train.step_graph import state_tensors
 from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph
 from tests.test_torch_train import close_to_scale, initial_arrays, numpy_to_jax, ratings
 
@@ -286,10 +287,10 @@ def test_two_epochs_match_jax(optimizer):
 @pytest.mark.parametrize("optimizer", OPTIMIZERS)
 def test_state_keeps_its_storage_over_an_epoch_and_a_restore(optimizer, tmp_path):
     state, data = port_state(optimizer), staged()
-    ptrs = [t.data_ptr() for t in dl._state_tensors(state)]
+    ptrs = [t.data_ptr() for t in state_tensors(state)]
     state, *_ = dl.train_epoch(state, data, torch.Generator().manual_seed(0), LRS[0], BS, L2,
                                optimizer=optimizer)
-    assert [t.data_ptr() for t in dl._state_tensors(state)] == ptrs
+    assert [t.data_ptr() for t in state_tensors(state)] == ptrs
     ckpt = Checkpointer(tmp_path)
     ckpt.save(0, state)
     saved = {k: v.copy() for k, v in tr.train_state_to_numpy(state).items()}
@@ -297,7 +298,7 @@ def test_state_keeps_its_storage_over_an_epoch_and_a_restore(optimizer, tmp_path
                                optimizer=optimizer)
     assert not np.array_equal(tr.train_state_to_numpy(state)["user_emb"], saved["user_emb"])
     state = ckpt.restore(state, 0)
-    assert [t.data_ptr() for t in dl._state_tensors(state)] == ptrs
+    assert [t.data_ptr() for t in state_tensors(state)] == ptrs
     for k, v in tr.train_state_to_numpy(state).items():
         np.testing.assert_array_equal(v, saved[k], err_msg=k)
 

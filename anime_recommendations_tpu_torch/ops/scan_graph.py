@@ -37,6 +37,10 @@ run concurrently. A capture or replay that fails raises: no path drops to
 the eager body on the card to hide it. The training and evaluation steps'
 cache (train/step_graph.StepGraphs) is a ScanGraphs with its own capacity,
 under the same lock.
+
+Spans (utils/profiling.span, recorded while the recorder is on):
+``scan.lock_wait``, the wait for the lock, then one of ``scan.replay``,
+``scan.capture`` (the capture and its first replay) or ``scan.eager``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from collections import OrderedDict
 import torch
 
 from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, device_tensor, lru_get
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 SCAN_GRAPH_CACHE = 32   # graphs a cache keeps, most recently used; each holds a memory pool
 _SEEN_PER_GRAPH = 4     # signatures seen once that a cache remembers, per graph it keeps
@@ -78,25 +83,32 @@ class ScanGraphs:
         tensors and runs before a capture: a body that writes what it reads
         warms up on a copy. Returns tensors the caller owns."""
         host = {name: v for name, v in inputs.items() if v is not None}
-        with _LOCK:
+        with span("scan.lock_wait"):
+            _LOCK.acquire()
+        try:
             graph = self._graphs.get(key)
             if graph is not None:
                 self._graphs.move_to_end(key)
                 self.hits += 1
-                return graph.replay(host)
+                with span("scan.replay"):
+                    return graph.replay(host)
             self.misses += 1
             if key in self._seen:   # the second call: capture
                 del self._seen[key]
-                graph = lru_get(self._graphs, key,
-                                lambda: self._capture(body, inputs, device, warm_up or body),
-                                self.capacity)
-                return graph.replay(host)
+                with span("scan.capture"):
+                    graph = lru_get(self._graphs, key,
+                                    lambda: self._capture(body, inputs, device, warm_up or body),
+                                    self.capacity)
+                    return graph.replay(host)
             if self.capacity:
                 self._seen[key] = None
                 while len(self._seen) > _SEEN_PER_GRAPH * self.capacity:
                     self._seen.popitem(last=False)
-            return body(**{name: None if v is None else device_tensor(v, device)
-                           for name, v in inputs.items()})
+            with span("scan.eager"):
+                return body(**{name: None if v is None else device_tensor(v, device)
+                               for name, v in inputs.items()})
+        finally:
+            _LOCK.release()
 
     def _capture(self, body, inputs: dict, device: torch.device, warm_up) -> CapturedGraph:
         """A graph of ``body`` on static buffers shaped as ``inputs``

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from anime_recommendations_tpu_torch.ops import _kernels
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 GROUP = 512            # rows per extraction group (low key bits carry the lane)
 # Query count from which stage 1 runs on the tensor cores, with TF32
@@ -672,8 +673,10 @@ def _dispatch_topk(
     eagerly."""
     from anime_recommendations_tpu_torch.ops import scan_graph
 
-    request, inputs = stage_request(table, queries, mask, exclude, head, k=k,
-                                    exact_scan=exact_scan, top_r=top_r, m=m, probes=probes)
+    with span("scan.stage"):
+        request, inputs = stage_request(table, queries, mask, exclude, head, k=k,
+                                        exact_scan=exact_scan, top_r=top_r, m=m,
+                                        probes=probes)
     dev = request.device
     if dev.type != "cuda":
         return scan_body(request, **{name: None if v is None else v.to(dev)
@@ -703,3 +706,13 @@ def cosine_topk(
     return _dispatch_topk(table_normalized, query_rows, mask, exclude, None, k=k,
                           exact_scan=exact_scan, top_r=top_r, m=m, probes=probes,
                           graphs=graphs)
+
+
+def host_topk(scan, *args, **kwargs) -> tuple[np.ndarray, np.ndarray]:
+    """``scan(*args, **kwargs)`` (cosine_topk or score_topk) with its values
+    and indices read back to the host as numpy arrays: the span
+    ``scan.call``, the read-back its last child ``scan.readback``."""
+    with span("scan.call"):
+        vals, idx = scan(*args, **kwargs)
+        with span("scan.readback"):
+            return vals.cpu().numpy(), idx.cpu().numpy()

@@ -2,6 +2,10 @@
 
 Counterpart of anime_recommendations_tpu/recommend/batch.py: many queries
 ride one scan of the table, then one vectorized metadata join.
+
+Spans (utils/profiling.span), each around a whole loop: ``recommend.encode``
+(raw ids to rows), ``recommend.masks`` (the shared and watched masks),
+``scan.call`` (ops/topk.host_topk) and ``recommend.join`` (the records).
 """
 
 from __future__ import annotations
@@ -10,8 +14,9 @@ import numpy as np
 import torch
 
 from anime_recommendations_tpu_torch.ops.scoring import score_topk
-from anime_recommendations_tpu_torch.ops.topk import cosine_topk
+from anime_recommendations_tpu_torch.ops.topk import cosine_topk, host_topk
 from anime_recommendations_tpu_torch.recommend.context import RecContext
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 
 def _rows(table: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
@@ -30,16 +35,19 @@ def similar_anime_batch(
     Returns one record per query: {"query", "anime_ids", "names",
     "similarities"}. Unknown names raise KeyError.
     """
-    ids = [ctx.catalog.resolve_query(n) for n in names]
-    q_idx = np.asarray([ctx.anime_index(a) for a in ids], np.int64)
+    with span("recommend.encode"):
+        ids = [ctx.catalog.resolve_query(n) for n in names]
+        q_idx = np.asarray([ctx.anime_index(a) for a in ids], np.int64)
 
-    mask = ctx.in_catalog_mask()
-    if types is not None:
-        mask &= ctx.type_mask(types)
-    if genres is not None:
-        mask &= ctx.genre_mask(genres)
+    with span("recommend.masks"):
+        mask = ctx.in_catalog_mask()
+        if types is not None:
+            mask &= ctx.type_mask(types)
+        if genres is not None:
+            mask &= ctx.genre_mask(genres)
 
-    vals, idx = cosine_topk(
+    vals, idx = host_topk(
+        cosine_topk,
         ctx.anime_table(),
         _rows(ctx.anime_norm, q_idx),
         k=min(count, ctx.vocab.n_anime),
@@ -48,21 +56,20 @@ def similar_anime_batch(
         graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
-    vals = vals.cpu().numpy()
-    idx = idx.cpu().numpy()
     out = []
-    for row, name in enumerate(names):
-        keep = vals[row] > -1e29
-        anime_ids = ctx.vocab.anime_ids[idx[row][keep]]
-        rows = ctx.catalog.rows_for_ids(anime_ids)
-        out.append(
-            {
-                "query": name,
-                "anime_ids": rows["anime_id"].tolist(),
-                "names": rows["Name"].tolist(),
-                "similarities": vals[row][keep][: len(rows)].tolist(),
-            }
-        )
+    with span("recommend.join"):
+        for row, name in enumerate(names):
+            keep = vals[row] > -1e29
+            anime_ids = ctx.vocab.anime_ids[idx[row][keep]]
+            rows = ctx.catalog.rows_for_ids(anime_ids)
+            out.append(
+                {
+                    "query": name,
+                    "anime_ids": rows["anime_id"].tolist(),
+                    "names": rows["Name"].tolist(),
+                    "similarities": vals[row][keep][: len(rows)].tolist(),
+                }
+            )
     return out
 
 
@@ -77,18 +84,21 @@ def model_recs_batch(
     row mask holds the common filters; each user's watched set is dropped
     afterwards, so the scan asks for ``n_recs + max watched`` candidates.
     """
-    user_idx = np.asarray([ctx.user_index(u) for u in user_ids], np.int64)
-    shared = ctx.in_catalog_mask()
-    if types is not None:
-        shared &= ctx.type_mask(types)
-    if genres is not None:
-        shared &= ctx.genre_mask(genres)
+    with span("recommend.encode"):
+        user_idx = np.asarray([ctx.user_index(u) for u in user_ids], np.int64)
 
-    watched_masks = [ctx.watched_mask(int(u)) for u in user_ids]
-    buffer = max(int(m.sum()) for m in watched_masks) if watched_masks else 0
+    with span("recommend.masks"):
+        shared = ctx.in_catalog_mask()
+        if types is not None:
+            shared &= ctx.type_mask(types)
+        if genres is not None:
+            shared &= ctx.genre_mask(genres)
+        watched_masks = [ctx.watched_mask(int(u)) for u in user_ids]
+        buffer = max(int(m.sum()) for m in watched_masks) if watched_masks else 0
     k = min(n_recs + buffer, ctx.vocab.n_anime)
 
-    vals, idx = score_topk(
+    vals, idx = host_topk(
+        score_topk,
         ctx.anime_table(),
         _rows(ctx.user_norm, user_idx),
         ctx.head,
@@ -97,23 +107,22 @@ def model_recs_batch(
         graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
-    vals = vals.cpu().numpy()
-    idx = idx.cpu().numpy()
     out = []
-    for row, uid in enumerate(user_ids):
-        watched = watched_masks[row]
-        keep = (vals[row] > -1e29) & ~watched[np.clip(idx[row], 0, None)]
-        sel = idx[row][keep][:n_recs]
-        anime_ids = ctx.vocab.anime_ids[sel]
-        rows = ctx.catalog.rows_for_ids(anime_ids)
-        out.append(
-            {
-                "user_id": int(uid),
-                "anime_ids": rows["anime_id"].tolist(),
-                "names": rows["Name"].tolist(),
-                "predictions": vals[row][keep][: len(rows)].tolist(),
-            }
-        )
+    with span("recommend.join"):
+        for row, uid in enumerate(user_ids):
+            watched = watched_masks[row]
+            keep = (vals[row] > -1e29) & ~watched[np.clip(idx[row], 0, None)]
+            sel = idx[row][keep][:n_recs]
+            anime_ids = ctx.vocab.anime_ids[sel]
+            rows = ctx.catalog.rows_for_ids(anime_ids)
+            out.append(
+                {
+                    "user_id": int(uid),
+                    "anime_ids": rows["anime_id"].tolist(),
+                    "names": rows["Name"].tolist(),
+                    "predictions": vals[row][keep][: len(rows)].tolist(),
+                }
+            )
     return out
 
 
@@ -133,8 +142,10 @@ def similar_users_batch(
     """
     from anime_recommendations_tpu_torch.recommend.similar_users import get_fave_anime
 
-    q_idx = np.asarray([ctx.user_index(int(u)) for u in user_ids], np.int64)
-    vals, idx = cosine_topk(
+    with span("recommend.encode"):
+        q_idx = np.asarray([ctx.user_index(int(u)) for u in user_ids], np.int64)
+    vals, idx = host_topk(
+        cosine_topk,
         ctx.user_table(),
         _rows(ctx.user_norm, q_idx),
         k=min(n_users, ctx.vocab.n_users),
@@ -142,21 +153,20 @@ def similar_users_batch(
         graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
-    vals = vals.cpu().numpy()
-    idx = idx.cpu().numpy()
     out = []
-    for row, uid in enumerate(user_ids):
-        keep = vals[row] > -1e29
-        sim_ids = ctx.vocab.user_ids[idx[row][keep]]
-        rec = {
-            "query": int(uid),
-            "similar_users": [int(s) for s in sim_ids],
-            "similarities": vals[row][keep].tolist(),
-        }
-        if include_faves:
-            rec["favorite_animes"] = [
-                get_fave_anime(ctx, int(s), num_faves, TV_only)
-                for s in sim_ids
-            ]
-        out.append(rec)
+    with span("recommend.join"):
+        for row, uid in enumerate(user_ids):
+            keep = vals[row] > -1e29
+            sim_ids = ctx.vocab.user_ids[idx[row][keep]]
+            rec = {
+                "query": int(uid),
+                "similar_users": [int(s) for s in sim_ids],
+                "similarities": vals[row][keep].tolist(),
+            }
+            if include_faves:
+                rec["favorite_animes"] = [
+                    get_fave_anime(ctx, int(s), num_faves, TV_only)
+                    for s in sim_ids
+                ]
+            out.append(rec)
     return out

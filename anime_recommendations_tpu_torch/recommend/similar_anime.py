@@ -7,6 +7,9 @@ vectorized metadata join.
 Output schema: Name, Similarity, Genres, Sypnopsis, Episodes, Japanese name,
 Studios, Premiered, Score, Type, Source, Rating — sorted by Similarity
 descending.
+
+Spans (utils/profiling.span) as in recommend/batch.py: recommend.encode,
+recommend.masks, scan.call and recommend.join.
 """
 
 from __future__ import annotations
@@ -15,8 +18,9 @@ import numpy as np
 import pandas as pd
 
 from anime_recommendations_tpu_torch.utils.text import clean_name
-from anime_recommendations_tpu_torch.ops.topk import cosine_topk
+from anime_recommendations_tpu_torch.ops.topk import cosine_topk, host_topk
 from anime_recommendations_tpu_torch.recommend.context import RecContext
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 OUTPUT_COLUMNS = [
     "Name", "Similarity", "Genres", "Sypnopsis", "Episodes", "Japanese name",
@@ -39,16 +43,19 @@ def similar_anime(
     translated = clean_name(name)
     filename = translated + ".csv"
 
-    anime_id = ctx.catalog.resolve_query(name)
-    query_index = ctx.anime_index(anime_id)
+    with span("recommend.encode"):
+        anime_id = ctx.catalog.resolve_query(name)
+        query_index = ctx.anime_index(anime_id)
 
-    mask = ctx.in_catalog_mask()
-    if types is not None:
-        mask &= ctx.type_mask(types)
-    if genres is not None:
-        mask &= ctx.genre_mask(genres)
+    with span("recommend.masks"):
+        mask = ctx.in_catalog_mask()
+        if types is not None:
+            mask &= ctx.type_mask(types)
+        if genres is not None:
+            mask &= ctx.genre_mask(genres)
 
-    vals, idx = cosine_topk(
+    vals, idx = host_topk(
+        cosine_topk,
         ctx.anime_table(),
         ctx.anime_norm[query_index],
         k=min(count, ctx.vocab.n_anime),
@@ -57,15 +64,15 @@ def similar_anime(
         graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
-    vals = vals.cpu().numpy()[0]
-    idx = idx.cpu().numpy()[0]
-    keep = vals > -1e29  # fewer valid rows than k -> trim sentinels
-    vals, idx = vals[keep], idx[keep]
+    with span("recommend.join"):
+        vals, idx = vals[0], idx[0]
+        keep = vals > -1e29  # fewer valid rows than k -> trim sentinels
+        vals, idx = vals[keep], idx[keep]
 
-    anime_ids = ctx.vocab.anime_ids[idx]
-    frame = enrich_anime_rows(
-        ctx, anime_ids, extra={"Similarity": vals}, columns=OUTPUT_COLUMNS
-    )
+        anime_ids = ctx.vocab.anime_ids[idx]
+        frame = enrich_anime_rows(
+            ctx, anime_ids, extra={"Similarity": vals}, columns=OUTPUT_COLUMNS
+        )
     return frame, filename, translated
 
 

@@ -6,6 +6,9 @@ scan, then each similar user's favorite anime.
 
 Output schema: similar_users, similarity, favorite_animes — sorted by
 similarity descending.
+
+Spans (utils/profiling.span) as in recommend/batch.py: recommend.encode,
+scan.call and recommend.join.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ from __future__ import annotations
 import numpy as np
 import pandas as pd
 
-from anime_recommendations_tpu_torch.ops.topk import cosine_topk
+from anime_recommendations_tpu_torch.ops.topk import cosine_topk, host_topk
 from anime_recommendations_tpu_torch.recommend.context import RecContext
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 OUTPUT_COLUMNS = ["similar_users", "similarity", "favorite_animes"]
 
@@ -31,9 +35,11 @@ def similar_users(
     Returns (frame, csv_filename, user_id).
     """
     filename = f"User_{user_id}.csv"
-    query_index = ctx.user_index(user_id)
+    with span("recommend.encode"):
+        query_index = ctx.user_index(user_id)
 
-    vals, idx = cosine_topk(
+    vals, idx = host_topk(
+        cosine_topk,
         ctx.user_table(),
         ctx.user_norm[query_index],
         k=min(n_users, ctx.vocab.n_users),
@@ -41,22 +47,22 @@ def similar_users(
         graphs=ctx.scan_graphs,
         **ctx.topk_kwargs,
     )
-    vals = vals.cpu().numpy()[0]
-    idx = idx.cpu().numpy()[0]
-    keep = vals > -1e29
-    vals, idx = vals[keep], idx[keep]
+    with span("recommend.join"):
+        vals, idx = vals[0], idx[0]
+        keep = vals > -1e29
+        vals, idx = vals[keep], idx[keep]
 
-    similar_ids = ctx.vocab.user_ids[idx]
-    frame = pd.DataFrame(
-        {
-            "similar_users": similar_ids,
-            "similarity": vals,
-            "favorite_animes": [
-                get_fave_anime(ctx, int(uid), num_faves, TV_only)
-                for uid in similar_ids
-            ],
-        }
-    )
+        similar_ids = ctx.vocab.user_ids[idx]
+        frame = pd.DataFrame(
+            {
+                "similar_users": similar_ids,
+                "similarity": vals,
+                "favorite_animes": [
+                    get_fave_anime(ctx, int(uid), num_faves, TV_only)
+                    for uid in similar_ids
+                ],
+            }
+        )
     return frame.reset_index(drop=True), filename, user_id
 
 

@@ -12,6 +12,11 @@ and JSON:
     GET /similar_anime_batch?names=a|b|c&k=10
     GET /model_recs_batch?user_ids=1,2,3&k=10
     GET /similar_users_batch?user_ids=1,2,3&k=10[&faves=0]
+
+Spans (utils/profiling.span, recorded while the recorder is on): each
+request is the root ``serve.request`` (from do_GET's first line to the last
+byte of its body written; attributes route and status), each Engine method
+``engine.<method>`` under it.
 """
 
 from __future__ import annotations
@@ -32,12 +37,25 @@ from anime_recommendations_tpu_torch.recommend.similar_anime import similar_anim
 from anime_recommendations_tpu_torch.recommend.similar_users import similar_users
 from anime_recommendations_tpu_torch.recommend.user_prefs import user_prefs
 from anime_recommendations_tpu_torch.recommend.user_recs import user_recs
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
 
 def _records(frame: pd.DataFrame) -> list[dict]:
     return json.loads(frame.to_json(orient="records"))
+
+
+def _spanned(method):
+    """An Engine method under the span ``engine.<method>``."""
+    name = f"engine.{method.__name__}"
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        with span(name):
+            return method(self, *args, **kwargs)
+
+    return call
 
 
 class Engine:
@@ -86,14 +104,17 @@ class Engine:
         info = getattr(self._similar_users_cached, "cache_info", None)
         return None if info is None else info()._asdict()
 
+    @_spanned
     def similar_anime(self, name: str, k: int = 10, types=None, genres=None):
         frame, _, _ = similar_anime(self.ctx, name, count=k, types=types,
                                     genres=genres)
         return _records(frame)
 
+    @_spanned
     def similar_users(self, user_id: int, k: int = 10):
         return _records(self._similar_users(user_id, k))
 
+    @_spanned
     def user_prefs(self, user_id: int):
         prefs = user_prefs(
             self.ctx, user_id, percentile=self.cfg.users.favorite_percentile
@@ -105,6 +126,7 @@ class Engine:
             "source_frequencies": prefs.source_frequencies,
         }
 
+    @_spanned
     def user_recs(self, user_id: int, k: int = 10):
         sim = self._similar_users(user_id, self.cfg.users.recs_n_sim_ID)
         frame, _ = user_recs(
@@ -113,21 +135,25 @@ class Engine:
         )
         return _records(frame)
 
+    @_spanned
     def model_recs(self, user_id: int, k: int = 10, types=None, genres=None):
         frame, _ = model_recs(self.ctx, user_id, n_recs=k, types=types,
                               genres=genres)
         return _records(frame)
 
+    @_spanned
     def similar_anime_batch(self, names: list, k: int = 10, types=None,
                             genres=None):
         return batch.similar_anime_batch(self.ctx, names, count=k, types=types,
                                          genres=genres)
 
+    @_spanned
     def model_recs_batch(self, user_ids: list[int], k: int = 10, types=None,
                          genres=None):
         return batch.model_recs_batch(self.ctx, user_ids, n_recs=k, types=types,
                                       genres=genres)
 
+    @_spanned
     def similar_users_batch(self, user_ids: list[int], k: int = 10,
                             include_faves: bool = True):
         return batch.similar_users_batch(
@@ -144,26 +170,29 @@ def _make_handler(engine: Engine):
             logger.debug(fmt, *args)
 
         def do_GET(self):  # noqa: N802 (stdlib API)
-            parsed = urlparse(self.path)
-            q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
-            try:
-                payload = self._route(parsed.path, q)
-                body = json.dumps(payload).encode()
-                self.send_response(200)
-            except KeyError as e:
-                body = json.dumps({"error": f"not found: {e}"}).encode()
-                self.send_response(404)
-            except (ValueError, TypeError) as e:
-                body = json.dumps({"error": str(e)}).encode()
-                self.send_response(400)
-            except Exception as e:  # the server keeps serving other requests
-                logger.exception("request failed")
-                body = json.dumps({"error": str(e)}).encode()
-                self.send_response(500)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            with span("serve.request") as s:
+                parsed = urlparse(self.path)
+                q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+                try:
+                    payload = self._route(parsed.path, q)
+                    body = json.dumps(payload).encode()
+                    status = 200
+                except KeyError as e:
+                    body = json.dumps({"error": f"not found: {e}"}).encode()
+                    status = 404
+                except (ValueError, TypeError) as e:
+                    body = json.dumps({"error": str(e)}).encode()
+                    status = 400
+                except Exception as e:  # the server keeps serving other requests
+                    logger.exception("request failed")
+                    body = json.dumps({"error": str(e)}).encode()
+                    status = 500
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                s.annotate(route=parsed.path, status=status)
 
         def _route(self, path: str, q: dict):
             def listy(key):

@@ -12,10 +12,12 @@ CUDA graph: ``train_epoch`` and ``eval_epoch`` capture the epoch's steps at
 their first call for a state, its staged data and the run's settings, and
 replay the graph once per epoch after that (utils/graphs.CapturedGraph), so
 the host launches the epoch's ~30,000 kernels (297 steps of ~100 at full
-width) as one. What changes between epochs goes into the graph's static buffers
-before each replay: the steps' scalars, one row (lr, bc1, bc2, step) per
-step (scalar_table, from the host's Adam count and the epoch's lr), and the
-permutation of the granules, drawn on the host from the caller's generator. The
+width) as one: the span ``epoch.launch`` (``epoch.eval`` for the holdout's
+graph; utils/profiling.span). What changes between epochs goes into the
+graph's static buffers before each replay: the steps' scalars, one row (lr,
+bc1, bc2, step) per step (scalar_table, from the host's Adam count and the
+epoch's lr), and the permutation of the granules, drawn on the host from the
+caller's generator. The
 steps read their scalars from the rows as 0-dim device tensors and update
 every state tensor in place, so the graph's pointers stay valid; the host's
 Adam count advances by the epoch's steps after each replay. On the CPU, and
@@ -52,6 +54,7 @@ from anime_recommendations_tpu_torch.train.trainer import (
     eval_body,
 )
 from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, layout, lru_get
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 SHUFFLE_BLOCK = 512  # granule of the per-epoch shuffle (see stage())
 GRAPH_CACHE = 4      # epoch graphs kept, most recently used; each holds a memory pool
@@ -166,7 +169,8 @@ def train_epoch(
     host = {"table": scalar_table(state.adam.count, nb, lr)}
     if shuffle:
         host["perm"] = granule_permutation(data.n, generator)
-    losses, mses, wsums = graph.replay(host)
+    with span("epoch.launch"):
+        losses, mses, wsums = graph.replay(host)
     state.adam.count += nb
     return state, losses, mses, wsums
 
@@ -276,7 +280,9 @@ def eval_epoch(
     a card a replay of its CUDA graph, elsewhere eager_eval_epoch."""
     if data.users.device.type != "cuda":
         return eager_eval_epoch(model, bn_state, data, batch_size, l2_reg_factor)
-    return _eval_graph(model, bn_state, data, batch_size, l2_reg_factor).replay({})
+    graph = _eval_graph(model, bn_state, data, batch_size, l2_reg_factor)
+    with span("epoch.eval"):
+        return graph.replay({})
 
 
 @torch.no_grad()

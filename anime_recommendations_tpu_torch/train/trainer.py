@@ -45,6 +45,7 @@ from anime_recommendations_tpu_torch.models.two_tower import (
 from anime_recommendations_tpu_torch.ops.fused_adam import adam_scalars, scalar_rows
 from anime_recommendations_tpu_torch.train import step_graph
 from anime_recommendations_tpu_torch.train.schedule import lr_for_epoch
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 KERAS_ADAM_EPS = 1e-7
 B1, B2 = 0.9, 0.999
@@ -462,24 +463,33 @@ class Trainer:
 
     def _device_epoch(self, staged, state, epoch: int, lr: float):
         """One staged epoch + holdout eval. Returns
-        (state, loss_sum, mse_sum, w_total, val_loss, val_mse)."""
+        (state, loss_sum, mse_sum, w_total, val_loss, val_mse). The span
+        ``train.epoch``; its host reads that wait for the device are
+        ``epoch.wait`` (the launches: device_loop's ``epoch.launch`` and
+        ``epoch.eval``)."""
         from anime_recommendations_tpu_torch.train import device_loop as dl
 
         train_data, holdout_data, bs, eval_bs = staged
-        generator = torch.Generator().manual_seed(self.seed * 1000 + epoch)
-        state, ep_losses, ep_mses, ep_ws = dl.train_epoch(
-            state, train_data, generator, lr, bs, self.l2_reg_factor,
-            shuffle=self.shuffle_each_epoch,
-            sorted_scatter=self.sorted_scatter,
-            optimizer=self.optimizer,
-        )
-        bw_arr = ep_ws.cpu().numpy().astype(np.float64)
-        loss_sum = float(ep_losses.cpu().numpy() @ bw_arr)
-        mse_sum = float(ep_mses.cpu().numpy() @ bw_arr)
-        w_total = float(bw_arr.sum())
-        vl, vm = dl.eval_epoch(state.model, state.model.bn_state(), holdout_data,
-                               eval_bs, self.l2_reg_factor)
-        return state, loss_sum, mse_sum, w_total, float(vl), float(vm)
+        with span("train.epoch") as s:
+            s.annotate(epoch=epoch)
+            generator = torch.Generator().manual_seed(self.seed * 1000 + epoch)
+            state, ep_losses, ep_mses, ep_ws = dl.train_epoch(
+                state, train_data, generator, lr, bs, self.l2_reg_factor,
+                shuffle=self.shuffle_each_epoch,
+                sorted_scatter=self.sorted_scatter,
+                optimizer=self.optimizer,
+            )
+            with span("epoch.wait"):
+                bw_arr = ep_ws.cpu().numpy().astype(np.float64)
+                losses, mses = ep_losses.cpu().numpy(), ep_mses.cpu().numpy()
+            loss_sum = float(losses @ bw_arr)
+            mse_sum = float(mses @ bw_arr)
+            w_total = float(bw_arr.sum())
+            vl, vm = dl.eval_epoch(state.model, state.model.bn_state(), holdout_data,
+                                   eval_bs, self.l2_reg_factor)
+            with span("epoch.wait"):
+                vl, vm = float(vl), float(vm)
+        return state, loss_sum, mse_sum, w_total, vl, vm
 
     def evaluate(self, model: TwoTower, bn_state: BNState,
                  ds: RatingsDataset) -> tuple[float, float]:

@@ -3,7 +3,11 @@
 Counterpart of anime_recommendations_tpu/utils/profiling.py:
 
   * trace(log_dir): a torch.profiler session (host and, where CUDA is
-    available, device activity) that writes a Chrome trace into log_dir;
+    available, device activity) that writes a Chrome trace into log_dir,
+    the program's spans in it on the trace's clock;
+  * span(name): the program's span recorder (off unless spans_start() or
+    trace() turned it on): named intervals on time.perf_counter_ns(), from
+    any thread, each with its parent and its root;
   * StepTimer: wall-clock section timing with summary statistics;
   * device_memory_stats(): per-card memory use, from torch.cuda;
   * profiled(fn): the device time of each kernel fn launches, under
@@ -17,26 +21,185 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
+
+
+# ---- spans ---------------------------------------------------------------------
+
+
+class Span(NamedTuple):
+    """One recorded span. ``parent`` and ``root`` are indices into the list
+    spans_stop() returns: the enclosing span on the same thread (-1 at a
+    root) and the outermost one (itself at a root), which serves as the
+    request's id."""
+
+    name: str
+    start_ns: int           # time.perf_counter_ns()
+    end_ns: int | None      # None: still open when the recorder stopped
+    thread: int             # threading.get_native_id()
+    parent: int
+    root: int
+    attrs: dict | None
+
+
+class _NullSpan:
+    """What span() returns with the recorder off: one shared instance."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def annotate(self, **attrs) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+_spans_on = False
+_spans_lock = threading.Lock()
+_span_records: list = []     # [name, start, end, thread, parent, root, attrs] each
+_span_stacks = threading.local()
+
+
+class _OpenSpan:
+    __slots__ = ("name", "index", "record", "records")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_span_stacks, "stack", None)
+        if stack is None:
+            stack = _span_stacks.stack = []
+        with _spans_lock:
+            records = _span_records
+            self.index = len(records)
+            # A span opened before this session started is no parent here.
+            parent = stack[-1] if stack and stack[-1].records is records else None
+            self.record = [self.name, time.perf_counter_ns(), None, threading.get_native_id(),
+                           -1 if parent is None else parent.index,
+                           self.index if parent is None else parent.record[5], None]
+            records.append(self.record)
+        self.records = records
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.record[2] = time.perf_counter_ns()
+        _span_stacks.stack.pop()
+        return False
+
+    def annotate(self, **attrs) -> None:
+        """Attributes of the span (route, status, Q, k, ...)."""
+        if self.record[6] is None:
+            self.record[6] = {}
+        self.record[6].update(attrs)
+
+
+def span(name: str):
+    """``with span(name) as s:`` records the block as a span while the
+    recorder is on (``s.annotate(key=value)`` adds attributes); with it off,
+    the one shared null context, which records nothing and reads no clock."""
+    if not _spans_on:
+        return _NULL_SPAN
+    return _OpenSpan(name)
+
+
+def spans_start() -> None:
+    """Turn the recorder on with no spans held."""
+    global _spans_on, _span_records
+    with _spans_lock:
+        _span_records = []
+        _spans_on = True
+
+
+def spans_stop() -> list[Span]:
+    """Turn the recorder off and hand back its spans, in the order they
+    were opened."""
+    global _spans_on, _span_records
+    with _spans_lock:
+        _spans_on = False
+        records, _span_records = _span_records, []
+    return [Span(*r) for r in records]
+
+
+CLOCK_MARK = "profiling.clock"
+CLOCK_MARKS = 3
+SPAN_PID = 2**31 - 1     # the Chrome trace's process row of the program's spans
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | Path):
     """Profile everything inside the context; the Chrome trace goes to
     ``<log_dir>/trace_<pid>_<ns>.json`` (open it in Perfetto or
-    chrome://tracing)."""
+    chrome://tracing). The span recorder is on for the block, and its spans,
+    from every thread, go into the same file on the trace's clock: a process
+    row of their own ("program spans"), one track per thread, each with its
+    attributes, parent and root under ``args``."""
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(log_dir / f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    spans_start()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            reads = _clock_marks()
+            yield prof
+    finally:
+        spans = spans_stop()
+    path = log_dir / f"trace_{os.getpid()}_{time.time_ns()}.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    doc["traceEvents"] += _span_events(spans, _clock_offset_us(doc["traceEvents"], reads))
+    path.write_text(json.dumps(doc))
+
+
+def _clock_marks() -> list[int]:
+    """CLOCK_MARK annotations on this thread, each followed by a read of
+    perf_counter_ns(): the profiler stamps an annotation's end just before
+    its exit returns, so each pair ties the two clocks (clock_offset_us)."""
+    reads = []
+    for _ in range(CLOCK_MARKS):
+        with torch.profiler.record_function(CLOCK_MARK):
+            pass
+        reads.append(time.perf_counter_ns())
+    return reads
+
+
+def _clock_offset_us(events: list, reads: list[int]) -> float:
+    """The trace's clock (its ``ts``, in microseconds) less perf_counter_ns()
+    in microseconds: the largest over the clock marks, since a delay between
+    an annotation's end and the read after it only lowers the difference."""
+    ends = sorted(e["ts"] + e["dur"] for e in events
+                  if e.get("name") == CLOCK_MARK and e.get("cat") == "user_annotation")
+    if len(ends) != len(reads):
+        raise RuntimeError(f"the trace holds {len(ends)} of {len(reads)} clock marks")
+    return max(end - read / 1e3 for end, read in zip(ends, reads))
+
+
+def _span_events(spans: list[Span], offset_us: float) -> list[dict]:
+    """Chrome trace events of closed spans, shifted by ``offset_us``: one
+    complete event each on process SPAN_PID, thread the span's, and the
+    process's name."""
+    out = [{"ph": "M", "name": "process_name", "pid": SPAN_PID,
+            "args": {"name": "program spans"}}]
+    for i, s in enumerate(spans):
+        if s.end_ns is None:
+            continue
+        out.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": SPAN_PID,
+                    "tid": s.thread, "ts": s.start_ns / 1e3 + offset_us,
+                    "dur": (s.end_ns - s.start_ns) / 1e3,
+                    "args": {**(s.attrs or {}), "span": i, "parent": s.parent,
+                             "root": s.root}})
+    return out
 
 
 class StepTimer:

@@ -761,7 +761,7 @@ def _serving(s: BenchSizes, dev, details: dict) -> None:
         details[f"serve_{fn_name}_cold_ms"] = round((time.perf_counter() - t0) * 1e3, 2)
         details[f"serve_{fn_name}_warm_ms"] = _timed_best(call, 5)
     info = engine.cache_info()
-    if info:
+    if "hits" in info:
         details["serve_cache_hits"] = info["hits"]
         details["serve_cache_misses"] = info["misses"]
 

@@ -112,13 +112,6 @@ class Catalog:
             raise KeyError(f"Unknown anime: {name!r}")
         return int(hit)
 
-    def rows_for_ids(self, anime_ids: np.ndarray) -> pd.DataFrame:
-        """Metadata rows for an array of anime IDs, preserving input order.
-        IDs absent from the catalog are dropped."""
-        ids = pd.Index(anime_ids)
-        present = ids[ids.isin(self._by_id.index)]
-        return self._by_id.loc[present]
-
     # ---- vectorized position machinery (serve-path hot lookups) ---------------
 
     @cached_property
@@ -136,16 +129,7 @@ class Catalog:
         whose anime_id is in ``anime_ids`` — exact ``isin`` semantics,
         including duplicate catalog rows per id; absent ids contribute
         nothing."""
-        aid_sorted, pos = self._aid_positions
-        ids = np.unique(np.asarray(anime_ids, dtype=np.int64))
-        if ids.size == 0:
-            return np.empty(0, np.int64)
-        lo = np.searchsorted(aid_sorted, ids, "left")
-        hi = np.searchsorted(aid_sorted, ids, "right")
-        spans = [pos[l:h] for l, h in zip(lo, hi) if h > l]
-        if not spans:
-            return np.empty(0, np.int64)
-        return np.sort(np.concatenate(spans))
+        return np.sort(self.positions_csr(np.unique(np.asarray(anime_ids, np.int64)))[1])
 
     def positions_for_ids_ordered(
         self, anime_ids: np.ndarray
@@ -155,20 +139,18 @@ class Catalog:
         (duplicates in catalog order), absent ids dropped; src[j] is the
         index into ``anime_ids`` that produced output row j (for aligning
         per-id extras like similarity scores)."""
+        offsets, pos = self.positions_csr(anime_ids)
+        return pos, np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+
+    def positions_csr(self, anime_ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(offsets, positions): the catalog row positions of ``anime_ids[j]``
+        are ``positions[offsets[j]:offsets[j + 1]]`` — every catalog row of
+        the id, in catalog order; none for an id absent from the catalog."""
         aid_sorted, pos = self._aid_positions
         ids = np.asarray(anime_ids, dtype=np.int64)
         lo = np.searchsorted(aid_sorted, ids, "left")
-        hi = np.searchsorted(aid_sorted, ids, "right")
-        spans: list[np.ndarray] = []
-        src: list[int] = []
-        for j in range(len(ids)):
-            l, h = lo[j], hi[j]
-            if h > l:
-                spans.append(pos[l:h])
-                src.extend([j] * (h - l))
-        if not spans:
-            return np.empty(0, np.int64), np.empty(0, np.int64)
-        return np.concatenate(spans), np.asarray(src, np.int64)
+        counts = np.searchsorted(aid_sorted, ids, "right") - lo
+        return np.concatenate([[0], np.cumsum(counts)]), pos[ranges(lo, counts)]
 
     @cached_property
     def column_arrays(self) -> dict[str, np.ndarray]:
@@ -258,6 +240,12 @@ class Catalog:
     def source_frequencies(self) -> dict[str, int]:
         """Comma-split source counts (user_prefs.get_sources, user_prefs.py:121-141)."""
         return _split_frequencies(self.anime["Source"])
+
+
+def ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The concatenation of ``arange(s, s + c)`` over ``zip(starts, counts)``."""
+    ends = np.cumsum(counts)
+    return np.repeat(np.asarray(starts) - (ends - counts), counts) + np.arange(np.sum(counts))
 
 
 def load_anime_frame(df: pd.DataFrame) -> pd.DataFrame:

@@ -4,17 +4,44 @@ A copy of anime_recommendations_tpu/data/vocab.py, so that the port loads
 nothing of the JAX package. User and anime IDs are numbered by first
 appearance in the preprocessed frame; embedding-table rows are addressed by
 that order, and ``vocab.json`` written by either package loads in both.
+Raw ids are translated to rows through a sorter of each id column, built
+once on first use (IdIndex) and shared by every lookup after it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import json
+import threading
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 import pandas as pd
+
+
+class IdIndex:
+    """A lookup between two id spaces, built by ``build(*args)`` on its first
+    use, once, and shared by every caller after it (threads included). It
+    counts its builds and the ids translated through it (report())."""
+
+    def __init__(self, build, *args):
+        self._build, self._args = build, args
+        self._value = None
+        self._lock = threading.Lock()
+        self.builds = 0
+        self.translated = 0
+
+    def get(self, n_ids: int):
+        """The built lookup, counting ``n_ids`` ids translated through it."""
+        with self._lock:
+            if self._value is None:
+                self._value = self._build(*self._args)
+                self.builds += 1
+            self.translated += n_ids
+        return self._value
+
+    def report(self) -> dict[str, int]:
+        return {"builds": self.builds, "ids": self.translated}
 
 
 @dataclass(frozen=True)
@@ -23,6 +50,13 @@ class Vocab:
 
     user_ids: np.ndarray   # raw user id at each dense index (first-appearance order)
     anime_ids: np.ndarray  # raw anime id at each dense index
+    # The sorters of user_ids and anime_ids (_sorter), built on first use.
+    user_lookup: IdIndex = field(init=False, repr=False, compare=False)
+    anime_lookup: IdIndex = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "user_lookup", IdIndex(_sorter, self.user_ids))
+        object.__setattr__(self, "anime_lookup", IdIndex(_sorter, self.anime_ids))
 
     @property
     def n_users(self) -> int:
@@ -41,10 +75,12 @@ class Vocab:
 
     def encode_users(self, raw: np.ndarray) -> np.ndarray:
         """Vectorized raw-user-id -> dense-index; -1 for unknown IDs."""
-        return _encode(self.user_ids, np.asarray(raw))
+        raw = np.asarray(raw)
+        return _encode(self.user_lookup.get(raw.size), raw)
 
     def encode_anime(self, raw: np.ndarray) -> np.ndarray:
-        return _encode(self.anime_ids, np.asarray(raw))
+        raw = np.asarray(raw)
+        return _encode(self.anime_lookup.get(raw.size), raw)
 
     def save(self, path: str | Path) -> None:
         Path(path).write_text(
@@ -81,10 +117,15 @@ def encode_frame(df: pd.DataFrame, vocab: Vocab) -> pd.DataFrame:
     return out
 
 
-def _encode(table_ids: np.ndarray, raw: np.ndarray) -> np.ndarray:
-    """Map raw IDs to dense indices via a sorted-search; unknown -> -1."""
+def _sorter(table_ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(stable argsort of the ids, the ids in that order)."""
     order = np.argsort(table_ids, kind="stable")
-    sorted_ids = table_ids[order]
+    return order, table_ids[order]
+
+
+def _encode(sorter: tuple[np.ndarray, np.ndarray], raw: np.ndarray) -> np.ndarray:
+    """Map raw IDs to dense indices via a sorted-search; unknown -> -1."""
+    order, sorted_ids = sorter
     pos = np.searchsorted(sorted_ids, raw)
     pos = np.clip(pos, 0, len(sorted_ids) - 1)
     found = sorted_ids[pos] == raw

@@ -4,7 +4,11 @@ Counterpart of anime_recommendations_tpu/recommend/context.py: one object
 holds the retrieval tables on the device (recommend/tables.py), the
 canonical vocab, the preprocessed rating frame and the catalog, and every
 recommender reads from it. The host-side views below are the JAX package's,
-copied.
+copied, except the id translations: a whole batch of raw ids goes to vocab
+rows (user_indices, anime_indices), and vocab rows to catalog rows
+(catalog_positions), in one lookup against indexes built once per context
+(data/vocab.IdIndex; id_index_report() counts their builds and the ids
+they translated).
 """
 
 from __future__ import annotations
@@ -16,8 +20,8 @@ import numpy as np
 import pandas as pd
 import torch
 
-from anime_recommendations_tpu_torch.data.catalog import Catalog
-from anime_recommendations_tpu_torch.data.vocab import Vocab
+from anime_recommendations_tpu_torch.data.catalog import Catalog, ranges
+from anime_recommendations_tpu_torch.data.vocab import IdIndex, Vocab
 from anime_recommendations_tpu_torch.models.two_tower import TwoTower
 from anime_recommendations_tpu_torch.ops.ivf import IVFIndex
 from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable
@@ -49,12 +53,18 @@ class RecContext:
     # ScanGraphs(0) scans eagerly.
     scan_graphs: ScanGraphs = field(default_factory=ScanGraphs, repr=False)
     _vocab_anime_meta: pd.DataFrame = field(default=None, repr=False)
+    # Vocab anime row -> catalog positions (Catalog.positions_csr), built on
+    # first use.
+    _catalog_lookup: IdIndex = field(init=False, repr=False)
 
     def __post_init__(self):
         # Catalog metadata aligned to vocab rows (NaN rows for anime that are
-        # trained but absent from the catalog).
+        # trained but absent from the catalog; an anime's first catalog row
+        # where the catalog repeats its id).
         meta = self.catalog.anime.set_index("anime_id", drop=False)
+        meta = meta[~meta.index.duplicated()]
         self._vocab_anime_meta = meta.reindex(self.vocab.anime_ids)
+        self._catalog_lookup = IdIndex(self.catalog.positions_csr, self.vocab.anime_ids)
 
     # ---- constructors ---------------------------------------------------------
 
@@ -228,14 +238,51 @@ class RecContext:
 
     # ---- encoded indices ------------------------------------------------------
 
+    def user_indices(self, user_ids) -> np.ndarray:
+        """Vocab rows of a sequence of raw user ids, in one lookup; KeyError
+        for the first unknown id in the order given."""
+        return _known(self.vocab.encode_users(np.asarray(user_ids)), user_ids, "User")
+
+    def anime_indices(self, anime_ids) -> np.ndarray:
+        return _known(self.vocab.encode_anime(np.asarray(anime_ids)), anime_ids, "Anime")
+
     def user_index(self, user_id: int) -> int:
-        idx = int(self.vocab.encode_users(np.asarray([user_id]))[0])
-        if idx < 0:
-            raise KeyError(f"User {user_id} not in training vocab")
-        return idx
+        return int(self.user_indices([user_id])[0])
 
     def anime_index(self, anime_id: int) -> int:
-        idx = int(self.vocab.encode_anime(np.asarray([anime_id]))[0])
-        if idx < 0:
-            raise KeyError(f"Anime {anime_id} not in training vocab")
-        return idx
+        return int(self.anime_indices([anime_id])[0])
+
+    def catalog_positions(self, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(positions, counts): the catalog row positions of the anime at
+        vocab ``rows``, ``counts[j]`` of them for ``rows[j]``, in input order
+        — each anime's every catalog row in catalog order, none for one
+        absent from the catalog (Catalog.rows_for_ids of the JAX package,
+        for many rows at once)."""
+        rows = np.asarray(rows, np.int64)
+        offsets, positions = self._catalog_lookup.get(rows.size)
+        lo = offsets[rows]
+        counts = offsets[rows + 1] - lo
+        return positions[ranges(lo, counts)], counts
+
+    @cached_property
+    def catalog_repeats(self) -> int:
+        """The most catalog rows one vocab anime has (1 where the catalog
+        holds each id once, and where it holds none of them)."""
+        offsets, _ = self._catalog_lookup.get(0)
+        return max(1, int(np.diff(offsets).max(initial=0)))
+
+    def id_index_report(self) -> dict[str, dict[str, int]]:
+        """Builds and ids translated of each id index: raw user and anime
+        ids to vocab rows (the vocab's, shared by every context on it) and
+        vocab rows to catalog rows. One build each, whatever the traffic;
+        more mean an index is being rebuilt."""
+        return {"user": self.vocab.user_lookup.report(),
+                "anime": self.vocab.anime_lookup.report(),
+                "catalog": self._catalog_lookup.report()}
+
+
+def _known(rows: np.ndarray, ids, what: str) -> np.ndarray:
+    unknown = np.flatnonzero(rows < 0)
+    if unknown.size:
+        raise KeyError(f"{what} {ids[unknown[0]]} not in training vocab")
+    return rows

@@ -100,9 +100,14 @@ class Engine:
         frame = self._similar_users_cached(user_id, kc)
         return frame.head(k) if k < kc else frame
 
-    def cache_info(self):
+    def cache_info(self) -> dict:
+        """The similar-users LRU's counts (hits, misses, ...; none with
+        ``cache_size=0``) and, under ``id_index``, the context's id indexes'
+        builds and ids translated (RecContext.id_index_report)."""
         info = getattr(self._similar_users_cached, "cache_info", None)
-        return None if info is None else info()._asdict()
+        out = {} if info is None else info()._asdict()
+        out["id_index"] = self.ctx.id_index_report()
+        return out
 
     @_spanned
     def similar_anime(self, name: str, k: int = 10, types=None, genres=None):

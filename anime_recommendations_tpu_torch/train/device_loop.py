@@ -7,23 +7,42 @@ BatchNorm statistics. Each epoch permutes SHUFFLE_BLOCK-row granules of it
 on the device and runs its batches, keeping the per-batch loss, mse and
 weight on the device: there is no host sync until the epoch ends.
 
-On the TPU an epoch is one launched program (lax.scan). On a card it is one
-CUDA graph: ``train_epoch`` and ``eval_epoch`` capture the epoch's steps at
-their first call for a state, its staged data and the run's settings, and
-replay the graph once per epoch after that (utils/graphs.CapturedGraph), so
-the host launches the epoch's ~30,000 kernels (297 steps of ~100 at full
-width) as one: the span ``epoch.launch`` (``epoch.eval`` for the holdout's
-graph; utils/profiling.span). What changes between epochs goes into the
-graph's static buffers before each replay: the steps' scalars, one row (lr,
-bc1, bc2, step) per step (scalar_table, from the host's Adam count and the
+On the TPU an epoch is one launched program (lax.scan). On a card an epoch
+of at most CHUNK_STEPS steps is one CUDA graph: ``train_epoch`` and
+``eval_epoch`` capture the epoch's steps at their first call for a state,
+its staged data and the run's settings, and replay the graph once per epoch
+after that (utils/graphs.CapturedGraph), so the host launches the epoch's
+~30,000 kernels (297 steps of ~100 at full width) as one: the span
+``epoch.launch`` (``epoch.eval`` for the holdout's graph;
+utils/profiling.span). What changes between epochs goes into the graph's
+static buffers before each replay: the steps' scalars, one row (lr, bc1,
+bc2, step) per step (scalar_table, from the host's Adam count and the
 epoch's lr), and the permutation of the granules, drawn on the host from the
 caller's generator. The
 steps read their scalars from the rows as 0-dim device tensors and update
 every state tensor in place, so the graph's pointers stay valid; the host's
-Adam count advances by the epoch's steps after each replay. On the CPU, and
-on a card through ``eager_train_epoch`` and ``eager_eval_epoch``, the same
-body runs as a Python loop of steps (the plain version the graph is held
-against, bit for bit where the ops are deterministic). The fused optimizers
+Adam count advances by the epoch's steps after each replay.
+
+A longer epoch would make a graph without bound (26,281 steps at batch
+10,000 over 263M ratings: 3.4M kernels, minutes of capture), so it runs in
+chunks (``chunks``): nb // CHUNK_STEPS replays of one graph of CHUNK_STEPS
+steps, then one replay of a graph of the nb % CHUNK_STEPS left, both
+captured at the first epoch, each replay under the span ``epoch.chunk``
+(which takes ``epoch.launch``'s place; annotated with its ``steps``). No
+step is padded (a weight-0 step would still advance Adam). Before each
+replay its buffers get the chunk's scalar rows and its slice of the epoch's
+granule order (``chunk_inputs``), and the graph gathers the chunk's rows
+from the staged data (``chunk_rows``) rather than permuting the whole epoch
+at once: step i of the epoch sees the rows and the scalar row it sees in
+one graph. A holdout of more than CHUNK_STEPS batches is evaluated in
+chunks the same way, its sums carried from one replay to the next.
+``graph_report`` counts the epoch graphs captured, their seconds and their
+replays.
+
+On the CPU, and on a card through ``eager_train_epoch`` and
+``eager_eval_epoch``, the same bodies run as Python loops of steps, in the
+same chunks (the plain version the graphs are held against, bit for bit
+where the ops are deterministic). The fused optimizers
 run the JAX scan's software pipeline (``_fused_body``): each step consumes
 rows gathered at the end of the one before and gathers the next batch's
 rows from the tables it just updated.
@@ -53,11 +72,17 @@ from anime_recommendations_tpu_torch.train.trainer import (
     dense_step,
     eval_body,
 )
-from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, layout, lru_get
+from anime_recommendations_tpu_torch.utils.graphs import (
+    CapturedGraph,
+    device_tensor,
+    layout,
+    lru_get,
+)
 from anime_recommendations_tpu_torch.utils.profiling import span
 
 SHUFFLE_BLOCK = 512  # granule of the per-epoch shuffle (see stage())
 GRAPH_CACHE = 4      # epoch graphs kept, most recently used; each holds a memory pool
+CHUNK_STEPS = 1024   # steps of one epoch graph at most (chunks)
 
 
 class DeviceData(NamedTuple):
@@ -137,6 +162,55 @@ def scalar_table(count: int, steps: int, lr: float) -> np.ndarray:
     return scalar_rows(range(count + 1, count + steps + 1), lr, B1, B2)
 
 
+def chunks(nb: int) -> list[tuple[int, int]]:
+    """(first step, steps) of each replay of an epoch of ``nb`` steps: the
+    whole epoch when nb <= CHUNK_STEPS, else nb // CHUNK_STEPS chunks of
+    CHUNK_STEPS and one of the nb % CHUNK_STEPS left."""
+    size = CHUNK_STEPS
+    if nb <= size:
+        return [(0, nb)]
+    return [(start, min(size, nb - start)) for start in range(0, nb, size)]
+
+
+def epoch_slots(n: int, perm: torch.Tensor | None) -> np.ndarray:
+    """Every granule of n rows (g as in granule_shuffle) in an epoch's order:
+    ``perm``'s order of the whole granules (theirs when None), then the tail
+    of fewer than g rows in its place."""
+    g = _granule(n)
+    head = np.arange(n // g) if perm is None else perm.numpy()
+    return np.concatenate([head, np.arange(n // g, -(-n // g))]).astype(np.int64)
+
+
+def _slot_span(steps: int, batch_size: int, g: int) -> int:
+    """Granules that steps * batch_size rows starting anywhere in a granule
+    can lie in."""
+    return (steps * batch_size + g - 2) // g + 1
+
+
+def chunk_inputs(slots: np.ndarray, start: int, steps: int, batch_size: int,
+                 g: int) -> dict[str, np.ndarray]:
+    """Where a chunk's rows lie: the epoch's rows start * batch_size ..
+    (start + steps) * batch_size - 1 of the order ``slots`` gives (epoch_slots)
+    as the slots of the granules they lie in (zeros past the epoch's end,
+    never read) and the first row's offset in the first of them."""
+    first, offset = divmod(start * batch_size, g)
+    span = np.zeros(_slot_span(steps, batch_size, g), np.int64)
+    part = slots[first:first + len(span)]
+    span[:len(part)] = part
+    return {"slots": span, "offset": np.array(offset, np.int64)}
+
+
+def chunk_rows(data: DeviceData, slots: torch.Tensor, offset: torch.Tensor, steps: int,
+               batch_size: int) -> DeviceData:
+    """The chunk's steps * batch_size rows, gathered on the device from the
+    staged data: row j is row offset + j of the granules ``slots`` lists,
+    in order (chunk_inputs' buffers)."""
+    g = _granule(data.n)
+    pos = offset + torch.arange(steps * batch_size, device=slots.device)
+    src = slots[pos // g] * g + pos % g
+    return DeviceData(*(x[src] for x in data))
+
+
 def _check_optimizer(optimizer: str) -> None:
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}")
@@ -157,13 +231,19 @@ def train_epoch(
     wsums[nb]), all on the device. ``optimizer="lazy_adam"`` takes the
     row-sparse step of train/lazy.py, whose losses exclude the L2 term.
     ``sorted_scatter``: the adam step's gathers (two_tower.forward). On a
-    card the epoch is a replay of its CUDA graph (module docstring; a
-    capture that fails raises); elsewhere eager_train_epoch."""
+    card the epoch is a replay of its CUDA graph, or past CHUNK_STEPS steps
+    a replay per chunk (module docstring; a capture that fails raises);
+    elsewhere eager_train_epoch."""
     _check_optimizer(optimizer)
     if data.users.device.type != "cuda":
         return eager_train_epoch(state, data, generator, lr, batch_size, l2_reg_factor,
                                  shuffle, sorted_scatter, optimizer)
     nb = data.n // batch_size
+    if nb > CHUNK_STEPS:
+        graphs = epoch_graphs(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
+                              optimizer)
+        return _chunked_epoch(state, data, generator, lr, batch_size, shuffle,
+                              lambda steps, host: _replay_chunk(graphs[steps], steps, host))
     graph = train_graph(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
                         optimizer)
     host = {"table": scalar_table(state.adam.count, nb, lr)}
@@ -171,8 +251,34 @@ def train_epoch(
         host["perm"] = granule_permutation(data.n, generator)
     with span("epoch.launch"):
         losses, mses, wsums = graph.replay(host)
+    _report["replays"] += 1
     state.adam.count += nb
     return state, losses, mses, wsums
+
+
+def _replay_chunk(graph: CapturedGraph, steps: int, host: dict) -> tuple:
+    with span("epoch.chunk") as s:
+        s.annotate(steps=steps)
+        out = graph.replay(host)
+    _report["replays"] += 1
+    return out
+
+
+def _chunked_epoch(state: TrainState, data: DeviceData, generator: torch.Generator, lr: float,
+                   batch_size: int, shuffle: bool, run_chunk) -> tuple:
+    """An epoch of more than CHUNK_STEPS steps: ``run_chunk(steps, inputs)``
+    runs each chunk from its host inputs (chunk_inputs' and its scalar rows,
+    ``table``), and returns its (losses, mses, wsums). The permutation of
+    the granules is drawn once, as for one graph; each chunk's scalar rows
+    are made just before it runs. Returns train_epoch's result."""
+    nb = data.n // batch_size
+    perm = granule_permutation(data.n, generator) if shuffle else None
+    slots = epoch_slots(data.n, perm)
+    outs = [run_chunk(steps, dict(chunk_inputs(slots, start, steps, batch_size, _granule(data.n)),
+                                  table=scalar_table(state.adam.count + start, steps, lr)))
+            for start, steps in chunks(nb)]
+    state.adam.count += nb
+    return (state, *(torch.cat(parts) for parts in zip(*outs)))
 
 
 def eager_train_epoch(
@@ -190,6 +296,13 @@ def eager_train_epoch(
     version of the captured epoch (same arguments, same result)."""
     _check_optimizer(optimizer)
     nb = data.n // batch_size
+    if nb > CHUNK_STEPS:
+        def run_chunk(steps, host):
+            buffers = {k: upload(v, data.users.device) for k, v in host.items()}
+            return _train_chunk(state, data, buffers, steps, batch_size, l2_reg_factor,
+                                optimizer, sorted_scatter)
+
+        return _chunked_epoch(state, data, generator, lr, batch_size, shuffle, run_chunk)
     if shuffle:
         data = granule_shuffle(data, generator)
     table = upload(scalar_table(state.adam.count, nb, lr), data.users.device)
@@ -227,6 +340,20 @@ def _epoch_body(state: TrainState, data: DeviceData, table: torch.Tensor, batch_
         losses.append(loss)
         mses.append(mse)
     return torch.stack(losses), torch.stack(mses), wsums
+
+
+def _train_chunk(state: TrainState, data: DeviceData, buffers: dict, steps: int,
+                 batch_size: int, l2_reg_factor: float, optimizer: str,
+                 sorted_scatter: bool | str = False) -> tuple:
+    """One chunk of a long epoch: ``steps`` steps over the rows that the
+    buffers ``slots`` and ``offset`` locate (chunk_rows), step i reading
+    ``table[i]``. Returns _epoch_body's (losses, mses, wsums) of the chunk.
+    The fused optimizers' pipeline starts afresh: the chunk's first rows are
+    gathered from the tables the previous chunk left, as that chunk's last
+    step would have gathered them."""
+    rows = chunk_rows(data, buffers["slots"], buffers["offset"], steps, batch_size)
+    return _epoch_body(state, rows, buffers["table"], batch_size, l2_reg_factor, optimizer,
+                       sorted_scatter)
 
 
 def _fused_body(state: TrainState, data: DeviceData, table: torch.Tensor, batch_size: int,
@@ -277,12 +404,26 @@ def eval_epoch(
     l2_reg_factor: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted-mean (loss, mse) over the staged holdout, on the device. On
-    a card a replay of its CUDA graph, elsewhere eager_eval_epoch."""
+    a card a replay of its CUDA graph (past CHUNK_STEPS batches, one per
+    chunk), elsewhere eager_eval_epoch."""
     if data.users.device.type != "cuda":
         return eager_eval_epoch(model, bn_state, data, batch_size, l2_reg_factor)
+    if data.n // batch_size > CHUNK_STEPS:
+        graphs = _eval_chunk_graphs(model, bn_state, data, batch_size, l2_reg_factor)
+
+        def run_chunk(steps, host):
+            with span("epoch.eval") as s:
+                s.annotate(steps=steps)
+                (sums,) = graphs[steps].replay(host, clone=False)
+            _report["replays"] += 1
+            return sums
+
+        return _chunked_eval(data, batch_size, run_chunk)
     graph = _eval_graph(model, bn_state, data, batch_size, l2_reg_factor)
     with span("epoch.eval"):
-        return graph.replay({})
+        out = graph.replay({})
+    _report["replays"] += 1
+    return out
 
 
 @torch.no_grad()
@@ -293,16 +434,57 @@ def eager_eval_epoch(
     batch_size: int,
     l2_reg_factor: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """eval_epoch as a Python loop of batches, on any device."""
-    nb = data.n // batch_size
-    l_sum = m_sum = w_sum = torch.zeros((), device=data.weights.device)
-    for i in range(nb):
+    """eval_epoch as a Python loop of batches, on any device, in
+    eval_epoch's chunks."""
+    if data.n // batch_size > CHUNK_STEPS:
+        def run_chunk(steps, host):
+            buffers = {k: device_tensor(v, data.users.device) for k, v in host.items()}
+            return _eval_chunk(model, bn_state, data, buffers, steps, batch_size,
+                               l2_reg_factor)[0]
+
+        return _chunked_eval(data, batch_size, run_chunk)
+    zero = torch.zeros((), device=data.weights.device)
+    return _means(*_eval_sums(model, bn_state, data, batch_size, l2_reg_factor, zero, zero, zero))
+
+
+def _eval_sums(model, bn_state, data: DeviceData, batch_size: int, l2_reg_factor: float,
+               l_sum, m_sum, w_sum) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The holdout's weighted sums (loss, mse, weight) over ``data``'s
+    batches, added in order to the sums given."""
+    for i in range(data.n // batch_size):
         sl = slice(i * batch_size, (i + 1) * batch_size)
         ls, ms, w = eval_body(model, bn_state, data.users[sl], data.anime[sl],
                               data.ratings[sl], data.weights[sl], l2_reg_factor)
         l_sum, m_sum, w_sum = l_sum + ls, m_sum + ms, w_sum + w
+    return l_sum, m_sum, w_sum
+
+
+def _means(l_sum, m_sum, w_sum) -> tuple[torch.Tensor, torch.Tensor]:
     w = torch.clamp_min(w_sum, 1.0)
     return l_sum / w, m_sum / w
+
+
+def _eval_chunk(model, bn_state, data: DeviceData, buffers: dict, steps: int, batch_size: int,
+                l2_reg_factor: float) -> tuple[torch.Tensor]:
+    """One chunk of a long holdout: the sums of its ``steps`` batches (the
+    rows chunk_rows locates) added to the sums ``carry`` holds. Returns
+    ([3] sums,)."""
+    rows = chunk_rows(data, buffers["slots"], buffers["offset"], steps, batch_size)
+    sums = _eval_sums(model, bn_state, rows, batch_size, l2_reg_factor,
+                      *buffers["carry"].unbind())
+    return (torch.stack(sums),)
+
+
+def _chunked_eval(data: DeviceData, batch_size: int, run_chunk):
+    """A holdout of more than CHUNK_STEPS batches, in order: ``run_chunk(steps,
+    inputs)`` adds a chunk's sums to ``inputs["carry"]`` (the sums so far, a
+    [3] tensor) and returns them. Returns eval_epoch's result."""
+    slots = epoch_slots(data.n, None)
+    sums = torch.zeros(3, device=data.users.device)
+    for start, steps in chunks(data.n // batch_size):
+        host = dict(chunk_inputs(slots, start, steps, batch_size, _granule(data.n)), carry=sums)
+        sums = run_chunk(steps, host)
+    return _means(*sums.unbind())
 
 
 # ---- the captured epochs -----------------------------------------------------------
@@ -325,11 +507,85 @@ def release_graphs() -> None:
     _GRAPHS.clear()
 
 
+_report = {"captured": 0, "capture_s": 0.0, "replays": 0}
+
+
+def graph_report() -> dict:
+    """The epoch graphs of this module in this process: ``captured``, the
+    host seconds their warm-ups, captures and instantiations took
+    (``capture_s``), their ``replays`` and ``chunk_steps`` (CHUNK_STEPS).
+    Counted as they happen; reading them costs nothing else."""
+    return dict(_report, chunk_steps=CHUNK_STEPS)
+
+
+def _capture(fn, warm_up, buffers: dict, device) -> CapturedGraph:
+    graph = CapturedGraph(fn, warm_up, buffers, device)
+    _report["captured"] += 1
+    _report["capture_s"] += sum(graph.seconds.values())
+    return graph
+
+
+def epoch_graphs(state: TrainState, data: DeviceData, batch_size: int, l2_reg_factor: float,
+                 shuffle: bool = True, sorted_scatter: bool | str = False,
+                 optimizer: str = "adam") -> dict[int, CapturedGraph]:
+    """The graphs train_epoch replays for these arguments, by the steps of a
+    replay, from the cache or captured now: the epoch's one graph, or, past
+    CHUNK_STEPS steps, its chunk and tail graphs."""
+    nb = data.n // batch_size
+    if nb > CHUNK_STEPS:
+        return _chunk_graphs(state, data, batch_size, l2_reg_factor, sorted_scatter, optimizer)
+    return {nb: train_graph(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
+                            optimizer)}
+
+
+def _graphs_by_length(nb: int, make_buffers, body, warm_up, device) -> dict[int, CapturedGraph]:
+    """One graph per length of chunks(nb), each on buffers of its own:
+    ``body(buffers, steps)`` captured after ``warm_up(buffers, steps)``."""
+    out = {}
+    for steps in sorted({steps for _, steps in chunks(nb)}, reverse=True):
+        buffers = make_buffers(steps)
+        out[steps] = _capture(lambda b=buffers, n=steps: body(b, n),
+                              lambda b=buffers, n=steps: warm_up(b, n), buffers, device)
+    return out
+
+
+def _chunk_graphs(state: TrainState, data: DeviceData, batch_size: int,
+                  l2_reg_factor: float, sorted_scatter: bool | str,
+                  optimizer: str) -> dict[int, CapturedGraph]:
+    """The graphs of an epoch of more than CHUNK_STEPS steps, by steps: a
+    chunk's and the tail's (_train_chunk), each reading its scalar rows,
+    granule slots and offset from buffers of its own. Whether the epoch is
+    shuffled is only in the slots the host writes."""
+    key = ("train_chunks", optimizer, batch_size, float(l2_reg_factor), sorted_scatter,
+           CHUNK_STEPS, layout(state_tensors(state) + list(data)))
+    dev = data.users.device
+    g = _granule(data.n)
+
+    def make_buffers(steps):
+        # Valid scalars and slots for the warm-up; every replay writes its own.
+        return {"table": upload(scalar_table(0, steps, 0.0), dev),
+                "slots": torch.zeros(_slot_span(steps, batch_size, g), dtype=torch.int64,
+                                     device=dev),
+                "offset": torch.zeros((), dtype=torch.int64, device=dev)}
+
+    def run(st, buffers, steps):
+        return _train_chunk(st, data, buffers, steps, batch_size, l2_reg_factor, optimizer,
+                            sorted_scatter)
+
+    return cached_graph(key, lambda: _graphs_by_length(
+        data.n // batch_size, make_buffers, lambda b, n: run(state, b, n),
+        lambda b, n: run(copy_state(state), b, min(n, 2)), dev))
+
+
 def train_graph(state: TrainState, data: DeviceData, batch_size: int, l2_reg_factor: float,
                 shuffle: bool = True, sorted_scatter: bool | str = False,
                 optimizer: str = "adam") -> CapturedGraph:
     """The training graph train_epoch replays for these arguments, from the
-    cache or captured now."""
+    cache or captured now: an epoch of at most CHUNK_STEPS steps (a longer
+    one runs in chunks: epoch_graphs)."""
+    if data.n // batch_size > CHUNK_STEPS:
+        raise ValueError(f"an epoch of {data.n // batch_size} steps runs in chunks of "
+                         f"{CHUNK_STEPS}: epoch_graphs")
     key = ("train", optimizer, batch_size, float(l2_reg_factor), shuffle, sorted_scatter,
            layout(state_tensors(state) + list(data)))
 
@@ -347,8 +603,8 @@ def train_graph(state: TrainState, data: DeviceData, batch_size: int, l2_reg_fac
             return _epoch_body(st, d, buffers["table"][:steps], batch_size, l2_reg_factor,
                                optimizer, sorted_scatter)
 
-        return CapturedGraph(lambda: body(state, nb),
-                          lambda: body(copy_state(state), min(nb, 2)), buffers, dev)
+        return _capture(lambda: body(state, nb),
+                        lambda: body(copy_state(state), min(nb, 2)), buffers, dev)
 
     return cached_graph(key, build)
 
@@ -360,9 +616,32 @@ def _eval_graph(model, bn_state, data, batch_size, l2_reg_factor) -> CapturedGra
     def build():
         # Evaluation writes nothing: the warm-up runs one batch on the model.
         one = DeviceData(*(x[:batch_size] for x in data))
-        return CapturedGraph(
+        return _capture(
             lambda: eager_eval_epoch(model, bn_state, data, batch_size, l2_reg_factor),
             lambda: eager_eval_epoch(model, bn_state, one, batch_size, l2_reg_factor),
             {}, data.users.device)
 
     return cached_graph(key, build)
+
+
+def _eval_chunk_graphs(model, bn_state, data, batch_size, l2_reg_factor) -> dict:
+    """The graphs of a holdout of more than CHUNK_STEPS batches, by steps
+    (_eval_chunk), each on buffers of its own: slots, offset and the sums
+    carried in."""
+    key = ("eval_chunks", batch_size, float(l2_reg_factor), CHUNK_STEPS,
+           layout(model_tensors(model) + list(bn_state) + list(data)))
+    dev = data.users.device
+    g = _granule(data.n)
+
+    def make_buffers(steps):
+        return {"slots": torch.zeros(_slot_span(steps, batch_size, g), dtype=torch.int64,
+                                     device=dev),
+                "offset": torch.zeros((), dtype=torch.int64, device=dev),
+                "carry": torch.zeros(3, device=dev)}
+
+    def run(buffers, steps):
+        return _eval_chunk(model, bn_state, data, buffers, steps, batch_size, l2_reg_factor)
+
+    # Evaluation writes nothing: the warm-up runs one batch on the model.
+    return cached_graph(key, lambda: _graphs_by_length(
+        data.n // batch_size, make_buffers, run, lambda b, n: run(b, 1), dev))

@@ -40,7 +40,9 @@ equal except where true scores tie within 1e-6. The captured epoch
 (train/device_loop.py's CUDA graph): bit for bit the eager epoch wherever
 two eager runs are bit-equal, else 1e-5 of each tensor's largest entry
 (dense_b, its moments and moving_mean, which walk on rounding noise, not
-compared then). The captured sharded epoch (parallel/trainer.py at world
+compared then). The chunked epoch (CHUNK_STEPS lowered): bit for bit the
+eager chunks and the one-graph epoch under the same rule, its graphs
+captured once. The captured sharded epoch (parallel/trainer.py at world
 size 1 on NCCL, its collectives in the graph): bit for bit the eager one
 for psum adam and alltoall adam, fused_adam and fused_adam_bf16m (the fused
 ones also at a capacity that takes more than 4 rounds), lazy_adam within
@@ -998,6 +1000,56 @@ def test_captured_epoch_matches_the_eager_epoch(cuda, optimizer):
     got = dl.eval_epoch(model, model.bn_state(), holdout, 1024, 1e-4)
     assert all(torch.equal(a, b) for a, b in zip(
         got, dl.eager_eval_epoch(model, model.bn_state(), holdout, 1024, 1e-4)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adam", "lazy_adam", "fused_adam"])
+def test_chunked_epoch_replays_match_the_eager_chunks(cuda, optimizer, monkeypatch):
+    """With CHUNK_STEPS = 6, _graph_epoch_runs' 20-step epochs run as three
+    chunks and a tail of 2: their graphs are captured once, at the first
+    epoch (two graphs; none at the second; four replays an epoch), and the
+    two epochs equal the eager chunks and the one-graph epoch, bit for bit
+    wherever two eager runs are bit-equal, else (lazy_adam's index_add_)
+    within 1e-5 of each tensor's largest entry. A holdout of 5 batches in
+    chunks of 2 (sums carried between replays) equals its eager chunks and
+    its one-graph evaluation bit for bit."""
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train import trainer as tr
+
+    dl.release_graphs()
+    whole = _graph_epoch_runs(cuda, optimizer, dl.train_epoch)
+    monkeypatch.setattr(dl, "CHUNK_STEPS", 6)
+    before = dl.graph_report()
+    runs = {"captured": _graph_epoch_runs(cuda, optimizer, dl.train_epoch)}
+    after = dl.graph_report()
+    assert dl.chunks(runs["captured"][2].n // 1024) == [(0, 6), (6, 6), (12, 6), (18, 2)]
+    assert (after["captured"] - before["captured"], after["replays"] - before["replays"]) == (2, 8)
+    runs["eager"] = _graph_epoch_runs(cuda, optimizer, dl.eager_train_epoch)
+    runs["again"] = _graph_epoch_runs(cuda, optimizer, dl.eager_train_epoch)
+    torch.cuda.synchronize()
+    runs["whole"] = whole
+    noise = ("dense_b", "mu.dense_b", "nu.dense_b", "moving_mean")
+    tensors = lambda r, skip=(): [*(v for k, v in tr.train_state_to_numpy(r[0]).items()
+                                    if k not in skip),
+                                  *(t.cpu().numpy() for o in r[1] for t in o)]
+    eager_equal = all(np.array_equal(a, b) for a, b in
+                      zip(tensors(runs["eager"]), tensors(runs["again"])))
+    if optimizer != "lazy_adam":
+        assert eager_equal
+    for label in ("captured", "whole"):
+        if eager_equal:
+            for a, b in zip(tensors(runs[label]), tensors(runs["eager"])):
+                np.testing.assert_array_equal(a, b, err_msg=label)
+        for a, b in zip(tensors(runs[label], noise), tensors(runs["eager"], noise)):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(np.abs(b).max(), 1e-30),
+                                       err_msg=label)
+    model, data = runs["captured"][0].model, runs["captured"][2]
+    holdout = dl.DeviceData(*(x[:5 * 1024] for x in data))
+    evaluate = lambda fn: fn(model, model.bn_state(), holdout, 1024, 1e-4)
+    want = evaluate(dl.eager_eval_epoch)
+    monkeypatch.setattr(dl, "CHUNK_STEPS", 2)
+    for got in (evaluate(dl.eval_epoch), evaluate(dl.eager_eval_epoch)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -282,6 +282,72 @@ def test_two_epochs_match_jax(optimizer):
     assert ts.adam.count == int(js.opt_state.count) == 2 * (data.n // BS)
 
 
+# ---- chunked epochs ------------------------------------------------------------------
+
+CHUNK = 3   # CHUNK_STEPS in these cases
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "lazy_adam", "fused_adam"])
+@pytest.mark.parametrize("rows,shuffle", [(420, True), (520, True), (520, False), (140, True)],
+                         ids=["multiple", "tail", "tail-unshuffled", "within"])
+def test_chunked_epoch_equals_the_one_graph_epoch_bit_for_bit(optimizer, rows, shuffle,
+                                                              monkeypatch):
+    """With CHUNK_STEPS = 3, epochs of 9 steps (three chunks), 11 (three and a
+    tail of 2) and 3 (one chunk) take the same batches in the same order
+    with the same scalar rows as one epoch body: two epochs with a change
+    of lr, losses, mses, weights and every state tensor bit for bit."""
+    data = staged(rows=rows)
+    whole, chunked = port_state(optimizer), port_state(optimizer)
+    for epoch, lr in enumerate(LRS):
+        whole, *want = dl.train_epoch(whole, data, torch.Generator().manual_seed(epoch), lr, BS,
+                                      L2, shuffle=shuffle, optimizer=optimizer)
+        with monkeypatch.context() as m:
+            m.setattr(dl, "CHUNK_STEPS", CHUNK)
+            chunked, *got = dl.train_epoch(chunked, data, torch.Generator().manual_seed(epoch),
+                                           lr, BS, L2, shuffle=shuffle, optimizer=optimizer)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert chunked.adam.count == whole.adam.count == 2 * (data.n // BS)
+    got, want = tr.train_state_to_numpy(chunked), tr.train_state_to_numpy(whole)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("rows", [420, 520, 140], ids=["multiple", "tail", "within"])
+def test_chunked_evaluation_equals_the_one_graph_evaluation_bit_for_bit(rows, monkeypatch):
+    """The holdout's loss and mse, its sums carried from chunk to chunk."""
+    state, data = port_state("adam"), staged(rows=rows)
+    want = dl.eval_epoch(state.model, state.model.bn_state(), data, BS, L2)
+    monkeypatch.setattr(dl, "CHUNK_STEPS", CHUNK)
+    got = dl.eval_epoch(state.model, state.model.bn_state(), data, BS, L2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("nb,want", [(1, [(0, 1)]), (3, [(0, 3)]), (9, [(0, 3), (3, 3), (6, 3)]),
+                                     (11, [(0, 3), (3, 3), (6, 3), (9, 2)])])
+def test_chunks_cover_the_epoch_without_padding(nb, want, monkeypatch):
+    monkeypatch.setattr(dl, "CHUNK_STEPS", CHUNK)
+    assert dl.chunks(nb) == want
+
+
+@pytest.mark.parametrize("n,batch", [(450, 50), (550, 50), (5000, 250), (262_810, 10_000)])
+def test_chunk_rows_are_the_permuted_epochs_rows(n, batch):
+    """chunk_inputs and chunk_rows give each chunk the rows of the granule
+    permutation of the whole epoch (permute_granules), tail included, for
+    chunks that start anywhere inside a granule."""
+    idx = torch.arange(n, dtype=torch.int32)
+    data = dl.DeviceData(idx, idx, idx.float(), torch.ones(n))
+    perm = dl.granule_permutation(n, torch.Generator().manual_seed(5))
+    whole = dl.permute_granules(data, perm).users
+    slots, g = dl.epoch_slots(n, perm), dl._granule(n)
+    nb = n // batch
+    for start, steps in [(0, 1), (1, 2), (nb - 3, 3), (nb - 1, 1)]:
+        host = dl.chunk_inputs(slots, start, steps, batch, g)
+        rows = dl.chunk_rows(data, torch.from_numpy(host["slots"]),
+                             torch.from_numpy(host["offset"]), steps, batch)
+        assert torch.equal(rows.users, whole[start * batch:(start + steps) * batch])
+
+
 # ---- storage ------------------------------------------------------------------------
 
 @pytest.mark.parametrize("optimizer", OPTIMIZERS)

@@ -409,6 +409,27 @@ def test_device_epoch_launches_and_evaluates_under_its_spans_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_chunked_device_epoch_replays_under_chunk_spans_on_the_card(cuda, monkeypatch):
+    """An epoch of 8 steps in chunks of 3: three ``epoch.chunk`` spans in
+    ``epoch.launch``'s place, each annotated with its steps."""
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+
+    monkeypatch.setattr(dl, "CHUNK_STEPS", 3)
+    trainer, state, staged = tiny_training(cuda)
+    spans_start()
+    for epoch in range(2):
+        state, loss_sum, *_ = trainer._device_epoch(staged, state, epoch, 1e-3)
+    spans = spans_stop()
+    assert [s.name for s in spans] == ["train.epoch", *["epoch.chunk"] * 3, "epoch.wait",
+                                       "epoch.eval", "epoch.wait"] * 2
+    assert [s.parent for s in spans] == [-1, *[0] * 6, -1, *[7] * 6]
+    assert [s.attrs for s in spans if s.name == "epoch.chunk"] == [
+        {"steps": 3}, {"steps": 3}, {"steps": 2}] * 2
+    assert np.isfinite(loss_sum)
+    assert_children_within(spans)
+
+
+@pytest.mark.cuda
 def test_scan_call_replays_its_graph_under_its_spans_on_the_card(cuda):
     graphs = ScanGraphs(capacity=2)
     table = torch.nn.functional.normalize(torch.randn(4096, 32, device=cuda), dim=1)

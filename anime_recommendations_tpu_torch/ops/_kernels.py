@@ -69,6 +69,10 @@ SIGNATURES = {
                           _I, _I, _P, _F, _F, _F, _F, _I, _P),
     # w, nids, norder, rows_out, n_next, n, d, tile, stream
     "fused_adam_copies": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # p, g, mu, nu (host arrays of device pointers), numel (host int64
+    # array), count, row (device: lr, bc1, bc2, step), b1, 1 - b1, b2,
+    # 1 - b2, eps, stream
+    "dense_adam": (_P, _P, _P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _P),
 }
 # Entry points defined in another source than csrc/<name>.cu.
 ENTRY_SOURCE = {"fused_adam_tiles": "fused_adam", "fused_adam_gather": "fused_adam",

@@ -97,6 +97,7 @@ from anime_recommendations_tpu_torch.models.two_tower import (
     cosine_merge,
 )
 from anime_recommendations_tpu_torch.ops import fused_adam
+from anime_recommendations_tpu_torch.ops.dense_adam import dense_adam_
 from anime_recommendations_tpu_torch.parallel import routing as rt
 from anime_recommendations_tpu_torch.parallel.mesh import World
 from anime_recommendations_tpu_torch.train import device_loop as dl
@@ -588,14 +589,9 @@ class ShardedTrainStep:
         grads = dict(zip(PARAM_KEYS, torch.autograd.grad(loss / self._n_batch, params)))
         reg = self._reg_sum(model)
         grads = self._finish_grads(grads, model)
-        lr, bc1, bc2 = scal[0], scal[1], scal[2]
         with torch.no_grad():
-            for k, p in zip(PARAM_KEYS, params):
-                g = grads[k]
-                mu, nu = adam.mu[k], adam.nu[k]
-                mu.mul_(B1).add_(g * (1 - B1))
-                nu.mul_(B2).add_(torch.square(g) * (1 - B2))
-                p.sub_((mu / bc1) / (torch.sqrt(nu / bc2) + KERAS_ADAM_EPS) * lr)
+            dense_adam_(params, [grads[k] for k in PARAM_KEYS], [adam.mu[k] for k in PARAM_KEYS],
+                        [adam.nu[k] for k in PARAM_KEYS], scal)
             self._new_bn(model, mean, var)
         return loss.detach() + reg, mse.detach()
 

@@ -29,12 +29,13 @@ to run; ``index_put_(accumulate=True)`` would sum in a fixed order, but its
 serial chain over a hot row's run cost 0.24 ms more a step on an H100 at
 full width), so a duplicated row's sum may differ in its last f32 bits.
 
-These are plain torch ops, on the card as on the CPU: the JAX package has
-no Pallas kernel here. On a card ``lazy_train_step`` is one CUDA graph
-replay per call from a signature's third call on (train/step_graph.py);
-``lazy_step`` is its eager body. The step's first update from a fresh
-state with l2 = 0 equals dense Adam's on the touched rows
-(tests/test_torch_lazy.py).
+The row updates are plain torch ops, on the card as on the CPU: the JAX
+package has no Pallas kernel here. The four head scalars take dense Adam
+(ops/dense_adam.py: one kernel launch on a card). On a card
+``lazy_train_step`` is one CUDA graph replay per call from a signature's
+third call on (train/step_graph.py); ``lazy_step`` is its eager body. The
+step's first update from a fresh state with l2 = 0 equals dense Adam's on
+the touched rows (tests/test_torch_lazy.py).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from anime_recommendations_tpu_torch.models.two_tower import (
     cosine_merge,
     head,
 )
+from anime_recommendations_tpu_torch.ops.dense_adam import dense_adam_
 from anime_recommendations_tpu_torch.train.trainer import (
     B1,
     B2,
@@ -116,22 +118,13 @@ def lazy_row_adam(
     return _RowUpdate(w, mu, nu)
 
 
-def _scalar_adam(p, mu, nu, g, bc1, bc2, lr, eps=KERAS_ADAM_EPS) -> None:
-    """Adam on one head scalar, in place: p, mu and nu keep their storage
-    (a captured CUDA graph updates the same memory at every replay). The
-    step's scalars are 0-dim device tensors or host numbers."""
-    mu_new = B1 * mu + (1.0 - B1) * g
-    nu_new = B2 * nu + (1.0 - B2) * (g * g)
-    p.copy_(p - lr * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps))
-    mu.copy_(mu_new)
-    nu.copy_(nu_new)
-
-
 def _head_adam(state: TrainState, d_head, scal: torch.Tensor) -> None:
-    """_scalar_adam on the four head scalars with the step row's scalars."""
+    """Dense Adam on the four head scalars with the step row's scalars
+    (ops/dense_adam.py: one kernel launch on a card), in place: a captured
+    CUDA graph updates the same memory at every replay."""
     model, adam = state.model, state.adam
-    for k, g in zip(HEAD_KEYS, d_head):
-        _scalar_adam(getattr(model, k), adam.mu[k], adam.nu[k], g, scal[1], scal[2], scal[0])
+    dense_adam_([getattr(model, k) for k in HEAD_KEYS], list(d_head),
+                [adam.mu[k] for k in HEAD_KEYS], [adam.nu[k] for k in HEAD_KEYS], scal)
 
 
 def _data_loss(u_rows: torch.Tensor, a_rows: torch.Tensor, head_params,

@@ -12,8 +12,9 @@ The state is mutable: a step updates the model's parameters and BatchNorm
 buffers and the Adam moments in place and returns the same TrainState. The
 Adam state is explicit (count, and mu/nu per parameter name), so the dense
 and the fused paths share it. ``train_step`` is optax.scale_by_adam(b1=0.9,
-b2=0.999, eps=1e-7) with -lr applied outside, written as tensor ops; the
-gradients come from autograd over ``loss_and_metrics``. On a card
+b2=0.999, eps=1e-7) with -lr applied outside (ops/dense_adam.py: one kernel
+launch for the six parameters on a card); the gradients come from autograd
+over ``loss_and_metrics``. On a card
 ``train_step`` and ``eval_step`` are each one CUDA graph replay per call
 from a signature's third call on (train/step_graph.py), the counterpart of
 JAX's jitted steps; ``dense_step`` and ``eval_body`` are their eager
@@ -42,13 +43,12 @@ from anime_recommendations_tpu_torch.models.two_tower import (
     loss_and_metrics,
     params_from_numpy,
 )
+from anime_recommendations_tpu_torch.ops.dense_adam import B1, B2, KERAS_ADAM_EPS, dense_adam_
 from anime_recommendations_tpu_torch.ops.fused_adam import adam_scalars, scalar_rows
 from anime_recommendations_tpu_torch.train import step_graph
 from anime_recommendations_tpu_torch.train.schedule import lr_for_epoch
 from anime_recommendations_tpu_torch.utils.profiling import span
 
-KERAS_ADAM_EPS = 1e-7
-B1, B2 = 0.9, 0.999
 TABLE_KEYS = PARAM_KEYS[:2]
 FUSED_OPTIMIZERS = ("fused_adam", "fused_adam_bf16m")
 OPTIMIZERS = ("adam", "lazy_adam") + FUSED_OPTIMIZERS
@@ -193,13 +193,9 @@ def dense_step(state: TrainState, users, anime, ratings, weights, scal: torch.Te
         model, model.bn_state(), users, anime, ratings, weights, l2_reg_factor,
         True, sorted_scatter=sorted_scatter, merge=merge)
     grads = torch.autograd.grad(loss, params)
-    lr, bc1, bc2 = scal[0], scal[1], scal[2]
     with torch.no_grad():
-        for k, p, g in zip(PARAM_KEYS, params, grads):
-            mu, nu = adam.mu[k], adam.nu[k]
-            mu.mul_(B1).add_(g * (1 - B1))          # (1-b1)*g + b1*mu
-            nu.mul_(B2).add_(torch.square(g) * (1 - B2))
-            p.sub_((mu / bc1) / (torch.sqrt(nu / bc2) + KERAS_ADAM_EPS) * lr)
+        dense_adam_(params, grads, [adam.mu[k] for k in PARAM_KEYS],
+                    [adam.nu[k] for k in PARAM_KEYS], scal)
         _keep_bn(model, new_bn)
     return loss.detach(), mse.detach()
 

@@ -77,12 +77,21 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            each one, its plain version's (torch.profiler, 20 calls after
            warm-up), bytes moved / time against 3.35 TB/s, its share of the
            bound, and each call's CUDA-event time.
+  phase 4b the dense Adam kernel (csrc/dense_adam.cu; it replaces no Pallas
+           kernel) against its plain version, the torch chain, on the card:
+           the adam cell's update (the 91,641 x 128 and 17,560 x 128 tables
+           and the four head scalars in one launch) and the head scalars
+           alone, three steps from one state, p, mu and nu bit for bit; the
+           kernel's device time, the chain's, 28 bytes an element against
+           3.35 TB/s and the share of that bound, both CUDA-event medians.
   phase 5  training end to end at full width: PipelineRunner.step_train on
            phase 3's store, 2 epochs of 297 batches of 10,000 rows, once per
            optimizer (adam, lazy_adam, fused_adam, fused_adam_bf16m; one
            seed, the device loop, whose fused epochs are the software-
            pipelined loop). Launch counters are reset before it: each fused
-           step must launch K1 twice, adam and lazy_adam never. The fused
+           step must launch K1 twice, adam and lazy_adam never, and every
+           step dense_adam once (adam's six parameters, the others' four
+           head scalars). The fused
            histories must track the dense one, lazy_adam's training loss must
            fall from epoch 1 to 2, the bf16m state must hold bf16 table
            moments, and the trained store must serve every endpoint through
@@ -159,10 +168,10 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            synthetic ratings, seed 7, every user kept), D = 128, batches of
            10,000, fused_adam, depth cut to one epoch. Counters are reset
            before it; each step's launches are read: K1 and its first pass
-           twice per training step, l2_normalize twice for the context
-           build, K2 in similar_anime, similar_users, user_recs (a random
-           user outside the flow, whose similar users it scans) and
-           model_recs. Every artifact of tests/test_pipeline.py:91-101 must
+           twice per training step and dense_adam once (the head),
+           l2_normalize twice for the context build, K2 in similar_anime,
+           similar_users, user_recs (a random user outside the flow, whose
+           similar users it scans) and model_recs. Every artifact of tests/test_pipeline.py:91-101 must
            exist (the PNGs only where matplotlib is installed; the skipped
            ones are printed), the history header must be the golden one,
            assert_flow must hold, and the similar_anime, similar_users and
@@ -1817,6 +1826,68 @@ def phase_adam(card: str) -> tuple[list[dict], list[dict]]:
     return rows, gather_rows
 
 
+# ---- phase 4b ------------------------------------------------------------------
+
+# f32 operations per element of a dense Adam update (csrc/dense_adam.cu): the
+# two moments (7) and the parameter (7).
+DENSE_ADAM_OPS = 14
+DENSE_ADAM_STEPS = (1, 2, 700)
+
+
+def _dense_adam_case(card, name, shapes, seed) -> dict:
+    """dense_adam_ on tensors of ``shapes`` (one launch) against its plain
+    version on the card, three steps from one state: p, mu and nu bit for
+    bit. Then the kernel's device time (torch.profiler, 20 calls after
+    warm-up), the plain chain's, the CUDA-event medians, and 28 bytes an
+    element against 3.35 TB/s."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import dense_adam, fused_adam
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    t = lambda shape, scale: torch.from_numpy(
+        np.asarray(rng.standard_normal(shape) * scale, np.float32)).to(dev)
+    quads = [(t(sh, 0.05), t(sh, 1e-3), t(sh, 1e-4), t(sh, 1e-4).square()) for sh in shapes]
+    plain = [tuple(x.clone() for x in q) for q in quads]
+    eps = dense_adam.KERAS_ADAM_EPS
+    for step in DENSE_ADAM_STEPS:
+        scal = fused_adam.scalar_row(step, ADAM_LR, dev)
+        _, launches = _launched(lambda: dense_adam.dense_adam_(*zip(*quads), scal))
+        if launches != {"dense_adam": 1}:
+            raise AssertionError(f"{name}: dense_adam_ launched {launches}")
+        dense_adam._dense_adam_plain(*zip(*plain), scal, eps)
+    torch.cuda.synchronize()
+    for i, (q, r) in enumerate(zip(quads, plain)):
+        for label, a, c in zip(("p", "g", "mu", "nu"), q, r):
+            if not torch.equal(a, c):
+                raise AssertionError(f"{name}: {label} of tensor {i} differs from the plain "
+                                     f"version on {int((a != c).sum())} elements")
+    scal = fused_adam.scalar_row(DENSE_ADAM_STEPS[-1] + 1, ADAM_LR, dev)
+    elements = sum(q[0].numel() for q in quads)
+    moved = 28 * elements   # p, g, mu and nu read, p, mu and nu written: f32
+    row = dict(card=card, case=name, tensors=len(quads), elements=elements, bit_equal=True,
+               launches=1, **_timing(lambda: dense_adam._dense_adam_cuda(*zip(*quads), scal, eps),
+                                     lambda: dense_adam._dense_adam_plain(*zip(*plain), scal, eps),
+                                     "dense_adam_kernel"))
+    row["bytes_moved"] = moved
+    row["hbm_share"] = moved / (row["ms"] * 1e-3) / HBM_BYTES_PER_S
+    row |= _bound(moved, DENSE_ADAM_OPS * elements)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print("[phase 4b] " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_dense_adam(card: str) -> list[dict]:
+    """The dense Adam kernel at the adam cell's shapes (the 91,641 x 128 and
+    17,560 x 128 tables and the four head scalars: trainer.dense_step's one
+    launch) and at the head's alone (lazy._head_adam's, in the fused and
+    lazy steps)."""
+    return [_dense_adam_case(card, "adam_step", [(N_USERS, D), (N_ANIME, D)] + [()] * 4,
+                             SEED + 40),
+            _dense_adam_case(card, "head_scalars", [()] * 4, SEED + 41)]
+
+
 # ---- phase 5 -------------------------------------------------------------------
 
 OPTIMIZERS = ("adam", "lazy_adam", "fused_adam", "fused_adam_bf16m")
@@ -1907,7 +1978,14 @@ def phase_train(card: str) -> dict:
             if launched != {"fused_adam_tiles": want, "fused_adam": want, "fused_adam_gather": 0}:
                 raise AssertionError(f"{optimizer}: launches {launched} for {steps} steps, "
                                      f"expected {want} of K1 and its first pass, and no K5")
+            # One dense Adam launch a step: adam's six parameters, or the
+            # other optimizers' four head scalars.
+            dense = _kernels.launches["dense_adam"] - before.get("dense_adam", 0)
+            if dense != steps:
+                raise AssertionError(f"{optimizer}: {dense} dense_adam launches for {steps} "
+                                     f"steps, expected one a step")
             out["launches"][optimizer] = launched["fused_adam"]
+            out.setdefault("dense_adam_launches", {})[optimizer] = dense
             out.setdefault("tile_launches", {})[optimizer] = launched["fused_adam_tiles"]
             hist = result.history
             if len(hist) != TRAIN_EPOCHS or not np.isfinite(hist.to_numpy()).all():
@@ -2593,8 +2671,10 @@ def _agree_steps() -> dict:
                 if float(excess) > 0:
                     raise AssertionError(f"step {i}: {k} differs between the capacities")
     launches = dict(_kernels.launches)
+    # Each call: K1 (or its dense branch) and its first pass on both tables,
+    # and the head's dense Adam.
     if launches != {"fused_adam_tiles": AGREE_STEPS * 4, "fused_adam": AGREE_STEPS * 2,
-                    "fused_adam_dense": AGREE_STEPS * 2}:
+                    "fused_adam_dense": AGREE_STEPS * 2, "dense_adam": AGREE_STEPS * 2}:
         raise AssertionError(f"agreement steps launched {launches}")
     return dict(steps=AGREE_STEPS, largest_loss_rel_gap=worst["loss"],
                 largest_table_abs_gap=worst["tables"], launches=launches)
@@ -3230,7 +3310,8 @@ def _checkpoint_runs(card: str) -> dict:
 def phase_psum(card: str, trained: dict) -> dict:
     """Phase 10 on phase 7's NCCL group: psum, scaling_bench, take_rows and
     AsyncCheckpointer. The counters are reset before it and read after it:
-    K1 and its first pass run in scaling_bench's fused_adam, nothing else."""
+    K1 and its first pass run in scaling_bench's fused_adam, dense_adam in
+    every training, nothing else."""
     from anime_recommendations_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -3239,9 +3320,12 @@ def phase_psum(card: str, trained: dict) -> dict:
            "sorted_scatter": _sorted_scatter_runs(card), "checkpoint": _checkpoint_runs(card)}
     out["launches"] = dict(_kernels.launches)
     want = 2 * (SCALING_STEPS + SCALING_WARM)
-    if out["launches"] != {"fused_adam_tiles": want, "fused_adam": want}:
+    k1 = {k: v for k, v in out["launches"].items() if k != "dense_adam"}
+    if k1 != {"fused_adam_tiles": want, "fused_adam": want} or not out["launches"].get(
+            "dense_adam"):
         raise AssertionError(f"phase 10 launched {out['launches']}: expected K1 and its first "
-                             f"pass {want} times each (scaling_bench's fused_adam), nothing else")
+                             f"pass {want} times each (scaling_bench's fused_adam), the dense "
+                             f"Adam of every step, nothing else")
     out["wall_s"] = time.perf_counter() - t0
     print(f"[phase 10] launches {json.dumps(out['launches'])}; wall time {out['wall_s']:.1f} s",
           flush=True)
@@ -3694,7 +3778,7 @@ def phase_pipeline(card: str, device: str = "cuda") -> dict:
         steps = -(-n_train // min(BATCH, n_train)) * PIPELINE_EPOCHS
         if device == "cuda":
             k1 = {k: per_step["train"].get(k, 0) for k in ("fused_adam_tiles", "fused_adam")}
-            if k1 != dict.fromkeys(k1, 2 * steps):
+            if k1 != dict.fromkeys(k1, 2 * steps) or per_step["train"].get("dense_adam") != steps:
                 raise AssertionError(f"train launched {per_step['train']} over {steps} steps")
             if per_step["similar_anime"].get("l2_normalize") != 2 or launched["l2_normalize"] != 2:
                 raise AssertionError("the context build did not launch l2_normalize twice")
@@ -4146,6 +4230,7 @@ def main() -> int:
         raise AssertionError("the context builds did not launch l2_normalize twice each")
     _timed_phase("14", phase_scan_graph, card)
     adam_rows, gather_rows = _timed_phase("4", phase_adam, card)
+    dense_adam_rows = _timed_phase("4b", phase_dense_adam, card)
     # 7a's timed dense cases here, beside phase 4's: after phase 6, sessions
     # of torch.profiler lose a few records of every kernel in this process.
     dense_rows = _timed_phase("7a", phase_dense, card, receipts=False)
@@ -4282,6 +4367,21 @@ def main() -> int:
             # No single call: a scatter-add plus a dense add, then the Adam math.
             "library_ms": None,
         })
+    adam_step = next(r for r in dense_adam_rows if r["case"] == "adam_step")
+    kernels.append({
+        "name": "dense_adam",
+        "route": "cuda",
+        "source": "anime_recommendations_tpu_torch/csrc/dense_adam.cu",
+        "replaces": None,   # no Pallas kernel: the JAX package leaves it to optax and XLA
+        "launches": trained["dense_adam_launches"]["adam"],
+        "max_abs_err": 0.0,   # bit for bit the plain chain
+        "ms": adam_step["ms"],
+        "plain_ms": adam_step["plain_ms"],
+        "bound_ms": adam_step["bound_ms"],
+        "bound_by": adam_step["bound_by"],
+        # The Adam math over a list of tensors: no single call.
+        "library_ms": None,
+    })
     # The two passes K1 (the first) and K5 (both) run around their update
     # kernels, each timed in K5's skewed anime case, where both work; the
     # entries above count them in their ms.

@@ -19,7 +19,7 @@ relative (fmaf in row order against cuBLAS's order), indices equal except
 where true scores tie within 1e-6, and equal on tables whose scores are
 exact. Row normalization: 1e-6 relative for f32 outputs (rsqrtf is not
 correctly rounded), one bf16 ulp for bf16 outputs, zero rows zero. Fused
-Adam: the kernel applies the plain version's operations in its order, so
+Adam (K1): the kernel applies the plain version's operations in its order, so
 where a row's duplicate gradients are summed in the same order the results
 are equal (rows hit once: bit for bit); the plain version on the card sums
 duplicates with index_add_'s atomics, in another order, so W', mu' and nu'
@@ -52,6 +52,9 @@ step's train_step, eval_sums and grads at world size 1 on NCCL, 10 calls
 through a cache against 10 through StepGraphs(0) from one state, bit for
 bit (lazy_adam within 1e-5 of each tensor's largest entry unless two eager
 runs are bit-equal), one capture and a replay per call from the second on.
+Dense Adam (csrc/dense_adam.cu): bit for bit the plain chain on the card,
+every element (the same correctly rounded f32 operations in its order), in
+one launch for a list of tensors, eager or replayed from a CUDA graph.
 """
 
 import numpy as np
@@ -1455,3 +1458,145 @@ def test_a_step_capture_that_syncs_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         call()
     assert len(graphs) == 0
+
+
+# ---- dense Adam (csrc/dense_adam.cu) ------------------------------------------------
+
+DENSE_SHAPES = {
+    "adam_cell": [(91_641, 128), (17_560, 128), (), (), (), ()],
+    "ragged": [(1001, 3), (7,), (5,), (), (4097,), (0,), (33, 129)],
+}
+
+
+def dense_quads(dev, shapes, seed, offset=0):
+    """(p, g, mu, nu) per shape on ``dev`` from a seed, moments as after a
+    few steps; each tensor ``offset`` elements into its own storage (1: 4
+    bytes past a 16-byte boundary, the kernel's element-by-element path)."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale):
+        x = np.asarray(rng.standard_normal(int(np.prod(shape)) + offset) * scale, np.float32)
+        return torch.from_numpy(x).to(dev)[offset:].view(shape)
+
+    return [(t(sh, 0.05), t(sh, 1e-3), t(sh, 1e-4), t(sh, 1e-4).square()) for sh in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset_1"])
+@pytest.mark.parametrize("case", sorted(DENSE_SHAPES))
+def test_dense_adam_kernel_matches_plain_bit_for_bit(cuda, case, offset):
+    """Three steps of one launch over the list against the plain chain on
+    the card: p, mu and nu bit for bit, in their own storage. The kernel
+    applies the chain's correctly rounded f32 operations in its order (on
+    the card torch divides by the step row's 0-dim tensors and its sqrt is
+    correctly rounded), so no tolerance is needed."""
+    from anime_recommendations_tpu_torch.ops import dense_adam
+
+    ours = dense_quads(cuda, DENSE_SHAPES[case], seed=len(case), offset=offset)
+    plain = [tuple(t.clone() for t in q) for q in ours]
+    ptrs = [t.data_ptr() for q in ours for t in q]
+    for step in (1, 2, 700):
+        scal = fused_adam.scalar_row(step, 3e-4, cuda)
+        before = _kernels.launches["dense_adam"]
+        dense_adam.dense_adam_(*zip(*ours), scal)
+        assert _kernels.launches["dense_adam"] == before + 1
+        dense_adam._dense_adam_plain(*zip(*plain), scal, dense_adam.KERAS_ADAM_EPS)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for q in ours for t in q] == ptrs
+    for q, r in zip(ours, plain):
+        for a, b in zip(q, r):
+            assert torch.equal(a, b)
+    first = dense_quads(cuda, DENSE_SHAPES[case][:1], len(case), offset)[0][0]
+    assert not torch.equal(ours[0][0], first)   # the steps moved it
+
+
+@pytest.mark.cuda
+def test_dense_adam_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    import ctypes
+
+    from anime_recommendations_tpu_torch.ops import dense_adam
+
+    p, g, mu, nu = dense_quads(cuda, [(64, 8)], seed=1)[0]
+    scal = fused_adam.scalar_row(1, 1e-3, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_adam.dense_adam_([p.t()], [g.t()], [mu.t()], [nu.t()], scal)
+    with pytest.raises(ValueError, match="is on"):
+        dense_adam.dense_adam_([p], [g.cpu()], [mu], [nu], scal)
+    with pytest.raises(ValueError, match="scal"):
+        dense_adam.dense_adam_([p], [g], [mu], [nu], scal.cpu())
+    with pytest.raises(TypeError, match="f32"):
+        dense_adam.dense_adam_([p], [g.double()], [mu], [nu], scal)
+    with pytest.raises(ValueError, match="1 to 8"):
+        dense_adam.dense_adam_(*zip(*dense_quads(cuda, [(4,)] * 9, seed=2)), scal)
+    # The C interface refuses a pointer off f32's alignment, a count past 8
+    # and a step row off its alignment, and takes the same call aligned.
+    lib = _kernels.library("dense_adam")
+    ptr = lambda t, off=0: (ctypes.c_void_p * 1)(t.data_ptr() + off)
+    numel = (ctypes.c_longlong * 1)(p.numel())
+
+    def call(p_off=0, count=1, row_off=0):
+        return lib.dense_adam(ptr(p, p_off), ptr(g), ptr(mu), ptr(nu), numel, count,
+                              scal.data_ptr() + row_off, 0.9, 0.1, 0.999, 0.001, 1e-7,
+                              ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    assert (call(p_off=2), call(count=9), call(row_off=1)) == (1, 1, 1)  # cudaErrorInvalidValue
+    assert call() == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_dense_adam_replays_update_the_memory_the_eager_calls_do(cuda):
+    """A CUDA graph captured around one dense_adam_ call (the adam cell's
+    layout at small widths: two tables and four scalars), replayed for three
+    steps with new gradients and step rows copied into its buffers, against
+    eager calls on copies: bit for bit, in the captured tensors' storage,
+    one launch recorded at capture and counted per replay."""
+    from anime_recommendations_tpu_torch.ops import dense_adam
+
+    ours = dense_quads(cuda, [(3000, 32), (500, 32), (), (), (), ()], seed=4)
+    eager = [tuple(t.clone() for t in q) for q in ours]
+    grads = [q[1] for q in ours]
+    scal = fused_adam.scalar_row(1, 1e-3, cuda).clone()
+    ptrs = [t.data_ptr() for q in ours for t in q]
+    _kernels.library("dense_adam")   # built and loaded before the capture
+    graph = torch.cuda.CUDAGraph()
+    with _kernels.recording() as counts, torch.cuda.graph(graph):
+        dense_adam.dense_adam_(*zip(*ours), scal)
+    assert counts == {"dense_adam": 1}
+    rng = np.random.default_rng(9)
+    for step in (1, 2, 3):
+        new = [torch.from_numpy(np.asarray(rng.standard_normal(tuple(g.shape)) * 1e-3,
+                                           np.float32)).to(cuda) for g in grads]
+        row = fused_adam.scalar_row(step, 1e-3 * step, cuda)
+        for g, x in zip(grads, new):
+            g.copy_(x)
+        scal.copy_(row)
+        before = _kernels.launches["dense_adam"]
+        graph.replay()
+        _kernels.count_replay(counts)
+        assert _kernels.launches["dense_adam"] == before + 1
+        dense_adam.dense_adam_([q[0] for q in eager], new, [q[2] for q in eager],
+                               [q[3] for q in eager], row)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for q in ours for t in q] == ptrs
+    for q, r in zip(ours, eager):
+        for i in (0, 2, 3):
+            assert torch.equal(q[i], r[i])
+    del graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adam", "fused_adam", "lazy_adam"])
+def test_dense_adam_launches_once_a_step(cuda, optimizer):
+    """Two epochs through train_epoch's graph (counted per replay) and two
+    through the eager loop: one dense_adam launch a step under each
+    optimizer (adam's six parameters; the fused and lazy steps' four head
+    scalars)."""
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+
+    for fn in (dl.train_epoch, dl.eager_train_epoch):
+        _kernels.launches.clear()
+        _, _, data = _graph_epoch_runs(cuda, optimizer, fn)
+        torch.cuda.synchronize()
+        assert _kernels.launches["dense_adam"] == 2 * (data.n // 1024), fn.__name__
+    dl.release_graphs()

@@ -158,7 +158,7 @@ def reference_head_adam(state, d_head, lr):
         p, mu, nu = getattr(model, k), adam.mu[k], adam.nu[k]
         mu_new = B1 * mu + (1.0 - B1) * g
         nu_new = B2 * nu + (1.0 - B2) * (g * g)
-        p.copy_(p - lr * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + EPS))
+        p.copy_(p - (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + EPS) * lr)
         adam.mu[k], adam.nu[k] = mu_new, nu_new
 
 

@@ -4,48 +4,45 @@ Counterpart of anime_recommendations_tpu/train/device_loop.py. The training
 data is uploaded to the device once (``stage``), padded to a batch multiple
 with weight-0 rows, which are exact no-ops in the loss, the metrics and the
 BatchNorm statistics. Each epoch permutes SHUFFLE_BLOCK-row granules of it
-on the device and runs its batches, keeping the per-batch loss, mse and
-weight on the device: there is no host sync until the epoch ends.
+and runs its batches, keeping the per-batch loss, mse and weight on the
+device: there is no host sync until the epoch ends.
 
 On the TPU an epoch is one launched program (lax.scan). On a card an epoch
-of at most CHUNK_STEPS steps is one CUDA graph: ``train_epoch`` and
-``eval_epoch`` capture the epoch's steps at their first call for a state,
-its staged data and the run's settings, and replay the graph once per epoch
-after that (utils/graphs.CapturedGraph), so the host launches the epoch's
-~30,000 kernels (297 steps of ~100 at full width) as one: the span
-``epoch.launch`` (``epoch.eval`` for the holdout's graph;
-utils/profiling.span). What changes between epochs goes into the graph's
-static buffers before each replay: the steps' scalars, one row (lr, bc1,
-bc2, step) per step (scalar_table, from the host's Adam count and the
-epoch's lr), and the permutation of the granules, drawn on the host from the
-caller's generator. The
+runs in chunks (``chunks``): nb // CHUNK_STEPS replays of one graph of
+CHUNK_STEPS steps, then one replay of a graph of the nb % CHUNK_STEPS left,
+so an epoch of at most CHUNK_STEPS steps is one replay of one graph (297
+steps of ~100 kernels at full width: the host launches ~30,000 kernels as
+one). A graph per chunk length bounds the capture: 26,281 steps at batch
+10,000 over 263M ratings would make one graph of 3.4M kernels, minutes of
+capture. ``train_epoch`` and ``eval_epoch`` capture the epoch's graphs at
+their first call for a state, its staged data and the run's settings
+(utils/graphs.CapturedGraph) and replay them after that, each training
+replay under the span ``epoch.chunk`` (annotated with its ``steps``), each
+evaluation replay under ``epoch.eval`` (utils/profiling.span). No step is
+padded (a weight-0 step would still advance Adam).
+
+What changes between epochs goes into a graph's static buffers before each
+replay (``chunk_inputs``): the chunk's scalar rows, one row (lr, bc1, bc2,
+step) per step (scalar_table, from the host's Adam count and the epoch's
+lr), and its slice of the epoch's granule order, drawn on the host from the
+caller's generator (whether the epoch is shuffled is only in that order).
+The graph gathers the chunk's rows from the staged data (``chunk_rows``), so
+step i of the epoch sees the rows of the epoch's granule permutation
+(permute_granules) and its own scalar row whatever the chunk length. The
 steps read their scalars from the rows as 0-dim device tensors and update
 every state tensor in place, so the graph's pointers stay valid; the host's
-Adam count advances by the epoch's steps after each replay.
-
-A longer epoch would make a graph without bound (26,281 steps at batch
-10,000 over 263M ratings: 3.4M kernels, minutes of capture), so it runs in
-chunks (``chunks``): nb // CHUNK_STEPS replays of one graph of CHUNK_STEPS
-steps, then one replay of a graph of the nb % CHUNK_STEPS left, both
-captured at the first epoch, each replay under the span ``epoch.chunk``
-(which takes ``epoch.launch``'s place; annotated with its ``steps``). No
-step is padded (a weight-0 step would still advance Adam). Before each
-replay its buffers get the chunk's scalar rows and its slice of the epoch's
-granule order (``chunk_inputs``), and the graph gathers the chunk's rows
-from the staged data (``chunk_rows``) rather than permuting the whole epoch
-at once: step i of the epoch sees the rows and the scalar row it sees in
-one graph. A holdout of more than CHUNK_STEPS batches is evaluated in
-chunks the same way, its sums carried from one replay to the next.
-``graph_report`` counts the epoch graphs captured, their seconds and their
-replays.
+Adam count advances by the epoch's steps after the replays. A holdout is
+evaluated in chunks the same way, unshuffled, its sums carried from one
+replay to the next. ``graph_report`` counts the epoch graphs captured,
+their seconds and their replays.
 
 On the CPU, and on a card through ``eager_train_epoch`` and
-``eager_eval_epoch``, the same bodies run as Python loops of steps, in the
-same chunks (the plain version the graphs are held against, bit for bit
-where the ops are deterministic). The fused optimizers
-run the JAX scan's software pipeline (``_fused_body``): each step consumes
-rows gathered at the end of the one before and gathers the next batch's
-rows from the tables it just updated.
+``eager_eval_epoch``, the same chunk bodies run as Python loops of steps
+(the plain version the graphs are held against, bit for bit where the ops
+are deterministic). The fused optimizers run the JAX scan's software
+pipeline (``_fused_body``): each step consumes rows gathered at the end of
+the one before and gathers the next batch's rows from the tables it just
+updated.
 """
 
 from __future__ import annotations
@@ -58,7 +55,6 @@ import torch
 
 from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
 from anime_recommendations_tpu_torch.models.two_tower import BNState, TwoTower
-from anime_recommendations_tpu_torch.ops import _kernels
 from anime_recommendations_tpu_torch.ops.fused_adam import scalar_rows, upload
 from anime_recommendations_tpu_torch.train.fused import pipelined_step
 from anime_recommendations_tpu_torch.train.lazy import lazy_step
@@ -163,13 +159,10 @@ def scalar_table(count: int, steps: int, lr: float) -> np.ndarray:
 
 
 def chunks(nb: int) -> list[tuple[int, int]]:
-    """(first step, steps) of each replay of an epoch of ``nb`` steps: the
-    whole epoch when nb <= CHUNK_STEPS, else nb // CHUNK_STEPS chunks of
-    CHUNK_STEPS and one of the nb % CHUNK_STEPS left."""
-    size = CHUNK_STEPS
-    if nb <= size:
-        return [(0, nb)]
-    return [(start, min(size, nb - start)) for start in range(0, nb, size)]
+    """(first step, steps) of each replay of an epoch of ``nb`` >= 1 steps:
+    nb // CHUNK_STEPS chunks of CHUNK_STEPS, then one of the nb % CHUNK_STEPS
+    left (the whole epoch when nb <= CHUNK_STEPS)."""
+    return [(start, min(CHUNK_STEPS, nb - start)) for start in range(0, nb, CHUNK_STEPS)]
 
 
 def epoch_slots(n: int, perm: torch.Tensor | None) -> np.ndarray:
@@ -231,29 +224,16 @@ def train_epoch(
     wsums[nb]), all on the device. ``optimizer="lazy_adam"`` takes the
     row-sparse step of train/lazy.py, whose losses exclude the L2 term.
     ``sorted_scatter``: the adam step's gathers (two_tower.forward). On a
-    card the epoch is a replay of its CUDA graph, or past CHUNK_STEPS steps
-    a replay per chunk (module docstring; a capture that fails raises);
-    elsewhere eager_train_epoch."""
+    card a replay of its CUDA graph per chunk (module docstring; a capture
+    that fails raises); elsewhere eager_train_epoch."""
     _check_optimizer(optimizer)
     if data.users.device.type != "cuda":
         return eager_train_epoch(state, data, generator, lr, batch_size, l2_reg_factor,
                                  shuffle, sorted_scatter, optimizer)
-    nb = data.n // batch_size
-    if nb > CHUNK_STEPS:
-        graphs = epoch_graphs(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
-                              optimizer)
-        return _chunked_epoch(state, data, generator, lr, batch_size, shuffle,
-                              lambda steps, host: _replay_chunk(graphs[steps], steps, host))
-    graph = train_graph(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
-                        optimizer)
-    host = {"table": scalar_table(state.adam.count, nb, lr)}
-    if shuffle:
-        host["perm"] = granule_permutation(data.n, generator)
-    with span("epoch.launch"):
-        losses, mses, wsums = graph.replay(host)
-    _report["replays"] += 1
-    state.adam.count += nb
-    return state, losses, mses, wsums
+    graphs = epoch_graphs(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
+                          optimizer)
+    return _chunked_epoch(state, data, generator, lr, batch_size, shuffle,
+                          lambda steps, host: _replay_chunk(graphs[steps], steps, host))
 
 
 def _replay_chunk(graph: CapturedGraph, steps: int, host: dict) -> tuple:
@@ -266,11 +246,11 @@ def _replay_chunk(graph: CapturedGraph, steps: int, host: dict) -> tuple:
 
 def _chunked_epoch(state: TrainState, data: DeviceData, generator: torch.Generator, lr: float,
                    batch_size: int, shuffle: bool, run_chunk) -> tuple:
-    """An epoch of more than CHUNK_STEPS steps: ``run_chunk(steps, inputs)``
-    runs each chunk from its host inputs (chunk_inputs' and its scalar rows,
-    ``table``), and returns its (losses, mses, wsums). The permutation of
-    the granules is drawn once, as for one graph; each chunk's scalar rows
-    are made just before it runs. Returns train_epoch's result."""
+    """An epoch in chunks: ``run_chunk(steps, inputs)`` runs each chunk from
+    its host inputs (chunk_inputs' and its scalar rows, ``table``), and
+    returns its (losses, mses, wsums). The permutation of the granules is
+    drawn once for the epoch; each chunk's scalar rows are made just before
+    it runs. Returns train_epoch's result."""
     nb = data.n // batch_size
     perm = granule_permutation(data.n, generator) if shuffle else None
     slots = epoch_slots(data.n, perm)
@@ -293,23 +273,16 @@ def eager_train_epoch(
     optimizer: str = "adam",
 ) -> tuple[TrainState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """train_epoch as a Python loop of steps, on any device: the plain
-    version of the captured epoch (same arguments, same result)."""
+    version of the captured epoch (same arguments, same result), in the
+    same chunks."""
     _check_optimizer(optimizer)
-    nb = data.n // batch_size
-    if nb > CHUNK_STEPS:
-        def run_chunk(steps, host):
-            buffers = {k: upload(v, data.users.device) for k, v in host.items()}
-            return _train_chunk(state, data, buffers, steps, batch_size, l2_reg_factor,
-                                optimizer, sorted_scatter)
 
-        return _chunked_epoch(state, data, generator, lr, batch_size, shuffle, run_chunk)
-    if shuffle:
-        data = granule_shuffle(data, generator)
-    table = upload(scalar_table(state.adam.count, nb, lr), data.users.device)
-    losses, mses, wsums = _epoch_body(state, data, table, batch_size, l2_reg_factor,
-                                      optimizer, sorted_scatter)
-    state.adam.count += nb
-    return state, losses, mses, wsums
+    def run_chunk(steps, host):
+        buffers = {k: upload(v, data.users.device) for k, v in host.items()}
+        return _train_chunk(state, data, buffers, steps, batch_size, l2_reg_factor,
+                            optimizer, sorted_scatter)
+
+    return _chunked_epoch(state, data, generator, lr, batch_size, shuffle, run_chunk)
 
 
 def _batch(x: torch.Tensor, i: int, batch_size: int) -> torch.Tensor:
@@ -345,7 +318,7 @@ def _epoch_body(state: TrainState, data: DeviceData, table: torch.Tensor, batch_
 def _train_chunk(state: TrainState, data: DeviceData, buffers: dict, steps: int,
                  batch_size: int, l2_reg_factor: float, optimizer: str,
                  sorted_scatter: bool | str = False) -> tuple:
-    """One chunk of a long epoch: ``steps`` steps over the rows that the
+    """One chunk of an epoch: ``steps`` steps over the rows that the
     buffers ``slots`` and ``offset`` locate (chunk_rows), step i reading
     ``table[i]``. Returns _epoch_body's (losses, mses, wsums) of the chunk.
     The fused optimizers' pipeline starts afresh: the chunk's first rows are
@@ -404,26 +377,19 @@ def eval_epoch(
     l2_reg_factor: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted-mean (loss, mse) over the staged holdout, on the device. On
-    a card a replay of its CUDA graph (past CHUNK_STEPS batches, one per
-    chunk), elsewhere eager_eval_epoch."""
+    a card a replay of its CUDA graph per chunk, elsewhere eager_eval_epoch."""
     if data.users.device.type != "cuda":
         return eager_eval_epoch(model, bn_state, data, batch_size, l2_reg_factor)
-    if data.n // batch_size > CHUNK_STEPS:
-        graphs = _eval_chunk_graphs(model, bn_state, data, batch_size, l2_reg_factor)
+    graphs = _eval_chunk_graphs(model, bn_state, data, batch_size, l2_reg_factor)
 
-        def run_chunk(steps, host):
-            with span("epoch.eval") as s:
-                s.annotate(steps=steps)
-                (sums,) = graphs[steps].replay(host, clone=False)
-            _report["replays"] += 1
-            return sums
+    def run_chunk(steps, host):
+        with span("epoch.eval") as s:
+            s.annotate(steps=steps)
+            (sums,) = graphs[steps].replay(host, clone=False)
+        _report["replays"] += 1
+        return sums
 
-        return _chunked_eval(data, batch_size, run_chunk)
-    graph = _eval_graph(model, bn_state, data, batch_size, l2_reg_factor)
-    with span("epoch.eval"):
-        out = graph.replay({})
-    _report["replays"] += 1
-    return out
+    return _chunked_eval(data, batch_size, run_chunk)
 
 
 @torch.no_grad()
@@ -436,15 +402,12 @@ def eager_eval_epoch(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """eval_epoch as a Python loop of batches, on any device, in
     eval_epoch's chunks."""
-    if data.n // batch_size > CHUNK_STEPS:
-        def run_chunk(steps, host):
-            buffers = {k: device_tensor(v, data.users.device) for k, v in host.items()}
-            return _eval_chunk(model, bn_state, data, buffers, steps, batch_size,
-                               l2_reg_factor)[0]
 
-        return _chunked_eval(data, batch_size, run_chunk)
-    zero = torch.zeros((), device=data.weights.device)
-    return _means(*_eval_sums(model, bn_state, data, batch_size, l2_reg_factor, zero, zero, zero))
+    def run_chunk(steps, host):
+        buffers = {k: device_tensor(v, data.users.device) for k, v in host.items()}
+        return _eval_chunk(model, bn_state, data, buffers, steps, batch_size, l2_reg_factor)[0]
+
+    return _chunked_eval(data, batch_size, run_chunk)
 
 
 def _eval_sums(model, bn_state, data: DeviceData, batch_size: int, l2_reg_factor: float,
@@ -466,7 +429,7 @@ def _means(l_sum, m_sum, w_sum) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _eval_chunk(model, bn_state, data: DeviceData, buffers: dict, steps: int, batch_size: int,
                 l2_reg_factor: float) -> tuple[torch.Tensor]:
-    """One chunk of a long holdout: the sums of its ``steps`` batches (the
+    """One chunk of a holdout: the sums of its ``steps`` batches (the
     rows chunk_rows locates) added to the sums ``carry`` holds. Returns
     ([3] sums,)."""
     rows = chunk_rows(data, buffers["slots"], buffers["offset"], steps, batch_size)
@@ -476,9 +439,9 @@ def _eval_chunk(model, bn_state, data: DeviceData, buffers: dict, steps: int, ba
 
 
 def _chunked_eval(data: DeviceData, batch_size: int, run_chunk):
-    """A holdout of more than CHUNK_STEPS batches, in order: ``run_chunk(steps,
-    inputs)`` adds a chunk's sums to ``inputs["carry"]`` (the sums so far, a
-    [3] tensor) and returns them. Returns eval_epoch's result."""
+    """A holdout in chunks, in order: ``run_chunk(steps, inputs)`` adds a
+    chunk's sums to ``inputs["carry"]`` (the sums so far, a [3] tensor, zeros
+    at the first) and returns them. Returns eval_epoch's result."""
     slots = epoch_slots(data.n, None)
     sums = torch.zeros(3, device=data.users.device)
     for start, steps in chunks(data.n // batch_size):
@@ -525,19 +488,6 @@ def _capture(fn, warm_up, buffers: dict, device) -> CapturedGraph:
     return graph
 
 
-def epoch_graphs(state: TrainState, data: DeviceData, batch_size: int, l2_reg_factor: float,
-                 shuffle: bool = True, sorted_scatter: bool | str = False,
-                 optimizer: str = "adam") -> dict[int, CapturedGraph]:
-    """The graphs train_epoch replays for these arguments, by the steps of a
-    replay, from the cache or captured now: the epoch's one graph, or, past
-    CHUNK_STEPS steps, its chunk and tail graphs."""
-    nb = data.n // batch_size
-    if nb > CHUNK_STEPS:
-        return _chunk_graphs(state, data, batch_size, l2_reg_factor, sorted_scatter, optimizer)
-    return {nb: train_graph(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
-                            optimizer)}
-
-
 def _graphs_by_length(nb: int, make_buffers, body, warm_up, device) -> dict[int, CapturedGraph]:
     """One graph per length of chunks(nb), each on buffers of its own:
     ``body(buffers, steps)`` captured after ``warm_up(buffers, steps)``."""
@@ -549,13 +499,14 @@ def _graphs_by_length(nb: int, make_buffers, body, warm_up, device) -> dict[int,
     return out
 
 
-def _chunk_graphs(state: TrainState, data: DeviceData, batch_size: int,
-                  l2_reg_factor: float, sorted_scatter: bool | str,
-                  optimizer: str) -> dict[int, CapturedGraph]:
-    """The graphs of an epoch of more than CHUNK_STEPS steps, by steps: a
-    chunk's and the tail's (_train_chunk), each reading its scalar rows,
-    granule slots and offset from buffers of its own. Whether the epoch is
-    shuffled is only in the slots the host writes."""
+def epoch_graphs(state: TrainState, data: DeviceData, batch_size: int, l2_reg_factor: float,
+                 shuffle: bool = True, sorted_scatter: bool | str = False,
+                 optimizer: str = "adam") -> dict[int, CapturedGraph]:
+    """The graphs train_epoch replays for these arguments, by the steps of a
+    replay, from the cache or captured now: one per chunk length
+    (_train_chunk), each reading its scalar rows, granule slots and offset
+    from buffers of its own. ``shuffle`` is only in the slots the host
+    writes: shuffled and unshuffled epochs replay the same graphs."""
     key = ("train_chunks", optimizer, batch_size, float(l2_reg_factor), sorted_scatter,
            CHUNK_STEPS, layout(state_tensors(state) + list(data)))
     dev = data.users.device
@@ -580,52 +531,20 @@ def _chunk_graphs(state: TrainState, data: DeviceData, batch_size: int,
 def train_graph(state: TrainState, data: DeviceData, batch_size: int, l2_reg_factor: float,
                 shuffle: bool = True, sorted_scatter: bool | str = False,
                 optimizer: str = "adam") -> CapturedGraph:
-    """The training graph train_epoch replays for these arguments, from the
-    cache or captured now: an epoch of at most CHUNK_STEPS steps (a longer
-    one runs in chunks: epoch_graphs)."""
-    if data.n // batch_size > CHUNK_STEPS:
-        raise ValueError(f"an epoch of {data.n // batch_size} steps runs in chunks of "
-                         f"{CHUNK_STEPS}: epoch_graphs")
-    key = ("train", optimizer, batch_size, float(l2_reg_factor), shuffle, sorted_scatter,
-           layout(state_tensors(state) + list(data)))
-
-    def build():
-        nb = data.n // batch_size
-        dev = data.users.device
-        # Valid scalars for the warm-up; every replay writes its own.
-        buffers = {"table": upload(scalar_table(0, nb, 0.0), dev)}
-        if shuffle:
-            buffers["perm"] = torch.arange(data.n // _granule(data.n), device=dev)
-
-        def body(st, steps):
-            d = permute_granules(data, buffers["perm"]) if shuffle else data
-            d = DeviceData(*(x[:steps * batch_size] for x in d))
-            return _epoch_body(st, d, buffers["table"][:steps], batch_size, l2_reg_factor,
-                               optimizer, sorted_scatter)
-
-        return _capture(lambda: body(state, nb),
-                        lambda: body(copy_state(state), min(nb, 2)), buffers, dev)
-
-    return cached_graph(key, build)
-
-
-def _eval_graph(model, bn_state, data, batch_size, l2_reg_factor) -> CapturedGraph:
-    key = ("eval", batch_size, float(l2_reg_factor),
-           layout(model_tensors(model) + list(bn_state) + list(data)))
-
-    def build():
-        # Evaluation writes nothing: the warm-up runs one batch on the model.
-        one = DeviceData(*(x[:batch_size] for x in data))
-        return _capture(
-            lambda: eager_eval_epoch(model, bn_state, data, batch_size, l2_reg_factor),
-            lambda: eager_eval_epoch(model, bn_state, one, batch_size, l2_reg_factor),
-            {}, data.users.device)
-
-    return cached_graph(key, build)
+    """The one graph train_epoch replays for an epoch of at most CHUNK_STEPS
+    steps: epoch_graphs' only entry, from the same cache entry. A longer
+    epoch has a chunk and a tail graph (epoch_graphs) and raises here."""
+    replays = chunks(data.n // batch_size)
+    if len(replays) > 1:
+        raise ValueError(f"an epoch of {data.n // batch_size} steps runs in {len(replays)} "
+                         f"chunks of at most {CHUNK_STEPS}: epoch_graphs")
+    graphs = epoch_graphs(state, data, batch_size, l2_reg_factor, shuffle, sorted_scatter,
+                          optimizer)
+    return graphs[replays[0][1]]
 
 
 def _eval_chunk_graphs(model, bn_state, data, batch_size, l2_reg_factor) -> dict:
-    """The graphs of a holdout of more than CHUNK_STEPS batches, by steps
+    """The graphs eval_epoch replays for a holdout, by the steps of a replay
     (_eval_chunk), each on buffers of its own: slots, offset and the sums
     carried in."""
     key = ("eval_chunks", batch_size, float(l2_reg_factor), CHUNK_STEPS,

@@ -461,7 +461,7 @@ class Trainer:
         """One staged epoch + holdout eval. Returns
         (state, loss_sum, mse_sum, w_total, val_loss, val_mse). The span
         ``train.epoch``; its host reads that wait for the device are
-        ``epoch.wait`` (the launches: device_loop's ``epoch.launch`` and
+        ``epoch.wait`` (the launches: device_loop's ``epoch.chunk`` and
         ``epoch.eval``)."""
         from anime_recommendations_tpu_torch.train import device_loop as dl
 

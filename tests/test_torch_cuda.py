@@ -41,9 +41,11 @@ equal except where true scores tie within 1e-6. The captured epoch
 two eager runs are bit-equal, else 1e-5 of each tensor's largest entry
 (dense_b, its moments and moving_mean, which walk on rounding noise, not
 compared then). The chunked epoch (CHUNK_STEPS lowered): bit for bit the
-eager chunks and the one-graph epoch under the same rule, its graphs
-captured once. The captured sharded epoch (parallel/trainer.py at world
-size 1 on NCCL, its collectives in the graph): bit for bit the eager one
+eager chunks and the one-chunk epoch under the same rule, its graphs
+captured once; the graph the benchmark's set-up captures (train_graph) is
+the one every later epoch replays. The captured sharded epoch
+(parallel/trainer.py at world size 1 on NCCL, its collectives in the
+graph): bit for bit the eager one
 for psum adam and alltoall adam, fused_adam and fused_adam_bf16m (the fused
 ones also at a capacity that takes more than 4 rounds), lazy_adam within
 1e-5 of each tensor's largest entry (index_add_'s atomics). The step
@@ -1011,11 +1013,11 @@ def test_chunked_epoch_replays_match_the_eager_chunks(cuda, optimizer, monkeypat
     """With CHUNK_STEPS = 6, _graph_epoch_runs' 20-step epochs run as three
     chunks and a tail of 2: their graphs are captured once, at the first
     epoch (two graphs; none at the second; four replays an epoch), and the
-    two epochs equal the eager chunks and the one-graph epoch, bit for bit
-    wherever two eager runs are bit-equal, else (lazy_adam's index_add_)
-    within 1e-5 of each tensor's largest entry. A holdout of 5 batches in
-    chunks of 2 (sums carried between replays) equals its eager chunks and
-    its one-graph evaluation bit for bit."""
+    two epochs equal the eager chunks and the one-chunk epoch (CHUNK_STEPS
+    as set), bit for bit wherever two eager runs are bit-equal, else
+    (lazy_adam's index_add_) within 1e-5 of each tensor's largest entry. A
+    holdout of 5 batches in chunks of 2 (sums carried between replays)
+    equals its eager chunks and its one-chunk evaluation bit for bit."""
     from anime_recommendations_tpu_torch.train import device_loop as dl
     from anime_recommendations_tpu_torch.train import trainer as tr
 
@@ -1053,6 +1055,46 @@ def test_chunked_epoch_replays_match_the_eager_chunks(cuda, optimizer, monkeypat
     monkeypatch.setattr(dl, "CHUNK_STEPS", 2)
     for got in (evaluate(dl.eval_epoch), evaluate(dl.eager_eval_epoch)):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adam", "lazy_adam", "fused_adam"])
+def test_set_ups_train_graph_is_the_graph_every_epoch_replays(cuda, optimizer):
+    """train_graph called as the benchmark's set-up calls it (before the
+    state's first step) captures the epoch's one graph; the first
+    Trainer._device_epoch adds only the holdout's graph, and two more
+    capture nothing: each replays train_graph's graph and the holdout's
+    once."""
+    from anime_recommendations_tpu_torch.data.dataset import RatingsDataset
+    from anime_recommendations_tpu_torch.train import device_loop as dl
+    from anime_recommendations_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(2)
+    n_users, n_anime, n = 500, 200, 12_000
+    cols = (rng.integers(0, n_users, n).astype(np.int32),
+            rng.integers(0, n_anime, n).astype(np.int32), rng.uniform(size=n).astype(np.float32))
+    trainer = Trainer(embedding_size=16, batch_size=1024, device_loop=True, optimizer=optimizer,
+                      verbose=False, seed=3, device=cuda)
+    state = trainer._init_state(torch.Generator().manual_seed(3), n_users, n_anime)
+    staged = trainer._stage_device(RatingsDataset(*(c[:10_000] for c in cols)),
+                                   RatingsDataset(*(c[10_000:] for c in cols)))
+    dl.release_graphs()
+    before = dl.graph_report()
+    graph = dl.train_graph(state, staged[0], staged[2], trainer.l2_reg_factor,
+                           trainer.shuffle_each_epoch, trainer.sorted_scatter, trainer.optimizer)
+    assert dl.graph_report()["captured"] == before["captured"] + 1
+    state, *_ = trainer._device_epoch(staged, state, 0, 1e-3)
+    captured = dl.graph_report()["captured"]
+    assert captured == before["captured"] + 2
+    for epoch in (1, 2):
+        state, loss_sum, *_ = trainer._device_epoch(staged, state, epoch, 1e-3)
+    after = dl.graph_report()
+    assert after["captured"] == captured and np.isfinite(loss_sum)
+    assert after["replays"] - before["replays"] == 6 and graph.replays == 3
+    assert dl.train_graph(state, staged[0], staged[2], trainer.l2_reg_factor,
+                          trainer.shuffle_each_epoch, trainer.sorted_scatter,
+                          trainer.optimizer) is graph
+    dl.release_graphs()
 
 
 @pytest.mark.cuda

@@ -287,6 +287,19 @@ def test_two_epochs_match_jax(optimizer):
 CHUNK = 3   # CHUNK_STEPS in these cases
 
 
+def whole_epoch(state, data, generator, lr, shuffle, optimizer):
+    """The epoch as one plain composition, without chunks: the whole epoch's
+    granule permutation (none unshuffled), its scalar table and one epoch
+    body over every batch. Returns train_epoch's result."""
+    if shuffle:
+        data = dl.permute_granules(data, dl.granule_permutation(data.n, generator))
+    nb = data.n // BS
+    table = torch.from_numpy(dl.scalar_table(state.adam.count, nb, lr))
+    out = dl._epoch_body(state, data, table, BS, L2, optimizer)
+    state.adam.count += nb
+    return (state, *out)
+
+
 @pytest.mark.parametrize("optimizer", ["adam", "lazy_adam", "fused_adam"])
 @pytest.mark.parametrize("rows,shuffle", [(420, True), (520, True), (520, False), (140, True)],
                          ids=["multiple", "tail", "tail-unshuffled", "within"])
@@ -294,17 +307,17 @@ def test_chunked_epoch_equals_the_one_graph_epoch_bit_for_bit(optimizer, rows, s
                                                               monkeypatch):
     """With CHUNK_STEPS = 3, epochs of 9 steps (three chunks), 11 (three and a
     tail of 2) and 3 (one chunk) take the same batches in the same order
-    with the same scalar rows as one epoch body: two epochs with a change
-    of lr, losses, mses, weights and every state tensor bit for bit."""
+    with the same scalar rows as one epoch body over the whole permuted
+    epoch (whole_epoch): two epochs with a change of lr, losses, mses,
+    weights and every state tensor bit for bit."""
     data = staged(rows=rows)
     whole, chunked = port_state(optimizer), port_state(optimizer)
+    monkeypatch.setattr(dl, "CHUNK_STEPS", CHUNK)
     for epoch, lr in enumerate(LRS):
-        whole, *want = dl.train_epoch(whole, data, torch.Generator().manual_seed(epoch), lr, BS,
-                                      L2, shuffle=shuffle, optimizer=optimizer)
-        with monkeypatch.context() as m:
-            m.setattr(dl, "CHUNK_STEPS", CHUNK)
-            chunked, *got = dl.train_epoch(chunked, data, torch.Generator().manual_seed(epoch),
-                                           lr, BS, L2, shuffle=shuffle, optimizer=optimizer)
+        whole, *want = whole_epoch(whole, data, torch.Generator().manual_seed(epoch), lr,
+                                   shuffle, optimizer)
+        chunked, *got = dl.train_epoch(chunked, data, torch.Generator().manual_seed(epoch),
+                                       lr, BS, L2, shuffle=shuffle, optimizer=optimizer)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert chunked.adam.count == whole.adam.count == 2 * (data.n // BS)
@@ -315,9 +328,12 @@ def test_chunked_epoch_equals_the_one_graph_epoch_bit_for_bit(optimizer, rows, s
 
 @pytest.mark.parametrize("rows", [420, 520, 140], ids=["multiple", "tail", "within"])
 def test_chunked_evaluation_equals_the_one_graph_evaluation_bit_for_bit(rows, monkeypatch):
-    """The holdout's loss and mse, its sums carried from chunk to chunk."""
+    """The holdout's loss and mse, its sums carried from chunk to chunk,
+    against the sums of every batch in one pass."""
     state, data = port_state("adam"), staged(rows=rows)
-    want = dl.eval_epoch(state.model, state.model.bn_state(), data, BS, L2)
+    zero = torch.zeros(())
+    want = dl._means(*dl._eval_sums(state.model, state.model.bn_state(), data, BS, L2,
+                                    zero, zero, zero))
     monkeypatch.setattr(dl, "CHUNK_STEPS", CHUNK)
     got = dl.eval_epoch(state.model, state.model.bn_state(), data, BS, L2)
     assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -5,8 +5,8 @@ The port trains through Trainer._device_epoch (device_loop=True,
 optimizer="lazy_adam", as ``cli train`` runs it), one epoch from seeded
 random weights over seeded Zipf-skewed ratings (portbench/datagen.py: hot
 items repeat within a batch; the last of 24 batches is padded, and the
-shuffle scatters its weight-0 slots), in one graph's body and in chunks of
-4 steps.
+shuffle scatters its weight-0 slots), in one chunk (one graph on a card)
+and in chunks of 4 steps.
 The reference follows the same batches in the device loop's order
 (reference.epoch_batches). They are compared by the benchmark's numbers
 (portbench/compare.training): the worst step loss, the first moment's and

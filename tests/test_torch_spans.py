@@ -401,17 +401,18 @@ def test_device_epoch_launches_and_evaluates_under_its_spans_on_the_card(cuda):
     for epoch in range(2):
         state, loss_sum, *_ = trainer._device_epoch(staged, state, epoch, 1e-3)
     spans = spans_stop()
-    assert [s.name for s in spans] == ["train.epoch", "epoch.launch", "epoch.wait",
+    assert [s.name for s in spans] == ["train.epoch", "epoch.chunk", "epoch.wait",
                                        "epoch.eval", "epoch.wait"] * 2
     assert [s.parent for s in spans] == [-1, 0, 0, 0, 0, -1, 5, 5, 5, 5]
+    assert [s.attrs for s in spans if s.name == "epoch.chunk"] == [{"steps": 8}] * 2
     assert np.isfinite(loss_sum)
     assert_children_within(spans)
 
 
 @pytest.mark.cuda
 def test_chunked_device_epoch_replays_under_chunk_spans_on_the_card(cuda, monkeypatch):
-    """An epoch of 8 steps in chunks of 3: three ``epoch.chunk`` spans in
-    ``epoch.launch``'s place, each annotated with its steps."""
+    """An epoch of 8 steps in chunks of 3: three ``epoch.chunk`` spans, each
+    annotated with its steps."""
     from anime_recommendations_tpu_torch.train import device_loop as dl
 
     monkeypatch.setattr(dl, "CHUNK_STEPS", 3)

@@ -73,6 +73,12 @@ SIGNATURES = {
     # array), count, row (device: lr, bc1, bc2, step), b1, 1 - b1, b2,
     # 1 - b2, eps, stream
     "dense_adam": (_P, _P, _P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _P),
+    # w, mu, nu, g (host arrays of device pointers), rows, batch (host int32
+    # arrays), count, d, sorted keys, order, keep (or null), partial, flags,
+    # n_chunks, row (device: lr, bc1, bc2, step), b1, 1 - b1, b2, 1 - b2, eps,
+    # 2 * l2, stream
+    "lazy_adam": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _F, _F, _F, _F,
+                  _F, _F, _P),
 }
 # Entry points defined in another source than csrc/<name>.cu.
 ENTRY_SOURCE = {"fused_adam_tiles": "fused_adam", "fused_adam_gather": "fused_adam",

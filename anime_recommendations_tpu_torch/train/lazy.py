@@ -14,24 +14,23 @@ design:
     full-table pass); the history's ``loss`` then excludes it while its
     ``val_loss`` (the full eval path) includes it.
 
-Duplicate ids in a batch: the batch is sorted by id and each run of equal
-ids has its gradients summed into a [B, D] buffer, row r holding run r's
-sum, with ``index_add_`` over the run numbers. Every shape is fixed by the
-batch size, as in JAX, whose segment sums send the duplicates out of bounds
-(``mode="drop"``): each sorted position computes its run's update from the
-run's sum and the row's old values, so the positions of one run compute the
-same bits, and ``index_copy_`` writes them all (a write with duplicate
-indices has no defined winner on CUDA; here every writer agrees). No step
-needs the number of unique ids on the host, so a CUDA graph can capture it.
-The JAX package sorts unstably and segment-sums; this sorts stably and sums
-with ``index_add_`` (on the card, in atomics' order, which varies from run
-to run; ``index_put_(accumulate=True)`` would sum in a fixed order, but its
-serial chain over a hot row's run cost 0.24 ms more a step on an H100 at
-full width), so a duplicated row's sum may differ in its last f32 bits.
+Duplicate ids in a batch: the batch is sorted stably by id and each run of
+equal ids sums its gradient rows and takes one update of its row. Every
+shape is fixed by the batch size, as in JAX, whose segment sums send the
+duplicates out of bounds (``mode="drop"``), so no step needs the number of
+unique ids on the host and a CUDA graph can capture it. The update is
+ops/lazy_adam.lazy_adam_, one call for both tables: on a card one stable
+sort of both tables' ids and one kernel launch (csrc/lazy_adam.cu), which
+sums each run in a fixed order and writes each row once; elsewhere its
+plain version, a torch chain per table (``index_add_`` of the runs into a
+[B, D] buffer, each sorted position computing its run's update, and
+``index_copy_`` writing them all: the positions of one run write the same
+bits; on a card its atomics would sum in an order that varies from run to
+run). The JAX package sorts unstably and segment-sums, so a duplicated
+row's sum may differ from it in its last f32 bits.
 
-The row updates are plain torch ops, on the card as on the CPU: the JAX
-package has no Pallas kernel here. The four head scalars take dense Adam
-(ops/dense_adam.py: one kernel launch on a card). On a card
+The JAX package has no Pallas kernel here. The four head scalars take dense
+Adam (ops/dense_adam.py: one kernel launch on a card). On a card
 ``lazy_train_step`` is one CUDA graph replay per call from a signature's
 third call on (train/step_graph.py); ``lazy_step`` is its eager body. The
 step's first update from a fresh state with l2 = 0 equals dense Adam's on
@@ -52,6 +51,7 @@ from anime_recommendations_tpu_torch.models.two_tower import (
     head,
 )
 from anime_recommendations_tpu_torch.ops.dense_adam import dense_adam_
+from anime_recommendations_tpu_torch.ops.lazy_adam import LazyTable, lazy_adam_
 from anime_recommendations_tpu_torch.train.trainer import (
     B1,
     B2,
@@ -88,33 +88,9 @@ def lazy_row_adam(
     0-dim device tensors. Every shape is fixed by B (module docstring).
     ``keep`` ([B] bool): positions marked False add nothing to their run's
     sum, and a run none of whose positions is kept writes its row back
-    unchanged, so they drop out as if absent (JAX's ``mode="drop"``)."""
-    order = torch.argsort(ids, stable=True)
-    ids_s = ids[order].long()
-    g_s = g_rows[order]
-    if keep is not None:
-        keep_s = keep[order]
-        g_s = torch.where(keep_s[:, None], g_s, 0.0)
-    is_start = torch.ones_like(ids_s, dtype=torch.bool)
-    is_start[1:] = ids_s[1:] != ids_s[:-1]
-    seg = torch.cumsum(is_start, 0) - 1                  # [B] run of each position
-    g_run = torch.zeros_like(g_s).index_add_(0, seg, g_s)  # row r: run r's sum
-    w_rows, mu_rows, nu_rows = w[ids_s], mu[ids_s], nu[ids_s]
-    g_tot = g_run[seg] + (2.0 * l2) * w_rows             # decay once per run
-    lr, bc1, bc2 = scal[0], scal[1], scal[2]
-    mu_new = b1 * mu_rows + (1.0 - b1) * g_tot
-    nu_new = b2 * nu_rows + (1.0 - b2) * (g_tot * g_tot)
-    upd = -lr * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps)
-    w_new = w_rows + upd
-    if keep is not None:
-        live = torch.zeros_like(ids_s).index_add_(0, seg, keep_s.long())[seg] > 0
-        w_new = torch.where(live[:, None], w_new, w_rows)
-        mu_new = torch.where(live[:, None], mu_new, mu_rows)
-        nu_new = torch.where(live[:, None], nu_new, nu_rows)
-    # The positions of one run write the same bits.
-    w.index_copy_(0, ids_s, w_new)
-    mu.index_copy_(0, ids_s, mu_new)
-    nu.index_copy_(0, ids_s, nu_new)
+    unchanged, so they drop out as if absent (JAX's ``mode="drop"``).
+    ops/lazy_adam.lazy_adam_ with one table: one kernel launch on a card."""
+    lazy_adam_([LazyTable(w, mu, nu, ids, g_rows, keep)], scal, l2, b1, b2, eps)
     return _RowUpdate(w, mu, nu)
 
 
@@ -152,9 +128,9 @@ def lazy_train_step(
     Returns (state, batch_data_loss, batch_mse).
 
     Gradients are taken with respect to the GATHERED rows (no dense table
-    gradient exists); the tables update through lazy_row_adam, the four head
-    scalars through ordinary Adam with the shared step count. On a card a
-    replay of the step's graph (train/step_graph.py)."""
+    gradient exists); both tables update through one lazy_adam_ call, the
+    four head scalars through ordinary Adam with the shared step count. On
+    a card a replay of the step's graph (train/step_graph.py)."""
 
     def body(st, users, anime, ratings, weights, scal):
         return lazy_step(st, users, anime, ratings, weights, scal, l2_reg_factor)
@@ -177,9 +153,9 @@ def lazy_step(state: TrainState, users, anime, ratings, weights, scal: torch.Ten
                                      ratings, weights)
     d_u, d_a, *d_head = torch.autograd.grad(loss, (u_rows, a_rows, *head_params))
     with torch.no_grad():
-        for k, ids, grad in (("user_emb", users, d_u), ("anime_emb", anime, d_a)):
-            lazy_row_adam(getattr(model, k).detach(), adam.mu[k], adam.nu[k], ids, grad,
-                          scal, l2_reg_factor)
+        lazy_adam_([LazyTable(getattr(model, k).detach(), adam.mu[k], adam.nu[k], ids, grad)
+                    for k, ids, grad in (("user_emb", users, d_u), ("anime_emb", anime, d_a))],
+                   scal, l2_reg_factor)
         _head_adam(state, d_head, scal)
         _keep_bn(model, new_bn)
     return loss.detach(), mse.detach()

@@ -84,6 +84,16 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            alone, three steps from one state, p, mu and nu bit for bit; the
            kernel's device time, the chain's, 28 bytes an element against
            3.35 TB/s and the share of that bound, both CUDA-event medians.
+  phase 4c the row-sparse Adam kernel (csrc/lazy_adam.cu; it replaces no
+           Pallas kernel) at the lazy cell's shapes: tables of 1,000,990 and
+           624,961 rows of 128, 10,000 ids each (users uniform, items
+           Zipf-0.8), both tables in one launch, against its plain version,
+           the torch chain, on the card: rows hit once bit for bit, every
+           row within 1e-5 of each tensor's largest entry, a second launch
+           from the same state bit for bit the first; the kernel's device
+           time, the whole call's (the id sort included) and the chain's
+           over 8 steps' ids (the touched rows out of L2), both CUDA-event
+           medians, and the step's bytes against 3.35 TB/s.
   phase 5  training end to end at full width: PipelineRunner.step_train on
            phase 3's store, 2 epochs of 297 batches of 10,000 rows, once per
            optimizer (adam, lazy_adam, fused_adam, fused_adam_bf16m; one
@@ -91,7 +101,8 @@ CUDA is unavailable or when it runs outside a checkout of the repository.
            pipelined loop). Launch counters are reset before it: each fused
            step must launch K1 twice, adam and lazy_adam never, and every
            step dense_adam once (adam's six parameters, the others' four
-           head scalars). The fused
+           head scalars), each lazy_adam step lazy_adam once (both tables),
+           the others never. The fused
            histories must track the dense one, lazy_adam's training loss must
            fall from epoch 1 to 2, the bf16m state must hold bf16 table
            moments, and the trained store must serve every endpoint through
@@ -1888,6 +1899,109 @@ def phase_dense_adam(card: str) -> list[dict]:
             _dense_adam_case(card, "head_scalars", [()] * 4, SEED + 41)]
 
 
+# ---- phase 4c ------------------------------------------------------------------
+
+# The KDD-Cup'11 lazy cell's step (portbench/configs/yahoomusic-kddcup11.json):
+# 1,000,990 user and 624,961 item rows of D, 10,000 ids each a step, users
+# uniform and items Zipf-0.8 over a seeded permutation of the rows.
+LAZY_ROWS = (1_000_990, 624_961)
+LAZY_BATCHES = 8     # id sets the timed calls cycle through: ~220 MB of rows, past the 50 MB L2
+LAZY_LR, LAZY_L2 = 1e-3, 1e-4
+LAZY_ADAM_OPS = 16   # f32 operations an element of a touched row: the sum's add, the update's 15
+
+
+def _lazy_batch(rng, perm, dev):
+    """One step's ids and gradient rows for both tables, on the card."""
+    import torch
+
+    p = np.arange(1, LAZY_ROWS[1] + 1, dtype=np.float64) ** -0.8
+    users = rng.integers(0, LAZY_ROWS[0], BATCH)
+    ids = (users, perm[rng.choice(LAZY_ROWS[1], BATCH, p=p / p.sum())])
+    return [(torch.from_numpy(i.astype(np.int32)).to(dev),
+             torch.from_numpy((rng.standard_normal((BATCH, D)) * 1e-2).astype(np.float32)).to(dev))
+            for i in ids]
+
+
+def phase_lazy_adam(card: str) -> dict:
+    """The row-sparse Adam kernel (csrc/lazy_adam.cu; it replaces no Pallas
+    kernel) at the lazy cell's shapes, both tables in one launch, against its
+    plain version, the torch chain, on the card: one step from one state,
+    rows the batch hits once bit for bit, every row within 1e-5 of each
+    tensor's largest entry (the chain's index_add_ sums in atomics' order);
+    the kernel again from the same state bit for bit itself. Then, cycling
+    through LAZY_BATCHES steps' ids (the touched rows out of L2), the
+    kernel's device time, the whole call's (the id sort included) and the
+    chain's (torch.profiler, 20 calls after warm-up), both CUDA-event
+    medians, and the bytes a step needs (the gradient rows, the sorted keys
+    and order, W, mu and nu of each touched row read and written) against
+    3.35 TB/s."""
+    import torch
+
+    from anime_recommendations_tpu_torch.ops import fused_adam, lazy_adam
+
+    rng = np.random.default_rng(SEED + 42)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    randn = lambda n, s: torch.randn(n, D, generator=gen, device=dev) * s
+    state = [(randn(n, 0.05), randn(n, 1e-3), randn(n, 1e-3).square()) for n in LAZY_ROWS]
+    perm = rng.permutation(LAZY_ROWS[1])
+    batches = [_lazy_batch(rng, perm, dev) for _ in range(LAZY_BATCHES)]
+    tables = lambda st, b: [lazy_adam.LazyTable(*t, ids, g) for t, (ids, g) in zip(st, b)]
+    scal = fused_adam.scalar_row(3, LAZY_LR, dev)
+    plain = [tuple(x.clone() for x in t) for t in state]
+    ours = [tuple(x.clone() for x in t) for t in state]
+    _, launches = _launched(lambda: lazy_adam.lazy_adam_(tables(ours, batches[0]), scal, LAZY_L2))
+    if launches != {"lazy_adam": 1}:
+        raise AssertionError(f"lazy_adam_ launched {launches}")
+    for t in tables(plain, batches[0]):
+        lazy_adam._lazy_row_adam_plain(*t[:5], scal, LAZY_L2)
+    again = [tuple(x.clone() for x in t) for t in state]
+    lazy_adam.lazy_adam_(tables(again, batches[0]), scal, LAZY_L2)
+    torch.cuda.synchronize()
+    row = dict(card=card, case="lazy_cell_step", rows=list(LAZY_ROWS), batch=BATCH, d=D,
+               launches=1)
+    for name, o, p, a, (ids, _) in zip(("users", "items"), ours, plain, again, batches[0]):
+        counts = torch.bincount(ids.long(), minlength=o[0].shape[0])
+        once = counts == 1
+        for label, x, y, z in zip(("w", "mu", "nu"), o, p, a):
+            if not torch.equal(x, z):
+                raise AssertionError(f"lazy_adam {name}: {label} differs between two launches")
+            if not torch.equal(x[once], y[once]):
+                raise AssertionError(f"lazy_adam {name}: {label} of rows hit once differs from "
+                                     f"the chain on {int((x[once] != y[once]).sum())} elements")
+            err = float((x - y).abs().max())
+            if err > 1e-5 * float(y.abs().max()):
+                raise AssertionError(f"lazy_adam {name}: {label} {err} from the chain")
+            row[f"{name}_{label}_max_abs_err"] = err
+        row[f"{name}_hottest_run"] = int(counts.max())
+    del plain, again
+    # The timed calls update ``state`` itself, cycling through the batches.
+    step = iter(range(1 << 30))
+    kernel = lambda: lazy_adam.lazy_adam_(tables(state, batches[next(step) % LAZY_BATCHES]),
+                                          scal, LAZY_L2)
+
+    def chain():
+        for t in tables(state, batches[next(step) % LAZY_BATCHES]):
+            lazy_adam._lazy_row_adam_plain(*t[:5], scal, LAZY_L2)
+
+    prof, plain_prof = _profiled(kernel, match="lazy_adam_kernel"), _profiled(chain)
+    row |= dict(ms=prof["match_ms"], call_device_ms=prof["device_ms"],
+                call_by_kernel_ms=prof["by_kernel"], call_device_ops=prof["device_ops"],
+                sessions=prof["sessions"], plain_ms=plain_prof["device_ms"],
+                plain_device_ops=plain_prof["device_ops"],
+                plain_records_lost=plain_prof["records_lost"],
+                event_ms=_median_ms(kernel), plain_event_ms=_median_ms(chain))
+    unique = np.mean([sum(len(torch.unique(ids)) for ids, _ in b) for b in batches])
+    positions = BATCH * len(LAZY_ROWS)
+    moved = positions * (D * 4 + 4 + 8) + unique * 24 * D
+    row |= dict(touched_rows=unique, bytes_moved=moved,
+                hbm_share=moved / (row["ms"] * 1e-3) / HBM_BYTES_PER_S,
+                **_bound(moved, LAZY_ADAM_OPS * unique * D))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print("[phase 4c] " + json.dumps(row), flush=True)
+    return row
+
+
 # ---- phase 5 -------------------------------------------------------------------
 
 OPTIMIZERS = ("adam", "lazy_adam", "fused_adam", "fused_adam_bf16m")
@@ -1984,8 +2098,14 @@ def phase_train(card: str) -> dict:
             if dense != steps:
                 raise AssertionError(f"{optimizer}: {dense} dense_adam launches for {steps} "
                                      f"steps, expected one a step")
+            # One lazy Adam launch a lazy_adam step (both tables), none elsewhere.
+            lazy = _kernels.launches["lazy_adam"] - before.get("lazy_adam", 0)
+            if lazy != (steps if optimizer == "lazy_adam" else 0):
+                raise AssertionError(f"{optimizer}: {lazy} lazy_adam launches for {steps} "
+                                     f"steps")
             out["launches"][optimizer] = launched["fused_adam"]
             out.setdefault("dense_adam_launches", {})[optimizer] = dense
+            out.setdefault("lazy_adam_launches", {})[optimizer] = lazy
             out.setdefault("tile_launches", {})[optimizer] = launched["fused_adam_tiles"]
             hist = result.history
             if len(hist) != TRAIN_EPOCHS or not np.isfinite(hist.to_numpy()).all():
@@ -4231,6 +4351,7 @@ def main() -> int:
     _timed_phase("14", phase_scan_graph, card)
     adam_rows, gather_rows = _timed_phase("4", phase_adam, card)
     dense_adam_rows = _timed_phase("4b", phase_dense_adam, card)
+    lazy_adam_row = _timed_phase("4c", phase_lazy_adam, card)
     # 7a's timed dense cases here, beside phase 4's: after phase 6, sessions
     # of torch.profiler lose a few records of every kernel in this process.
     dense_rows = _timed_phase("7a", phase_dense, card, receipts=False)
@@ -4380,6 +4501,20 @@ def main() -> int:
         "bound_ms": adam_step["bound_ms"],
         "bound_by": adam_step["bound_by"],
         # The Adam math over a list of tensors: no single call.
+        "library_ms": None,
+    })
+    kernels.append({
+        "name": "lazy_adam",
+        "route": "cuda",
+        "source": "anime_recommendations_tpu_torch/csrc/lazy_adam.cu",
+        "replaces": None,   # no Pallas kernel: the JAX package leaves it to XLA
+        "launches": trained["lazy_adam_launches"]["lazy_adam"],
+        "max_abs_err": max(v for k, v in lazy_adam_row.items() if k.endswith("max_abs_err")),
+        "ms": lazy_adam_row["ms"],
+        "plain_ms": lazy_adam_row["plain_ms"],
+        "bound_ms": lazy_adam_row["bound_ms"],
+        "bound_by": lazy_adam_row["bound_by"],
+        # Segment sums of sorted runs, then the Adam math on their rows: no single call.
         "library_ms": None,
     })
     # The two passes K1 (the first) and K5 (both) run around their update

@@ -37,23 +37,23 @@ pass alone equals its plain version. IVF retrieval (torch ops, no kernel of
 its own): an index built on the card holds every row once, and ivf_topk on
 it equals ivf_topk on its copy on the CPU, values within 1e-5, indices
 equal except where true scores tie within 1e-6. The captured epoch
-(train/device_loop.py's CUDA graph): bit for bit the eager epoch wherever
-two eager runs are bit-equal, else 1e-5 of each tensor's largest entry
-(dense_b, its moments and moving_mean, which walk on rounding noise, not
-compared then). The chunked epoch (CHUNK_STEPS lowered): bit for bit the
-eager chunks and the one-chunk epoch under the same rule, its graphs
+(train/device_loop.py's CUDA graph): bit for bit the eager epoch, as two
+eager runs are to each other under every optimizer. The chunked epoch
+(CHUNK_STEPS lowered): bit for bit the eager chunks and the one-chunk
+epoch, its graphs
 captured once; the graph the benchmark's set-up captures (train_graph) is
 the one every later epoch replays. The captured sharded epoch
 (parallel/trainer.py at world size 1 on NCCL, its collectives in the
 graph): bit for bit the eager one
 for psum adam and alltoall adam, fused_adam and fused_adam_bf16m (the fused
 ones also at a capacity that takes more than 4 rounds), lazy_adam within
-1e-5 of each tensor's largest entry (index_add_'s atomics). The step
-graphs (train/step_graph.py): each one-device entry point and the sharded
-step's train_step, eval_sums and grads at world size 1 on NCCL, 10 calls
-through a cache against 10 through StepGraphs(0) from one state, bit for
-bit (lazy_adam within 1e-5 of each tensor's largest entry unless two eager
-runs are bit-equal), one capture and a replay per call from the second on.
+1e-5 of each tensor's largest entry (the routed gradient sums' index_add_
+atomics). The step graphs (train/step_graph.py): each one-device entry
+point and the sharded step's train_step, eval_sums and grads at world size
+1 on NCCL, 10 calls through a cache against 10 through StepGraphs(0) from
+one state, bit for bit (lazy_adam too: its kernel sums each run in a fixed
+order, csrc/lazy_adam.cu), one capture and a replay per call from the
+second on.
 Dense Adam (csrc/dense_adam.cu): bit for bit the plain chain on the card,
 every element (the same correctly rounded f32 operations in its order), in
 one launch for a list of tensors, eager or replayed from a CUDA graph.
@@ -963,11 +963,11 @@ def _graph_epoch_runs(cuda, optimizer, epoch_fn):
 @pytest.mark.parametrize("optimizer", ["adam", "lazy_adam", "fused_adam", "fused_adam_bf16m"])
 def test_captured_epoch_matches_the_eager_epoch(cuda, optimizer):
     """train_epoch's CUDA graph against eager_train_epoch over two epochs
-    from one state: every state tensor, loss and mse bit for bit wherever two
-    eager runs are bit-equal to each other (every optimizer but lazy_adam,
-    whose index_add_ sums in atomics' order), else within 1e-5 of each
-    tensor's largest entry; the launches counted per replay equal the eager
-    loop's; the holdout evaluation's graph equals the eager evaluation."""
+    from one state: every state tensor, loss and mse bit for bit, as two
+    eager runs are to each other under every optimizer (lazy_adam's kernel
+    sums each run in a fixed order); the launches counted per replay equal
+    the eager loop's; the holdout evaluation's graph equals the eager
+    evaluation."""
     from anime_recommendations_tpu_torch.train import device_loop as dl
     from anime_recommendations_tpu_torch.train import trainer as tr
 
@@ -985,21 +985,10 @@ def test_captured_epoch_matches_the_eager_epoch(cuda, optimizer):
     for label in runs:
         assert runs[label][2] == {"fused_adam_tiles": want, "fused_adam": want,
                                   "fused_adam_gather": 0}, label
-    # dense_b's gradient is rounding noise (BatchNorm cancels the bias), so
-    # Adam walks it by up to lr a step and moving_mean follows: like
-    # tests/test_torch_train.py, no bound there unless the runs are bit-equal.
-    noise = ("dense_b", "mu.dense_b", "nu.dense_b", "moving_mean")
-    tensors = lambda r, skip=(): [*(v for k, v in r[0].items() if k not in skip),
-                                  *(t.cpu().numpy() for o in r[1] for t in o)]
-    eager_equal = all(np.array_equal(a, b) for a, b in
-                      zip(tensors(runs["eager"]), tensors(runs["again"])))
-    if optimizer != "lazy_adam":
-        assert eager_equal
-    if eager_equal:
-        for a, b in zip(tensors(runs["captured"]), tensors(runs["eager"])):
-            np.testing.assert_array_equal(a, b)
-    for a, b in zip(tensors(runs["captured"], noise), tensors(runs["eager"], noise)):
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(np.abs(b).max(), 1e-30))
+    tensors = lambda r: [*r[0].values(), *(t.cpu().numpy() for o in r[1] for t in o)]
+    for label in ("again", "captured"):
+        for a, b in zip(tensors(runs[label]), tensors(runs["eager"])):
+            np.testing.assert_array_equal(a, b, err_msg=label)
     model = runs["captured"][3].model
     holdout = dl.DeviceData(*(x[:4096] for x in data))
     got = dl.eval_epoch(model, model.bn_state(), holdout, 1024, 1e-4)
@@ -1014,10 +1003,9 @@ def test_chunked_epoch_replays_match_the_eager_chunks(cuda, optimizer, monkeypat
     chunks and a tail of 2: their graphs are captured once, at the first
     epoch (two graphs; none at the second; four replays an epoch), and the
     two epochs equal the eager chunks and the one-chunk epoch (CHUNK_STEPS
-    as set), bit for bit wherever two eager runs are bit-equal, else
-    (lazy_adam's index_add_) within 1e-5 of each tensor's largest entry. A
-    holdout of 5 batches in chunks of 2 (sums carried between replays)
-    equals its eager chunks and its one-chunk evaluation bit for bit."""
+    as set) bit for bit, as two eager runs are to each other. A holdout of
+    5 batches in chunks of 2 (sums carried between replays) equals its
+    eager chunks and its one-chunk evaluation bit for bit."""
     from anime_recommendations_tpu_torch.train import device_loop as dl
     from anime_recommendations_tpu_torch.train import trainer as tr
 
@@ -1033,21 +1021,11 @@ def test_chunked_epoch_replays_match_the_eager_chunks(cuda, optimizer, monkeypat
     runs["again"] = _graph_epoch_runs(cuda, optimizer, dl.eager_train_epoch)
     torch.cuda.synchronize()
     runs["whole"] = whole
-    noise = ("dense_b", "mu.dense_b", "nu.dense_b", "moving_mean")
-    tensors = lambda r, skip=(): [*(v for k, v in tr.train_state_to_numpy(r[0]).items()
-                                    if k not in skip),
-                                  *(t.cpu().numpy() for o in r[1] for t in o)]
-    eager_equal = all(np.array_equal(a, b) for a, b in
-                      zip(tensors(runs["eager"]), tensors(runs["again"])))
-    if optimizer != "lazy_adam":
-        assert eager_equal
-    for label in ("captured", "whole"):
-        if eager_equal:
-            for a, b in zip(tensors(runs[label]), tensors(runs["eager"])):
-                np.testing.assert_array_equal(a, b, err_msg=label)
-        for a, b in zip(tensors(runs[label], noise), tensors(runs["eager"], noise)):
-            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(np.abs(b).max(), 1e-30),
-                                       err_msg=label)
+    tensors = lambda r: [*tr.train_state_to_numpy(r[0]).values(),
+                         *(t.cpu().numpy() for o in r[1] for t in o)]
+    for label in ("again", "captured", "whole"):
+        for a, b in zip(tensors(runs[label]), tensors(runs["eager"])):
+            np.testing.assert_array_equal(a, b, err_msg=label)
     model, data = runs["captured"][0].model, runs["captured"][2]
     holdout = dl.DeviceData(*(x[:5 * 1024] for x in data))
     evaluate = lambda fn: fn(model, model.bn_state(), holdout, 1024, 1e-4)
@@ -1364,29 +1342,15 @@ def _entry_runs(cuda, entry, graphs, monkeypatch):
     return outs, tr.train_state_to_numpy(state), {k: _kernels.launches[k] for k in STEP_NAMES}
 
 
-def _assert_runs_equal(got, want, again, lazy):
-    """got bit-equal to want where two eager runs (want, again) are, else
-    (lazy_adam's atomics) within 1e-5 of each tensor's largest entry but
-    for dense_b's noise walk, the head scalars (one value each: dense_w,
-    bn_gamma, bn_beta) within 1e-5 of the largest of them, and so their
-    moments: bn_beta's value is a sum of steps of either sign, so its own
-    scale is no measure of its error."""
+def _assert_runs_equal(got, want, again):
+    """Two eager runs (want, again) bit-equal, as every entry point's must be
+    (lazy_adam's kernel sums each run in a fixed order), and got bit-equal
+    to want."""
     flat = lambda r: [*(v for o in r[0] for v in o), *r[1].values()]
-    eager_equal = all(np.array_equal(a, b) for a, b in zip(flat(want), flat(again)))
-    if not lazy:
-        assert eager_equal
-    if eager_equal:
-        for a, b in zip(flat(got), flat(want)):
-            np.testing.assert_array_equal(a, b)
-        return
-    noise = ("dense_b", "mu.dense_b", "nu.dense_b", "moving_mean")
-    head = {f"{m}{k}": tuple(f"{m}{h}" for h in ("dense_w", "bn_gamma", "bn_beta"))
-            for m in ("", "mu.", "nu.") for k in ("dense_w", "bn_gamma", "bn_beta")}
-    for k in want[1]:
-        if k not in noise:
-            scale = max(np.abs(want[1][j]).max() for j in head.get(k, (k,)))
-            np.testing.assert_allclose(got[1][k], want[1][k], rtol=0,
-                                       atol=1e-5 * max(scale, 1e-30), err_msg=k)
+    for a, b in zip(flat(want), flat(again)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(flat(got), flat(want)):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1394,7 +1358,7 @@ def _assert_runs_equal(got, want, again, lazy):
 def test_step_graph_replays_match_the_eager_steps(cuda, entry, monkeypatch):
     """Each one-device entry point through a step-graph cache against
     StepGraphs(0) (the eager body) over STEP_CALLS calls from one state:
-    every output and state tensor bit for bit (lazy_adam: _assert_runs_equal),
+    every output and state tensor bit for bit (_assert_runs_equal),
     K1's and K5's launches counted per replay equal the eager calls', one
     capture at the second call and a replay per call from it on."""
     from anime_recommendations_tpu_torch.train import step_graph
@@ -1411,7 +1375,7 @@ def test_step_graph_replays_match_the_eager_steps(cuda, entry, monkeypatch):
     k5 = entry == "pipelined_kernel_gather"
     assert got[2]["fused_adam_tiles"] == (2 * STEP_CALLS if fused else 0)
     assert got[2]["fused_adam_gather" if k5 else "fused_adam"] == (2 * STEP_CALLS if fused else 0)
-    _assert_runs_equal(got, want, again, entry == "lazy")
+    _assert_runs_equal(got, want, again)
     graphs.release()
 
 

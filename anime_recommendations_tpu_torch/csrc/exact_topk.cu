@@ -64,8 +64,9 @@ exact_topk_kernel(const T* __restrict__ table, const T* __restrict__ queries,
   using S = scan::Tile<T, RPT, QPT, QG>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x;
-  const int c = blockIdx.y;
-  const int q0 = blockIdx.x * S::kQT;
+  const int tiles = (nq_total + S::kQT - 1) / S::kQT;   // scan_common.cuh's grid
+  const int c = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - c * tiles) * S::kQT;
   const int nq = min(S::kQT, nq_total - q0);
   const int row0 = c * kGroup;
   const int rg = t % S::kRowThreads;
@@ -108,21 +109,21 @@ exact_topk_kernel(const T* __restrict__ table, const T* __restrict__ queries,
   }
   __syncthreads();
 
-  const int ncols = gridDim.y * kc;
+  const size_t ncols = (size_t)((n + kGroup - 1) / kGroup) * kc;
   if (kc == kGroup) {
     // The chunk's every row is a candidate: emit them in row order.
     for (int p = t; p < nq * kGroup; p += S::kThreads) {
       const int q = p / kGroup;
       const int local = p - q * kGroup;
       const uint32_t key = keys[p];
-      const size_t o = (size_t)(q0 + q) * ncols + c * kc + local;
+      const size_t o = (size_t)(q0 + q) * ncols + (size_t)c * kc + local;
       out_s[o] = key ? scan::unordered(key) : kNeg;
       out_i[o] = key ? row0 + local : -1;
     }
     return;
   }
   for (int q = t >> 5; q < nq; q += S::kThreads / 32) {
-    const size_t o = (size_t)(q0 + q) * ncols + c * kc;
+    const size_t o = (size_t)(q0 + q) * ncols + (size_t)c * kc;
     scan::warp_top_exact(keys + q * kGroup, kc, row0, out_s + o, out_i + o, t & 31);
   }
 }
@@ -132,7 +133,7 @@ cudaError_t launch(const void* table, const void* queries, const uint8_t* mask,
                    const int32_t* exclude, const float* head, float* out_s, int32_t* out_i,
                    int n, int d, int nq, int kc, cudaStream_t stream) {
   using S = scan::Tile<T, RPT, QPT, QG>;
-  const dim3 grid((nq + S::kQT - 1) / S::kQT, (n + kGroup - 1) / kGroup);
+  const dim3 grid((unsigned)scan::grid_blocks(n, nq, S::kQT));
   static_assert(S::kRingBytes + S::kQT * (scan::kQueryDims + 4) * 4 <= kMaxSmem, "any d fits");
   const size_t smem = S::smem_bytes(d);
   const cudaError_t err = scan::allow_smem<exact_topk_kernel<T, RPT, QPT, QG>>(smem);
@@ -183,7 +184,7 @@ cudaError_t launch_for(const void* table, const void* queries, const uint8_t* ma
 // dtype: 0 = float32, 1 = bfloat16 (table and queries share it). mask
 // (uint8 [n], nonzero keeps), exclude (int32 [nq], -1 = none) and head
 // (float32 [2]: alpha, beta) may be null. d must be a multiple of 16, 1 <=
-// kc <= 512, ceil(n / 512) <= 65535, and out_s / out_i must each hold nq *
+// kc <= 512, the grid must fit (scan::grid_fits), and out_s / out_i must each hold nq *
 // ceil(n / 512) * kc values; any such d fits (scan::kQueryDims). Returns a
 // cudaError_t (0 on success).
 extern "C" int exact_topk(const void* table, int dtype, const void* queries,
@@ -191,7 +192,7 @@ extern "C" int exact_topk(const void* table, int dtype, const void* queries,
                           const float* head, float* out_s, int32_t* out_i, int n,
                           int d, int nq, int kc, void* stream) {
   if (n <= 0 || nq <= 0 || d <= 0 || d % scan::kSlab != 0 || kc < 1 || kc > kGroup ||
-      (n + kGroup - 1) / kGroup > 65535 || (dtype != 0 && dtype != 1))
+      !scan::grid_fits(n, nq, 1) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -77,8 +77,9 @@ packed_topk_kernel(const T* __restrict__ table, const T* __restrict__ queries,
   using S = scan::Tile<T, 2, 1, 1>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x;
-  const int g = blockIdx.y;
-  const int q = blockIdx.x;   // one query per block
+  const int g = blockIdx.x / nq_total;   // one query per block (scan_common.cuh's grid)
+  const int q = blockIdx.x - g * nq_total;
+  const int n_groups = (n + kGroup - 1) / kGroup;
   const int row0 = g * kGroup;
 
   // Mask and exclude are read before the scan, their latency hidden by it.
@@ -101,7 +102,7 @@ packed_topk_kernel(const T* __restrict__ table, const T* __restrict__ queries,
   }
   __syncthreads();
   if (t < 32)
-    scan::warp_top_keys(keys, top_r, out + (size_t)q * gridDim.y * top_r + g * top_r, t);
+    scan::warp_top_keys(keys, top_r, out + ((size_t)q * n_groups + g) * top_r, t);
 }
 
 template <typename T>
@@ -109,7 +110,7 @@ cudaError_t launch_small(const void* table, const void* queries, const uint8_t* 
                          const int32_t* exclude, const float* head, int32_t* out, int n, int d,
                          int nq, int top_r, cudaStream_t stream) {
   using S = scan::Tile<T, 2, 1, 1>;
-  const dim3 grid(nq, (n + kGroup - 1) / kGroup);
+  const dim3 grid((unsigned)scan::grid_blocks(n, nq, 1));
   static_assert(S::kRingBytes + S::kQT * (scan::kQueryDims + 4) * 4 <= kMaxSmem, "any d fits");
   const size_t smem = S::smem_bytes(d);
   auto kernel = packed_topk_kernel<T>;
@@ -228,8 +229,9 @@ packed_topk_mma_kernel(const T* __restrict__ table, const T* __restrict__ querie
   const int warp = t >> 5;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int g = blockIdx.y;
-  const int q0 = blockIdx.x * kBigQ;
+  const int tiles = (nq_total + kBigQ - 1) / kBigQ;   // scan_common.cuh's grid
+  const int g = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - g * tiles) * kBigQ;
   const int nq = min(kBigQ, nq_total - q0);
   const int row0 = g * kGroup;
   const int wrow0 = warp * kWarpRows;      // the warp's first row in the group
@@ -318,17 +320,17 @@ packed_topk_mma_kernel(const T* __restrict__ table, const T* __restrict__ querie
       }
   }
   __syncthreads();
-  const int ncols = gridDim.y * top_r;
+  const size_t ncols = (size_t)((n + kGroup - 1) / kGroup) * top_r;
   for (int q = warp; q < nq; q += kBigThreads / 32)
     scan::warp_top_keys(keys + q * kKeyStride, top_r,
-                        out + (size_t)(q0 + q) * ncols + g * top_r, lane);
+                        out + (size_t)(q0 + q) * ncols + (size_t)g * top_r, lane);
 }
 
 template <typename T, bool kWide>
 cudaError_t launch_big(const void* table, const void* queries, const uint8_t* mask,
                        const int32_t* exclude, const float* head, int32_t* out, int n, int d,
                        int nq, int top_r, cudaStream_t stream) {
-  const dim3 grid((nq + kBigQ - 1) / kBigQ, (n + kGroup - 1) / kGroup);
+  const dim3 grid((unsigned)scan::grid_blocks(n, nq, kBigQ));
   const size_t smem = (size_t)kBigQ * kKeyStride * sizeof(int) +
                       (size_t)kBigQ * big_qstride(d) * sizeof(T);
   static_assert(kBigQ * kKeyStride * sizeof(int) + kBigQ * (scan::kQueryDims + 16) * sizeof(T) <=
@@ -358,15 +360,16 @@ cudaError_t launch(const void* table, const void* queries, const uint8_t* mask,
 // dtype: 0 = float32, 1 = bfloat16 (table and queries share it). mask
 // (uint8 [n], nonzero keeps), exclude (int32 [nq], -1 = none) and head
 // (float32 [2]: alpha, beta) may be null. d must be a multiple of 16, 1 <=
-// top_r <= 512, ceil(n / 512) <= 65535, and out must hold nq * ceil(n / 512)
-// * top_r int32. nq > 1 takes the tensor-core branch (TF32 products for f32
+// top_r <= 512, the grid must fit (scan::grid_fits: n < 2^31 - 512, groups
+// times query tiles < 2^31), and out must hold nq * ceil(n / 512) * top_r
+// int32. nq > 1 takes the tensor-core branch (TF32 products for f32
 // tables). Every such d fits in shared memory (scan::kQueryDims). Returns a cudaError_t (0 on success).
 extern "C" int packed_topk(const void* table, int dtype, const void* queries,
                            const uint8_t* mask, const int32_t* exclude,
                            const float* head, int32_t* out, int n, int d,
                            int nq, int top_r, void* stream) {
   if (n <= 0 || nq <= 0 || d <= 0 || d % scan::kSlab != 0 || top_r < 1 ||
-      top_r > kGroup || (n + kGroup - 1) / kGroup > 65535 || (dtype != 0 && dtype != 1))
+      top_r > kGroup || !scan::grid_fits(n, nq, 1) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

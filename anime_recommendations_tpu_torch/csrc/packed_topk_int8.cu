@@ -177,7 +177,7 @@ packed_topk_int8_kernel(const int8_t* __restrict__ table,
 
   // top_r rounds of block-wide max with knock-out (keys are unique within a
   // group: the low 9 bits are the lane).
-  int32_t* dst = out + (size_t)q * gridDim.x * top_r + g * top_r;
+  int32_t* dst = out + ((size_t)q * gridDim.x + g) * top_r;
   for (int j = 0; j < top_r; ++j) {
     const int buf = j & 1;
     int m = key[0];
@@ -289,8 +289,9 @@ packed_topk_int8_mma_kernel(const int8_t* __restrict__ table,
   const int warp = t >> 5;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int g = blockIdx.y;
-  const int q0 = blockIdx.x * kQT;
+  const int tiles = (nq_total + kQT - 1) / kQT;   // scan_common.cuh's grid
+  const int g = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - g * tiles) * kQT;
   const int nq = min(kQT, nq_total - q0);
   const int row0 = g * kGroup;
   const int wrow0 = warp * kWarpRows;      // the warp's first row in the group
@@ -398,10 +399,10 @@ packed_topk_int8_mma_kernel(const int8_t* __restrict__ table,
       }
   }
   __syncthreads();
-  const int ncols = gridDim.y * top_r;
+  const size_t ncols = (size_t)((n + kGroup - 1) / kGroup) * top_r;
   for (int q = warp; q < nq; q += kBigThreads / 32)
     scan::warp_top_keys(keys + q * kKeyStride, top_r,
-                        out + (size_t)(q0 + q) * ncols + g * top_r, lane);
+                        out + (size_t)(q0 + q) * ncols + (size_t)g * top_r, lane);
 }
 
 template <int kQT, bool kWide>
@@ -409,7 +410,7 @@ cudaError_t launch_mma(const int8_t* table, const float* wscale, const int8_t* q
                        const float* qscale, const uint8_t* mask, const int32_t* exclude,
                        const float* head, int32_t* out, int n, int d, int nq, int top_r,
                        cudaStream_t stream) {
-  const dim3 grid((nq + kQT - 1) / kQT, (n + kGroup - 1) / kGroup);
+  const dim3 grid((unsigned)scan::grid_blocks(n, nq, kQT));
   const size_t smem = (size_t)kQT * kKeyStride * sizeof(int) + (size_t)kQT * big_qstride(d);
   static_assert(kQT * kKeyStride * sizeof(int) + kQT * (scan::kQueryDims + 64) <= kMaxSmem,
                 "any d fits");
@@ -439,7 +440,9 @@ cudaError_t launch_tile(const int8_t* table, const float* wscale, const int8_t* 
 // with f32 scales qscale [nq]. mask (uint8 [n], nonzero keeps), exclude
 // (int32 [nq], -1 = none) and head (f32 [2]: alpha, beta) may be null. d must
 // be a multiple of 16 (table and queries 16-byte aligned), 1 <= top_r <= 512,
-// ceil(n / 512) <= 65535, and out must hold nq * ceil(n / 512) * top_r int32.
+// the grid must fit (scan::grid_fits; one query a block row of the
+// one-query branch, nq <= 65535 there), and out must hold nq * ceil(n / 512)
+// * top_r int32.
 // From kMmaMinQ queries the tensor-core branch runs. Returns a cudaError_t.
 extern "C" int packed_topk_int8(const int8_t* table, const float* wscale,
                                 const int8_t* queries, const float* qscale,
@@ -447,7 +450,7 @@ extern "C" int packed_topk_int8(const int8_t* table, const float* wscale,
                                 const float* head, int32_t* out, int n, int d,
                                 int nq, int top_r, void* stream) {
   if (n <= 0 || nq <= 0 || d <= 0 || d % 16 != 0 || top_r < 1 || top_r > kGroup ||
-      (n + kGroup - 1) / kGroup > 65535)
+      !scan::grid_fits(n, nq, 1) || (query_tile(n, nq) == 1 && nq > 65535))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (query_tile(n, nq)) {

@@ -30,6 +30,20 @@ constexpr int kStages = 2;
 constexpr int kKeysPerLane = kGroup / 32;
 constexpr int kQueryDims = 256;   // query dimensions staged at once
 
+// The scan kernels' grids are one dimension of (512-row group, query tile)
+// blocks: block b takes query tile b % tiles of group b / tiles. The tiles
+// of a group stay side by side, as on a 2-D grid with the tiles on x (they
+// share the group's rows through L2), and the group count is not held to
+// gridDim.y's 65,535 (33,553,920 rows). A grid holds up to 2^31 - 1 blocks;
+// rows are int, the last group's end included.
+__host__ __device__ inline long long grid_blocks(int n, int nq, int qt) {
+  return ((n + (long long)kGroup - 1) / kGroup) * ((nq + (long long)qt - 1) / qt);
+}
+
+inline bool grid_fits(int n, int nq, int qt) {
+  return n <= 2147483647 - kGroup && grid_blocks(n, nq, qt) <= 2147483647LL;
+}
+
 // Padded row stride of a ring stage, in elements. f32 rows are read as
 // float4: a stride of 20 floats puts 8 consecutive rows on 32 distinct
 // banks. bf16 rows are read 4 values at a time; every 16-byte-aligned

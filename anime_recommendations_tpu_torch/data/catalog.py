@@ -31,18 +31,19 @@ class Catalog:
     synopses: pd.DataFrame | None = None  # MAL_ID, Name, Genres, sypnopsis
     _by_id: pd.DataFrame = field(default=None, repr=False)
     _syn_by_id: pd.Series = field(default=None, repr=False)
-    _genre_key: pd.Series = field(default=None, repr=False)
 
     def __post_init__(self):
         self._by_id = self.anime.set_index("anime_id", drop=False)
         if self.synopses is not None:
             syn = self.synopses.drop_duplicates(subset="MAL_ID")
             self._syn_by_id = syn.set_index("MAL_ID")["sypnopsis"]
-        # Lowercased, space-stripped genre strings for substring matching
-        # (the original project's membership test, similar_anime.py:307-308).
-        self._genre_key = (
-            self.anime["Genres"].astype(str).str.lower().str.replace(" ", "", regex=False)
-        )
+
+    @cached_property
+    def _genre_key(self) -> pd.Series:
+        """Lowercased, space-stripped genre strings for substring matching
+        (the original project's membership test, similar_anime.py:307-308),
+        made at the first genre filter."""
+        return self.anime["Genres"].astype(str).str.lower().str.replace(" ", "", regex=False)
 
     # ---- constructors ---------------------------------------------------------
 
@@ -156,8 +157,9 @@ class Catalog:
     def column_arrays(self) -> dict[str, np.ndarray]:
         """Catalog columns as position-indexable numpy arrays — the serve
         enrichment path gathers k result rows from these instead of paying
-        a pandas .loc + per-column extraction per request."""
-        return {c: self.anime[c].to_numpy() for c in self.anime.columns}
+        a pandas .loc + per-column extraction per request. Each column is
+        converted at its first read (a batch join reads two of thirteen)."""
+        return _Columns(self.anime)
 
     @cached_property
     def episodes_numeric(self) -> np.ndarray:
@@ -242,6 +244,18 @@ class Catalog:
         return _split_frequencies(self.anime["Source"])
 
 
+class _Columns(dict):
+    """A frame's columns as numpy arrays, each converted at its first read."""
+
+    def __init__(self, frame: pd.DataFrame):
+        super().__init__()
+        self._frame = frame
+
+    def __missing__(self, name: str) -> np.ndarray:
+        value = self[name] = self._frame[name].to_numpy()
+        return value
+
+
 def ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     """The concatenation of ``arange(s, s + c)`` over ``zip(starts, counts)``."""
     ends = np.cumsum(counts)
@@ -259,7 +273,8 @@ def load_anime_frame(df: pd.DataFrame) -> pd.DataFrame:
     # The original project overwrites eng_version with the cleaned *Name* of the
     # first row matching each anime_id (get_anime_name + clean, lowered).
     first_names = df.drop_duplicates(subset="anime_id").set_index("anime_id")["Name"]
-    df["eng_version"] = df["anime_id"].map(first_names).map(clean_name)
+    cleaned = pd.Series(clean_names(first_names.tolist()), index=first_names.index, dtype=object)
+    df["eng_version"] = df["anime_id"].map(cleaned)
     df = df.sort_values(by=["Score"], ascending=False, kind="quicksort", na_position="last")
     return df[_KEEP_COLS].reset_index(drop=True)
 

@@ -32,6 +32,9 @@ from anime_recommendations_tpu_torch.ops.topk import (
 )
 
 
+CHUNK_ROWS = 1 << 19    # rows quantize_rows quantizes at a time
+
+
 class QuantizedTable(NamedTuple):
     """int8 rows, their per-row de-scale factors, and the f32 rows for the rescore."""
 
@@ -50,9 +53,16 @@ def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 @torch.no_grad()
 def quantize_rows(table: torch.Tensor) -> QuantizedTable:
-    """Symmetric per-row int8 quantization, keeping the original for the rescore."""
-    q, scale = _quantize(table)
-    return QuantizedTable(q=q.contiguous(), scale=scale, f32=table)
+    """Symmetric per-row int8 quantization, keeping the original for the
+    rescore. It runs CHUNK_ROWS rows at a time, so that its temporaries are
+    a chunk's and not a whole table's; each row is quantized alone, so the
+    bits do not depend on the chunk."""
+    n, d = table.shape
+    q = torch.empty((n, d), dtype=torch.int8, device=table.device)
+    scale = torch.empty(n, dtype=torch.float32, device=table.device)
+    for lo in range(0, n, CHUNK_ROWS):
+        q[lo:lo + CHUNK_ROWS], scale[lo:lo + CHUNK_ROWS] = _quantize(table[lo:lo + CHUNK_ROWS])
+    return QuantizedTable(q=q, scale=scale, f32=table)
 
 
 @torch.no_grad()

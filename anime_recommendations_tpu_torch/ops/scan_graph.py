@@ -17,12 +17,26 @@ Policy, per cache: a signature's first call runs the body eagerly (the same
 kernels), its second captures it (utils/graphs.CapturedGraph: a warm-up on
 a side stream, then the capture), every later call replays it. So a
 signature seen once pays no capture (model_recs_batch asks for k = n_recs +
-the most any of its users watched, which varies per request). At most
-``capacity`` graphs are kept, least recently used first out, and with each
-its memory pool; ``capacity=0`` keeps none and runs every call eagerly (the
-plain version the card compares against: EAGER). A RecContext owns one
-cache for its tables (RecContext.scan_graphs, freed with it or by
-release_graphs()); callers that pass no cache share DEFAULT.
+the most any of its users watched, rounded up to one of four sizes an
+octave, so a few signatures serve every batch). At most ``capacity`` graphs
+are kept, least recently used first out; ``capacity=0`` keeps none and runs
+every call eagerly (the plain version the card compares against: EAGER). A
+RecContext owns one cache for its tables (RecContext.scan_graphs, freed
+with it or by release_graphs()); callers that pass no cache share DEFAULT.
+
+Memory: the graphs of one cache capture into one shared memory pool, so
+that a capture reuses what the captures before it freed (their
+intermediates: a scan's stage-1 keys are Q x 4 bytes x 3-6 keys a 512-row
+group, 0.3-0.4 GB at Q = 256 over 50M rows) and the cache holds about one
+scan's intermediates, not one per graph. That is safe because every call
+copies its inputs in, replays and clones the outputs under the lock below:
+no graph's buffers are read across another's replay (the step graphs,
+train/step_graph.py, read and write their state in place, outside the
+pool, and clone their outputs too).
+
+Work: each replay adds its scan's work (ops/topk.scan_work: queries, table
+rows, bytes read, operations) to the cache's counters (``scan_report()``),
+the work of the kernels its replays ran.
 
 Threads (the HTTP server answers on many): every scan on a card runs under
 one process-wide lock, from the first copy into a graph's buffers to the
@@ -53,7 +67,8 @@ import torch
 from anime_recommendations_tpu_torch.utils.graphs import CapturedGraph, device_tensor, lru_get
 from anime_recommendations_tpu_torch.utils.profiling import span
 
-SCAN_GRAPH_CACHE = 32   # graphs a cache keeps, most recently used; each holds a memory pool
+SCAN_GRAPH_CACHE = 32   # graphs a cache keeps, most recently used
+WORK_KEYS = ("calls", "queries", "rows", "bytes", "flops")   # scan_report()'s counters
 _SEEN_PER_GRAPH = 4     # signatures seen once that a cache remembers, per graph it keeps
 
 _LOCK = threading.RLock()
@@ -69,19 +84,22 @@ class ScanGraphs:
 
     def __init__(self, capacity: int = SCAN_GRAPH_CACHE):
         self.capacity = capacity
+        self._pool = None       # the graphs' shared memory pool, made at the first capture
         self._graphs: OrderedDict[tuple, CapturedGraph] = OrderedDict()
         self._seen: OrderedDict[tuple, None] = OrderedDict()
         self.hits = self.misses = self.captures = 0
         self.seconds = {"warm_up": 0.0, "capture": 0.0, "instantiate": 0.0}
+        self.work = dict.fromkeys(WORK_KEYS, 0)
 
     def run(self, key: tuple, body, inputs: dict, device: torch.device,
-            warm_up=None) -> tuple:
+            warm_up=None, work: dict | None = None) -> tuple:
         """``body(**tensors)`` for the request ``inputs`` (name -> tensor,
         numpy array or None; host arrays are copied to ``device``): a
         replay of the graph of ``key``, a capture of it, or the eager body
         (module docstring). ``warm_up`` (default ``body``) takes the same
         tensors and runs before a capture: a body that writes what it reads
-        warms up on a copy. Returns tensors the caller owns."""
+        warms up on a copy. ``work`` (ops/topk.scan_work's keys) is counted
+        when a replay serves the call. Returns tensors the caller owns."""
         host = {name: v for name, v in inputs.items() if v is not None}
         with span("scan.lock_wait"):
             _LOCK.acquire()
@@ -90,6 +108,10 @@ class ScanGraphs:
             if graph is not None:
                 self._graphs.move_to_end(key)
                 self.hits += 1
+                if work is not None:
+                    self.work["calls"] += 1
+                    for name in WORK_KEYS[1:]:
+                        self.work[name] += work[name]
                 with span("scan.replay"):
                     return graph.replay(host)
             self.misses += 1
@@ -116,7 +138,10 @@ class ScanGraphs:
         buffers = {name: device_tensor(v, device).clone(memory_format=torch.contiguous_format)
                    for name, v in inputs.items() if v is not None}
         args = {name: buffers.get(name) for name in inputs}
-        graph = CapturedGraph(lambda: body(**args), lambda: warm_up(**args), buffers, device)
+        if self._pool is None and device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = CapturedGraph(lambda: body(**args), lambda: warm_up(**args), buffers, device,
+                              pool=self._pool)
         self.captures += 1
         for name, s in graph.seconds.items():
             self.seconds[name] += s
@@ -125,9 +150,17 @@ class ScanGraphs:
     def __len__(self) -> int:
         return len(self._graphs)
 
+    def scan_report(self) -> dict[str, int]:
+        """The work of the scans served by replays so far: calls, queries,
+        table rows scanned, bytes read and operations (ops/topk.scan_work),
+        each summed over the calls."""
+        with _LOCK:
+            return dict(self.work)
+
     def report(self) -> dict:
-        """Graphs held, hits, misses, captures, their seconds, and the MB of
-        each held graph's memory pool."""
+        """Graphs held, hits, misses, captures, their seconds, and the MB
+        each held graph's capture added to the memory pools (with a shared
+        pool, what a capture could not take from the captures before it)."""
         return {"graphs": len(self._graphs), "hits": self.hits, "misses": self.misses,
                 "captures": self.captures, **{f"{k}_s": v for k, v in self.seconds.items()},
                 "pool_mb": [g.pool_bytes / 2**20 for g in self._graphs.values()]}
@@ -137,6 +170,7 @@ class ScanGraphs:
         with _LOCK:
             self._graphs.clear()
             self._seen.clear()
+            self._pool = None
 
 
 # Callers that pass no cache (ops/topk.cosine_topk, ops/scoring.score_topk)

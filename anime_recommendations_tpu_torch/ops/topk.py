@@ -81,6 +81,11 @@ _NEG = -1e30           # dead-slot score sentinel
 _BIAS = 2.0            # makes every in-contract score positive
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _OVERFLOW_BUDGET = 1e-6  # expected overflowing groups per query (top_r_policy)
+# The scan kernels' grids (csrc/scan_common.cuh) are one dimension of
+# (512-row group, query tile) blocks: at most MAX_BLOCKS of them, and rows
+# are int32, the last group's end included.
+MAX_BLOCKS = 2**31 - 1
+MAX_ROWS = 2**31 - 1 - GROUP
 
 
 @functools.lru_cache(maxsize=4096)
@@ -253,11 +258,12 @@ def _check_scan_inputs(name, table, queries, dtypes, depth, max_depth):
         raise TypeError(f"{name}: queries must match the table's dtype and device")
     if queries.dim() != 2 or queries.shape[1] != d:
         raise ValueError(f"{name}: queries {tuple(queries.shape)} vs table {tuple(table.shape)}")
+    blocks = -(-n // GROUP) * qn    # at least the grid's blocks, whatever the query tile
     if (d % 16 or not 1 <= depth <= max_depth or not 1 <= qn <= 8 * 65535
-            or n > GROUP * 65535):
+            or n > MAX_ROWS or blocks > MAX_BLOCKS):
         raise ValueError(f"{name}: needs D % 16 == 0, 1 <= depth <= {max_depth}, "
-                         f"1 <= Q <= {8 * 65535}, N <= {GROUP * 65535}; "
-                         f"got D={d}, depth={depth}, Q={qn}, N={n}")
+                         f"1 <= Q <= {8 * 65535}, N <= {MAX_ROWS} and ceil(N / {GROUP}) * Q "
+                         f"<= {MAX_BLOCKS}; got D={d}, depth={depth}, Q={qn}, N={n}")
     for what, t in (("table", table), ("queries", queries)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} must be contiguous and 16-byte aligned")
@@ -467,13 +473,19 @@ class ShuffledTable(NamedTuple):
     inv: torch.Tensor
 
 
-def shuffle_rows(table: torch.Tensor, seed: int = 0) -> ShuffledTable:
-    """Build a ShuffledTable; the permutation is numpy.random.default_rng(seed)'s
-    (it cannot match jax.random: results agree up to ties)."""
-    n = table.shape[0]
-    perm = torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(table.device)
+def shuffle_order(n: int, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(perm, inv) of a ShuffledTable of ``n`` rows: numpy.random.default_rng(seed)'s
+    permutation (it cannot match jax.random: results agree up to ties) and
+    its inverse."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(device)
     inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(n, device=table.device)
+    inv[perm] = torch.arange(n, device=device)
+    return perm, inv
+
+
+def shuffle_rows(table: torch.Tensor, seed: int = 0) -> ShuffledTable:
+    """Build a ShuffledTable of ``table``'s rows in shuffle_order(seed)."""
+    perm, inv = shuffle_order(table.shape[0], seed, table.device)
     return ShuffledTable(table=table[perm].contiguous(), perm=perm, inv=inv)
 
 
@@ -682,7 +694,35 @@ def _dispatch_topk(
         return scan_body(request, **{name: None if v is None else v.to(dev)
                                      for name, v in inputs.items()})
     graphs = scan_graph.DEFAULT if graphs is None else graphs
-    return graphs.run(request.key(inputs), functools.partial(scan_body, request), inputs, dev)
+    return graphs.run(request.key(inputs), functools.partial(scan_body, request), inputs, dev,
+                      work=scan_work(request, inputs))
+
+
+def scan_work(request: ScanRequest, inputs: dict) -> dict[str, int] | None:
+    """One request's work as ScanGraphs.scan_report() counts it: its
+    queries, the table rows each query scores (stage 1 or the exact scan),
+    the bytes read (those rows, in the dtype they are scanned in, their
+    int8 scales, the queries and the row mask) and the operations (2 D per
+    query and row scored, 4 more with the head; the pool's rescore is left
+    out). None for an IVF probe, which scores no whole table."""
+    from anime_recommendations_tpu_torch.ops.ivf import IVFIndex
+
+    queries = inputs["queries"]
+    if isinstance(request.table, IVFIndex):
+        if not request.exact_scan:
+            return None
+        table = request.table.table
+    else:
+        table = _table_tensors(request.table)[0]    # the rows stage 1 reads
+    qn, d = queries.shape
+    n = table.shape[0]
+    nbytes = table.numel() * table.element_size() + queries.numel() * queries.element_size()
+    if table.dtype == torch.int8:
+        nbytes += n * 4                              # the rows' scales
+    if inputs["mask"] is not None:
+        nbytes += inputs["mask"].numel()
+    flops = 2 * n * qn * d + (4 * n * qn if inputs["head"] is not None else 0)
+    return {"queries": qn, "rows": n, "bytes": nbytes, "flops": flops}
 
 
 def cosine_topk(

@@ -113,10 +113,13 @@ def store_root(cfg: Config, run_dir: str | Path | None = None) -> Path:
 def context_from_store(cfg: Config, run_dir: str | Path | None = None, *,
                        device, topk_kwargs: dict | None = None) -> RecContext:
     """The serving context of a run's latest model; ``topk_kwargs`` go to
-    RecContext.build (e.g. ``{"exact_scan": True}``)."""
+    RecContext.build (e.g. ``{"exact_scan": True}``). The model is loaded
+    on the host: RecContext.build streams its tables to ``device`` in
+    chunks of rows, so the device holds one copy of each table and none of
+    the model's own."""
     root = store_root(cfg, run_dir)
     model = load_model(latest_file(root, "anime_nn_model.npz", "anime_nn_model.npz"),
-                       device)
+                       "cpu")
     vocab = Vocab.load(latest_file(root, "anime_nn_model.npz", "vocab.json"))
     clean = pd.read_parquet(latest_file(root, "preprocessed_stats.parquet"))
     catalog = Catalog.from_files(latest_file(root, "all_anime.csv"),

@@ -6,8 +6,14 @@ whole batch are translated at once, raw ids to vocab rows before the scan
 and vocab rows to catalog rows after it, against the context's indexes
 (RecContext.user_indices, anime_indices, catalog_positions).
 
+model_recs_batch reads its users' watched sets as slices of their sorted
+rating rows (RecContext.watched_rows), tests the scan's rows against them in
+one vectorized pass, and scans for k rounded up to one of a few sizes an
+octave (scan_k), so that the scan's signature, and its captured graph, do
+not change with every batch.
+
 Spans (utils/profiling.span), each around a whole batch: ``recommend.encode``
-(raw ids to rows), ``recommend.masks`` (the shared and watched masks),
+(raw ids to rows), ``recommend.masks`` (the shared mask and watched sets),
 ``scan.call`` (ops/topk.host_topk) and ``recommend.join`` (the records);
 encode and join carry the batch's size as ``ids``.
 """
@@ -15,7 +21,6 @@ encode and join carry the batch's size as ``ids``.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from anime_recommendations_tpu_torch.ops.scoring import score_topk
 from anime_recommendations_tpu_torch.ops.topk import cosine_topk, host_topk
@@ -23,23 +28,49 @@ from anime_recommendations_tpu_torch.recommend.context import RecContext
 from anime_recommendations_tpu_torch.utils.profiling import span
 
 
-def _rows(table: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-    return table[torch.as_tensor(idx, dtype=torch.long, device=table.device)]
+K_BITS = 3    # scan_k keeps this many leading bits of k
 
 
-def _kept(vals: np.ndarray, idx: np.ndarray, watched_masks: list, n: int) -> np.ndarray:
-    """Each row's kept scan rows (live, and not watched by its user) over the
-    narrowest prefix of the columns, doubling from ``2 n``, in which every
-    row keeps ``n`` rows or that is the whole width: each row's first ``n``
-    kept rows lie inside it, at a cost set by ``n`` and not by ``k``."""
-    width = min(2 * n, vals.shape[1])
+def scan_k(k: int) -> int:
+    """``k`` rounded up to a number with at most its K_BITS leading bits
+    set (..., 12, 14, 16, 20, 24, 28, 32, 40, ...): four sizes an octave, at
+    most 25 % over."""
+    step = 1 << max(0, k.bit_length() - K_BITS)
+    return -(-k // step) * step
+
+
+def _watched_keys(watched: tuple[np.ndarray, np.ndarray], n_rows: int) -> np.ndarray:
+    """The watched sets (RecContext.watched_rows) as sorted distinct keys
+    ``query * n_rows + row``."""
+    offsets, rows = watched
+    owner = np.repeat(np.arange(len(offsets) - 1, dtype=np.int64), np.diff(offsets))
+    keys = np.sort(owner * n_rows + rows)
+    return keys[np.concatenate([[True], keys[1:] != keys[:-1]])]
+
+
+def _kept(vals: np.ndarray, idx: np.ndarray, watched: np.ndarray, n_rows: int,
+          n: int) -> np.ndarray:
+    """Each row's kept scan rows (live, and not among ``watched``, its
+    user's _watched_keys) over a prefix of the columns that holds its first
+    ``n`` kept rows, or over all of them: the columns are tested from ``2 n``
+    on, doubling, and a row stops once it keeps ``n`` (False past its
+    prefix), so the cost is set by ``n`` and the rows that watched most of
+    their best rows, not by ``k``."""
+    total = vals.shape[1]
+    width = min(2 * n, total)
+    keep = np.zeros((vals.shape[0], width), bool)
+    rows = np.arange(vals.shape[0])
+    lo = 0
     while True:
-        cols = np.clip(idx[:, :width], 0, None)
-        watched = np.array([m[c] for m, c in zip(watched_masks, cols)], bool).reshape(cols.shape)
-        keep = (vals[:, :width] > -1e29) & ~watched
-        if width == vals.shape[1] or (keep.sum(1) >= n).all():
+        keys = rows[:, None] * n_rows + np.clip(idx[rows, lo:width], 0, None)
+        at = np.minimum(np.searchsorted(watched, keys), max(len(watched) - 1, 0))
+        seen = watched[at] == keys if len(watched) else np.zeros(keys.shape, bool)
+        keep[rows, lo:width] = (vals[rows, lo:width] > -1e29) & ~seen
+        rows = rows[keep[rows].sum(1) < n]
+        if width == total or not len(rows):
             return keep
-        width = min(2 * width, vals.shape[1])
+        lo, width = width, min(2 * width, total)
+        keep = np.pad(keep, ((0, 0), (0, width - lo)))
 
 
 def _join(ctx: RecContext, vals: np.ndarray, idx: np.ndarray, keep: np.ndarray,
@@ -94,7 +125,7 @@ def similar_anime_batch(
     vals, idx = host_topk(
         cosine_topk,
         ctx.anime_table(),
-        _rows(ctx.anime_norm, q_idx),
+        ctx.anime_vectors(q_idx),
         k=min(count, ctx.vocab.n_anime),
         mask=mask,
         exclude=q_idx,
@@ -120,7 +151,8 @@ def model_recs_batch(
 ) -> list[dict]:
     """Model-predicted top-n for many users in one scan. The scan's shared
     row mask holds the common filters; each user's watched set is dropped
-    afterwards, so the scan asks for ``n_recs + max watched`` candidates.
+    afterwards, so the scan asks for ``n_recs + max watched`` candidates,
+    rounded up by scan_k.
     """
     with span("recommend.encode") as s:
         s.annotate(ids=len(user_ids))
@@ -132,14 +164,16 @@ def model_recs_batch(
             shared &= ctx.type_mask(types)
         if genres is not None:
             shared &= ctx.genre_mask(genres)
-        watched_masks = [ctx.watched_mask(int(u)) for u in user_ids]
-        buffer = max(int(m.sum()) for m in watched_masks) if watched_masks else 0
-    k = min(n_recs + buffer, ctx.vocab.n_anime)
+        n_rows = ctx.vocab.n_anime
+        watched = _watched_keys(ctx.watched_rows(user_ids), n_rows)
+        counts = np.bincount(watched // n_rows, minlength=len(user_ids))
+        buffer = int(counts.max()) if len(user_ids) else 0
+    k = min(scan_k(min(n_recs + buffer, n_rows)), n_rows)
 
     vals, idx = host_topk(
         score_topk,
         ctx.anime_table(),
-        _rows(ctx.user_norm, user_idx),
+        ctx.user_vectors(user_idx),
         ctx.head,
         k=k,
         mask=shared,
@@ -150,7 +184,7 @@ def model_recs_batch(
         s.annotate(ids=len(user_ids))
         # A record's score is one of its user's first kept rows, and its
         # n_recs selected anime have at most catalog_repeats rows each.
-        keep = _kept(vals, idx, watched_masks, n_recs * ctx.catalog_repeats)
+        keep = _kept(vals, idx, watched, n_rows, n_recs * ctx.catalog_repeats)
         sel = keep & (np.cumsum(keep, axis=1) <= n_recs)
         anime_ids, titles, scores = _join(ctx, vals, idx, keep, sel)
         return [
@@ -181,7 +215,7 @@ def similar_users_batch(
     vals, idx = host_topk(
         cosine_topk,
         ctx.user_table(),
-        _rows(ctx.user_norm, q_idx),
+        ctx.user_vectors(q_idx),
         k=min(n_users, ctx.vocab.n_users),
         exclude=q_idx,
         graphs=ctx.scan_graphs,

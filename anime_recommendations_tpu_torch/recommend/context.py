@@ -1,14 +1,20 @@
 """Shared retrieval context.
 
 Counterpart of anime_recommendations_tpu/recommend/context.py: one object
-holds the retrieval tables on the device (recommend/tables.py), the
-canonical vocab, the preprocessed rating frame and the catalog, and every
-recommender reads from it. The host-side views below are the JAX package's,
-copied, except the id translations: a whole batch of raw ids goes to vocab
-rows (user_indices, anime_indices), and vocab rows to catalog rows
+holds the retrieval tables on the device (recommend/tables.py: one copy of
+each, the scans', from which query rows are read through its inverse
+permutation; tables_report() gives their bytes), the canonical vocab, the
+preprocessed rating frame and the catalog, and every recommender reads
+from it. The host-side views below are the JAX package's, copied, except
+the id translations: a whole batch of raw ids goes to vocab rows
+(user_indices, anime_indices), and vocab rows to catalog rows
 (catalog_positions), in one lookup against indexes built once per context
 (data/vocab.IdIndex; id_index_report() counts their builds and the ids
-they translated).
+they translated); and the watched sets, which a batch reads as slices of
+the users' sorted rating rows (watched_rows), not as dense masks.
+
+Span (utils/profiling.span): ``context.build`` around RecContext.build,
+with one ``context.table`` per table built (recommend/tables.py).
 """
 
 from __future__ import annotations
@@ -27,7 +33,12 @@ from anime_recommendations_tpu_torch.ops.ivf import IVFIndex
 from anime_recommendations_tpu_torch.ops.quantized import QuantizedTable
 from anime_recommendations_tpu_torch.ops.scan_graph import ScanGraphs
 from anime_recommendations_tpu_torch.ops.topk import ShuffledTable
-from anime_recommendations_tpu_torch.recommend.tables import build_tables
+from anime_recommendations_tpu_torch.recommend.tables import (
+    build_tables,
+    logical_rows,
+    tables_report,
+)
+from anime_recommendations_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -35,10 +46,10 @@ class RecContext:
     vocab: Vocab
     catalog: Catalog
     ratings: pd.DataFrame          # preprocessed + encoded: user, anime, rating, user_id, anime_id
-    anime_norm: torch.Tensor       # [n_anime, D] L2-normalized rows, logical order, on device
-    user_norm: torch.Tensor        # [n_users, D]
     head: torch.Tensor             # [2] (alpha, beta) folded eval-mode head
-    anime_scan: ShuffledTable | IVFIndex   # what the scans read (recommend/tables.py)
+    # The normalized tables, one copy each: what the scans read and where
+    # query rows come from (recommend/tables.py).
+    anime_scan: ShuffledTable | IVFIndex
     user_scan: ShuffledTable | IVFIndex
     # The int8 scan tables (ops/quantized.py) of an int8 context without
     # IVF; None otherwise.
@@ -52,18 +63,14 @@ class RecContext:
     # is captured. They go with the context, or with release_graphs().
     # ScanGraphs(0) scans eagerly.
     scan_graphs: ScanGraphs = field(default_factory=ScanGraphs, repr=False)
-    _vocab_anime_meta: pd.DataFrame = field(default=None, repr=False)
+    # The card memory that RecContext.build left allocated (what
+    # torch.cuda.memory_allocated grew by); None off the card.
+    built_bytes: int | None = field(default=None, repr=False)
     # Vocab anime row -> catalog positions (Catalog.positions_csr), built on
     # first use.
     _catalog_lookup: IdIndex = field(init=False, repr=False)
 
     def __post_init__(self):
-        # Catalog metadata aligned to vocab rows (NaN rows for anime that are
-        # trained but absent from the catalog; an anime's first catalog row
-        # where the catalog repeats its id).
-        meta = self.catalog.anime.set_index("anime_id", drop=False)
-        meta = meta[~meta.index.duplicated()]
-        self._vocab_anime_meta = meta.reindex(self.vocab.anime_ids)
         self._catalog_lookup = IdIndex(self.catalog.positions_csr, self.vocab.anime_ids)
 
     # ---- constructors ---------------------------------------------------------
@@ -87,29 +94,34 @@ class RecContext:
         quantized (a quarter of the f32 bytes) and rescores a candidate pool
         in exact f32 (ops/quantized.py). ``topk_kwargs`` go to every scan
         (``{"exact_scan": True}`` for the single exact stage, f32 and bf16
-        only). The scans read shuffled copies of the tables;
-        ``anime_norm``/``user_norm`` stay in logical vocab order (f32 for
-        int8) for reading query rows.
+        only). The scans read one shuffled copy of each table, built in
+        chunks of the model's rows (recommend/tables.build_tables), and
+        query rows are read from it (``anime_vectors``/``user_vectors``; f32
+        rows for int8).
 
         ``ann="ivf"`` scans IVF indexes instead (ops/ivf.py): a query probes
         the top ``ann_probes`` clusters and rescores their rows exactly,
         the sublinear path for tables beyond ~1M rows. Its recall is set by
         ``ann_probes``; probing every cluster is exact for f32 and bf16
         tables (not for int8 storage)."""
-        t = build_tables(model, device=device, retrieval_dtype=retrieval_dtype, ann=ann)
+        cuda = torch.device(device).type == "cuda"
+        before = torch.cuda.memory_allocated(device) if cuda else 0
+        with span("context.build"):
+            t = build_tables(model, device=device, retrieval_dtype=retrieval_dtype, ann=ann)
+        built = torch.cuda.memory_allocated(device) - before if cuda else None
         topk_kwargs = dict(topk_kwargs or {})
         if ann == "ivf":
             topk_kwargs.setdefault("probes", ann_probes)
         return cls(
-            vocab=vocab, catalog=catalog, ratings=ratings,
-            anime_norm=t.anime_norm, user_norm=t.user_norm, head=t.head,
+            vocab=vocab, catalog=catalog, ratings=ratings, head=t.head,
             anime_scan=t.anime_scan, user_scan=t.user_scan,
             anime_qt=t.anime_qt, user_qt=t.user_qt, topk_kwargs=topk_kwargs,
+            built_bytes=built,
         )
 
     @property
     def device(self) -> torch.device:
-        return self.anime_norm.device
+        return self.head.device
 
     def release_graphs(self) -> None:
         """Drop the captured scans of this context's tables and their
@@ -124,6 +136,31 @@ class RecContext:
 
     def user_table(self) -> ShuffledTable | IVFIndex:
         return self.user_scan
+
+    def anime_vectors(self, rows=None) -> torch.Tensor:
+        """Normalized anime rows of vocab ``rows`` (None: the whole table in
+        vocab order, a copy), read from the scan table
+        (recommend/tables.logical_rows)."""
+        return logical_rows(self.anime_scan, rows)
+
+    def user_vectors(self, rows=None) -> torch.Tensor:
+        return logical_rows(self.user_scan, rows)
+
+    def tables_report(self) -> dict[str, dict]:
+        """Per retrieval table, the bytes it holds on the device
+        (recommend/tables.tables_report: its normalized rows, its int8 rows
+        and its index), and under ``built`` what the build left allocated
+        on the card (``device_bytes``) and the copies of the normalized
+        rows that this is (``copies``: those bytes less the int8 rows' and
+        the indexes', over the normalized rows'; 1.0 for one copy of each,
+        a little more for what the model's reader keeps). None off the
+        card."""
+        sides = {"anime": tables_report(self.anime_scan), "user": tables_report(self.user_scan)}
+        held = self.built_bytes
+        rows = sum(r["table_bytes"] for r in sides.values())
+        rest = sum(r["int8_bytes"] + r["index_bytes"] for r in sides.values())
+        copies = None if held is None else (held - rest) / rows
+        return dict(sides, built={"device_bytes": held, "copies": copies})
 
     # ---- per-user views -------------------------------------------------------
 
@@ -198,13 +235,24 @@ class RecContext:
 
     # ---- masks over vocab rows ------------------------------------------------
 
+    @cached_property
+    def _vocab_anime_meta(self) -> pd.DataFrame:
+        # Catalog metadata aligned to vocab rows (NaN rows for anime that are
+        # trained but absent from the catalog; an anime's first catalog row
+        # where the catalog repeats its id).
+        meta = self.catalog.anime.set_index("anime_id", drop=False)
+        meta = meta[~meta.index.duplicated()]
+        return meta.reindex(self.vocab.anime_ids)
+
     def vocab_meta(self) -> pd.DataFrame:
         """Catalog metadata frame aligned to anime-vocab row order."""
         return self._vocab_anime_meta
 
     @cached_property
     def _in_catalog(self) -> np.ndarray:
-        return np.array(self._vocab_anime_meta["anime_id"].notna().to_numpy())
+        # A vocab anime is in the catalog where it has a catalog row.
+        offsets, _ = self._catalog_lookup.get(0)
+        return np.diff(offsets) > 0
 
     def in_catalog_mask(self) -> np.ndarray:
         """Vocab rows whose anime exists in the catalog. Returns a fresh
@@ -227,6 +275,20 @@ class RecContext:
         _, _, idx = self.user_rating_arrays(user_id)
         watched[idx[idx >= 0]] = True
         return watched
+
+    def watched_rows(self, user_ids) -> tuple[np.ndarray, np.ndarray]:
+        """(offsets, rows): the vocab rows user ``user_ids[j]`` has rated
+        are ``rows[offsets[j]:offsets[j + 1]]``, in the order of its rating
+        rows (an anime outside the vocab, -1, left out): slices of the
+        users' sorted rating rows, in one pass."""
+        uid_sorted, _, _, aenc, _ = self._user_csr
+        ids = np.asarray(user_ids, np.int64)
+        lo = np.searchsorted(uid_sorted, ids, "left")
+        counts = np.searchsorted(uid_sorted, ids, "right") - lo
+        rows = aenc[ranges(lo, counts)]
+        known = rows >= 0
+        kept_before = np.concatenate([[0], np.cumsum(known)])
+        return kept_before[np.concatenate([[0], np.cumsum(counts)])], rows[known]
 
     def _catalog_mask_to_vocab(self, catalog_mask: np.ndarray) -> np.ndarray:
         ids_ok = set(self.catalog.anime.loc[catalog_mask, "anime_id"].tolist())

@@ -64,7 +64,7 @@ def model_recs(
     vals, idx = host_topk(
         score_topk,
         ctx.anime_table(),
-        ctx.user_norm[user_index],
+        ctx.user_vectors([user_index]),
         ctx.head,
         k=min(n_recs, ctx.vocab.n_anime),
         mask=mask,

@@ -57,7 +57,7 @@ def similar_anime(
     vals, idx = host_topk(
         cosine_topk,
         ctx.anime_table(),
-        ctx.anime_norm[query_index],
+        ctx.anime_vectors([query_index]),
         k=min(count, ctx.vocab.n_anime),
         mask=mask,
         exclude=np.asarray([query_index]),

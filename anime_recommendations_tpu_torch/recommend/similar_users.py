@@ -41,7 +41,7 @@ def similar_users(
     vals, idx = host_topk(
         cosine_topk,
         ctx.user_table(),
-        ctx.user_norm[query_index],
+        ctx.user_vectors([query_index]),
         k=min(n_users, ctx.vocab.n_users),
         exclude=np.asarray([query_index]),
         graphs=ctx.scan_graphs,

@@ -41,9 +41,12 @@ class CapturedGraph:
     of the capture (the body traced into the graph) and of the
     instantiation, ``replays`` the replays so far, ``pool_bytes`` the memory
     the capture reserved (the graph's pool: segments of its own, held until
-    the graph is freed)."""
+    the graph is freed; ``pool``, a torch.cuda.graph_pool_handle(), shares
+    one pool between the graphs captured into it, and pool_bytes is then
+    what this capture added to it)."""
 
-    def __init__(self, fn, warm_up, buffers: dict[str, torch.Tensor], device: torch.device):
+    def __init__(self, fn, warm_up, buffers: dict[str, torch.Tensor], device: torch.device,
+                 pool=None):
         stream = side_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         t0 = time.perf_counter()
@@ -58,7 +61,7 @@ class CapturedGraph:
         # every later allocation of the process (a serving request's too)
         # call cudaMalloc again: the capture's memory is a pool of its own.
         with _kernels.recording() as launched, torch.cuda.stream(stream):
-            self.graph.capture_begin(capture_error_mode="thread_local")
+            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 self.outputs = fn()
                 t2 = time.perf_counter()

@@ -32,6 +32,28 @@ def clean_name(item: str) -> str:
     return s.lower()
 
 
+# clean_name of an ASCII string: whitespace and every other non-word
+# character dropped, A-Z lowered (NFKD and the irregular glyphs leave ASCII
+# as it is). NUL stays, to separate the names of one joined string.
+_ASCII_LOWER = bytes(range(256)).translate(
+    bytes.maketrans(bytes(range(65, 91)), bytes(range(97, 123))))
+_ASCII_DROP = bytes(c for c in range(1, 128) if not (chr(c).isalnum() or chr(c) == "_"))
+
+
 def clean_names(items: Iterable[str]) -> list[str]:
-    """Canonicalize a list of names (the original project's clean() list branch)."""
+    """Canonicalize a list of names (the original project's clean() list
+    branch). A list of ASCII strings without NUL is cleaned as one joined
+    string, in a few passes of C whatever its length (a catalog of tens of
+    millions of names)."""
+    items = list(items)
+    try:
+        joined = "\0".join(items)
+    except TypeError:           # not all str
+        joined = None
+    if (joined is not None and joined.isascii()
+            and joined.count("\0") == max(len(items) - 1, 0)):
+        if not items:
+            return []
+        return joined.encode("ascii").translate(_ASCII_LOWER, _ASCII_DROP).decode(
+            "ascii").split("\0")
     return [clean_name(x) for x in items]

@@ -1028,7 +1028,7 @@ def _drive_endpoints(ctx, cfg, label, kernels=K2_COUNTERS) -> dict:
     try:
         rng = np.random.default_rng(SEED + 1)
         vocab, catalog = ctx.vocab, ctx.catalog
-        anime, users_t = ctx.anime_norm, ctx.user_norm
+        anime, users_t = ctx.anime_vectors(), ctx.user_vectors()
         name_of = dict(zip(catalog.anime["anime_id"], catalog.anime["Name"]))
         users = [int(u) for u in rng.choice(vocab.user_ids, size=24, replace=False)]
         names = [str(name_of[int(a)]) for a in rng.choice(vocab.anime_ids, size=8,
@@ -1193,9 +1193,11 @@ def _scan_args(t, side: str, q: int, rng) -> tuple:
 
     scanned, asking, has_mask, has_exclude, has_head = SCAN_GRAPH_SIDES[side]
     table = t.user_scan if scanned == "user" else t.anime_scan
-    rows_of = t.user_norm if asking == "user" else t.anime_norm
+    from anime_recommendations_tpu_torch.recommend.tables import logical_rows
+
+    rows_of = logical_rows(t.user_scan if asking == "user" else t.anime_scan)
     rows = rng.choice(rows_of.shape[0], size=q, replace=False)
-    n = (t.user_norm if scanned == "user" else t.anime_norm).shape[0]
+    n = table.perm.shape[0] if hasattr(table, "perm") else table.table.shape[0]
     return (table, rows_of[torch.from_numpy(rows).to(rows_of.device)],
             rng.uniform(size=n) > 0.2 if has_mask else None,
             rows if has_exclude else None, t.head if has_head else None)
@@ -3753,16 +3755,17 @@ def _ivf_cpu_agreement(label, ctx, rng) -> dict:
     users = torch.from_numpy(rng.choice(ctx.vocab.n_users, 64, replace=False)).to(ctx.device)
     anime = torch.from_numpy(rng.choice(ctx.vocab.n_anime, 32, replace=False)).to(ctx.device)
     probes = ctx.topk_kwargs["probes"]
+    user_rows, anime_rows = ctx.user_vectors(), ctx.anime_vectors()
     cases = {
-        "similar_users": (lambda t, d: cosine_topk(t, ctx.user_norm[users].to(d), 10,
+        "similar_users": (lambda t, d: cosine_topk(t, user_rows[users].to(d), 10,
                                                    exclude=users.to(d), probes=probes),
-                          ctx.user_table(), ctx.user_norm, users, None),
-        "model_recs": (lambda t, d: score_topk(t, ctx.user_norm[users].to(d), ctx.head.to(d), 10,
+                          ctx.user_table(), user_rows, users, None),
+        "model_recs": (lambda t, d: score_topk(t, user_rows[users].to(d), ctx.head.to(d), 10,
                                                probes=probes),
-                       ctx.anime_table(), ctx.user_norm, users, ctx.head),
-        "similar_anime": (lambda t, d: cosine_topk(t, ctx.anime_norm[anime].to(d), 10,
+                       ctx.anime_table(), user_rows, users, ctx.head),
+        "similar_anime": (lambda t, d: cosine_topk(t, anime_rows[anime].to(d), 10,
                                                    exclude=anime.to(d), probes=probes),
-                          ctx.anime_table(), ctx.anime_norm, anime, None),
+                          ctx.anime_table(), anime_rows, anime, None),
     }
     out = {}
     for name, (scan, index, qtable, rows, head) in cases.items():
@@ -3792,11 +3795,11 @@ def _ivf_overlap(ctx, ref, rng) -> dict:
     anime = torch.from_numpy(rng.choice(ctx.vocab.n_anime, 256, replace=False)).to(ctx.device)
     out = {}
     for name, scan in {
-        "similar_users": lambda c: cosine_topk(c.user_table(), c.user_norm[users], 10,
+        "similar_users": lambda c: cosine_topk(c.user_table(), c.user_vectors(users), 10,
                                                exclude=users, **c.topk_kwargs),
-        "model_recs": lambda c: score_topk(c.anime_table(), c.user_norm[users], c.head, 10,
+        "model_recs": lambda c: score_topk(c.anime_table(), c.user_vectors(users), c.head, 10,
                                            **c.topk_kwargs),
-        "similar_anime": lambda c: cosine_topk(c.anime_table(), c.anime_norm[anime], 10,
+        "similar_anime": lambda c: cosine_topk(c.anime_table(), c.anime_vectors(anime), 10,
                                                exclude=anime, **c.topk_kwargs),
     }.items():
         out[name] = _overlap(scan(ctx)[1], scan(ref)[1])

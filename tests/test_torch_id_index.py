@@ -64,7 +64,7 @@ def old_similar_anime_batch(ctx, names, count=10, types=None):
     mask = ctx.in_catalog_mask()
     if types is not None:
         mask &= ctx.type_mask(types)
-    vals, idx = host_topk(cosine_topk, ctx.anime_table(), ctx.anime_norm[torch.as_tensor(q_idx)],
+    vals, idx = host_topk(cosine_topk, ctx.anime_table(), ctx.anime_vectors(q_idx),
                           k=min(count, ctx.vocab.n_anime), mask=mask, exclude=q_idx,
                           graphs=ctx.scan_graphs, **ctx.topk_kwargs)
     out = []
@@ -84,7 +84,7 @@ def old_model_recs_batch(ctx, user_ids, n_recs=10, types=None):
         shared &= ctx.type_mask(types)
     watched_masks = [ctx.watched_mask(int(u)) for u in user_ids]
     buffer = max(int(m.sum()) for m in watched_masks)
-    vals, idx = host_topk(score_topk, ctx.anime_table(), ctx.user_norm[torch.as_tensor(user_idx)],
+    vals, idx = host_topk(score_topk, ctx.anime_table(), ctx.user_vectors(user_idx),
                           ctx.head, k=min(n_recs + buffer, ctx.vocab.n_anime), mask=shared,
                           graphs=ctx.scan_graphs, **ctx.topk_kwargs)
     out = []
@@ -174,7 +174,7 @@ def test_batch_indices_match_the_per_id_encode(shuffled_vocab, frames, kind):
     known = np.concatenate([known, known[:40], table[:1], table[-1:]])
     ctx = make_ctx(frames)
     ctx = RecContext(vocab=shuffled_vocab, catalog=ctx.catalog, ratings=ctx.ratings,
-                     anime_norm=ctx.anime_norm, user_norm=ctx.user_norm, head=ctx.head,
+                     head=ctx.head,
                      anime_scan=ctx.anime_scan, user_scan=ctx.user_scan)
     got = getattr(ctx, f"{kind}_indices")(known.tolist())
     assert got.dtype == np.int64

@@ -439,7 +439,7 @@ def test_ivf_exact_scan_reads_the_index_table(ivf_ctxs):
     """exact_scan=True on an IVFIndex scans its table exactly (K3 on the card)."""
     pctx, _ = ivf_ctxs
     index = pctx.anime_table()
-    q = pctx.anime_norm[:4]
+    q = pctx.anime_vectors(slice(0, 4))
     got = cosine_topk(index, q, 10, exact_scan=True)
     want = cosine_topk(index.table, q, 10, exact_scan=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -231,7 +231,7 @@ def test_engine_methods_match_jax(ctxs):
 
 def test_bf16_context_matches_jax(data):
     pctx, jctx = build_both(data, "bf16")
-    assert pctx.anime_norm.dtype == torch.bfloat16
+    assert pctx.anime_vectors([0]).dtype == torch.bfloat16
     name = pctx.catalog.anime["Name"].iloc[5]
     uid = users_of(pctx, 4)[0]
     frames_equal(similar_anime(pctx, name, count=8)[0],
@@ -246,9 +246,9 @@ def test_unported_retrieval_modes_raise(data):
     # int8 is ported: f32 rows in logical order for the queries, and scan
     # handles holding the int8 quantization of the shuffled f32 rows.
     ctx = RecContext.build(model, vocab, catalog, encoded, device="cpu", retrieval_dtype="int8")
-    assert ctx.anime_norm.dtype == ctx.user_norm.dtype == torch.float32
-    for norm, scan, qt in ((ctx.anime_norm, ctx.anime_scan, ctx.anime_qt),
-                           (ctx.user_norm, ctx.user_scan, ctx.user_qt)):
+    assert ctx.anime_vectors().dtype == ctx.user_vectors().dtype == torch.float32
+    for norm, scan, qt in ((ctx.anime_vectors(), ctx.anime_scan, ctx.anime_qt),
+                           (ctx.user_vectors(), ctx.user_scan, ctx.user_qt)):
         assert scan.table is qt and qt.q.dtype == torch.int8
         assert torch.equal(qt.f32, norm[scan.perm])
         assert torch.equal(qt.q, quantize_rows(norm[scan.perm]).q)
@@ -312,12 +312,31 @@ def test_cli_serves_a_run_from_the_jax_artifact_store(
 
     bf16 = context_from_store(Config().with_overrides(["similarity.retrieval_dtype=bf16"]),
                               tmp_path, device="cpu")
-    assert bf16.anime_norm.dtype == torch.bfloat16
+    assert bf16.anime_vectors([0]).dtype == torch.bfloat16
     name = ctx.catalog.anime["Name"].iloc[2]
     want, _, _ = similar_anime(bf16, name, count=3)
     assert cli.main(["similar-anime", name, "-k", "3", "--run-dir", str(tmp_path),
                      "--device", "cpu", "--set", "similarity.retrieval_dtype=bf16"]) == 0
     assert capsys.readouterr().out.strip() == want.to_string().strip()
+
+
+def test_context_from_store_leaves_no_table_of_the_model_on_the_device(
+        data, anime_catalog_frame, synopses_frame, tmp_path, monkeypatch):
+    """context_from_store loads the model on the host and hands it so to
+    RecContext.build, whatever the device: the device gets the context's
+    one copy of each table, streamed in chunks, and none of the model's."""
+    from anime_recommendations_tpu_torch.pipeline import runner
+
+    write_jax_store(data, anime_catalog_frame, synopses_frame, tmp_path)
+    seen = {}
+
+    def build(model, vocab, catalog, ratings, *, device, **kw):
+        seen.update(device=device, model={t.device.type for t in model.state_dict().values()})
+        return "context"
+
+    monkeypatch.setattr(runner.RecContext, "build", build)
+    assert runner.context_from_store(Config(), tmp_path, device="cuda") == "context"
+    assert seen == {"device": "cuda", "model": {"cpu"}}
 
 
 def test_port_data_modules_match_jax(data):

@@ -228,7 +228,7 @@ class FakeGraph:
     """CapturedGraph's interface on the CPU: the warm-up runs, and each
     replay copies the inputs into the buffers and runs the body on them."""
 
-    def __init__(self, fn, warm_up, buffers, device):
+    def __init__(self, fn, warm_up, buffers, device, pool=None):
         warm_up()
         self.fn, self.buffers, self.replays = fn, buffers, 0
         self.seconds = {"warm_up": 0.0, "capture": 0.0, "instantiate": 0.0}
@@ -353,11 +353,11 @@ def test_a_context_owns_and_releases_its_graphs(tables, fake_graphs):
                                           "Genres": ["x", "y"]}))
     st = tables["shuffled"][0]
     ctx = RecContext(vocab=Vocab(user_ids=np.arange(3), anime_ids=np.asarray([1, 2])),
-                     catalog=catalog, ratings=pd.DataFrame(), anime_norm=st.table,
-                     user_norm=st.table, head=torch.from_numpy(HEAD), anime_scan=st,
+                     catalog=catalog, ratings=pd.DataFrame(),
+                     head=torch.from_numpy(HEAD), anime_scan=st,
                      user_scan=st)
     other = RecContext(vocab=ctx.vocab, catalog=catalog, ratings=ctx.ratings,
-                       anime_norm=st.table, user_norm=st.table, head=ctx.head,
+                       head=ctx.head,
                        anime_scan=st, user_scan=st)
     assert ctx.scan_graphs is not other.scan_graphs
     request, inputs = topk.stage_request(st, torch.from_numpy(tables["w"][:2]), None, None,

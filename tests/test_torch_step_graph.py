@@ -135,7 +135,7 @@ class FakeGraph:
 
     guard = None
 
-    def __init__(self, fn, warm_up, buffers, device):
+    def __init__(self, fn, warm_up, buffers, device, pool=None):
         FakeGraph.guard.run(warm_up)
         self.fn, self.buffers, self.replays = fn, buffers, 0
         self.seconds = {"warm_up": 0.0, "capture": 0.0, "instantiate": 0.0}
@@ -447,7 +447,7 @@ def guarded(fn):
 
 
 class FakeGraph:
-    def __init__(self, fn, warm_up, buffers, device):
+    def __init__(self, fn, warm_up, buffers, device, pool=None):
         guarded(warm_up)
         self.fn, self.buffers, self.replays = fn, buffers, 0
         self.seconds = {"warm_up": 0.0, "capture": 0.0, "instantiate": 0.0}
